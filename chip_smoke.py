@@ -10,10 +10,13 @@ Phases (any failure exits non-zero):
 2. kernel parity: every kernel form the main path runs is held against
    its plain PyTorch version on the card, at the main path's shapes
    (64 chains x 45 pulsars, Bmax = 37, Nmax = 720), from a seeded state
-   near the stationary region; each is timed (CUDA events, median of 30)
-   beside its plain version, the PyTorch library equivalent and the
-   least time the card could take (bytes over the HBM rate, operations
-   over the peak rate of their type);
+   near the stationary region; each is timed (device time from
+   ``torch.profiler``, mean of 30 calls, and CUDA events around each
+   call, median of 30) beside its plain version, the PyTorch library
+   equivalent and the least time the card could take (bytes over the HBM
+   rate, operations over the peak rate of their type); the Gram also
+   beside the path that materialized ``TNa = Ta / N`` before
+   ``torch.matmul``, with the peak device memory of one call of each;
 3. small-input agreement: the steady b-draw on a 3-pulsar model, with
    the same state and noise on the card and on the CPU;
 4. main path: the synthetic 45-pulsar CRN free-spectrum array from
@@ -25,7 +28,8 @@ Phases (any failure exits non-zero):
    main path's final state (after its launch counts are read): the
    device's idle share and kernel time by name over a window traced on
    the device alone, and kernel launches per block and per white MH
-   step from a second window traced on the host as well.
+   step, and the device's busy time inside each block, from a second
+   window traced on the host as well.
 
 The kernels' JSON record and the card as ``nvidia-smi`` reports it are
 the two lines before the last; the last line is the JSON result.
@@ -69,8 +73,9 @@ def card_line():
 
 
 def cuda_ms(fn, reps=30, warm=3):
-    """Median device milliseconds of ``fn()`` over ``reps`` calls, each
-    between two CUDA events."""
+    """Median milliseconds of ``fn()`` over ``reps`` calls, each between
+    two CUDA events (the host's launch overhead included where it exceeds
+    the device's work)."""
     import torch
 
     for _ in range(warm):
@@ -87,6 +92,32 @@ def cuda_ms(fn, reps=30, warm=3):
         ts.append(s.elapsed_time(e))
     ts.sort()
     return ts[len(ts) // 2]
+
+
+def device_ms(fn, reps=30, warm=3):
+    """Mean device milliseconds of one ``fn()``: the summed durations of
+    the kernels and copies it runs on the card, from ``torch.profiler``'s
+    device trace over ``reps`` calls (no host time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise RuntimeError("the device trace holds no kernel")
+    return sum(e.time_range.end - e.time_range.start for e in dev) / 1e3 / reps
+
+
+def time_ms(fn):
+    """``(device ms, event ms)`` of one ``fn()``."""
+    return device_ms(fn), cuda_ms(fn)
 
 
 def bound_ms(nbytes, flops, kind):
@@ -127,33 +158,55 @@ def parity_state(cm, C, gen):
 
 
 def gram_parity(cm, x, timer):
-    """Phase 2, Gram: the three kernel forms against the plain version.
-    The difference is measured at the Jacobi scale sqrt(G_ii G_jj), and
-    the tolerance is twice the rigorous accumulation bound (m + nseg) eps
-    of either side (Cauchy-Schwarz bounds every partial sum's products
-    by the Jacobi scale)."""
+    """Phase 2, Gram: the three kernel forms, which take ``(Ta, N)`` and
+    form ``TNa = Ta / N`` on chip, against the plain version.  The
+    difference is measured at the Jacobi scale sqrt(G_ii G_jj), and the
+    tolerance is twice the rigorous accumulation bound (m + nseg) eps of
+    either side (Cauchy-Schwarz bounds every partial sum's products by
+    the Jacobi scale).  Beside the kernel: the plain version, one
+    unsegmented ``torch.matmul`` on a ``TNa`` made outside the timing (the
+    library call), and the path the sampler took before the kernel formed
+    ``TNa`` itself (``TNa`` materialized, then ``torch.matmul``), with the
+    peak device memory of one fused call against that path's.  The bound
+    counts the fused kernel's bytes (Ta, N and G) and the operations of
+    the rows this run's data needs (rows past a pulsar's last nonzero Ta
+    row add exact zeros, and the kernel skips them); the bound over the
+    whole grid, and that of a kernel reading a materialized ``TNa``, are
+    printed beside it."""
     import torch
 
     from pulsar_timing_gibbsspec_torch.config import settings
     from pulsar_timing_gibbsspec_torch.ops import kernels
     from pulsar_timing_gibbsspec_torch.sampler import blocks
 
-    TNa, Ta = blocks._gram_operands(cm, cm.ndiag_fast(x),
-                                    settings.gram_seg_len)
-    C = TNa.shape[0]
-    TNa = TNa.reshape((-1,) + TNa.shape[-3:]).contiguous()
-    Bt, nseg, m, B1 = TNa.shape
+    ref = kernels.reference
+    Ta, N = blocks._gram_operands(cm, cm.ndiag_fast(x),
+                                  settings.gram_seg_len)
+    C = N.shape[0]
+    N = N.reshape(-1, N.shape[-1]).contiguous()
+    P, nseg, m, B1 = Ta.shape
+    Bt = N.shape[0]
+    TNa = ref.gram_operand(Ta, N)
+    # the rows this run's data needs: a row past a pulsar's last nonzero Ta
+    # row (where no chain's N is zero or NaN) adds exact zeros
+    live = (Ta.reshape(P, nseg * m, B1)[:, :N.shape[1]] != 0).any(-1)
+    live |= ((N == 0) | torch.isnan(N)).reshape(C, P, -1).any(0)
+    idx = torch.arange(1, live.shape[1] + 1, device=live.device)
+    extent = (live * idx).amax(-1)
+    rows = float(extent.sum().item()) * C
+    print(f"phase 2 gram rows the data needs: {rows:.0f} of "
+          f"{Bt * nseg * m} ({rows / (Bt * nseg * m):.4f})", flush=True)
     recs, ok = {}, True
     for form, odt, widen in (("f32", torch.float32, False),
                              ("f32_dot_f64_reduce", torch.float64, False),
                              ("widen_f64", torch.float64, True)):
         def run_k():
-            return kernels.gram_accumulate(TNa, Ta, out_dtype=odt,
+            return kernels.gram_accumulate(Ta, N, out_dtype=odt,
                                            widen=widen)
 
         def run_p():
-            return kernels.reference.gram_accumulate_ref(
-                TNa, Ta, out_dtype=odt, widen=widen)
+            return ref.gram_accumulate_ref(Ta, N, out_dtype=odt,
+                                           widen=widen)
 
         Gk, Gp = run_k(), run_p()
         dg = torch.sqrt(torch.clamp(
@@ -163,25 +216,62 @@ def gram_parity(cm, x, timer):
         tol = 2.0 * (m + nseg) * EPS["f64" if widen else "f32"]
         good = bool(torch.isfinite(Gk).all()) and err <= tol
         ok &= good
-        ms_k, ms_p = timer(run_k), timer(run_p)
+        del Gk, Gp
+        (ms_k, ev_k), (ms_p, ev_p) = timer(run_k), timer(run_p)
         # one unsegmented torch.matmul (float64 forms: on float64 copies
         # of the operands, made outside the timing)
-        A = TNa.reshape(C, cm.P, nseg * m, B1).transpose(-1, -2).to(odt)
-        B = Ta.reshape(cm.P, nseg * m, B1).to(odt)
-        lib = timer(lambda: torch.matmul(A, B))
+        A = TNa.reshape(C, P, nseg * m, B1).transpose(-1, -2).to(odt)
+        B = Ta.reshape(P, nseg * m, B1).to(odt)
+        lib, ev_lib = timer(lambda: torch.matmul(A, B))
+        del A, B
+
+        def materialized():
+            A = ref.gram_operand(Ta, N).reshape(C, P, nseg * m, B1)
+            B = Ta.reshape(P, nseg * m, B1)
+            return torch.matmul(A.transpose(-1, -2).to(odt), B.to(odt))
+
+        ms_mat, ev_mat = timer(materialized)
+        peak_k, peak_mat = peak_mb(run_k), peak_mb(materialized)
         obytes = 4 if odt == torch.float32 else 8
-        nbytes = (TNa.numel() + Ta.numel()) * 4 + Bt * B1 * B1 * obytes
-        flops = 2.0 * Bt * nseg * m * B1 * B1
+        gbytes = Bt * B1 * B1 * obytes
+        nbytes = (Ta.numel() + N.numel()) * 4 + gbytes
+        flops = 2.0 * rows * B1 * B1
         bms, bby = bound_ms(nbytes, flops, "f64" if widen else "f32")
+        dense_bms, _ = bound_ms(nbytes, 2.0 * Bt * nseg * m * B1 * B1,
+                                "f64" if widen else "f32")
+        old_bms, old_bby = bound_ms((TNa.numel() + Ta.numel()) * 4 + gbytes,
+                                    flops, "f64" if widen else "f32")
         recs[("gram_accumulate", form)] = dict(
             max_abs_err=diff.max().item(), ms=ms_k, plain_ms=ms_p,
             bound_ms=bms, bound_by=bby, library_ms=lib)
         print(f"phase 2 gram_accumulate[{form}]: max |kernel-plain| / "
               f"Jacobi scale {err:.3e} (tol {tol:.3e}) "
-              f"{'ok' if good else 'FAIL'}; kernel {ms_k:.4f} ms, plain "
-              f"{ms_p:.4f} ms, torch.matmul {lib:.4f} ms, bound "
-              f"{bms:.4f} ms ({bby})", flush=True)
+              f"{'ok' if good else 'FAIL'}; device ms (event ms): kernel "
+              f"{ms_k:.4f} ({ev_k:.4f}), plain {ms_p:.4f} ({ev_p:.4f}), "
+              f"torch.matmul {lib:.4f} ({ev_lib:.4f}), TNa materialized + "
+              f"torch.matmul {ms_mat:.4f} ({ev_mat:.4f}); bound {bms:.4f} "
+              f"ms ({bby}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP "
+              f"on the rows the data needs; {dense_bms:.4f} ms over the "
+              f"whole grid), with a materialized TNa {old_bms:.4f} ms "
+              f"({old_bby}); peak device "
+              f"memory of one call {peak_k:.1f} MB fused, {peak_mat:.1f} MB "
+              "materialized", flush=True)
     return recs, ok
+
+
+def peak_mb(fn):
+    """Megabytes of device memory one call of ``fn`` allocates at its
+    peak, above what was allocated before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / 1e6
 
 
 def chol_parity(cm, x, gen, timer):
@@ -246,15 +336,17 @@ def chol_parity(cm, x, gen, timer):
         mean = dj * mz[..., 0]
         return L, Li, dj, mean, mean + dj * mz[..., 1]
 
-    ms_k, ms_p, lib = timer(run_k), timer(run_p), timer(library_chain)
+    (ms_k, ev_k), (ms_p, ev_p), (lib, ev_lib) = (
+        timer(run_k), timer(run_p), timer(library_chain))
     Bt = Sig.shape[0]
     nbytes = Bt * (3 * n * n + 5 * n) * 4
     flops = Bt * (2.0 * n ** 3 / 3.0 + 6.0 * n * n)
     bms, bby = bound_ms(nbytes, flops, "f32")
     print(f"phase 2 chol_solve_sample[f32]: {'ok' if ok else 'FAIL'}; max "
-          f"|kernel-plain| {mae:.3e}; kernel {ms_k:.4f} ms, plain "
-          f"{ms_p:.4f} ms, cholesky+solve_triangular chain {lib:.4f} ms, "
-          f"bound {bms:.4f} ms ({bby})", flush=True)
+          f"|kernel-plain| {mae:.3e}; device ms (event ms): kernel "
+          f"{ms_k:.4f} ({ev_k:.4f}), plain {ms_p:.4f} ({ev_p:.4f}), "
+          f"cholesky+solve_triangular chain {lib:.4f} ({ev_lib:.4f}); bound "
+          f"{bms:.4f} ms ({bby})", flush=True)
     return {("chol_solve_sample", "f32"): dict(
         max_abs_err=mae, ms=ms_k, plain_ms=ms_p, bound_ms=bms,
         bound_by=bby, library_ms=lib)}, ok
@@ -300,11 +392,11 @@ def small_agreement(dev, seed):
     return ok
 
 
-def _busy_ms(events):
-    """Milliseconds of the union of the events' device intervals."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+def _busy_ms(spans):
+    """Milliseconds of the union of ``(start, end)`` device intervals (in
+    microseconds)."""
     busy, end = 0.0, -math.inf
-    for a, b in spans:
+    for a, b in sorted(spans):
         if b > end:
             busy += b - max(a, end)
             end = b
@@ -352,7 +444,7 @@ def profile_steady(drv):
         t[0] += (e.time_range.end - e.time_range.start) / 1e3
         t[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    busy = _busy_ms(dev)
+    busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in dev])
     print(f"phase 5 device trace, {PROFILE_SWEEPS} steady b_mh sweeps: "
           f"host wall {wall / PROFILE_SWEEPS:.3f} ms per sweep, device "
           f"busy {busy / PROFILE_SWEEPS:.3f} ms per sweep, idle share "
@@ -378,6 +470,18 @@ def profile_steady(drv):
     per_block = dict.fromkeys(sorted({n for n, _ in ranges}), 0)
     for n, r in ranges:
         per_block[n] += sum(r.start <= t <= r.end for t in launches)
+    # device work per block: the kernels and copies inside each block's
+    # range on the device's own timeline (its device annotation)
+    dspans = [(e.time_range.start, e.time_range.end) for e in evs
+              if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("block:")]
+    dbusy = dict.fromkeys(per_block, 0.0)
+    for e in evs:
+        if e.device_type == DeviceType.CUDA and e.name.startswith("block:"):
+            a, b = e.time_range.start, e.time_range.end
+            n = e.name[len("block:"):]
+            dbusy[n] = dbusy.get(n, 0.0) + _busy_ms(
+                [(max(a, s), min(b, t)) for s, t in dspans if t > a and s < b])
     steps = PROFILE_HOST_SWEEPS * (drv.aclength_white or 0)
     print(f"phase 5 host trace, {PROFILE_HOST_SWEEPS} steady b_mh sweeps: "
           f"kernel launches per sweep {len(launches) / PROFILE_HOST_SWEEPS}"
@@ -385,6 +489,10 @@ def profile_steady(drv):
               {k: v / PROFILE_HOST_SWEEPS for k, v in per_block.items()})
           + f"; per white MH step {per_block.get('white', 0) / max(steps, 1):.1f}",
           flush=True)
+    print("phase 5 device busy ms per sweep by block (kernels inside each "
+          "block's device range): " + json.dumps(
+              {k: round(v / PROFILE_HOST_SWEEPS, 4)
+               for k, v in sorted(dbusy.items())}), flush=True)
 
 
 def main(argv=None):
@@ -426,8 +534,8 @@ def main(argv=None):
     print(f"model: P={cm.P} Nmax={cm.Nmax} Bmax={cm.Bmax} nx={cm.nx}, "
           f"{C} chains", flush=True)
     x = parity_state(cm, C, gen)
-    records, ok_g = gram_parity(cm, x, cuda_ms)
-    rec_c, ok_c = chol_parity(cm, x, gen, cuda_ms)
+    records, ok_g = gram_parity(cm, x, time_ms)
+    rec_c, ok_c = chol_parity(cm, x, gen, time_ms)
     records.update(rec_c)
     if not (ok_g and ok_c):
         print("chip_smoke: kernel parity failed", file=sys.stderr)

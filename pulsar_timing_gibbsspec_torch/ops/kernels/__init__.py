@@ -52,6 +52,9 @@ def _chol_solve_sample_cuda(Sig, d, z, ridge):
     batch, n, n2 = Sig.shape
     if n != n2:
         raise ValueError(f"Sig must be square, got {tuple(Sig.shape)}")
+    if not 1 <= n <= CHOL_MAX_N:
+        raise ValueError(f"chol_solve_sample takes n <= {CHOL_MAX_N}, "
+                         f"got {n}")
     for t, nm in ((d, "d"), (z, "z")):
         _need(t, nm, dt, 2)
         if tuple(t.shape) != (batch, n):
@@ -94,22 +97,30 @@ def chol_solve_sample(Sig, d, z, *, ridge=0.0, factor="blocked"):
 CHOL_FORMS = {torch.float32: "f32", torch.float64: "f64"}
 #: instantiation name of gram_accumulate by kernel form number
 GRAM_FORMS = ("f32", "f32_dot_f64_reduce", "widen_f64")
+#: largest matrix order of chol_solve_sample and augmented width of
+#: gram_accumulate the kernels take, and the row slices per pulsar of the
+#: Gram's extent scan (``csrc/kernels.h``)
+CHOL_MAX_N, GRAM_MAX_B1, GRAM_EXTENT_SLICES = 96, 64, 8
 chol_solve_sample.launches = 0
 chol_solve_sample.form_launches = dict.fromkeys(CHOL_FORMS.values(), 0)
 
 
-def _gram_accumulate_cuda(TNa, Ta, out_dtype, widen):
+def _gram_accumulate_cuda(Ta, N, out_dtype, widen):
     from .build import check, library
 
     f32 = torch.float32
-    _need(TNa, "TNa", f32, 4)
     _need(Ta, "Ta", f32, 4)
-    batch, nseg, m, B1 = TNa.shape
-    if tuple(Ta.shape[1:]) != (nseg, m, B1) or batch % Ta.shape[0]:
-        raise ValueError(f"Ta {tuple(Ta.shape)} does not pair with TNa "
-                         f"{tuple(TNa.shape)}")
-    if Ta.device != TNa.device:
-        raise ValueError(f"Ta is on {Ta.device}, TNa on {TNa.device}")
+    _need(N, "N", f32, 2)
+    Pt, nseg, m, B1 = Ta.shape
+    batch, Nmax = N.shape
+    if batch % Pt or Nmax > nseg * m:
+        raise ValueError(f"N {tuple(N.shape)} does not pair with Ta "
+                         f"{tuple(Ta.shape)}")
+    if not 1 <= B1 <= GRAM_MAX_B1:
+        raise ValueError(f"gram_accumulate takes B1 <= {GRAM_MAX_B1}, "
+                         f"got {B1}")
+    if N.device != Ta.device:
+        raise ValueError(f"N is on {N.device}, Ta on {Ta.device}")
     if widen:
         if out_dtype != torch.float64:
             raise TypeError("widen=True accumulates in float64")
@@ -121,29 +132,33 @@ def _gram_accumulate_cuda(TNa, Ta, out_dtype, widen):
     else:
         raise TypeError(f"out_dtype must be float32 or float64, got "
                         f"{out_dtype}")
-    G = torch.empty((batch, B1, B1), dtype=out_dtype, device=TNa.device)
+    G = torch.empty((batch, B1, B1), dtype=out_dtype, device=Ta.device)
+    extent = torch.empty(Pt * GRAM_EXTENT_SLICES, dtype=torch.int32,
+                         device=Ta.device)
     code = library().ptg_gram_accumulate(
-        _ptr(TNa), _ptr(Ta), _ptr(G), batch, Ta.shape[0], nseg, m, B1,
-        form, _stream(TNa))
+        _ptr(Ta), _ptr(N), _ptr(G), _ptr(extent), batch, Pt, nseg, m, B1,
+        Nmax, form, _stream(Ta))
     check(code, "gram_accumulate")
     return G, GRAM_FORMS[form]
 
 
-def gram_accumulate(TNa, Ta, *, out_dtype=None, widen=False):
-    """Segment-sequential Gram ``sum_s TNa[:, s]^T Ta[:, s]`` over
-    ``(batch, nseg, m, B1)`` operands -> ``(batch, B1, B1)``; ``Ta`` may
-    hold one row per pulsar, shared by the chains (row ``b % len(Ta)``).
+def gram_accumulate(Ta, N, *, out_dtype=None, widen=False):
+    """Segment-sequential Gram ``sum_s TNa[:, s]^T Ta[b % P, s]`` of the
+    per-pulsar ``Ta = [T | y]`` (``(P, nseg, m, B1)``) and ``TNa = Ta /
+    N`` for ``N`` ``(batch, Nmax)``, row ``b`` pairing with pulsar ``b %
+    P`` -> ``(batch, B1, B1)``.  The kernel forms ``TNa`` on chip; only
+    the plain version materializes it (``reference.gram_operand``).
 
     ``widen=True`` accumulates every product in ``out_dtype`` (float64,
     the exact ``tnt_d``); otherwise each segment is a float32 product
     cast to ``out_dtype`` before the sequential segment reduce (float32:
     the steady ``tnt_d_seg32``; float64: the refresh ``tnt_d_seg``)."""
     if out_dtype is None:
-        out_dtype = TNa.dtype
-    if TNa.device.type == "cpu":
-        return reference.gram_accumulate_ref(TNa, Ta, out_dtype=out_dtype,
+        out_dtype = Ta.dtype
+    if Ta.device.type == "cpu":
+        return reference.gram_accumulate_ref(Ta, N, out_dtype=out_dtype,
                                              widen=widen)
-    out, form = _gram_accumulate_cuda(TNa.contiguous(), Ta.contiguous(),
+    out, form = _gram_accumulate_cuda(Ta.contiguous(), N.contiguous(),
                                       out_dtype, widen)
     gram_accumulate.launches += 1
     gram_accumulate.form_launches[form] += 1

@@ -30,7 +30,8 @@ def _declare(lib):
     lib.ptg_chol_solve_sample.argtypes = [I, P, P, P, P, P, P, P, P, I, I,
                                           D, P]
     lib.ptg_chol_solve_sample.restype = I
-    lib.ptg_gram_accumulate.argtypes = [P, P, P, I, I, I, I, I, I, P]
+    lib.ptg_gram_accumulate.argtypes = [P, P, P, P, I, I, I, I, I, I, I,
+                                        P]
     lib.ptg_gram_accumulate.restype = I
     return lib
 

@@ -34,15 +34,17 @@ int ptg_chol_solve_sample(int is_f64, const void* Sig, const void* d,
       static_cast<float>(ridge), s));
 }
 
-int ptg_gram_accumulate(const void* TNa, const void* Ta, void* G, int batch,
-                        int batch_ta, int nseg, int m, int B1, int form,
-                        void* stream) {
-  if (batch < 0 || batch_ta < 1 || batch % batch_ta != 0 || nseg < 1 ||
-      m < 1 || B1 < 1 || B1 > kGramMaxB1 || form < 0 || form > 2)
+int ptg_gram_accumulate(const void* Ta, const void* N, void* G, void* extent,
+                        int batch, int P, int nseg, int m, int B1, int Nmax,
+                        int form, void* stream) {
+  if (batch < 0 || P < 1 || batch % P != 0 || nseg < 1 || m < 1 ||
+      B1 < 1 || B1 > kGramMaxB1 || Nmax < 1 || Nmax > nseg * m ||
+      form < 0 || form > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(ptg_launch_gram_accumulate(
-      static_cast<const float*>(TNa), static_cast<const float*>(Ta), G, batch,
-      batch_ta, nseg, m, B1, form, static_cast<cudaStream_t>(stream)));
+      static_cast<const float*>(Ta), static_cast<const float*>(N), G,
+      static_cast<int*>(extent), batch, P, nseg, m, B1, Nmax, form,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

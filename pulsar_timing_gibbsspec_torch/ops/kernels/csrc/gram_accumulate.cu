@@ -1,163 +1,477 @@
-// Segment-sequential augmented Gram G[b] = sum_s TNa[b,s]^T Ta[b,s].
+// Segment-sequential augmented Gram G[b] = sum_s TNa[b,s]^T Ta[b % P,s],
+// with TNa = Ta / N formed on chip.
 //
 // Replaces pulsar_timing_gibbsspec_tpu/ops/kernels/pallas_tpu.py::
-// gram_accumulate_pallas.  Operands are (batch, nseg, m, B1) float32 with
-// Ta = [T | y] and TNa = Ta / N; G[:, :B, :B] is T^T N^-1 T and
-// G[:, :B, B] is d = T^T N^-1 y.  Ta may carry fewer batch rows than TNa
-// (one per pulsar, shared by every chain): row b of TNa pairs with row
-// b % batch_ta of Ta.
+// gram_accumulate_pallas.  Ta = [T | y] is (P, nseg, m, B1) float32, one
+// per pulsar (TOA rows at or beyond Nmax are pad: zero); N is (batch,
+// Nmax) float32 with batch row b pairing with pulsar b % P.  TNa[b, s, k]
+// is Ta[b % P, s, k] / N[b, s*m + k] (IEEE float32 division: the very
+// tensor the plain version forms) on rows s*m + k < Nmax and zero beyond;
+// G[:, :B, :B] is T^T N^-1 T and G[:, :B, B] is d = T^T N^-1 y.
 //
-// What bounds it on Hopper: at the main path's shape (2880 x 720 x 38) the
-// kernel reads ~320 MB (TNa once, Ta from L2) against ~6 GFLOP, which
-// puts the float32 forms near the HBM bound and the float64 form near
-// the FP64 bound.  One CTA owns one batch row's whole 38 x 38 output
-// tile; a 16 x 16 thread grid holds a ceil(B1/16)-square register tile
-// of outputs per thread (3 x 3 at B1 = 38).  The TOA segments are
-// streamed through shared memory strictly in order, so the segment
-// reduce is the sequential left-to-right reduce of the reference: inside
-// a segment each output is a fused multiply-add chain over the TOAs in
-// index order, then the segment's partial is added to the running sum.
-// Float32 products are IEEE float32 FMAs (no TF32); the widening form
-// converts each float32 operand to float64, so every product is exact.
+// What bounds it on Hopper: at the main path's shape (2880 systems, 720
+// TOAs, B1 = 38) the inputs are Ta (4.9 MB) and N (8.3 MB) and the output
+// G (16.6 MB in float32), against 6.0 GFLOP of products over the whole
+// grid (2.4 GFLOP on the rows that hold a TOA), so the bound is the
+// operations: ~0.09 ms at 67 TFLOP/s (~0.035 ms).  Forming TNa in device
+// memory first, as a 315 MB tensor written and read back, set a byte
+// bound of its own above that and is gone.  The design:
+//   - a first small kernel finds the rows of each pulsar that can
+//     contribute: past the last row whose Ta is nonzero (or whose N is zero
+//     or NaN for some chain, which makes 0 / N a NaN) every product is an
+//     exact zero, so the Gram kernel stops there.  The pulsars of the main
+//     path hold 71-720 TOAs on a 720-row grid, and much of it is pad;
+//   - one CTA per (pulsar, group of chains): the pulsar's Ta is loaded once
+//     per CTA and serves every chain of the group;
+//   - the TOA axis is streamed in stages of kStageRows rows through a ring
+//     of kRing = 2 buffers in shared memory (double buffering), filled with
+//     cp.async: the next stage's Ta rows and N values are in flight while
+//     the CTA divides and multiplies the current one (a deeper ring, tried
+//     at 4 and 6, measured slower on the main path);
+//   - each stage first forms the group's TNa tiles in shared memory (one
+//     IEEE division per element, shared by all B1 outputs that use it;
+//     pad columns are never divided, and a zero numerator, which takes the
+//     division's slow path, is answered directly with the same signed
+//     zero), then multiplies;
+//   - float32 forms: B1 is padded to a multiple of 4 (38 -> 40: 90% of the
+//     FMAs land on real outputs) and each thread owns a 4 x 4 register tile
+//     of one chain's output, fed by two float4 reads of shared memory per
+//     TOA (2 FMAs per word read).  Products are IEEE float32 FMAs (no
+//     TF32), each output an FMA chain over the TOAs of a segment in index
+//     order; the segment's partial is then added to the running sum in
+//     segment order (float32, or float64 for the refresh form), as the
+//     plain version reduces.  Skipped rows and segments would add exact
+//     zeros, so the sums are unchanged;
+//   - the widening float64 form runs on the float64 tensor cores
+//     (mma.sync m8n8k4 f64, DMMA): TNa and Ta are converted to float64 once
+//     per element as the stage is formed (products of float32 values are
+//     exact in float64), each warp owns 8 rows of one chain's output and all
+//     of its 8-wide column tiles, and segments are reduced in order.
 #include "kernels.h"
 
 namespace {
 
-constexpr int kThreads = 16;  // 16 x 16 thread grid
+constexpr int kStageRows = 32;  // TOA rows per pipeline stage
+constexpr int kRing = 2;        // stages of rows in the shared-memory ring
+constexpr int kMaxChainsPerCta = 4;
+constexpr int kMaxThreads = 512;
+// threads per CTA the chain groups aim at: float32 products reduced in
+// float32 / in float64 (more registers), widening form
+constexpr int kF32Threads = 512, kF64AccThreads = 256, kWidenThreads = 384;
+constexpr int kExtentThreads = 256;
 
-__device__ __forceinline__ float dfma(float a, float b, float c) {
-  return fmaf(a, b, c);
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
 }
-__device__ __forceinline__ double dfma(double a, double b, double c) {
-  return fma(a, b, c);
+
+__device__ __forceinline__ void dmma(double (&c)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%0, %1};\n"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
 }
 
-// DotT: in-segment accumulation type; AccT: segment-reduce / output type;
-// kRegTile: outputs per thread along each axis, ceil(B1 / 16)
-template <typename DotT, typename AccT, int kRegTile>
-__global__ void gram_kernel(const float* __restrict__ TNa,
-                            const float* __restrict__ Ta,
-                            AccT* __restrict__ G, int batch_ta, int nseg,
-                            int m, int B1) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sA = reinterpret_cast<float*>(smem_raw);  // TNa segment (m x B1)
-  float* sB = sA + m * B1;                          // Ta segment  (m x B1)
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kThreads + tx;
-  const int nthr = kThreads * kThreads;
-  const int b = blockIdx.x;
-  const size_t seg = static_cast<size_t>(m) * B1;
-  const float* a_base = TNa + static_cast<size_t>(b) * nseg * seg;
-  const float* b_base = Ta + static_cast<size_t>(b % batch_ta) * nseg * seg;
+// t / n, bit for bit the IEEE quotient.  A zero numerator over a nonzero,
+// non-NaN n gives the signed zero t * sign(n) without a division.
+__device__ __forceinline__ float quotient(float t, float n) {
+  return (t == 0.f && n == n && n != 0.f) ? t * copysignf(1.f, n) : t / n;
+}
 
-  AccT acc[kRegTile][kRegTile];
-#pragma unroll
-  for (int r = 0; r < kRegTile; ++r)
-#pragma unroll
-    for (int c = 0; c < kRegTile; ++c) acc[r][c] = AccT(0);
+struct Geom {
+  int P;       // Ta rows (pulsars); batch row b pairs with Ta row b % P
+  int chains;  // batch / P
+  int nseg, m, B1, Nmax;
+  int cg;              // chains per CTA
+  int spseg;           // pipeline stages per segment
+  int rows_per_slice;  // rows of one extent slice
+};
 
-  for (int s = 0; s < nseg; ++s) {
-    __syncthreads();  // previous segment's tiles fully consumed
-    for (size_t e = tid; e < seg; e += nthr) {
-      sA[e] = a_base[s * seg + e];
-      sB[e] = b_base[s * seg + e];
+// extent[p * kGramExtentSlices + s]: 1 + the last row r of slice s of
+// pulsar p (r < Nmax) whose Ta row has a nonzero (or NaN) entry, or whose
+// N is zero or NaN for some chain of p; 0 if there is none.
+__global__ void __launch_bounds__(kExtentThreads)
+gram_extent_kernel(const float* __restrict__ Ta, const float* __restrict__ N,
+                   int* __restrict__ extent, Geom g) {
+  __shared__ int s_end;
+  const int p = blockIdx.x, sl = blockIdx.y;
+  const int r0 = sl * g.rows_per_slice;
+  const int rows = max(0, min(g.rows_per_slice, g.Nmax - r0));
+  if (threadIdx.x == 0) s_end = 0;
+  __syncthreads();
+  int end = 0;
+  const float* Tp = Ta + (static_cast<size_t>(p) * g.nseg * g.m + r0) * g.B1;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < rows * g.B1; e += blockDim.x)
+    if (Tp[e] != 0.f) end = max(end, r0 + e / g.B1 + 1);
+#pragma unroll 4
+  for (int e = threadIdx.x; e < g.chains * rows; e += blockDim.x) {
+    const int c = e / rows, r = r0 + e - c * rows;
+    const float nv = N[(static_cast<size_t>(c) * g.P + p) * g.Nmax + r];
+    if (nv == 0.f || nv != nv) end = max(end, r + 1);
+  }
+  if (end > 0) atomicMax(&s_end, end);
+  __syncthreads();
+  if (threadIdx.x == 0) extent[p * kGramExtentSlices + sl] = s_end;
+}
+
+__device__ int pulsar_extent(const int* __restrict__ extent, int p) {
+  int end = 0;
+#pragma unroll
+  for (int s = 0; s < kGramExtentSlices; ++s)
+    end = max(end, extent[p * kGramExtentSlices + s]);
+  return end;
+}
+
+// Stage t covers rows k0 .. k0 + len - 1 of segment s (grid rows r0 ..)
+struct Stage {
+  int s, k0, len, r0;
+  __device__ Stage(const Geom& g, int t) {
+    s = t / g.spseg;
+    k0 = (t - s * g.spseg) * kStageRows;
+    len = min(kStageRows, g.m - k0);
+    r0 = s * g.m + k0;
+  }
+};
+
+// One commit group of copies for stage t into ring slot t % kRing: the
+// pulsar's Ta rows below `end` (contiguous in device memory) into sT, and
+// for each chain c of the group the N values of those rows below Nmax into
+// sN[c][k].  A stage past the last one commits an empty group, which keeps
+// the count of groups in flight uniform.
+__device__ void enqueue_stage(const Geom& g, const float* __restrict__ Ta,
+                            const float* __restrict__ N, int p, int c0,
+                            int nc, int t, int end, float* sT, float* sN) {
+  if (t < g.nseg * g.spseg) {
+    const Stage st(g, t);
+    const int len = min(st.len, end - st.r0);
+    float* dT = sT + (t % kRing) * kStageRows * g.B1;
+    float* dN = sN + (t % kRing) * g.cg * kStageRows;
+    const float* src =
+        Ta + ((static_cast<size_t>(p) * g.nseg + st.s) * g.m + st.k0) * g.B1;
+    for (int e = threadIdx.x; e < len * g.B1; e += blockDim.x)
+      cp_async4(dT + e, src + e);
+    for (int e = threadIdx.x; e < nc * kStageRows; e += blockDim.x) {
+      const int c = e / kStageRows, k = e % kStageRows;
+      if (k < len && st.r0 + k < g.Nmax)
+        cp_async4(dN + e, N + (static_cast<size_t>(c0 + c) * g.P + p) *
+                                  g.Nmax +
+                              st.r0 + k);
     }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The stage loop both kernels share: the stages up to the pulsar's
+// extent, each waited for, formed into tiles (form(st, len, Tk, N0): Tk
+// the stage's Ta rows, N0 its N values with chain c at N0 + c *
+// kStageRows) and multiplied (compute(len)); segment_end() after the last
+// stage of each segment and after the last stage overall.
+template <typename Form, typename Compute, typename SegmentEnd>
+__device__ void stream_stages(const Geom& g, const float* __restrict__ Ta,
+                              const float* __restrict__ N, int p, int c0,
+                              int nc, int end, float* sT, float* sN,
+                              Form form, Compute compute,
+                              SegmentEnd segment_end) {
+  const int nstage = g.nseg * g.spseg;
+  enqueue_stage(g, Ta, N, p, c0, nc, 0, end, sT, sN);
+  for (int t = 0; t < nstage; ++t) {
+    const Stage st(g, t);
+    if (st.r0 >= end) break;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // stage t has landed for every thread, and every thread is done with
+    // stage t - 1 (its ring slot and the tiles)
     __syncthreads();
-    DotT part[kRegTile][kRegTile];
-#pragma unroll
-    for (int r = 0; r < kRegTile; ++r)
-#pragma unroll
-      for (int c = 0; c < kRegTile; ++c) part[r][c] = DotT(0);
-    for (int n = 0; n < m; ++n) {
-      DotT av[kRegTile], bv[kRegTile];
-#pragma unroll
-      for (int r = 0; r < kRegTile; ++r) {
-        const int i = ty + r * kThreads;
-        av[r] = i < B1 ? static_cast<DotT>(sA[n * B1 + i]) : DotT(0);
-        const int j = tx + r * kThreads;
-        bv[r] = j < B1 ? static_cast<DotT>(sB[n * B1 + j]) : DotT(0);
-      }
-#pragma unroll
-      for (int r = 0; r < kRegTile; ++r)
-#pragma unroll
-        for (int c = 0; c < kRegTile; ++c)
-          part[r][c] = dfma(av[r], bv[c], part[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRegTile; ++r)
-#pragma unroll
-      for (int c = 0; c < kRegTile; ++c)
-        acc[r][c] = acc[r][c] + static_cast<AccT>(part[r][c]);
+    enqueue_stage(g, Ta, N, p, c0, nc, t + 1, end, sT, sN);
+    const int len = min(st.len, end - st.r0);
+    form(st, len, sT + (t % kRing) * kStageRows * g.B1,
+         sN + (t % kRing) * g.cg * kStageRows);
+    __syncthreads();
+    compute(len);
+    if (st.k0 + st.len == g.m || t + 1 == nstage ||
+        Stage(g, t + 1).r0 >= end)
+      segment_end();
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
-  AccT* g = G + static_cast<size_t>(b) * B1 * B1;
+// Float32 products; AccT is the segment-reduce and output type.  The CTA
+// holds cg chains x TB^2 threads, TB = ceil(B1 / 4); thread (c, tr, tc)
+// owns the 4 x 4 output tile (4 tr.., 4 tc..) of chain c.
+template <typename AccT>
+__global__ void __launch_bounds__(kMaxThreads)
+gram_f32_kernel(const float* __restrict__ Ta, const float* __restrict__ N,
+                const int* __restrict__ extent, AccT* __restrict__ G,
+                Geom g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int TB = (g.B1 + 3) / 4, B1P = 4 * TB;
+  const int p = blockIdx.x, c0 = blockIdx.y * g.cg;
+  const int nc = min(g.cg, g.chains - c0);
+  float* sT = reinterpret_cast<float*>(smem_raw);  // [kRing][kStageRows*B1]
+  float* sN = sT + kRing * kStageRows * g.B1;       // [kRing][cg][kStageRows]
+  float* sB = sN + kRing * g.cg * kStageRows;       // [kStageRows][B1P]
+  float* sA = sB + kStageRows * B1P;                // [cg][kStageRows][B1P]
+  const int per = TB * TB;
+  const int c = threadIdx.x / per, q = threadIdx.x - c * per;
+  const int tr = q / TB, tc = q - tr * TB;
+  const bool active = c < nc;
+
+  float part[4][4];
+  AccT acc[4][4];
 #pragma unroll
-  for (int r = 0; r < kRegTile; ++r) {
-    const int i = ty + r * kThreads;
+  for (int u = 0; u < 4; ++u)
 #pragma unroll
-    for (int c = 0; c < kRegTile; ++c) {
-      const int j = tx + c * kThreads;
-      if (i < B1 && j < B1) g[i * B1 + j] = acc[r][c];
+    for (int v = 0; v < 4; ++v) {
+      part[u][v] = 0.f;
+      acc[u][v] = AccT(0);
+    }
+
+  // sA[c][k] = Ta[k] / N[c][k] (zero at rows >= Nmax and pad columns),
+  // and (chain slot 0) sB[k] = Ta[k]; thread (c, tr, tc) forms columns
+  // 4 tc.. of rows tr + TB u
+  auto form = [&](const Stage& st, int len, const float* Tk,
+                  const float* N0) {
+    if (!active) return;
+    const float* Nc = N0 + c * kStageRows;
+    for (int k = tr; k < len; k += TB) {
+      const bool live = st.r0 + k < g.Nmax;
+      const float nk = live ? Nc[k] : 1.f;
+      float av[4], bv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int col = 4 * tc + u;
+        const bool in = col < g.B1;
+        bv[u] = in ? Tk[k * g.B1 + col] : 0.f;
+        av[u] = in && live ? quotient(bv[u], nk) : 0.f;
+      }
+      *reinterpret_cast<float4*>(sA + (c * kStageRows + k) * B1P + 4 * tc) =
+          make_float4(av[0], av[1], av[2], av[3]);
+      if (c == 0)
+        *reinterpret_cast<float4*>(sB + k * B1P + 4 * tc) =
+            make_float4(bv[0], bv[1], bv[2], bv[3]);
+    }
+  };
+  auto compute = [&](int len) {
+    if (!active) return;
+    const float* pa = sA + c * kStageRows * B1P + 4 * tr;
+    const float* pb = sB + 4 * tc;
+    for (int k = 0; k < len; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(pa + k * B1P);
+      const float4 b = *reinterpret_cast<const float4*>(pb + k * B1P);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          part[u][v] = fmaf(av[u], bv[v], part[u][v]);
+    }
+  };
+  auto segment_end = [&]() {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        acc[u][v] = acc[u][v] + static_cast<AccT>(part[u][v]);
+        part[u][v] = 0.f;
+      }
+  };
+  stream_stages(g, Ta, N, p, c0, nc, pulsar_extent(extent, p), sT, sN, form,
+                compute, segment_end);
+
+  if (!active) return;
+  AccT* Gb = G + (static_cast<size_t>(c0 + c) * g.P + p) * g.B1 * g.B1;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = 4 * tr + u;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int j = 4 * tc + v;
+      if (i < g.B1 && j < g.B1) Gb[i * g.B1 + j] = acc[u][v];
     }
   }
 }
 
-template <typename DotT, typename AccT, int R>
-cudaError_t launch_tile(const float* TNa, const float* Ta, AccT* G, int batch,
-                        int batch_ta, int nseg, int m, int B1,
-                        cudaStream_t stream) {
-  const size_t smem = 2 * static_cast<size_t>(m) * B1 * sizeof(float);
+// Widening float64 form on DMMA.  The CTA holds cg chains x RT warps,
+// RT = ceil(B1 / 8); warp (c, rt) owns output rows 8 rt .. 8 rt + 7 of
+// chain c and its RT 8-wide column tiles.  The float64 tiles have row
+// stride 8 RT + 4, which puts the four k-rows of an m8n8k4 fragment on
+// disjoint banks.
+template <int RT>
+__global__ void __launch_bounds__(kMaxThreads)
+gram_widen_kernel(const float* __restrict__ Ta, const float* __restrict__ N,
+                  const int* __restrict__ extent, double* __restrict__ G,
+                  Geom g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int B8 = 8 * RT, ld = B8 + 4;
+  const int p = blockIdx.x, c0 = blockIdx.y * g.cg;
+  const int nc = min(g.cg, g.chains - c0);
+  float* sT = reinterpret_cast<float*>(smem_raw);  // [kRing][kStageRows*B1]
+  float* sN = sT + kRing * kStageRows * g.B1;       // [kRing][cg][kStageRows]
+  double* sB = reinterpret_cast<double*>(sN + kRing * g.cg * kStageRows);
+  double* sA = sB + kStageRows * ld;  // [cg][kStageRows][ld]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = warp / RT, rt = warp - c * RT;
+  const bool active = c < nc;  // warp-uniform
+  // forming the tiles: a fixed column per thread (blockDim.x = cg * 4 * B8)
+  const int fcol = threadIdx.x % B8, frow = threadIdx.x / B8;
+  const int fstep = blockDim.x / B8;
+
+  double part[RT][2], acc[RT][2];
+#pragma unroll
+  for (int ct = 0; ct < RT; ++ct)
+    part[ct][0] = part[ct][1] = acc[ct][0] = acc[ct][1] = 0.0;
+
+  // rows up to the stage's length rounded up to 4 (the MMA depth), zero
+  // past its end
+  auto form = [&](const Stage& st, int len, const float* Tk,
+                  const float* N0) {
+    const int rows4 = (len + 3) & ~3;
+    for (int k = frow; k < rows4; k += fstep) {
+      const bool in = k < len && fcol < g.B1;
+      const float tv = in ? Tk[k * g.B1 + fcol] : 0.f;
+      sB[k * ld + fcol] = static_cast<double>(tv);
+      const bool live = in && st.r0 + k < g.Nmax;
+      for (int cc = 0; cc < nc; ++cc)
+        sA[(cc * kStageRows + k) * ld + fcol] =
+            live ? static_cast<double>(quotient(tv, N0[cc * kStageRows + k]))
+                 : 0.0;
+    }
+  };
+  // A[i][k] = TNa[k][i]: lane holds row lane / 4, column lane % 4;
+  // B[k][j] = Ta[k][j]: lane holds row lane % 4, column lane / 4
+  auto compute = [&](int len) {
+    if (!active) return;
+    const int rows4 = (len + 3) & ~3;
+    const double* pa =
+        sA + (c * kStageRows + (lane & 3)) * ld + 8 * rt + (lane >> 2);
+    const double* pb = sB + (lane & 3) * ld + (lane >> 2);
+    for (int k = 0; k < rows4; k += 4) {
+      const double a = pa[k * ld];
+#pragma unroll
+      for (int ct = 0; ct < RT; ++ct) dmma(part[ct], a, pb[k * ld + 8 * ct]);
+    }
+  };
+  auto segment_end = [&]() {
+#pragma unroll
+    for (int ct = 0; ct < RT; ++ct) {
+      acc[ct][0] = acc[ct][0] + part[ct][0];
+      acc[ct][1] = acc[ct][1] + part[ct][1];
+      part[ct][0] = part[ct][1] = 0.0;
+    }
+  };
+  stream_stages(g, Ta, N, p, c0, nc, pulsar_extent(extent, p), sT, sN, form,
+                compute, segment_end);
+
+  if (!active) return;
+  double* Gb = G + (static_cast<size_t>(c0 + c) * g.P + p) * g.B1 * g.B1;
+  const int i = 8 * rt + (lane >> 2);
+#pragma unroll
+  for (int ct = 0; ct < RT; ++ct) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = 8 * ct + 2 * (lane & 3) + e;
+      if (i < g.B1 && j < g.B1) Gb[i * g.B1 + j] = acc[ct][e];
+    }
+  }
+}
+
+int chains_per_cta(int target_threads, int per_chain) {
+  const int fit = target_threads / per_chain;
+  return fit < 1 ? 1 : (fit > kMaxChainsPerCta ? kMaxChainsPerCta : fit);
+}
+
+template <typename OutT>
+cudaError_t launch(void (*kernel)(const float*, const float*, const int*,
+                                  OutT*, Geom),
+                   const Geom& g, int threads, size_t smem, const float* Ta,
+                   const float* N, const int* extent, void* G,
+                   cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gram_kernel<DotT, AccT, R>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  gram_kernel<DotT, AccT, R>
-      <<<batch, dim3(kThreads, kThreads), smem, stream>>>(
-          TNa, Ta, G, batch_ta, nseg, m, B1);
+  const dim3 grid(g.P, (g.chains + g.cg - 1) / g.cg);
+  kernel<<<grid, threads, smem, stream>>>(Ta, N, extent,
+                                          static_cast<OutT*>(G), g);
   return cudaGetLastError();
-}
-
-template <typename DotT, typename AccT>
-cudaError_t launch(const float* TNa, const float* Ta, AccT* G, int batch,
-                   int batch_ta, int nseg, int m, int B1,
-                   cudaStream_t stream) {
-  if (batch == 0) return cudaSuccess;
-  switch ((B1 + kThreads - 1) / kThreads) {
-    case 1:
-      return launch_tile<DotT, AccT, 1>(TNa, Ta, G, batch, batch_ta, nseg, m,
-                                        B1, stream);
-    case 2:
-      return launch_tile<DotT, AccT, 2>(TNa, Ta, G, batch, batch_ta, nseg, m,
-                                        B1, stream);
-    case 3:
-      return launch_tile<DotT, AccT, 3>(TNa, Ta, G, batch, batch_ta, nseg, m,
-                                        B1, stream);
-    case 4:
-      return launch_tile<DotT, AccT, 4>(TNa, Ta, G, batch, batch_ta, nseg, m,
-                                        B1, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-cudaError_t ptg_launch_gram_accumulate(const float* TNa, const float* Ta,
-                                       void* G, int batch, int batch_ta,
-                                       int nseg, int m, int B1, int form,
+cudaError_t ptg_launch_gram_accumulate(const float* Ta, const float* N,
+                                       void* G, int* extent, int batch,
+                                       int P, int nseg, int m, int B1,
+                                       int Nmax, int form,
                                        cudaStream_t stream) {
+  if (batch == 0) return cudaSuccess;
+  Geom g;
+  g.P = P;
+  g.chains = batch / P;
+  g.nseg = nseg;
+  g.m = m;
+  g.B1 = B1;
+  g.Nmax = Nmax;
+  g.spseg = (m + kStageRows - 1) / kStageRows;
+  g.rows_per_slice = (Nmax + kGramExtentSlices - 1) / kGramExtentSlices;
+  g.cg = 1;
+  gram_extent_kernel<<<dim3(P, kGramExtentSlices), kExtentThreads, 0,
+                       stream>>>(Ta, N, extent, g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t ring = static_cast<size_t>(kRing) * kStageRows * B1 *
+                      sizeof(float);
+  if (form == 2) {
+    const int RT = (B1 + 7) / 8;
+    g.cg = chains_per_cta(kWidenThreads, 32 * RT);
+    const int threads = 32 * RT * g.cg;
+    const size_t smem =
+        ring + static_cast<size_t>(kRing) * g.cg * kStageRows * sizeof(float) +
+        (1 + g.cg) * static_cast<size_t>(kStageRows) * (8 * RT + 4) *
+            sizeof(double);
+    const auto run = [&](auto kernel) {
+      return launch(kernel, g, threads, smem, Ta, N, extent, G, stream);
+    };
+    switch (RT) {
+      case 1:
+        return run(gram_widen_kernel<1>);
+      case 2:
+        return run(gram_widen_kernel<2>);
+      case 3:
+        return run(gram_widen_kernel<3>);
+      case 4:
+        return run(gram_widen_kernel<4>);
+      case 5:
+        return run(gram_widen_kernel<5>);
+      case 6:
+        return run(gram_widen_kernel<6>);
+      case 7:
+        return run(gram_widen_kernel<7>);
+      case 8:
+        return run(gram_widen_kernel<8>);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+  const int TB = (B1 + 3) / 4;
+  g.cg = chains_per_cta(form == 0 ? kF32Threads : kF64AccThreads, TB * TB);
+  const int threads = TB * TB * g.cg;
+  const size_t smem =
+      ring + static_cast<size_t>(kRing) * g.cg * kStageRows * sizeof(float) +
+      (1 + g.cg) * static_cast<size_t>(kStageRows) * 4 * TB * sizeof(float);
   switch (form) {
     case 0:
-      return launch<float, float>(TNa, Ta, static_cast<float*>(G), batch,
-                                  batch_ta, nseg, m, B1, stream);
+      return launch(gram_f32_kernel<float>, g, threads, smem, Ta, N, extent,
+                    G, stream);
     case 1:
-      return launch<float, double>(TNa, Ta, static_cast<double*>(G), batch,
-                                   batch_ta, nseg, m, B1, stream);
-    case 2:
-      return launch<double, double>(TNa, Ta, static_cast<double*>(G), batch,
-                                    batch_ta, nseg, m, B1, stream);
+      return launch(gram_f32_kernel<double>, g, threads, smem, Ta, N, extent,
+                    G, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -8,12 +8,16 @@
 
 #include <cuda_runtime.h>
 
-// Largest matrix order chol_solve_sample takes (shared memory holds four
-// n x n tiles of the element type).
+// Largest matrix order chol_solve_sample takes: one warp per system, a
+// lane owning up to three rows or columns.
 constexpr int kCholMaxN = 96;
-// Largest augmented basis width B1 gram_accumulate takes: a 16 x 16
-// thread grid with a 4 x 4 register tile per thread covers 64 x 64.
+// Largest augmented basis width B1 gram_accumulate takes: 16 x 16 threads
+// of 4 x 4 register tiles per chain (float32 forms), 8 DMMA column tiles
+// per warp (widening form).
 constexpr int kGramMaxB1 = 64;
+// Row slices per pulsar of gram_accumulate's extent scan; the caller's
+// extent scratch holds P * kGramExtentSlices ints.
+constexpr int kGramExtentSlices = 8;
 
 cudaError_t ptg_launch_chol_solve_sample_f32(
     const float* Sig, const float* d, const float* z, float* L, float* Li,
@@ -25,9 +29,13 @@ cudaError_t ptg_launch_chol_solve_sample_f64(
     double* Li, double* dj, double* mean, double* bp, int batch, int n,
     double ridge, cudaStream_t stream);
 
+// G[b] = sum_s (Ta[b % P, s] / N[b, s])^T Ta[b % P, s] over Ta (P, nseg,
+// m, B1) and N (batch, Nmax), rows at or beyond Nmax of TNa zero; extent
+// is (P * kGramExtentSlices) int scratch (the rows of each pulsar that can
+// contribute).  Two launches: the extent scan, then the Gram.
 // form 0: float32 segment dots, float32 segment reduce, float32 out
 // form 1: float32 segment dots, float64 segment reduce, float64 out
 // form 2: float64 ("widen") accumulation inside and across segments
 cudaError_t ptg_launch_gram_accumulate(
-    const float* TNa, const float* Ta, void* G, int batch, int batch_ta,
-    int nseg, int m, int B1, int form, cudaStream_t stream);
+    const float* Ta, const float* N, void* G, int* extent, int batch, int P,
+    int nseg, int m, int B1, int Nmax, int form, cudaStream_t stream);

@@ -103,27 +103,24 @@ def _take_cols(b, ix):
 # ===========================================================================
 
 def _gram_operands(cm, Nvec, seg_len):
-    """``TNa = Ta / N`` (..., P, nseg, m, B1) and ``Ta = [T | y]``
-    (P, nseg, m, B1), the TOA axis split into equal segments; pad TOA
-    rows are zero and contribute nothing."""
+    """``Ta = [T | y]`` (P, nseg, m, B1) with the TOA axis split into
+    equal segments (pad TOA rows zero) and ``N`` (..., P, Nmax) in the
+    storage dtype.  ``TNa = Ta / N`` is never formed here: the kernel
+    forms it on chip, and only the plain version materializes it
+    (``kernels.reference.gram_operand``)."""
     Ta = torch.cat([cm.T, cm.y[..., None]], dim=-1)
-    TNa = Ta / Nvec.to(cm.dtype)[..., None]
     P, N, B1 = Ta.shape
     nseg = max(1, -(-N // seg_len))
     m = -(-N // nseg)
     if nseg * m != N:
-        pad = nseg * m - N
-        Ta = torch.nn.functional.pad(Ta, (0, 0, 0, pad))
-        TNa = torch.nn.functional.pad(TNa, (0, 0, 0, pad))
-    lead = TNa.shape[:-3]
-    return (TNa.reshape(lead + (P, nseg, m, B1)),
-            Ta.reshape(P, nseg, m, B1))
+        Ta = torch.nn.functional.pad(Ta, (0, 0, 0, nseg * m - N))
+    return Ta.reshape(P, nseg, m, B1), Nvec.to(cm.dtype)
 
 
 def _gram(cm, Nvec, seg_len, out_dtype, widen):
-    TNa, Ta = _gram_operands(cm, Nvec, seg_len)
-    lead = TNa.shape[:-3]
-    G = kernels.gram_accumulate(TNa.reshape((-1,) + TNa.shape[-3:]), Ta,
+    Ta, N = _gram_operands(cm, Nvec, seg_len)
+    lead = N.shape[:-1]
+    G = kernels.gram_accumulate(Ta, N.reshape(-1, N.shape[-1]),
                                 out_dtype=out_dtype, widen=widen)
     G = G.reshape(lead + G.shape[-2:])
     return G[..., :cm.Bmax, :cm.Bmax], G[..., :cm.Bmax, cm.Bmax]

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from pulsar_timing_gibbsspec_torch.ops.kernels import reference
 from pulsar_timing_gibbsspec_torch.sampler import blocks
 from test_torch_cases import close, models, state, t32, t64
 
@@ -70,9 +71,11 @@ def test_grams_match_jax(case):
     Nj, (TNa, Ta), exact, seg, seg32 = ref
     close(cmt.ndiag_fast(t64(x)), Nj, 2e-6)
     N = t32(Nj)
-    TNa_t, Ta_t = blocks._gram_operands(cmt, N, 96)
+    Ta_t, N_t = blocks._gram_operands(cmt, N, 96)
     close(Ta_t, Ta, 0)
-    close(TNa_t, TNa, 0)           # IEEE division: bitwise
+    close(N_t, Nj, 0)
+    # the plain Gram's operand, IEEE division: bitwise
+    close(reference.gram_operand(Ta_t, N_t), TNa, 0)
     scale = np.sqrt(np.abs(np.diagonal(exact[0], axis1=1, axis2=2)))
     jac = scale[:, :, None] * scale[:, None, :]
     jac = np.where(jac > 0, jac, 1.0)

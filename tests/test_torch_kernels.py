@@ -36,14 +36,15 @@ EPS32, EPS64 = 2.0 ** -23, 2.0 ** -52
 
 
 def _system(seed=3, cmt=None):
-    """(cm, TNa, Ta, Sig64, d64, Sig32, d32, z) of the small model (the
+    """(cm, Ta, N, Sig64, d64, Sig32, d32, z) of the small model (the
     JAX package's, carried across; or ``cmt``) at a seeded state, C = 2
-    chains flattened into the batch."""
+    chains flattened into the batch: ``Ta`` (P, nseg, m, B1) on a grid of
+    32-TOA segments, ``N`` (2 P, Nmax)."""
     if cmt is None:
         cmt = models()[1]
     x = t64(state(cmt, C=2, seed=seed)).to(cmt.device)
     N = cmt.ndiag_fast(x)
-    TNa, Ta = blocks._gram_operands(cmt, N, 32)
+    Ta, Nf = blocks._gram_operands(cmt, N, 32)
     TNT, d = blocks.tnt_d(cmt, N, seg_len=32)
     phi = cmt.phi(x)
     Sig64 = TNT + torch.diag_embed(1.0 / phi)
@@ -52,7 +53,7 @@ def _system(seed=3, cmt=None):
     B = cmt.Bmax
     z = torch.as_tensor(np.random.default_rng(seed).standard_normal(
         (2 * cmt.P, B)), device=cmt.device)
-    return (cmt, TNa.reshape((-1,) + TNa.shape[-3:]), Ta,
+    return (cmt, Ta, Nf.reshape(-1, Nf.shape[-1]),
             Sig64.reshape(-1, B, B), d.reshape(-1, B),
             Sig32.reshape(-1, B, B), d32.reshape(-1, B), z)
 
@@ -70,42 +71,100 @@ def _jax_pallas_chol(Sig, d, z, ridge):
 
 @pytest.mark.parametrize("form", ["f32", "f32_dot_f64_reduce", "widen_f64"])
 def test_gram_matches_jax_interpret(form):
+    """The port's Gram of ``(Ta, N)`` against the JAX Pallas kernel on
+    JAX's own ``TNa = Ta / N`` (the JAX package's operand builder)."""
     import jax
     import jax.numpy as jnp
 
     from pulsar_timing_gibbsspec_tpu.ops import kernels as jk
+    from pulsar_timing_gibbsspec_tpu.sampler import jax_backend as jb
 
-    cmt, TNa, Ta, *_ = _system()
+    cmj = models()[0]
+    _, Ta, N, *_ = _system()
     P = Ta.shape[0]
+    C = N.shape[0] // P
     odt = torch.float32 if form == "f32" else torch.float64
     widen = form == "widen_f64"
-    got = kernels.gram_accumulate(TNa, Ta, out_dtype=odt, widen=widen)
-    Ta_full = np.tile(Ta.numpy(), (TNa.shape[0] // P, 1, 1, 1))
+    got = kernels.gram_accumulate(Ta, N, out_dtype=odt, widen=widen)
+    TNa_j, Ta_j = jax.jit(jax.vmap(
+        lambda n: jb._gram_operands(cmj, n, 32)))(
+            jnp.asarray(N.numpy().reshape(C, P, -1)))
+    TNa_j = TNa_j.reshape((-1,) + TNa_j.shape[2:])
+    Ta_j = Ta_j.reshape((-1,) + Ta_j.shape[2:])
+    assert np.array_equal(np.asarray(Ta_j[:P]), Ta.numpy())
     ref = np.asarray(jax.jit(lambda a, b: jk.gram_accumulate(
         a, b, out_dtype=jnp.dtype(str(odt).split(".")[1]), widen=widen,
-        tier="pallas"))(jnp.asarray(TNa.numpy()), jnp.asarray(Ta_full)))
+        tier="pallas"))(TNa_j, Ta_j))
     assert got.dtype == odt and got.shape == ref.shape
     dg = np.sqrt(np.diagonal(ref.astype(np.float64), axis1=1, axis2=2))
     scale = dg[:, :, None] * dg[:, None, :]
     diff = np.abs(got.numpy().astype(np.float64) - ref)
     assert np.all(diff[scale == 0] == 0)      # pad columns: exact zeros
     err = diff / np.where(scale > 0, scale, 1.0)
-    nseg, m = TNa.shape[1], TNa.shape[2]
+    nseg, m = Ta.shape[1], Ta.shape[2]
     tol = 2 * EPS64 if widen else 4 * np.sqrt(m + nseg) * EPS32
     assert err.max() <= tol, (form, err.max(), tol)
 
 
 def test_gram_shared_operand_rule():
-    """Row b of TNa pairs with row b % P of the per-pulsar Ta: the same
-    bits as an explicitly repeated Ta."""
-    _, TNa, Ta, *_ = _system()
-    rep = Ta.repeat(TNa.shape[0] // Ta.shape[0], 1, 1, 1)
+    """Row b of N pairs with pulsar b % P of the per-pulsar Ta: the same
+    bits as an explicitly repeated Ta, and as one call per chain."""
+    _, Ta, N, *_ = _system()
+    P = Ta.shape[0]
+    rep = Ta.repeat(N.shape[0] // P, 1, 1, 1)
     for kw in (dict(out_dtype=torch.float32), dict(out_dtype=torch.float64),
                dict(out_dtype=torch.float64, widen=True)):
-        assert torch.equal(kernels.gram_accumulate(TNa, Ta, **kw),
-                           kernels.gram_accumulate(TNa, rep, **kw))
+        got = kernels.gram_accumulate(Ta, N, **kw)
+        assert torch.equal(got, kernels.gram_accumulate(rep, N, **kw))
+        per_chain = torch.cat([kernels.gram_accumulate(Ta, Nc, **kw)
+                               for Nc in N.split(P)])
+        assert torch.equal(got, per_chain)
     with pytest.raises(ValueError):
-        reference.gram_accumulate_ref(TNa[:5], Ta)
+        reference.gram_accumulate_ref(Ta, N[:P - 1])
+
+
+def _gram_materialized(TNa, Ta, out_dtype, widen):
+    """The plain Gram as it took a materialized ``TNa``: float32 (or
+    widened) per-segment products, reduced in segment order."""
+    nb, Pt = TNa.shape[0], Ta.shape[0]
+    A = TNa.reshape((nb // Pt, Pt) + TNa.shape[1:])
+    acc = None
+    for s in range(Ta.shape[1]):
+        a, b = A[..., s, :, :], Ta[..., s, :, :]
+        if widen:
+            part = torch.matmul(a.to(out_dtype).transpose(-1, -2),
+                                b.to(out_dtype))
+        else:
+            part = torch.matmul(a.transpose(-1, -2), b).to(out_dtype)
+        acc = part if acc is None else acc + part
+    return acc.reshape((nb,) + acc.shape[2:])
+
+
+@pytest.mark.parametrize("seg_len", [11, 32, 120])
+def test_fused_plain_gram_equals_materialized(seg_len):
+    """The fused plain version equals the Gram of a materialized ``TNa =
+    Ta / N`` (zero-padded to the segment grid) bit for bit, with pad rows
+    (``Nmax`` not a multiple of the segment length) and the shared
+    operand (row b of N with pulsar b % P)."""
+    cmt, *_ = _system()
+    x = t64(state(cmt, C=3, seed=11))
+    Nv = cmt.ndiag_fast(x)
+    Ta, N = blocks._gram_operands(cmt, Nv, seg_len)
+    P, nseg, m, B1 = Ta.shape
+    Nmax = N.shape[-1]
+    Tf = torch.cat([cmt.T, cmt.y[..., None]], dim=-1)
+    TNa = torch.nn.functional.pad(Tf / N[..., None],
+                                  (0, 0, 0, nseg * m - Nmax))
+    TNa = TNa.reshape(-1, nseg, m, B1)
+    assert torch.equal(reference.gram_operand(Ta, N.reshape(-1, Nmax)),
+                       TNa)
+    for odt, widen in ((torch.float32, False), (torch.float64, False),
+                       (torch.float64, True)):
+        got = kernels.gram_accumulate(Ta, N.reshape(-1, Nmax),
+                                      out_dtype=odt, widen=widen)
+        assert torch.equal(got, _gram_materialized(TNa, Ta, odt, widen))
+    if seg_len == 11:
+        assert nseg * m > Nmax        # the grid has pad rows
 
 
 def test_chol_solve_sample_f64_matches_jax_interpret():
@@ -174,45 +233,65 @@ def test_cpu_tensors_never_build_or_launch():
     """A CPU tensor runs the plain version: nothing is built and no
     launch is counted."""
     kernels.reset_launches()
-    _, TNa, Ta, Sig, d, *_ = _system()
-    kernels.gram_accumulate(TNa, Ta)
+    _, Ta, N, Sig, d, *_ = _system()
+    kernels.gram_accumulate(Ta, N)
     kernels.chol_solve_sample(Sig, d, d)
     assert build._lib is None
     assert kernels.gram_accumulate.launches == 0
     assert kernels.chol_solve_sample.launches == 0
 
 
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain_on_the_card():
-    """On a card: every kernel form against its plain version (run on
-    the card too).  Needs no JAX, so it runs on a machine without it:
-    ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
-    """
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU "
-                    "mode (their plain versions are tested above)")
-    from pulsar_timing_gibbsspec_torch import build_crn_spectrum
+def test_cpu_sampler_blocks_never_build_or_launch():
+    """The sampler's Gram and factor entries on CPU tensors (every Gram
+    form, the steady factor) reach neither the kernel library nor a
+    launch count, whatever the sizes the kernels would refuse."""
+    kernels.reset_launches()
+    cmt, Ta, N, Sig, d, Sig32, d32, z = _system()
+    x = t64(state(cmt, C=2, seed=4))
+    Nv = cmt.ndiag_fast(x)
+    for fn in (blocks.tnt_d, blocks.tnt_d_seg, blocks.tnt_d_seg32):
+        G, dd = fn(cmt, Nv)
+        assert G.device.type == "cpu" and torch.isfinite(G).all()
+    blocks._factor_batch(Sig32, d32, z.float(), ridge=4e-6)
+    wide = torch.zeros(1, 1, 1, kernels.GRAM_MAX_B1 + 1)
+    kernels.gram_accumulate(wide, torch.ones(2, 1))
+    big = torch.eye(kernels.CHOL_MAX_N + 1)[None]
+    kernels.chol_solve_sample(big, big[:, 0], big[:, 0])
+    assert build._lib is None
+    assert kernels.gram_accumulate.launches == 0
+    assert kernels.chol_solve_sample.launches == 0
+    assert not any(kernels.gram_accumulate.form_launches.values())
+    assert not any(kernels.chol_solve_sample.form_launches.values())
 
-    cmt, TNa, Ta, Sig, d, Sig32, d32, z = _system(
-        cmt=build_crn_spectrum(small_psrs(), 4, 4, device="cuda"))
-    nseg, m = TNa.shape[1], TNa.shape[2]
+
+def _gram_close_on_card(Ta, N):
+    """Every Gram form against its plain version on the card, at the
+    Jacobi scale: float32 products within 8 sqrt(m + nseg) eps_f32,
+    widened float64 within 2 (m + nseg) eps_f64."""
+    nseg, m = Ta.shape[1], Ta.shape[2]
     for odt, widen in ((torch.float32, False), (torch.float64, False),
                        (torch.float64, True)):
-        k = kernels.gram_accumulate(TNa, Ta, out_dtype=odt, widen=widen)
-        p = reference.gram_accumulate_ref(TNa, Ta, out_dtype=odt,
-                                          widen=widen)
+        k = kernels.gram_accumulate(Ta, N, out_dtype=odt, widen=widen)
+        p = reference.gram_accumulate_ref(Ta, N, out_dtype=odt, widen=widen)
         dg = torch.sqrt(torch.diagonal(p.double(), dim1=1, dim2=2))
         scale = dg[:, :, None] * dg[:, None, :]
         err = ((k.double() - p.double()).abs()
                / torch.where(scale > 0, scale, 1.0)).max().item()
         tol = (2 * (m + nseg) * EPS64 if widen
                else 8 * np.sqrt(m + nseg) * EPS32)
-        assert err <= tol, (odt, widen, err)
+        assert err <= tol, (tuple(Ta.shape), odt, widen, err)
+
+
+def _chol_close_on_card(Sig, d, z):
+    """The float64 factor within 1e-10 of the float64 chain's scale; the
+    float32 factor's error against a float64 evaluation of the same
+    float32 inputs at most 8x the plain float32 chain's plus 64 eps_f32
+    of the output's scale."""
     k = kernels.chol_solve_sample(Sig, d, z, ridge=4e-6)
     p = reference.chol_solve_sample_ref(Sig, d, z, ridge=4e-6)
     for a, b in zip(k, p):
         assert (a - b).abs().max().item() <= 1e-10 * b.abs().max().item()
-    z32 = z.float()
+    Sig32, d32, z32 = Sig.float(), d.float(), z.float()
     k = kernels.chol_solve_sample(Sig32, d32, z32, ridge=4e-6)
     p = reference.chol_solve_sample_ref(Sig32, d32, z32, ridge=4e-6)
     e = reference.chol_solve_sample_ref(Sig32.double(), d32.double(),
@@ -220,6 +299,66 @@ def test_cuda_kernels_match_plain_on_the_card():
     for a, b, c in zip(k, p, e):
         ek = (a.double() - c).abs().max().item()
         ep = (b.double() - c).abs().max().item()
-        assert ek <= 8 * ep + 64 * EPS32 * c.abs().max().item()
-    assert kernels.gram_accumulate.launches >= 3
-    assert kernels.chol_solve_sample.launches >= 2
+        assert ek <= 8 * ep + 64 * EPS32 * c.abs().max().item(), (
+            tuple(Sig.shape), ek, ep)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_on_the_card():
+    """On a card: every kernel form against its plain version (run on
+    the card too), on the small model and on seeded shapes that cover
+    the kernels' edges: Gram widths B1 in {8, 38, 64} with 5 chains (a
+    ragged last group of chains per CTA), a segment grid with pad rows
+    (nonzero Ta there, which TNa must zero) and segments longer than one
+    pipeline stage; factor orders n in {1, 2, 31, 32, 33, 37, 64} with 7
+    systems (a ragged last CTA), both element types.  Needs no JAX, so it
+    runs on a machine without it:
+    ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
+    """
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU "
+                    "mode (their plain versions are tested above)")
+    from pulsar_timing_gibbsspec_torch import build_crn_spectrum
+
+    cmt, Ta, N, Sig, d, Sig32, d32, z = _system(
+        cmt=build_crn_spectrum(small_psrs(), 4, 4, device="cuda"))
+    _gram_close_on_card(Ta, N)
+    _chol_close_on_card(Sig, d, z)
+
+    rng = np.random.default_rng(7)
+    dev = torch.device("cuda")
+    P, C = 3, 5
+    for B1 in (8, 38, 64):
+        for Nmax, nseg, m in ((101, 4, 26), (150, 2, 75)):
+            Ta = rng.standard_normal((P, nseg * m, B1)).astype(np.float32)
+            N = rng.uniform(0.25, 4.0, (C * P, Nmax)).astype(np.float32)
+            _gram_close_on_card(
+                torch.as_tensor(Ta.reshape(P, nseg, m, B1), device=dev),
+                torch.as_tensor(N, device=dev))
+    # a zero N on a pad row of one chain: 0 / 0 makes that chain's Gram
+    # NaN in the plain version, so the kernel may not skip the row
+    Ta = rng.standard_normal((P, 4 * 26, 38)).astype(np.float32)
+    Ta[0, 60:] = 0.0
+    N = rng.uniform(0.25, 4.0, (C * P, 101)).astype(np.float32)
+    N[P, 80] = 0.0
+    Ta, N = (torch.as_tensor(v, device=dev) for v in (Ta.reshape(P, 4, 26, 38),
+                                                     N))
+    for odt, widen in ((torch.float32, False), (torch.float64, False),
+                       (torch.float64, True)):
+        k = kernels.gram_accumulate(Ta, N, out_dtype=odt, widen=widen)
+        p = reference.gram_accumulate_ref(Ta, N, out_dtype=odt, widen=widen)
+        assert p[P].isnan().any() and not p[0].isnan().any()
+        assert torch.equal(k.isnan(), p.isnan())
+    _gram_close_on_card(Ta, N[:P])
+    for n in (1, 2, 31, 32, 33, 37, 64):
+        batch = 7
+        X = rng.standard_normal((batch, n, n))
+        D = 10.0 ** rng.uniform(-2, 2, (batch, n))
+        A = X @ X.transpose(0, 2, 1) / n + 0.5 * np.eye(n)
+        Sig = D[:, :, None] * A * D[:, None, :]
+        _chol_close_on_card(
+            *(torch.as_tensor(v, device=dev) for v in (
+                Sig, rng.standard_normal((batch, n)) * D,
+                rng.standard_normal((batch, n)))))
+    assert kernels.gram_accumulate.launches >= 3 * 9
+    assert kernels.chol_solve_sample.launches >= 2 * 8
