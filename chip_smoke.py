@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100.
 
-Usage: python3 chip_smoke.py [--seed S] [--outdir DIR]
+Usage: python3 chip_smoke.py [--seed S] [--outdir DIR] [--steady N]
+
+(``DIR``, default ``build/chip_smoke``, receives the checkpoint
+directories of phases 3b, 4 and 6; ``N``, default 240, is the main
+path's steady sweeps: a deeper run reads what checkpoints cost as the
+record grows.)
 
 Phases (any failure exits non-zero):
 
@@ -19,17 +24,32 @@ Phases (any failure exits non-zero):
    ``torch.matmul``, with the peak device memory of one call of each;
 3. small-input agreement: the steady b-draw on a 3-pulsar model, with
    the same state and noise on the card and on the CPU;
+3b. graphs against eager: on the 45-pulsar model at 64 chains, after a
+   short eager run has adapted the sampler, 17 steady sweeps (one of
+   them a refresh) from one state replayed from the CUDA graphs equal
+   the eager sweeps bitwise in x, b and the b_mh acceptance counts;
 4. main path: the synthetic 45-pulsar CRN free-spectrum array from
    ``--seed`` sampled by ``PTABlockGibbs(nchains=64)`` through 50
-   warmup sweeps, adaptation and 240 steady sweeps; every record finite,
-   every common log10_rho median inside the prior (-10, -4), every
-   kernel form launched during this phase;
-5. profile: ``torch.profiler`` over steady sweeps continuing from the
-   main path's final state (after its launch counts are read): the
-   device's idle share and kernel time by name over a window traced on
-   the device alone, and kernel launches per block and per white MH
-   step, and the device's busy time inside each block, from a second
-   window traced on the host as well.
+   warmup sweeps, adaptation and 240 steady sweeps replayed from the
+   CUDA graphs, checkpointed every 100 sweeps into ``--outdir``; every
+   record finite, every common log10_rho median inside the prior (-10,
+   -4), the final checkpoint verified, and every kernel form run on the
+   card during this phase, as the kernels' own device counters count it
+   (eager runs and graph replays alike): each form the steady graphs hold
+   replayed since the captures exactly as often as each capture's
+   launches times its replays, and each form's runs equal to the host's
+   eager launches plus those replays;
+5. profile: ``torch.profiler`` over steady sweeps of the driver's
+   steady-chunk entry, continuing from the main path's graphs (after its
+   launch counts are read): the device's idle share and kernel time by
+   name over a window traced on the device alone, where the port's
+   kernels, counted by name, must equal their device counters' growth
+   and the graphs' replayed launches; and host launches (graph and
+   kernel) per block, and the device's busy time inside each block, from
+   a second window traced on the host as well;
+6. resume: the same model at 8 chains, 5 warmup and 64 steady sweeps,
+   run whole and split at a chunk boundary then resumed, both through
+   the graphs: ``chain.npy`` and ``bchain.npy`` bitwise equal.
 
 The kernels' JSON record and the card as ``nvidia-smi`` reports it are
 the two lines before the last; the last line is the JSON result.
@@ -43,6 +63,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 #: NVIDIA H100 SXM data sheet: HBM3 bandwidth; the card's peak rate for
 #: each type (float32 outside the tensor cores, since TF32 is not float32;
@@ -62,6 +83,24 @@ DEVICE = "cuda"
 NCHAINS, WARMUP, STEADY = 64, 50, 240
 #: steady sweeps traced on the device alone, and with the host as well
 PROFILE_SWEEPS, PROFILE_HOST_SWEEPS = 6, 2
+#: sweeps between checkpoints of the main path
+SAVE_EVERY = 100
+#: each kernel form by the name the device trace gives its kernel
+TRACE_NAMES = {("chol_solve_sample", "f32"): "chol_solve_sample_kernel<float",
+               ("chol_solve_sample", "f64"): "chol_solve_sample_kernel<double",
+               ("gram_accumulate", "f32"): "gram_f32_kernel<float>",
+               ("gram_accumulate", "f32_dot_f64_reduce"):
+               "gram_f32_kernel<double>",
+               ("gram_accumulate", "widen_f64"): "gram_widen_kernel<"}
+#: the kernel forms the steady graphs must replay (the exact b-draws'
+#: widening Gram runs eagerly, in the warmup and the adaptation)
+GRAPHED = (("chol_solve_sample", "f32"), ("gram_accumulate", "f32"),
+           ("gram_accumulate", "f32_dot_f64_reduce"))
+#: steady sweeps of the graphs-against-eager phase, from iteration 5
+#: (so iteration 16 is its one refresh)
+GRAPH_CHECK_SWEEPS = 17
+#: the resume phase: chains, warmup and steady sweeps, chunk length
+RESUME_CHAINS, RESUME_WARMUP, RESUME_STEADY, RESUME_CHUNK = 8, 5, 64, 16
 
 
 def card_line():
@@ -392,6 +431,92 @@ def small_agreement(dev, seed):
     return ok
 
 
+def graph_against_eager(cm, seed, outdir):
+    """Phase 3b: adapt a 64-chain sampler with a short eager run, then
+    run ``GRAPH_CHECK_SWEEPS`` steady sweeps from its final state
+    eagerly and from the CUDA graphs; x, b and the b_mh acceptance
+    counts must be bitwise equal (every draw comes from the per-sweep
+    stream, and no atomic add of the sweep meets one real slot twice)."""
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+
+    g = ptt.PTABlockGibbs(cm, nchains=NCHAINS, device=cm.device, seed=seed,
+                          warmup_sweeps=2, graphs=False)
+    g.sample(g.initial_sample(torch.Generator(device=cm.device).manual_seed(
+        seed + 1)), outdir=outdir, niter=4)
+    drv = g.driver
+    x = torch.as_tensor(drv.x_cur, device=cm.device)
+    b = drv.b.to(cm.device)
+    out, wall = {}, {}
+    for graphs in (False, True):
+        drv.graphs = graphs
+        drv.b_mh_accepts.zero_()
+        drv.begin_steady(x.clone(), b.clone())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drv.steady_chunk(5, GRAPH_CHECK_SWEEPS)
+        torch.cuda.synchronize()
+        wall[graphs] = 1e3 * (time.perf_counter() - t0) / GRAPH_CHECK_SWEEPS
+        out[graphs] = (drv.carry.x.clone(), drv.carry.b.clone(),
+                       drv.b_mh_accepts.clone())
+    diffs = {what: (e - r).abs().max().item()
+             for e, r, what in zip(out[False], out[True],
+                                   ("x", "b", "accepts"))}
+    same = all(torch.equal(e, r) for e, r in zip(out[False], out[True]))
+    ok = same and bool(torch.isfinite(out[True][1]).all())
+    print(f"phase 3b graphs against eager, {GRAPH_CHECK_SWEEPS} steady "
+          f"sweeps (one refresh) at {NCHAINS} chains: bitwise "
+          f"{'equal' if same else 'DIFFERENT'} (max |eager - graph| "
+          + json.dumps(diffs) + f"); {wall[False]:.3f} ms per sweep eager, "
+          f"{wall[True]:.3f} graphed; capture {drv.carry.capture_seconds:.3f}"
+          f" s {'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def resume_check(cm, seed, outdir):
+    """Phase 6: at ``RESUME_CHAINS`` chains, a run whole and a run split
+    at a chunk boundary then resumed in a fresh sampler, both through the
+    graphs, write bitwise equal ``chain.npy`` and ``bchain.npy``."""
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+
+    niter = RESUME_WARMUP + 1 + RESUME_STEADY
+    split = RESUME_WARMUP + 1 + RESUME_STEADY // 2
+
+    def gibbs():
+        return ptt.PTABlockGibbs(cm, nchains=RESUME_CHAINS,
+                                 device=cm.device, seed=seed,
+                                 warmup_sweeps=RESUME_WARMUP,
+                                 chunk_size=RESUME_CHUNK)
+
+    def x0(g):
+        return g.initial_sample(torch.Generator(
+            device=cm.device).manual_seed(seed + 2))
+
+    out = Path(outdir)
+    t0 = time.perf_counter()
+    g = gibbs()
+    g.sample(x0(g), outdir=out / "whole", niter=niter)
+    g = gibbs()
+    g.sample(x0(g), outdir=out / "split", niter=split)
+    g = gibbs()
+    g.sample(x0(g), outdir=out / "split", niter=niter, resume=True)
+    same = {nm: bool(np.array_equal(np.load(out / "whole" / nm),
+                                    np.load(out / "split" / nm)))
+            for nm in ("chain.npy", "bchain.npy")}
+    finite = bool(np.isfinite(np.load(out / "whole" / "bchain.npy")).all())
+    ok = all(same.values()) and finite and g.driver.carry.graphed
+    print(f"phase 6 resume at {RESUME_CHAINS} chains, {RESUME_WARMUP} "
+          f"warmup + {RESUME_STEADY} steady sweeps split at row {split} "
+          f"(chunks of {RESUME_CHUNK}), through the graphs: bitwise equal "
+          + json.dumps(same) + f"; {time.perf_counter() - t0:.1f} s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
 def _busy_ms(spans):
     """Milliseconds of the union of ``(start, end)`` device intervals (in
     microseconds)."""
@@ -403,41 +528,60 @@ def _busy_ms(spans):
     return busy / 1e3
 
 
-def profile_steady(drv):
-    """Phase 5: steady b_mh sweeps from the main path's final state under
-    ``torch.profiler``.  Window 1 traces the device alone: its idle share
-    is 1 - (union of the device's kernel and copy intervals) / (host wall
-    of the window, synchronized at both ends), and its kernel time by
-    name.  Window 2 adds the host: the kernel launch calls
-    (``cu*LaunchKernel*``) inside each ``block:<name>`` range give the
-    launches per block and per white MH step.  The profiler slows the
-    host, so window 1's idle share is an upper bound of the unprofiled
-    run's."""
+def profile_steady(drv, t0):
+    """Phase 5: steady sweeps of the driver's steady-chunk entry (the
+    graphs phase 4 ran) from the main path's final carry, iterations
+    ``t0 ..`` (no refresh among them), under ``torch.profiler``.  Window
+    1 traces the device alone: its idle share is 1 - (union of the
+    device's kernel and copy intervals) / (host wall of the window,
+    synchronized at both ends), and its kernel time by name; the same
+    sweeps' wall without the profiler gives a second idle share.  Window 2
+    adds the host: the launch calls (``cudaGraphLaunch`` and
+    ``cu*LaunchKernel*``) inside each ``block:<name>`` range give the
+    host launches per block.  The profiler slows the host, so window
+    1's idle share is an upper bound of the unprofiled run's.  In window
+    1 the port's kernels, counted by name in the device trace, must equal
+    the growth of their device counters and of the graphs' replayed
+    launches; returns whether they do."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from pulsar_timing_gibbsspec_torch.sampler import blocks
+    from pulsar_timing_gibbsspec_torch.ops import kernels
 
-    x, b = drv.x, drv.b
-    u = blocks.b_matvec(drv.cm, b)
-
-    def sweeps(n, x, b, u):
-        for _ in range(n):
-            x, b, u = drv._sweep(x, b, u, exact=False)
-        return x, b, u
-
-    x, b, u = sweeps(1, x, b, u)
+    drv.steady_chunk(t0, 1)
     torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    drv.steady_chunk(t0 + 1, PROFILE_SWEEPS)
+    torch.cuda.synchronize()
+    plain_wall = 1e3 * (time.perf_counter() - t1)
+    graphs = drv.carry
+    dev0, rep0 = kernels.device_launches(), graphs.replayed_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        x, b, u = sweeps(PROFILE_SWEEPS, x, b, u)
+        t1 = time.perf_counter()
+        drv.steady_chunk(t0 + 1, PROFILE_SWEEPS)
         torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
+        wall = 1e3 * (time.perf_counter() - t1)
+    dev1, rep1 = kernels.device_launches(), graphs.replayed_launches()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     kern = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
     if not kern:
         raise RuntimeError("the device trace holds no kernel")
+    counted = {}
+    for key, pat in TRACE_NAMES.items():
+        counted[f"{key[0]}[{key[1]}]"] = [
+            sum(pat in e.name for e in kern), dev1[key] - dev0[key],
+            rep1.get(key, 0) - rep0.get(key, 0)]
+    ok = all(a == b == c for a, b, c in counted.values()) and all(
+        counted[f"{k}[{f}]"][0] > 0 for k, f in GRAPHED[:2])
+    print(f"phase 5 port kernels in the device trace by name, their device "
+          f"counters' growth and the graphs' replayed launches, "
+          f"{PROFILE_SWEEPS} b_mh sweeps: " + json.dumps(counted)
+          + f" {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        print("phase 5 kernel names in the trace: " + json.dumps(sorted(
+            {e.name[:120] for e in kern if "kernel<" in e.name})),
+            flush=True)
     by_name = {}
     for e in kern:
         t = by_name.setdefault(e.name, [0.0, 0])
@@ -445,12 +589,15 @@ def profile_steady(drv):
         t[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in dev])
-    print(f"phase 5 device trace, {PROFILE_SWEEPS} steady b_mh sweeps: "
-          f"host wall {wall / PROFILE_SWEEPS:.3f} ms per sweep, device "
-          f"busy {busy / PROFILE_SWEEPS:.3f} ms per sweep, idle share "
-          f"{1.0 - busy / wall:.4f}; {len(kern) / PROFILE_SWEEPS:.1f} "
-          f"kernels and {(len(dev) - len(kern)) / PROFILE_SWEEPS:.1f} "
-          "copies per sweep", flush=True)
+    print(f"phase 5 device trace, {PROFILE_SWEEPS} steady b_mh sweeps "
+          f"from the graphs: host wall {wall / PROFILE_SWEEPS:.3f} ms per "
+          f"sweep, device busy {busy / PROFILE_SWEEPS:.3f} ms per sweep, "
+          f"idle share {1.0 - busy / wall:.4f} ({1.0 - busy / plain_wall:.4f}"
+          f" of the same sweeps' unprofiled wall, "
+          f"{plain_wall / PROFILE_SWEEPS:.3f} ms per sweep); "
+          f"{len(kern) / PROFILE_SWEEPS:.1f} kernels and "
+          f"{(len(dev) - len(kern)) / PROFILE_SWEEPS:.1f} copies per sweep",
+          flush=True)
     print("phase 5 kernel ms per sweep by name (count per sweep): "
           + json.dumps([[n[:80], round(t / PROFILE_SWEEPS, 4),
                          c / PROFILE_SWEEPS] for n, (t, c) in top]),
@@ -458,7 +605,7 @@ def profile_steady(drv):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        sweeps(PROFILE_HOST_SWEEPS, x, b, u)
+        drv.steady_chunk(t0 + 1 + PROFILE_SWEEPS, PROFILE_HOST_SWEEPS)
         torch.cuda.synchronize()
     evs = prof.events()
     ranges = [(e.name[len("block:"):], e.time_range) for e in evs
@@ -466,7 +613,7 @@ def profile_steady(drv):
               and e.device_type == DeviceType.CPU]
     launches = [e.time_range.start for e in evs
                 if e.device_type == DeviceType.CPU
-                and "LaunchKernel" in e.name]
+                and ("LaunchKernel" in e.name or "GraphLaunch" in e.name)]
     per_block = dict.fromkeys(sorted({n for n, _ in ranges}), 0)
     for n, r in ranges:
         per_block[n] += sum(r.start <= t <= r.end for t in launches)
@@ -482,23 +629,23 @@ def profile_steady(drv):
             n = e.name[len("block:"):]
             dbusy[n] = dbusy.get(n, 0.0) + _busy_ms(
                 [(max(a, s), min(b, t)) for s, t in dspans if t > a and s < b])
-    steps = PROFILE_HOST_SWEEPS * (drv.aclength_white or 0)
     print(f"phase 5 host trace, {PROFILE_HOST_SWEEPS} steady b_mh sweeps: "
-          f"kernel launches per sweep {len(launches) / PROFILE_HOST_SWEEPS}"
+          f"host launches per sweep {len(launches) / PROFILE_HOST_SWEEPS}"
           ", by block " + json.dumps(
-              {k: v / PROFILE_HOST_SWEEPS for k, v in per_block.items()})
-          + f"; per white MH step {per_block.get('white', 0) / max(steps, 1):.1f}",
+              {k: v / PROFILE_HOST_SWEEPS for k, v in per_block.items()}),
           flush=True)
     print("phase 5 device busy ms per sweep by block (kernels inside each "
           "block's device range): " + json.dumps(
               {k: round(v / PROFILE_HOST_SWEEPS, 4)
                for k, v in sorted(dbusy.items())}), flush=True)
+    return ok
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--outdir", default="build/chip_smoke")
+    ap.add_argument("--steady", type=int, default=STEADY)
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -512,6 +659,7 @@ def main(argv=None):
         from pulsar_timing_gibbsspec_torch.data import synthetic_array
         from pulsar_timing_gibbsspec_torch.ops import kernels
         from pulsar_timing_gibbsspec_torch.ops.kernels import build
+        from pulsar_timing_gibbsspec_torch.runtime import integrity
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e}); run it "
               "from the repository root", file=sys.stderr)
@@ -543,34 +691,70 @@ def main(argv=None):
     if not small_agreement(dev, args.seed):
         print("chip_smoke: small-input agreement failed", file=sys.stderr)
         return 1
+    outdir = Path(args.outdir)
+    if not graph_against_eager(cm, args.seed, outdir / "graph_check"):
+        print("chip_smoke: graph replay differs from the eager sweep",
+              file=sys.stderr)
+        return 1
 
     # ---- phase 4: the main path, launch counts from 0 ----------------------
-    niter = WARMUP + 1 + STEADY
+    niter = WARMUP + 1 + args.steady
     kernels.reset_launches()
     t0 = time.perf_counter()
     g = ptt.PTABlockGibbs(cm, nchains=C, device=dev, seed=args.seed,
                           warmup_sweeps=WARMUP)
     x0 = g.initial_sample(torch.Generator(device=dev).manual_seed(
         args.seed))
-    chain = g.sample(x0, outdir=args.outdir, niter=niter)
+    chain = g.sample(x0, outdir=outdir / "main", niter=niter,
+                     save_every=SAVE_EVERY)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"chol_solve_sample":
-                dict(kernels.chol_solve_sample.form_launches),
-                "gram_accumulate":
-                dict(kernels.gram_accumulate.form_launches)}
     drv = g.driver
+    graphs = drv.carry
+    # kernel runs the card counted, eager and replayed, and the host's
+    # launches (a capture's launch is recorded, not run)
+    runs, host = kernels.device_launches(), kernels.launch_counts()
+    replayed = graphs.replayed_launches()
+    captured = {k: sum(c.get(k, 0) for c in graphs.launches.values())
+                for k in runs}
+    since = {k: runs[k] - graphs.device_at_capture[k] for k in runs}
+    unreplayed = [f"{k}[{f}]" for k, f in GRAPHED
+                  if not since[(k, f)] == replayed.get((k, f), 0) > 0]
+    unaccounted = [f"{k}[{f}]" for (k, f) in runs if runs[(k, f)] != host[
+        (k, f)] - captured[(k, f)] + replayed.get((k, f), 0)]
+    missing = [f"{k}[{f}]" for (k, f) in records if runs[(k, f)] == 0]
     sps = drv.steady_sweeps / drv.steady_seconds
     acc = drv.b_mh_accepts[:, :cm.P_real] / max(drv.b_mh_sweeps, 1)
     rho = chain[WARMUP + 1:, :, cm.rho_ix_x.cpu().numpy()]
     med = np.median(rho.reshape(-1, rho.shape[-1]), axis=0)
     per_block = {k: round(v / drv.steady_sweeps, 4)
                  for k, v in sorted(drv.timer.ms.items())}
+    rep = integrity.verify(outdir / "main")
     print(f"phase 4 main path: {niter} rows x {C} chains in {wall:.1f} s "
           f"(warmup {WARMUP}); white sub-chain "
           f"{drv.aclength_white} steps; steady {drv.steady_sweeps} sweeps "
           f"in {drv.steady_seconds:.3f} s = {sps:.3f} sweeps/s = "
           f"{sps * C:.1f} samples/s", flush=True)
+    print(f"phase 4 CUDA graphs: {len(graphs.graphs)} captured in "
+          f"{graphs.capture_seconds:.3f} s, pool "
+          f"{graphs.pool_bytes / 1e6:.1f} MB, replays per sweep "
+          + json.dumps({"b_mh": len(drv.sweep_blocks(False)),
+                        "b_refresh": len(drv.sweep_blocks(True))})
+          + "; kernel launches per "
+          "replay " + json.dumps({k: {"/".join(f): n for f, n in v.items()}
+                                  for k, v in graphs.launches.items() if v}),
+          flush=True)
+    busy = sum(g.store.seconds.values())
+    print(f"phase 4 checkpoints every {SAVE_EVERY} sweeps: saves ran "
+          f"{busy:.3f} s on their thread ({busy / drv.steady_seconds:.4f} of "
+          f"the {drv.steady_seconds:.3f} s steady wall), by step "
+          + json.dumps({k: round(v, 3) for k, v in
+                        sorted(g.store.seconds.items())})
+          + f"; the sampling loop spent {g.save_seconds:.3f} s on them "
+          f"({g.save_seconds / drv.steady_seconds:.4f}); final manifest "
+          f"verified {rep['ok']} at {rep['rows']} rows; "
+          f"chain {g.chain.shape} + bchain {g.bchain.shape} float64, "
+          f"{(g.chain.nbytes + g.bchain.nbytes) / 1e6:.1f} MB", flush=True)
     print("phase 4 per-block ms per steady sweep (CUDA events): "
           + json.dumps(per_block), flush=True)
     print("phase 4 warmup block ms in all (CUDA events): " + json.dumps(
@@ -580,23 +764,42 @@ def main(argv=None):
           f"min over (chain, pulsar) {acc.min().item():.4f}", flush=True)
     print("phase 4 common log10_rho medians per bin: "
           + json.dumps([round(float(v), 3) for v in med]), flush=True)
-    print("phase 4 kernel launches: " + json.dumps(launches), flush=True)
+    print("phase 4 kernel runs counted on the card: " + json.dumps(
+        {f"{k}[{f}]": n for (k, f), n in runs.items()}) + "; of them "
+        "replayed since the captures " + json.dumps(
+            {f"{k}[{f}]": n for (k, f), n in since.items() if n}) + ", the "
+        "captures' launches times their replays " + json.dumps(
+            {f"{k}[{f}]": n for (k, f), n in replayed.items()}) + "; host "
+        "launches " + json.dumps({f"{k}[{f}]": n for (k, f), n in
+                                  host.items()}) + ", recorded into graphs "
+        + json.dumps({f"{k}[{f}]": n for (k, f), n in captured.items() if n}),
+        flush=True)
     print(f"phase 4 non-finite Laplace blocks in warmup and adaptation: "
           f"{int(drv.laplace_nonfinite)} of "
           f"{(WARMUP + 1) * C * cm.P_real}", flush=True)
-    finite = bool(np.isfinite(chain).all())
+    finite = bool(np.isfinite(chain).all() and np.isfinite(g.bchain).all())
     inside = bool(((med > -10.0) & (med < -4.0)).all())
-    missing = [f"{k}[{f}]" for (k, f) in records if launches[k][f] == 0]
-    if not finite or not inside or missing:
+    saved = rep["ok"] and rep["rows"] == niter and graphs.graphed
+    if (not finite or not inside or missing or unreplayed or unaccounted
+            or not saved):
         print(f"chip_smoke: main path failed (finite={finite}, medians "
-              f"inside the prior={inside}, never launched={missing})",
+              f"inside the prior={inside}, never run={missing}, not "
+              f"replayed as captured={unreplayed}, runs other than eager "
+              f"launches plus replays={unaccounted}, verified checkpoint "
+              f"through the graphs={saved})", file=sys.stderr)
+        return 1
+    if not profile_steady(drv, 16 * (niter // 16 + 1)):
+        print("chip_smoke: the device trace disagrees with the kernels' "
+              "device counters", file=sys.stderr)
+        return 1
+    if not resume_check(cm, args.seed, outdir / "resume"):
+        print("chip_smoke: the resumed run differs from the whole one",
               file=sys.stderr)
         return 1
-    profile_steady(drv)
 
     print(json.dumps({"kernels": [
         dict(name=f"{k}[{f}]", route="cuda", source=SOURCES[k],
-             replaces=REPLACES[k], launches=launches[k][f], **r)
+             replaces=REPLACES[k], launches=runs[(k, f)], **r)
         for (k, f), r in records.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ The subset of ``pulsar_timing_gibbsspec_tpu/config.py`` the CRN
 free-spectrum sweep reads: float32 storage of the large arrays (basis,
 residuals, per-TOA noise), float64 compute of the sampler state,
 reductions and exact factorizations, the TOA-segment lengths of the
-segmented Gram, the steady chunk length and the rho grid size.
+segmented Gram and the rho grid size.
 
 Float32 products are full IEEE float32 everywhere in the port (the JAX
 package's ``precision="highest"``): :func:`resolve_device` turns TF32 off
@@ -32,8 +32,6 @@ class Settings:
     gram_seg_len: int = 96
     #: TOA-segment length of the exact (widening float64) Gram
     gram_seg_len_exact: int = 96
-    #: steady sweeps per recorded chunk (one host copy of the records)
-    chunk_size: int = 100
     #: points of the log-uniform rho grid of the free-spectrum draws
     rho_grid_size: int = 1000
 

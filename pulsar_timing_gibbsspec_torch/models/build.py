@@ -194,7 +194,8 @@ def crn_spectrum_arrays(psrs, nbins: int = 10, red_bins: int = 10,
                   hyp_ix=np.zeros((P, 0), np.int32), rho_ix=rrho)]
     return dict(
         P=P, P_real=P_real, Nmax=Nmax, Bmax=Bmax, nx=nx, K=K, Kr=Kr,
-        widths=widths, param_names=tuple(names), dtype=f32,
+        widths=widths, pulsars=tuple(p.name for p in psrs),
+        param_names=tuple(names), dtype=f32,
         cdtype=np.float64, y=y, T=T, toa_mask=toa_mask,
         basis_mask=basis_mask, psr_mask=psr_mask, sigma2=sigma2,
         efac_ix=efac_ix, equad_ix=equad_ix, gequad_ix=gequad_ix,

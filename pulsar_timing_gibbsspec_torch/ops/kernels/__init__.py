@@ -10,10 +10,17 @@ dispatch.  The route follows the tensor, never a setting:
   runs the plain version on either device, as the JAX package never put
   it in a Pallas kernel.
 
-Each wrapper carries ``launches``, a plain count raised by one at every
-kernel launch and nowhere else, and ``form_launches``, the same count
-split by the kernel's instantiation, so a run can show that its main
-path went through the kernels.
+Two counts show that a run's main path went through the kernels:
+
+- on the host, each wrapper carries ``launches``, raised by one where it
+  enqueues its kernel and nowhere else, and ``form_launches``, the same
+  count split by the kernel's instantiation.  A call while a CUDA graph
+  is captured counts the one launch it records into the graph;
+- on the card, every kernel adds one to a device counter of its form each
+  time it runs (:func:`device_launches`), eagerly or replayed from a CUDA
+  graph, which the host never sees.
+
+:func:`reset_launches` sets both to 0.
 """
 
 from __future__ import annotations
@@ -62,13 +69,14 @@ def _chol_solve_sample_cuda(Sig, d, z, ridge):
                              f"{tuple(t.shape)}")
         if t.device != Sig.device:
             raise ValueError(f"{nm} is on {t.device}, Sig on {Sig.device}")
+    count = _counter(Sig.device, ("chol_solve_sample", CHOL_FORMS[dt]))
     L = torch.empty_like(Sig)
     Li = torch.empty_like(Sig)
     dj, mean, bp = (torch.empty_like(d) for _ in range(3))
     code = library().ptg_chol_solve_sample(
         int(dt == torch.float64), _ptr(Sig), _ptr(d), _ptr(z), _ptr(L),
         _ptr(Li), _ptr(dj), _ptr(mean), _ptr(bp), batch, n, float(ridge),
-        _stream(Sig))
+        count, _stream(Sig))
     check(code, "chol_solve_sample")
     return L, Li, dj, mean, bp
 
@@ -132,12 +140,13 @@ def _gram_accumulate_cuda(Ta, N, out_dtype, widen):
     else:
         raise TypeError(f"out_dtype must be float32 or float64, got "
                         f"{out_dtype}")
+    count = _counter(Ta.device, ("gram_accumulate", GRAM_FORMS[form]))
     G = torch.empty((batch, B1, B1), dtype=out_dtype, device=Ta.device)
     extent = torch.empty(Pt * GRAM_EXTENT_SLICES, dtype=torch.int32,
                          device=Ta.device)
     code = library().ptg_gram_accumulate(
         _ptr(Ta), _ptr(N), _ptr(G), _ptr(extent), batch, Pt, nseg, m, B1,
-        Nmax, form, _stream(Ta))
+        Nmax, form, count, _stream(Ta))
     check(code, "gram_accumulate")
     return G, GRAM_FORMS[form]
 
@@ -169,8 +178,53 @@ gram_accumulate.launches = 0
 gram_accumulate.form_launches = dict.fromkeys(GRAM_FORMS, 0)
 
 
+_WRAPPERS = {fn.__name__: fn for fn in (chol_solve_sample, gram_accumulate)}
+#: slot of each (kernel, form) in a device's launch counters
+_SLOTS = {(k, f): i for i, (k, f) in enumerate(
+    [("chol_solve_sample", f) for f in CHOL_FORMS.values()]
+    + [("gram_accumulate", f) for f in GRAM_FORMS])}
+#: int64 launch counters per CUDA device, one slot per (kernel, form)
+_DEVICE_COUNTS = {}
+
+
+def _counter(device, key):
+    """Device address of the launch counter of ``key`` on ``device``
+    (allocated, zeroed, at the first launch there; never inside a CUDA
+    graph capture, whose pool would own it)."""
+    c = _DEVICE_COUNTS.get(device)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "a kernel's first launch on a device must precede any CUDA "
+                "graph capture (its launch counters are made then)")
+        c = _DEVICE_COUNTS[device] = torch.zeros(len(_SLOTS),
+                                                 dtype=torch.int64,
+                                                 device=device)
+    return c.data_ptr() + c.element_size() * _SLOTS[key]
+
+
 def reset_launches():
-    """Set every kernel's launch counts to 0."""
-    for fn in (chol_solve_sample, gram_accumulate):
+    """Set every kernel's launch counts to 0, on the host and the card."""
+    for fn in _WRAPPERS.values():
         fn.launches = 0
         fn.form_launches = dict.fromkeys(fn.form_launches, 0)
+    for c in _DEVICE_COUNTS.values():
+        c.zero_()
+
+
+def launch_counts():
+    """``{(kernel, form): launches}`` the wrappers enqueued (host)."""
+    return {(k, f): n for k, fn in _WRAPPERS.items()
+            for f, n in fn.form_launches.items()}
+
+
+def device_launches():
+    """``{(kernel, form): runs}`` of every kernel on every card, read from
+    the device counters after the cards finish their queued work: graph
+    replays included."""
+    out = dict.fromkeys(_SLOTS, 0)
+    for dev, c in _DEVICE_COUNTS.items():
+        torch.cuda.synchronize(dev)
+        for key, n in zip(_SLOTS, c.tolist()):
+            out[key] += n
+    return out

@@ -28,10 +28,10 @@ def _declare(lib):
     lib.ptg_error_string.argtypes = [I]
     lib.ptg_error_string.restype = ctypes.c_char_p
     lib.ptg_chol_solve_sample.argtypes = [I, P, P, P, P, P, P, P, P, I, I,
-                                          D, P]
+                                          D, P, P]
     lib.ptg_chol_solve_sample.restype = I
     lib.ptg_gram_accumulate.argtypes = [P, P, P, P, I, I, I, I, I, I, I,
-                                        P]
+                                        P, P]
     lib.ptg_gram_accumulate.restype = I
     return lib
 

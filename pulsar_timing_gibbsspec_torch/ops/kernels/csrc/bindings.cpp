@@ -1,7 +1,8 @@
 // Plain C entry points of the kernel library, loaded from Python with
 // ctypes (pulsar_timing_gibbsspec_torch/ops/kernels/build.py).  Each
 // validates its sizes, enqueues one kernel on the given stream and
-// returns the CUDA error code of the launch (0 on success).
+// returns the CUDA error code of the launch (0 on success); `count` is
+// the device launch counter of the kernel's form (kernels.h).
 #include <cuda_runtime.h>
 
 #include "kernels.h"
@@ -15,35 +16,37 @@ const char* ptg_error_string(int code) {
 int ptg_chol_solve_sample(int is_f64, const void* Sig, const void* d,
                           const void* z, void* L, void* Li, void* dj,
                           void* mean, void* bp, int batch, int n,
-                          double ridge, void* stream) {
-  if (batch < 0 || n < 1 || n > kCholMaxN)
+                          double ridge, void* count, void* stream) {
+  if (batch < 0 || n < 1 || n > kCholMaxN || count == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* c = static_cast<unsigned long long*>(count);
   if (is_f64)
     return static_cast<int>(ptg_launch_chol_solve_sample_f64(
         static_cast<const double*>(Sig), static_cast<const double*>(d),
         static_cast<const double*>(z), static_cast<double*>(L),
         static_cast<double*>(Li), static_cast<double*>(dj),
         static_cast<double*>(mean), static_cast<double*>(bp), batch, n,
-        ridge, s));
+        ridge, c, s));
   return static_cast<int>(ptg_launch_chol_solve_sample_f32(
       static_cast<const float*>(Sig), static_cast<const float*>(d),
       static_cast<const float*>(z), static_cast<float*>(L),
       static_cast<float*>(Li), static_cast<float*>(dj),
       static_cast<float*>(mean), static_cast<float*>(bp), batch, n,
-      static_cast<float>(ridge), s));
+      static_cast<float>(ridge), c, s));
 }
 
 int ptg_gram_accumulate(const void* Ta, const void* N, void* G, void* extent,
                         int batch, int P, int nseg, int m, int B1, int Nmax,
-                        int form, void* stream) {
+                        int form, void* count, void* stream) {
   if (batch < 0 || P < 1 || batch % P != 0 || nseg < 1 || m < 1 ||
       B1 < 1 || B1 > kGramMaxB1 || Nmax < 1 || Nmax > nseg * m ||
-      form < 0 || form > 2)
+      form < 0 || form > 2 || count == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(ptg_launch_gram_accumulate(
       static_cast<const float*>(Ta), static_cast<const float*>(N), G,
       static_cast<int*>(extent), batch, P, nseg, m, B1, Nmax, form,
+      static_cast<unsigned long long*>(count),
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -118,8 +118,10 @@ chol_solve_sample_kernel(const T* __restrict__ Sig, const T* __restrict__ d,
                          const T* __restrict__ z, T* __restrict__ Lout,
                          T* __restrict__ Liout, T* __restrict__ djout,
                          T* __restrict__ mout, T* __restrict__ bpout,
-                         int batch, int n, int ld, T ridge) {
+                         int batch, int n, int ld, T ridge,
+                         unsigned long long* __restrict__ count) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(count, 1ull);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int sys = blockIdx.x * (blockDim.x >> 5) + warp;
@@ -310,7 +312,7 @@ chol_solve_sample_kernel(const T* __restrict__ Sig, const T* __restrict__ d,
 template <typename T, int R>
 cudaError_t launch_r(const T* Sig, const T* d, const T* z, T* L, T* Li,
                      T* dj, T* mean, T* bp, int batch, int n, T ridge,
-                     cudaStream_t stream) {
+                     unsigned long long* count, cudaStream_t stream) {
   // row stride: at least n + W, an odd multiple of W
   constexpr int W = Vec<T>::W;
   const int ld = ((n + W + W - 1) / W | 1) * W;
@@ -326,25 +328,25 @@ cudaError_t launch_r(const T* Sig, const T* d, const T* z, T* L, T* Li,
   }
   const int grid = (batch + spc - 1) / spc;
   chol_solve_sample_kernel<T, R><<<grid, 32 * spc, smem, stream>>>(
-      Sig, d, z, L, Li, dj, mean, bp, batch, n, ld, ridge);
+      Sig, d, z, L, Li, dj, mean, bp, batch, n, ld, ridge, count);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const T* Sig, const T* d, const T* z, T* L, T* Li, T* dj,
                    T* mean, T* bp, int batch, int n, T ridge,
-                   cudaStream_t stream) {
+                   unsigned long long* count, cudaStream_t stream) {
   if (batch == 0) return cudaSuccess;
   switch ((n + 31) / 32) {
     case 1:
       return launch_r<T, 1>(Sig, d, z, L, Li, dj, mean, bp, batch, n, ridge,
-                            stream);
+                            count, stream);
     case 2:
       return launch_r<T, 2>(Sig, d, z, L, Li, dj, mean, bp, batch, n, ridge,
-                            stream);
+                            count, stream);
     case 3:
       return launch_r<T, 3>(Sig, d, z, L, Li, dj, mean, bp, batch, n, ridge,
-                            stream);
+                            count, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -355,15 +357,15 @@ cudaError_t launch(const T* Sig, const T* d, const T* z, T* L, T* Li, T* dj,
 cudaError_t ptg_launch_chol_solve_sample_f32(
     const float* Sig, const float* d, const float* z, float* L, float* Li,
     float* dj, float* mean, float* bp, int batch, int n, float ridge,
-    cudaStream_t stream) {
-  return launch<float>(Sig, d, z, L, Li, dj, mean, bp, batch, n, ridge,
+    unsigned long long* count, cudaStream_t stream) {
+  return launch<float>(Sig, d, z, L, Li, dj, mean, bp, batch, n, ridge, count,
                        stream);
 }
 
 cudaError_t ptg_launch_chol_solve_sample_f64(
     const double* Sig, const double* d, const double* z, double* L,
     double* Li, double* dj, double* mean, double* bp, int batch, int n,
-    double ridge, cudaStream_t stream) {
+    double ridge, unsigned long long* count, cudaStream_t stream) {
   return launch<double>(Sig, d, z, L, Li, dj, mean, bp, batch, n, ridge,
-                        stream);
+                        count, stream);
 }

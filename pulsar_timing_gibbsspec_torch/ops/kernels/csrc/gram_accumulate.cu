@@ -198,6 +198,12 @@ __device__ void stream_stages(const Geom& g, const float* __restrict__ Ta,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Both Gram kernels add one to `count` as they finish (thread 0 of the
+// first CTA).  The counter is a parameter of its own and the add comes
+// last: a field in Geom, or the add at the start, changed ptxas's register
+// allocation of gram_f32_kernel<float> (64 -> 73 registers) and cost it a
+// fifth of its time on the main path.
+//
 // Float32 products; AccT is the segment-reduce and output type.  The CTA
 // holds cg chains x TB^2 threads, TB = ceil(B1 / 4); thread (c, tr, tc)
 // owns the 4 x 4 output tile (4 tr.., 4 tc..) of chain c.
@@ -205,7 +211,7 @@ template <typename AccT>
 __global__ void __launch_bounds__(kMaxThreads)
 gram_f32_kernel(const float* __restrict__ Ta, const float* __restrict__ N,
                 const int* __restrict__ extent, AccT* __restrict__ G,
-                Geom g) {
+                Geom g, unsigned long long* __restrict__ count) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int TB = (g.B1 + 3) / 4, B1P = 4 * TB;
   const int p = blockIdx.x, c0 = blockIdx.y * g.cg;
@@ -293,6 +299,8 @@ gram_f32_kernel(const float* __restrict__ Ta, const float* __restrict__ N,
       if (i < g.B1 && j < g.B1) Gb[i * g.B1 + j] = acc[u][v];
     }
   }
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
+    atomicAdd(count, 1ull);
 }
 
 // Widening float64 form on DMMA.  The CTA holds cg chains x RT warps,
@@ -304,7 +312,7 @@ template <int RT>
 __global__ void __launch_bounds__(kMaxThreads)
 gram_widen_kernel(const float* __restrict__ Ta, const float* __restrict__ N,
                   const int* __restrict__ extent, double* __restrict__ G,
-                  Geom g) {
+                  Geom g, unsigned long long* __restrict__ count) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int B8 = 8 * RT, ld = B8 + 4;
   const int p = blockIdx.x, c0 = blockIdx.y * g.cg;
@@ -377,6 +385,8 @@ gram_widen_kernel(const float* __restrict__ Ta, const float* __restrict__ N,
       if (i < g.B1 && j < g.B1) Gb[i * g.B1 + j] = acc[ct][e];
     }
   }
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
+    atomicAdd(count, 1ull);
 }
 
 int chains_per_cta(int target_threads, int per_chain) {
@@ -386,10 +396,10 @@ int chains_per_cta(int target_threads, int per_chain) {
 
 template <typename OutT>
 cudaError_t launch(void (*kernel)(const float*, const float*, const int*,
-                                  OutT*, Geom),
+                                  OutT*, Geom, unsigned long long*),
                    const Geom& g, int threads, size_t smem, const float* Ta,
                    const float* N, const int* extent, void* G,
-                   cudaStream_t stream) {
+                   unsigned long long* count, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -398,7 +408,7 @@ cudaError_t launch(void (*kernel)(const float*, const float*, const int*,
   }
   const dim3 grid(g.P, (g.chains + g.cg - 1) / g.cg);
   kernel<<<grid, threads, smem, stream>>>(Ta, N, extent,
-                                          static_cast<OutT*>(G), g);
+                                          static_cast<OutT*>(G), g, count);
   return cudaGetLastError();
 }
 
@@ -408,6 +418,7 @@ cudaError_t ptg_launch_gram_accumulate(const float* Ta, const float* N,
                                        void* G, int* extent, int batch,
                                        int P, int nseg, int m, int B1,
                                        int Nmax, int form,
+                                       unsigned long long* count,
                                        cudaStream_t stream) {
   if (batch == 0) return cudaSuccess;
   Geom g;
@@ -436,7 +447,8 @@ cudaError_t ptg_launch_gram_accumulate(const float* Ta, const float* N,
         (1 + g.cg) * static_cast<size_t>(kStageRows) * (8 * RT + 4) *
             sizeof(double);
     const auto run = [&](auto kernel) {
-      return launch(kernel, g, threads, smem, Ta, N, extent, G, stream);
+      return launch(kernel, g, threads, smem, Ta, N, extent, G, count,
+                    stream);
     };
     switch (RT) {
       case 1:
@@ -468,10 +480,10 @@ cudaError_t ptg_launch_gram_accumulate(const float* Ta, const float* N,
   switch (form) {
     case 0:
       return launch(gram_f32_kernel<float>, g, threads, smem, Ta, N, extent,
-                    G, stream);
+                    G, count, stream);
     case 1:
       return launch(gram_f32_kernel<double>, g, threads, smem, Ta, N, extent,
-                    G, stream);
+                    G, count, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -3,7 +3,9 @@
 // Each launcher enqueues one kernel on `stream`, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() right after the launch
 // so a refused launch (too many threads, too much shared memory) is
-// reported to the caller instead of silently never running.
+// reported to the caller instead of silently never running.  `count` is
+// a device counter the kernel adds one to each time it runs (thread 0 of
+// the first CTA), so runs replayed from a CUDA graph are counted too.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,12 +24,12 @@ constexpr int kGramExtentSlices = 8;
 cudaError_t ptg_launch_chol_solve_sample_f32(
     const float* Sig, const float* d, const float* z, float* L, float* Li,
     float* dj, float* mean, float* bp, int batch, int n, float ridge,
-    cudaStream_t stream);
+    unsigned long long* count, cudaStream_t stream);
 
 cudaError_t ptg_launch_chol_solve_sample_f64(
     const double* Sig, const double* d, const double* z, double* L,
     double* Li, double* dj, double* mean, double* bp, int batch, int n,
-    double ridge, cudaStream_t stream);
+    double ridge, unsigned long long* count, cudaStream_t stream);
 
 // G[b] = sum_s (Ta[b % P, s] / N[b, s])^T Ta[b % P, s] over Ta (P, nseg,
 // m, B1) and N (batch, Nmax), rows at or beyond Nmax of TNa zero; extent
@@ -38,4 +40,5 @@ cudaError_t ptg_launch_chol_solve_sample_f64(
 // form 2: float64 ("widen") accumulation inside and across segments
 cudaError_t ptg_launch_gram_accumulate(
     const float* Ta, const float* N, void* G, int* extent, int batch, int P,
-    int nseg, int m, int B1, int Nmax, int form, cudaStream_t stream);
+    int nseg, int m, int B1, int Nmax, int form, unsigned long long* count,
+    cudaStream_t stream);

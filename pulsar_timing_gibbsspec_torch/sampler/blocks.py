@@ -691,8 +691,11 @@ def rho_scale_moves_core(cm, x, b, u, eps, logu):
         r = cm.y - u
         dll = (delta * (r * t * invN).sum((-2, -1))
                - 0.5 * delta * delta * (t * t * invN).sum((-2, -1)))
-        rix = cm.rho_ix_x[k]
-        lrho = 2.0 * _LN10 * x[..., rix].to(cdt)
+        # a (1,) index: indexing with a 0-d device tensor reads it on the
+        # host, a sync a captured CUDA graph cannot hold
+        rix = cm.rho_ix_x[k:k + 1]
+        xr = x.index_select(-1, rix)[..., 0]
+        lrho = 2.0 * _LN10 * xr.to(cdt)
         rho = torch.exp(lrho)
         tau = 0.5 * (bs * bs + bc * bc)
         ez = torch.exp(z)
@@ -720,7 +723,7 @@ def rho_scale_moves_core(cm, x, b, u, eps, logu):
         u = torch.where(acc[..., None, None], u + delta[..., None, None] * t,
                         u)
         step = (0.5 / _LN10 * z).to(x.dtype)
-        x[..., rix] = torch.where(acc, x[..., rix] + step, x[..., rix])
+        x.index_copy_(-1, rix, torch.where(acc, xr + step, xr)[..., None])
     return x, b, u
 
 

@@ -128,6 +128,45 @@ class CompiledPTA:
     red_rhomax: float
     red_shares_gw: bool = True
     orf_name: str = "crn"
+    #: true basis width per real pulsar
+    widths: tuple = ()
+    #: pulsar names in logical order (empty when the arrays carry none)
+    pulsars: tuple = ()
+
+    # ---- names ------------------------------------------------------------
+
+    def b_param_names(self):
+        """Names of the flat b columns, the JAX facade's
+        ``b_param_names``: per real pulsar, ``<pulsar>_<signal>_<j>`` for
+        its timing-model columns (``linear_timing_model``), then each
+        Fourier column named after the first signal holding it, in the
+        model's signal order (the common process before intrinsic red).
+        A signal's name is its parameters' stem (``gw_crn``,
+        ``<pulsar>_red_noise``)."""
+        if len(self.pulsars) != self.P_real:
+            raise ValueError("the model carries no pulsar names; build it "
+                             "with build_crn_spectrum or pass 'pulsars' "
+                             "to from_arrays")
+        comps = [(c.cols.cpu().numpy(), c.rho_ix.cpu().numpy())
+                 for c in self.components]
+        out = []
+        for p, (psr, width) in enumerate(zip(self.pulsars, self.widths)):
+            gp = {int(j) for cols, _ in comps for j in cols[p]
+                  if j < self.Bmax}
+            ntm = width - len(gp)
+            named = {j: f"{psr}_linear_timing_model_{j}"
+                     for j in range(ntm)}
+            for cols, rix in comps:
+                live = cols[p] < self.Bmax
+                if not live.any():
+                    continue
+                sig = self.param_names[rix[p][live][0]].rsplit(
+                    "_log10_rho_", 1)[0]
+                start = int(cols[p][live].min())
+                for j in cols[p][live]:
+                    named.setdefault(int(j), f"{psr}_{sig}_{j - start}")
+            out += [named[j] for j in sorted(named)]
+        return out
 
     # ---- gathers ----------------------------------------------------------
 
@@ -274,7 +313,8 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
     """Build the port's :class:`CompiledPTA` from the arrays of a
     compiled model: ``fields`` maps the JAX ``CompiledPTA`` field names
     to numpy arrays / Python values (components as dicts with ``kind``,
-    ``cols``, ``rho_ix``).  Both sides then compute on the same
+    ``cols``, ``rho_ix``), plus the pulsar names under ``pulsars`` where
+    the arrays carry them.  Both sides then compute on the same
     model.  Raises ``NotImplementedError`` for models the port does not
     cover yet (anything but the CRN free-spectrum model)."""
     dev = resolve_device(device)
@@ -333,4 +373,6 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
         red_rhomin=float(fields["red_rhomin"]),
         red_rhomax=float(fields["red_rhomax"]),
         red_shares_gw=bool(fields.get("red_shares_gw", True)),
+        widths=tuple(int(w) for w in fields["widths"]),
+        pulsars=tuple(str(p) for p in fields.get("pulsars", ())),
     )

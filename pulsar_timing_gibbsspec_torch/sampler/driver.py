@@ -13,9 +13,28 @@ proposal, the ACT that sizes the white sub-chain), then steady sweeps
 with the near-exact ``draw_b_refresh`` in place of ``draw_b_mh`` on every
 iteration ``t`` with ``t % exact_every == 0``.  State is carried as
 ``(C, ...)`` tensors on the model's device and every block runs on all
-chains at once, so the kernels see ``C * P`` systems; each chunk of
-records is copied to the host once.  Randomness comes from one explicit
-``torch.Generator`` seeded from ``seed``.
+chains at once, so the kernels see ``C * P`` systems.
+
+**Random streams.**  One ``torch.Generator`` is re-seeded at the start
+of every sweep with :func:`stream_seed` of ``(seed, t)``, ``t`` the
+absolute iteration index (warmup sweeps ``0..W-1``, the adaptation sweep,
+then the steady sweeps); the initial exact b-draw has the stream
+``t = INIT_STREAM``.  A sweep's draws depend on nothing else: the port's
+form of the JAX ``fold_in(base_key, iteration)``.  So a resumed run
+replays the uninterrupted one bitwise, and a CUDA graph replayed after
+the re-seed draws what the eager sweep draws.  The CPU generator
+(mt19937) and the CUDA one (Philox) give different streams for one seed.
+
+**Steady loop.**  Steady sweeps run in chunks of ``chunk_size`` on a
+grid anchored at the first steady iteration, so every checkpoint lands
+on a chunk boundary and a resumed run replays the same grid; ``u = T b``
+is recomputed at each chunk start, as the JAX chunk does.  On a card the
+steady sweep replays CUDA graphs, one per block (:mod:`.graphs`), and
+the records are double-buffered: chunk i+1 is queued before chunk i's
+records are copied (pinned host buffers, a copy stream) and written
+back.  :meth:`TorchGibbsDriver.run` is a generator over recorded row
+counts that fills caller-owned ``chain``/``bchain`` arrays in the JAX
+row layout (``record_every`` thinning, chains axis dropped at C = 1).
 """
 
 from __future__ import annotations
@@ -27,20 +46,42 @@ import time
 import numpy as np
 import torch
 
-from ..config import settings
 from ..ops.acf import integrated_act_columns
 from . import blocks
 from .blocks import EXACT_EVERY
+from .graphs import SteadyGraphs
 
 #: single-site white MH steps per warmup sweep (before adaptation)
 WARMUP_WHITE_STEPS = 16
 #: cap on the ACT-sized white sub-chain of a steady sweep
 WHITE_STEPS_MAX = 64
+#: stream index of the initial exact b-draw
+INIT_STREAM = -1
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(z):
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def stream_seed(seed, t):
+    """64-bit generator seed of iteration ``t``'s stream:
+    ``splitmix64(splitmix64(seed) ^ t)`` on 64-bit words."""
+    return _splitmix64(_splitmix64(int(seed) & _MASK64) ^ (int(t) & _MASK64))
+
+
+#: the stream rule, as the checkpoint's layout section records it
+RNG_RULE = ("torch.Generator re-seeded per sweep with splitmix64("
+            "splitmix64(seed) ^ t), t the iteration (-1: initial exact b); "
+            "CPU mt19937 and CUDA Philox streams differ")
 
 
 class BlockTimer:
     """Milliseconds spent per named block: CUDA events around each block
-    on a card (read when :meth:`flush` synchronizes), the host clock on
+    on a card (read when :meth:`flush` waits for them), the host clock on
     the CPU.  Each block is also a ``block:<name>`` range for
     ``torch.profiler``."""
 
@@ -48,7 +89,9 @@ class BlockTimer:
         self.cuda = torch.device(device).type == "cuda"
         self.ms = collections.defaultdict(float)
         self.calls = collections.defaultdict(int)
-        self._pending = []
+        self._pending = collections.deque()
+        #: events recorded so far (a mark for :meth:`flush`)
+        self.recorded = 0
 
     @contextlib.contextmanager
     def __call__(self, name):
@@ -64,17 +107,23 @@ class BlockTimer:
             yield
             e.record()
             self._pending.append((name, s, e))
+            self.recorded += 1
         else:
             t0 = time.perf_counter()
             yield
             self.ms[name] += 1e3 * (time.perf_counter() - t0)
 
-    def flush(self):
-        if self._pending:
-            torch.cuda.synchronize()
-            for name, s, e in self._pending:
-                self.ms[name] += s.elapsed_time(e)
-            self._pending.clear()
+    def flush(self, upto=None):
+        """Add the pending blocks' times, the first ``upto - (recorded -
+        pending)`` of them when ``upto`` (an earlier :attr:`recorded`) is
+        given, waiting for each block's end."""
+        n = len(self._pending)
+        if upto is not None:
+            n -= self.recorded - upto
+        for _ in range(max(n, 0)):
+            name, s, e = self._pending.popleft()
+            e.synchronize()
+            self.ms[name] += s.elapsed_time(e)
 
 
 def _moment_proposal(rec, nper):
@@ -114,12 +163,91 @@ def _act_from_rec(rec, nper, P_real, pct=95.0):
     return max(1, int(np.ceil(np.percentile(acts, pct))))
 
 
+class _Carry:
+    """The eager steady carry ``(x, b, u)`` and its sweep
+    (:class:`.graphs.SteadyGraphs` is the graphed one)."""
+
+    graphed = False
+
+    def __init__(self, drv, x, b):
+        self.drv, self.x, self.b, self.u = drv, x, b, None
+
+    def reset_u(self):
+        """``u = T b`` afresh."""
+        self.u = blocks.b_matvec(self.drv.cm, self.b)
+
+    def sweep(self, exact):
+        self.x, self.b, self.u = self.drv._sweep(self.x, self.b, self.u,
+                                                 exact)
+
+
+class _Records:
+    """Record rows of one steady chunk on the device, its end-of-chunk
+    carry, and (on a card) pinned host twins filled by a copy stream."""
+
+    def __init__(self, drv, rows):
+        cm, C = drv.cm, drv.C
+        dev = cm.device
+        f64 = torch.float64
+        self.dev = dict(
+            xs=torch.empty((rows, C, cm.nx), dtype=torch.float32,
+                           device=dev),
+            bs=torch.empty((rows, C, drv.nb_total), dtype=f64, device=dev),
+            x_end=torch.empty((C, cm.nx), dtype=f64, device=dev),
+            b_end=torch.empty((C, cm.P, cm.Bmax), dtype=f64, device=dev),
+            acc=torch.empty((C, cm.P), dtype=f64, device=dev))
+        self.cuda = dev.type == "cuda"
+        if self.cuda:
+            self.host = {k: torch.empty(v.shape, dtype=v.dtype,
+                                        pin_memory=True)
+                         for k, v in self.dev.items()}
+            self.copied = torch.cuda.Event()
+        else:
+            self.host = self.dev
+        #: what the writeback needs: first row, rows, iteration after the
+        #: chunk, b_mh sweeps after it, the timer's mark
+        self.meta = None
+
+    def begin(self):
+        """Hold the main stream until this buffer's last copy is done."""
+        if self.cuda:
+            torch.cuda.current_stream().wait_event(self.copied)
+
+    def end(self, carry, acc, copy_stream):
+        d = self.dev
+        d["x_end"].copy_(carry.x)
+        d["b_end"].copy_(carry.b)
+        d["acc"].copy_(acc)
+        if self.cuda:
+            copy_stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(copy_stream):
+                for k, v in self.host.items():
+                    n = self.meta[1] if k in ("xs", "bs") else None
+                    v[:n].copy_(d[k][:n], non_blocking=True)
+                self.copied.record(copy_stream)
+
+    def read(self):
+        """Host numpy copies of the chunk's rows and carry (waits for
+        the copy)."""
+        if self.cuda:
+            self.copied.synchronize()
+        m = self.meta[1]
+        h = {k: v.numpy() for k, v in self.host.items()}
+        return (h["xs"][:m].astype(np.float64), h["bs"][:m].copy(),
+                h["x_end"].copy(), h["b_end"].copy(), h["acc"].copy())
+
+
 class TorchGibbsDriver:
     """Blocked Gibbs over ``nchains`` independent chains of the CRN
-    free-spectrum model ``cm`` (a compiled model on its device)."""
+    free-spectrum model ``cm`` (a compiled model on its device).
+
+    ``graphs`` (default: on when ``cm`` lives on a card) replays the
+    steady sweep from CUDA graphs; ``graphs=False`` runs it eagerly, the
+    check of the graphs against the eager sweep."""
 
     def __init__(self, cm, nchains=1, seed=0, warmup_sweeps=50,
-                 white_adapt_iters=1000):
+                 white_adapt_iters=1000, record_every=1, chunk_size=100,
+                 graphs=None):
         if len(cm.idx.red):
             raise NotImplementedError(
                 "powerlaw-family hyper MH blocks are not in the port yet")
@@ -132,52 +260,128 @@ class TorchGibbsDriver:
         self.C = int(nchains)
         if self.C < 1:
             raise ValueError("nchains must be >= 1")
+        self.seed = int(seed)
         self.warmup_sweeps = int(warmup_sweeps)
         self.white_adapt_iters = int(white_adapt_iters)
-        self.chunk_size = settings.chunk_size
+        self.chunk_size = int(chunk_size)
+        self.record_every = int(record_every)
+        if self.chunk_size < 1:
+            raise ValueError("chunk_size must be >= 1")
+        if self.record_every < 1:
+            raise ValueError("record_every must be >= 1")
+        if self.chunk_size % self.record_every:
+            raise ValueError(
+                f"record_every={self.record_every} must divide "
+                f"chunk_size={self.chunk_size}")
+        on_card = cm.device.type == "cuda"
+        self.graphs = on_card if graphs is None else bool(graphs)
+        if self.graphs and not on_card:
+            raise ValueError("CUDA graphs need a model on a cuda device")
         self.exact_every = EXACT_EVERY
         self.warmup_white_steps = WARMUP_WHITE_STEPS
         self.white_steps_max = WHITE_STEPS_MAX
         self.do_white = len(cm.idx.white) > 0
         self.do_red_conditional = bool((cm.red_rho_ix_x < cm.nx).any())
+        self.do_scale = blocks._rho_scale_applies(cm)
         self.gen = torch.Generator(device=cm.device)
-        self.gen.manual_seed(int(seed))
         self.timer = BlockTimer(cm.device)
         #: block milliseconds of the warmup and adaptation (``timer.ms``
         #: then holds the steady sweeps alone)
         self.warmup_ms = {}
         self.aclength_white = None
         self.chol_white = self.mode_white = self.asqrt_white = None
-        #: the state after the last run: x (C, nx) and b (C, P, Bmax)
-        self.x = None
-        self.b = torch.zeros((self.C, cm.P, cm.Bmax), dtype=cm.cdtype,
-                             device=cm.device)
-        #: per-(chain, pulsar) accepted steady Metropolised b-draws
+        #: host copies of the white adaptation state, for checkpoints
+        self._white_host = {}
+        # flat (pulsar, col) gather of padded (P, Bmax) b into the
+        # reference's concatenated per-pulsar layout
+        pi, ci = [], []
+        for ii, w in enumerate(cm.widths):
+            pi += [ii] * w
+            ci += list(range(w))
+        self._b_pi, self._b_ci = np.asarray(pi), np.asarray(ci)
+        self.nb_total = len(pi)
+        self._b_pi_t = torch.as_tensor(self._b_pi, device=cm.device)
+        self._b_ci_t = torch.as_tensor(self._b_ci, device=cm.device)
+        #: the padded b carry (C, P, Bmax) on the host at the last
+        #: writeback (the checkpoint's ``b_pad``)
+        self.b = torch.zeros((self.C, cm.P, cm.Bmax), dtype=cm.cdtype)
+        #: x carry (C, nx) float64 at the last writeback
+        self.x_cur = None
+        #: first iteration not yet run at the last writeback (a resumed
+        #: run starts there)
+        self.it_cur = 0
+        #: per-(chain, pulsar) accepted steady Metropolised b-draws (a
+        #: device counter the b_mh graph adds to) and their sweep count
         self.b_mh_accepts = torch.zeros((self.C, cm.P), dtype=torch.float64,
                                         device=cm.device)
         self.b_mh_sweeps = 0
+        self._acc_cur = np.zeros((self.C, cm.P))
+        self._b_mh_sweeps_cur = 0
         #: (chain, pulsar) Laplace factors of the warmup and adaptation
         #: that came out non-finite (their proposals are all rejected)
         self.laplace_nonfinite = torch.zeros((), dtype=torch.int64,
                                              device=cm.device)
         self.steady_sweeps = 0
-        #: wall seconds of the steady phase (host clock; every chunk ends
-        #: in the device-to-host copy of its records)
+        #: wall seconds of the steady phase (host clock, from the first
+        #: steady chunk's queueing to the last chunk's writeback; what the
+        #: caller does between the yields is inside it)
         self.steady_seconds = 0.0
+        #: the steady carry (:class:`_Carry` or :class:`.graphs.
+        #: SteadyGraphs`) after the last steady chunk
+        self.carry = None
+        self._copy_stream = None
 
-    # ---- blocks ------------------------------------------------------------
+    # ---- streams and blocks ------------------------------------------------
 
-    def _hyper(self, x, b, u):
-        cm, tm = self.cm, self.timer
-        if self.do_red_conditional:
-            with tm("red"):
-                x = blocks.red_conditional_update(cm, x, b, self.gen)
-        with tm("rho"):
-            x = blocks.rho_update(cm, x, b, self.gen)
-        if blocks._rho_scale_applies(cm):
-            with tm("scale"):
-                x, b, u = blocks.rho_scale_moves(cm, x, b, u, self.gen)
+    def _reseed(self, t):
+        self.gen.manual_seed(stream_seed(self.seed, t))
+
+    def _hyper_blocks(self):
+        return ((["red"] if self.do_red_conditional else []) + ["rho"]
+                + (["scale"] if self.do_scale else []))
+
+    def sweep_blocks(self, exact):
+        """Names of a steady sweep's blocks in the JAX order."""
+        white = ["white"] if self.do_white and self.aclength_white else []
+        return white + self._hyper_blocks() + [
+            "b_refresh" if exact else "b_mh"]
+
+    def block(self, name, x, b, u):
+        """One steady block on ``(x, b, u)``; returns the new triple.
+        ``b_mh`` adds its accept mask to :attr:`b_mh_accepts` in place."""
+        cm, gen = self.cm, self.gen
+        if name == "white":
+            r = cm.y - u
+            x, _ = blocks.parallel_cov_mh_scan(
+                cm, x, gen, blocks.white_block_ll(cm, x, r, r * r),
+                cm.white_par_ix, cm.white_nper, self.chol_white,
+                self.aclength_white, record=False, mode=self.mode_white,
+                asqrt=self.asqrt_white)
+        elif name == "red":
+            x = blocks.red_conditional_update(cm, x, b, gen)
+        elif name == "rho":
+            x = blocks.rho_update(cm, x, b, gen)
+        elif name == "scale":
+            x, b, u = blocks.rho_scale_moves(cm, x, b, u, gen)
+        elif name == "b_mh":
+            b, u, acc = blocks.draw_b_mh(cm, x, b, u, gen)
+            self.b_mh_accepts += acc.to(torch.float64)
+        elif name == "b_refresh":
+            b, u, _ = blocks.draw_b_refresh(cm, x, b, u, gen)
+        else:
+            raise ValueError(f"unknown block {name!r}")
         return x, b, u
+
+    def _set_white(self, **state):
+        """Set the white adaptation state (``chol_white``, ``mode_white``,
+        ``asqrt_white`` arrays) on the device, in the model's storage
+        type, and keep host copies: a checkpoint taken while a chunk runs
+        must not wait for the device."""
+        for key, val in state.items():
+            t = torch.as_tensor(np.asarray(val), dtype=self.cm.dtype,
+                                device=self.cm.device)
+            setattr(self, key, t)
+            self._white_host[key] = t.cpu().numpy()
 
     def _count_nonfinite(self, chol):
         self.laplace_nonfinite += (~torch.isfinite(chol)).any(-1).any(
@@ -185,7 +389,7 @@ class TorchGibbsDriver:
 
     def _warmup_sweep(self, x, b, u):
         """Pre-adaptation sweep: Laplace random-walk white sub-chain at
-        the current state, the hyper block, the Metropolised refresh."""
+        the current state, the hyper blocks, the Metropolised refresh."""
         cm, tm = self.cm, self.timer
         if self.do_white:
             with tm("white"):
@@ -199,42 +403,28 @@ class TorchGibbsDriver:
                     cm, x, self.gen, blocks.white_block_ll(cm, x, r, r2),
                     cm.white_par_ix, cm.white_nper, chol,
                     self.warmup_white_steps, record=False)
-        x, b, u = self._hyper(x, b, u)
+        for name in self._hyper_blocks():
+            with tm(name):
+                x, b, u = self.block(name, x, b, u)
         with tm("b_refresh"):
             b, u, _ = blocks.draw_b_refresh(cm, x, b, u, self.gen)
         return x, b, u
 
     def _sweep(self, x, b, u, exact):
-        """One steady sweep; ``exact`` selects the refresh b-draw."""
-        cm, tm = self.cm, self.timer
-        if self.do_white and self.aclength_white:
-            with tm("white"):
-                r = cm.y - u
-                x, _ = blocks.parallel_cov_mh_scan(
-                    cm, x, self.gen, blocks.white_block_ll(cm, x, r, r * r),
-                    cm.white_par_ix, cm.white_nper, self.chol_white,
-                    self.aclength_white, record=False, mode=self.mode_white,
-                    asqrt=self.asqrt_white)
-        x, b, u = self._hyper(x, b, u)
-        if exact:
-            with tm("b_refresh"):
-                b, u, _ = blocks.draw_b_refresh(cm, x, b, u, self.gen)
-        else:
-            with tm("b_mh"):
-                b, u, acc = blocks.draw_b_mh(cm, x, b, u, self.gen)
-            self.b_mh_accepts += acc.to(torch.float64)
-            self.b_mh_sweeps += 1
+        """One eager steady sweep; ``exact`` selects the refresh b-draw."""
+        for name in self.sweep_blocks(exact):
+            with self.timer(name):
+                x, b, u = self.block(name, x, b, u)
         return x, b, u
 
-    def _first_sweep(self, x):
+    def _first_sweep(self, x, b):
         """Adaptation: Laplace proposals at the white conditional mode, a
         record scan, the moment-matched proposal, a second record whose
         ACT fixes the steady white sub-chain length; then the red and
-        rho draws and a fresh exact b."""
+        rho draws and a fresh exact b.  Returns ``(x, b)``."""
         cm = self.cm
         f32 = cm.dtype
-        b = blocks.draw_b_fn(cm, x, self.gen, self.b)
-        self.b = b
+        b = blocks.draw_b_fn(cm, x, self.gen, b)
         if self.do_white:
             r2 = blocks.residual_sq(cm, b)
             x, chol, asq = blocks.laplace_newton_chol(
@@ -252,14 +442,10 @@ class TorchGibbsDriver:
                     self.white_adapt_iters, mode=mode.to(f32),
                     asqrt=asq.to(f32))
 
-            def dev(a):
-                return torch.as_tensor(a, dtype=f32, device=cm.device)
-
             x, rec2 = record(x, chol, mode, asq)
             m2, c2, a2 = _moment_proposal(rec2.cpu().numpy(),
                                           cm.white_nper.cpu().numpy())
-            self.mode_white, self.chol_white, self.asqrt_white = (
-                dev(m2), dev(c2), dev(a2))
+            self._set_white(mode_white=m2, chol_white=c2, asqrt_white=a2)
             x, rec3 = record(x, self.chol_white, self.mode_white,
                              self.asqrt_white)
             self.aclength_white = min(
@@ -269,10 +455,79 @@ class TorchGibbsDriver:
         if self.do_red_conditional:
             x = blocks.red_conditional_update(cm, x, b, self.gen)
         x = blocks.rho_update(cm, x, b, self.gen)
-        self.b = blocks.draw_b_fn(cm, x, self.gen, b)
-        return x
+        return x, blocks.draw_b_fn(cm, x, self.gen, b)
 
-    # ---- run ---------------------------------------------------------------
+    # ---- steady loop -------------------------------------------------------
+
+    def begin_steady(self, x, b):
+        """Make ``(x, b)`` (device tensors) the steady carry; with graphs
+        on, capture the steady blocks' graphs around it (a capture
+        failure raises)."""
+        if self.graphs:
+            self.carry = None        # release an earlier run's graphs
+            self.carry = SteadyGraphs(self, x, b)
+        else:
+            self.carry = _Carry(self, x, b)
+
+    def steady_chunk(self, it0, n, rec=None, it_base=None):
+        """Queue steady sweeps ``it0 .. it0 + n - 1`` on :attr:`carry`,
+        ``u = T b`` recomputed first.  With ``rec`` (:class:`_Records`),
+        the pre-sweep state of every iteration ``t`` with ``(t -
+        it_base) % record_every == 0`` goes to its next row."""
+        c = self.carry
+        c.reset_u()
+        r = 0
+        for t in range(it0, it0 + n):
+            if rec is not None and (t - it_base) % self.record_every == 0:
+                rec.dev["xs"][r].copy_(c.x)
+                rec.dev["bs"][r].copy_(c.b[:, self._b_pi_t, self._b_ci_t])
+                r += 1
+            self._reseed(t)
+            exact = t % self.exact_every == 0
+            c.sweep(exact)
+            if not exact:
+                self.b_mh_sweeps += 1
+        self.steady_sweeps += n
+
+    # ---- row layout (``jax_backend.py`` facade protocol) --------------------
+
+    def _b_flat(self, b_arr):
+        """(..., P, Bmax) -> (..., nb_total) reference layout."""
+        return np.asarray(b_arr, dtype=np.float64)[..., self._b_pi,
+                                                   self._b_ci]
+
+    def _rows_of(self, n):
+        """Recorded rows an offset-0 chunk of ``n`` sweeps ships."""
+        k = self.record_every
+        return (n + k - 1) // k
+
+    def _it_base(self, niter):
+        """First steady iteration: the residue anchor of the thinned
+        record and the anchor of the chunk grid."""
+        W = min(self.warmup_sweeps, max(0, niter - 1))
+        if W > 0:
+            return W + 1
+        return 1 if niter <= 1 else 2
+
+    def _row_layout(self, niter):
+        """Total recorded rows of an ``niter``-sweep run: thinned warmup
+        rows + the post-warmup carry row + one row per recorded steady
+        iteration; equals ``niter`` at record_every=1."""
+        W = min(self.warmup_sweeps, max(0, niter - 1))
+        base = self._rows_of(W) + 1 if W > 0 else (1 if niter <= 1 else 2)
+        it0 = self._it_base(niter)
+        return base + max(0, -(-(niter - it0) // self.record_every))
+
+    def chain_shapes(self, niter):
+        """``(chain_shape, bchain_shape)`` that :meth:`run` fills; the
+        chains axis appears only for nchains > 1."""
+        rows = self._row_layout(niter)
+        if self.C == 1:
+            return (rows, self.cm.nx), (rows, self.nb_total)
+        return (rows, self.C, self.cm.nx), (rows, self.C, self.nb_total)
+
+    def _squeeze(self, arr):
+        return arr[:, 0] if self.C == 1 else arr
 
     def _x_in(self, x):
         cm = self.cm
@@ -285,67 +540,209 @@ class TorchGibbsDriver:
         return x.clone()
 
     @staticmethod
-    def _check_finite(rows, row0, what, b):
-        """Raise on a non-finite record row, or on a non-finite ``b`` at
-        the end of the rows (which no later draw would replace)."""
-        bad = ~np.isfinite(rows)
+    def _check_finite(arr, it0, what):
+        """Raise on a non-finite row of a host record."""
+        bad = ~np.isfinite(arr)
         if bad.any():
-            r = int(np.argwhere(bad)[0][0])
+            first = int(np.argwhere(bad.any(
+                axis=tuple(range(1, arr.ndim))))[0][0])
             raise FloatingPointError(
-                f"non-finite {what} at chain row {row0 + r}")
-        if not bool(torch.isfinite(b).all()):
-            raise FloatingPointError(
-                f"non-finite b after chain row {row0 + len(rows) - 1}")
+                f"non-finite {what} written at row {it0 + first}: the "
+                "sweep produced NaN/inf; chain files up to the previous "
+                "checkpoint are valid")
 
-    def run(self, x0, niter):
-        """Sample ``niter`` rows from start ``x0`` ((nx,) or (C, nx)).
-        Returns the record (niter, C, nx) as a float32 host array: rows
-        ``0..W-1`` hold the pre-sweep warmup states, row ``W`` the
-        post-warmup state, and row ``t > W`` the state entering steady
-        iteration ``t``."""
+    # ---- run ---------------------------------------------------------------
+
+    def _start(self, x, chain, bchain, niter):
+        """Initial exact b-draw, warmup and adaptation; writes the
+        warmup rows and returns ``(x, b, first steady iteration, rows
+        written)``."""
+        cm, k = self.cm, self.record_every
+        self._reseed(INIT_STREAM)
+        b = blocks.draw_b_fn(cm, x, self.gen)
+        u = blocks.b_matvec(cm, b)
+        W = min(self.warmup_sweeps, max(0, niter - 1))
+        first = 0           # rows [first, wr] get the post-warmup state
+        if W > 0:
+            xs, bs = [], []
+            for t in range(W):
+                if t % k == 0:
+                    xs.append(x.to(torch.float32))
+                    bs.append(b[:, self._b_pi_t, self._b_ci_t])
+                self._reseed(t)
+                x, b, u = self._warmup_sweep(x, b, u)
+            xs_h = self._squeeze(torch.stack(xs).cpu().numpy().astype(
+                np.float64))
+            bs_h = self._squeeze(torch.stack(bs).cpu().numpy())
+            self._check_finite(xs_h, 0, "warmup state")
+            self._check_finite(bs_h, 0, "warmup b coefficients")
+            first = wr = self._rows_of(W)
+            chain[:wr] = xs_h
+            bchain[:wr] = bs_h
+        else:
+            # no warmup: the start state is row 0 and, when a steady
+            # sweep follows, row 1 too (the JAX layout)
+            W = wr = 0 if niter <= 1 else 1
+        x_h = self._squeeze(x.cpu().numpy()[None])
+        b_h = self._squeeze(self._b_flat(b.cpu().numpy())[None])
+        self._check_finite(x_h, wr, "post-warmup state")
+        self._check_finite(b_h, wr, "post-warmup b coefficients")
+        chain[first:wr + 1] = x_h[0]
+        bchain[first:wr + 1] = b_h[0]
+        self.timer.flush()
+        self._reseed(W)
+        x, b = self._first_sweep(x, b)
+        self.timer.flush()
+        self.warmup_ms = dict(self.timer.ms)
+        self.timer.ms.clear()
+        return x, b, W + 1, wr + 1
+
+    def _writeback(self, rec, chain, bchain):
+        row, m, it_end, bmh_end, mark = rec.meta
+        xs, bs, x_end, b_end, acc = rec.read()
+        xs, bs = self._squeeze(xs), self._squeeze(bs)
+        self._check_finite(xs, row, "chain state")
+        self._check_finite(bs, row, "b coefficients")
+        self._check_finite(b_end[None], row + m, "b carry")
+        chain[row:row + m] = xs
+        bchain[row:row + m] = bs
+        self.x_cur = x_end
+        self.b = torch.as_tensor(b_end)
+        self.it_cur = it_end
+        self._acc_cur, self._b_mh_sweeps_cur = acc, bmh_end
+        self.timer.flush(mark)
+        return row + m
+
+    def run(self, x, chain, bchain, start, niter):
+        """Sample rows ``start ..`` of an ``niter``-sweep run from ``x``
+        ((nx,) or (C, nx)) into ``chain``/``bchain`` (shapes of
+        :meth:`chain_shapes`), yielding the rows written so far after
+        each chunk.  Rows hold pre-sweep states: with ``record_every=1``,
+        rows ``0..W-1`` the warmup states, row ``W`` the post-warmup
+        state, row ``t > W`` the state entering steady iteration ``t``.
+        ``start > 0`` resumes after :meth:`load_adapt_state`, ``x`` then
+        being the checkpoint's carry."""
         cm = self.cm
         niter = int(niter)
         if niter < 1:
             raise ValueError("niter must be >= 1")
-        chain = np.empty((niter, self.C, cm.nx), np.float32)
-        x = self._x_in(x0)
-        self.b = blocks.draw_b_fn(cm, x, self.gen)
-        b = self.b
-        u = blocks.b_matvec(cm, b)
-        W = min(self.warmup_sweeps, niter - 1)
-        recs = []
-        for _ in range(W):
-            recs.append(x.to(torch.float32))
-            x, b, u = self._warmup_sweep(x, b, u)
-        recs.append(x.to(torch.float32))
-        rows = torch.stack(recs).cpu().numpy()
-        self._check_finite(rows, 0, "warmup state", b)
-        chain[:W + 1] = rows
-        self.timer.flush()
-        self.b = b
-        x = self._first_sweep(x)
-        b = self.b
-        self.timer.flush()
-        self.warmup_ms = dict(self.timer.ms)
-        self.timer.ms.clear()
-        t = W + 1
+        x = self._x_in(x)
+        if start == 0:
+            x, b, ii, rowc = self._start(x, chain, bchain, niter)
+            self.x_cur = x.cpu().numpy()
+            self.b = b.cpu()
+            self.it_cur = ii
+            self._acc_cur = self.b_mh_accepts.cpu().numpy()
+            self._b_mh_sweeps_cur = self.b_mh_sweeps
+            yield rowc
+        else:
+            rowc, ii = start, self.it_cur
+            b = self.b.to(cm.device)
+        if ii >= niter:
+            return
+        if rowc != self._row_layout(ii):
+            raise RuntimeError(
+                f"resume at row {rowc} does not match the checkpoint's "
+                f"iteration {ii} ({self._row_layout(ii)} rows); the chain "
+                "files and adapt.npz come from different saves")
+        it_base = self._it_base(niter)
+        k, cs = self.record_every, self.chunk_size
+        self.begin_steady(x, b)
+        if cm.device.type == "cuda" and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(cm.device)
+        recs = [_Records(self, cs // k), _Records(self, cs // k)]
+        pending = None
         t0 = time.perf_counter()
-        while t < niter:
-            n = min(self.chunk_size, niter - t)
-            # u = T b afresh at every chunk, as the JAX chunk does: the
-            # scale moves update it incrementally in between
-            u = blocks.b_matvec(cm, b)
-            recs = []
-            for it in range(t, t + n):
-                recs.append(x.to(torch.float32))
-                x, b, u = self._sweep(x, b, u,
-                                      exact=it % self.exact_every == 0)
-            rows = torch.stack(recs).cpu().numpy()
-            self._check_finite(rows, t, "chain state", b)
-            chain[t:t + n] = rows
-            self.timer.flush()
-            self.steady_sweeps += n
-            t += n
+        j = 0
+        while ii < niter:
+            n = min(cs - (ii - it_base) % cs, niter - ii)
+            off = (it_base - ii) % k
+            m = max(0, -(-(n - off) // k))
+            rec = recs[j % 2]
+            rec.begin()
+            self.steady_chunk(ii, n, rec, it_base)
+            rec.meta = (rowc, m, ii + n, self.b_mh_sweeps,
+                        self.timer.recorded)
+            rec.end(self.carry, self.b_mh_accepts, self._copy_stream)
+            if pending is not None:
+                yield self._writeback(pending, chain, bchain)
+            pending = rec
+            ii += n
+            rowc += m
+            j += 1
+        yield self._writeback(pending, chain, bchain)
         self.steady_seconds += time.perf_counter() - t0
-        self.x, self.b = x, b
-        return chain
+
+    # ---- checkpointable state ----------------------------------------------
+
+    def adapt_state(self):
+        """The state a resume needs, at the last writeback: the seed
+        (streams are pure in it and the iteration), the carry, the
+        iteration counter and the white adaptation."""
+        out = {"seed": np.uint64(self.seed & _MASK64),
+               "nchains": np.int64(self.C),
+               "b_pad": self.b.numpy().astype(np.float64),
+               "it_cur": np.int64(self.it_cur),
+               "record_every": np.int64(self.record_every),
+               "x_cur": np.asarray(
+                   self.x_cur if self.x_cur is not None
+                   else np.zeros((self.C, self.cm.nx))),
+               "b_mh_accepts": np.asarray(self._acc_cur),
+               "b_mh_sweeps": np.int64(self._b_mh_sweeps_cur),
+               **self._white_host}
+        if self.aclength_white is not None:
+            out["aclength_white"] = np.asarray(self.aclength_white)
+        return out
+
+    def load_adapt_state(self, state):
+        """Take the state of :meth:`adapt_state` back: a resumed
+        :meth:`run` continues from its carry at iteration ``it_cur``."""
+        state = dict(state)
+        cm = self.cm
+        missing = [k for k in ("seed", "b_pad", "it_cur", "x_cur")
+                   if k not in state]
+        if missing:
+            raise RuntimeError(
+                f"resume checkpoint lacks {', '.join(missing)} — it was "
+                "written by an incompatible version; delete the chain "
+                "directory to start fresh")
+        got_c = int(state.pop("nchains", 1))
+        if got_c != self.C:
+            raise RuntimeError(
+                f"resume checkpoint was written with nchains={got_c} but "
+                f"this sampler has nchains={self.C}; they must match")
+        got_k = int(state.pop("record_every", 1))
+        if got_k != self.record_every:
+            raise RuntimeError(
+                f"resume checkpoint was written with record_every={got_k} "
+                f"but this sampler has record_every={self.record_every}; "
+                "they must match")
+        self.seed = int(state["seed"])
+        b_pad = np.asarray(state["b_pad"], dtype=np.float64)
+        want = (self.C, cm.P, cm.Bmax)
+        if b_pad.shape != want:
+            raise RuntimeError(
+                f"resume checkpoint's b coefficients have shape "
+                f"{b_pad.shape} but this sampler is built for {want}; "
+                "resume with the model's original padding")
+        self.b = torch.as_tensor(b_pad, dtype=cm.cdtype)
+        self.it_cur = int(state["it_cur"])
+        self.x_cur = np.asarray(state["x_cur"], dtype=np.float64)
+        if "b_mh_accepts" in state:
+            self.b_mh_accepts = torch.as_tensor(
+                np.asarray(state["b_mh_accepts"]), dtype=torch.float64,
+                device=cm.device)
+            self.b_mh_sweeps = int(state.get("b_mh_sweeps", 0))
+            self._acc_cur = np.asarray(state["b_mh_accepts"])
+            self._b_mh_sweeps_cur = self.b_mh_sweeps
+        if "aclength_white" in state:
+            self.aclength_white = int(state["aclength_white"])
+        self._set_white(**{k: state[k] for k in (
+            "chol_white", "mode_white", "asqrt_white") if k in state})
+        if self.do_white and (self.aclength_white is None
+                              or self.chol_white is None
+                              or self.mode_white is None):
+            raise RuntimeError(
+                "resume checkpoint lacks white-noise adaptation state "
+                "(chol/mode_white) — it was written by an incompatible "
+                "version; delete the chain directory to start fresh")

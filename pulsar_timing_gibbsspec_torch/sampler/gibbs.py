@@ -2,20 +2,28 @@
 
 ``PTABlockGibbs(cm, nchains=C, device="cuda", seed=0)`` runs the CRN
 free-spectrum sweep of :mod:`.driver` on the compiled model ``cm``;
-``.sample(x0, outdir, niter)`` writes ``chain.npy`` (niter, C, nx) and
-``pars_chain.txt`` (one parameter name per line), the files of the JAX
-facade (``pulsar_timing_gibbsspec_tpu/sampler/gibbs.py``).
+``.sample(x0, outdir, niter, resume=False, save_every=100)`` is the JAX
+facade's (``pulsar_timing_gibbsspec_tpu/sampler/gibbs.py::_GibbsBase.
+sample``) without its fault, sentinel, drain and HDF5 branches: it writes
+``chain.npy`` / ``bchain.npy`` (rows of the JAX layout), ``pars_chain.txt``
+/ ``pars_bchain.txt``, ``adapt.npz`` and ``manifest.json`` every
+``save_every`` sweeps (rounded up to whole chunks) through
+:class:`.chains.ChainStore`, and ``resume=True`` continues a verified
+checkpoint bitwise.  A save runs on a thread while the driver samples the
+next chunk (one save at a time; the run ends when its last save has).
 """
 
 from __future__ import annotations
 
-from pathlib import Path
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ..config import resolve_device
-from .driver import TorchGibbsDriver
+from .chains import ChainStore
+from .driver import RNG_RULE, TorchGibbsDriver
 
 
 class PTABlockGibbs:
@@ -29,11 +37,22 @@ class PTABlockGibbs:
         self.cm = cm
         self.driver = TorchGibbsDriver(cm, nchains=nchains, seed=seed,
                                        **driver_opts)
-        self.chain = None
+        self.chain = self.bchain = None
+        #: host seconds the last sample()'s loop spent on checkpoints:
+        #: taking the state, and waiting for a save still running on its
+        #: thread (the store's ``seconds`` hold the saves' own time)
+        self.save_seconds = 0.0
+        #: the chain store of the last sample() (its ``seconds`` split the
+        #: saves by step)
+        self.store = None
 
     @property
     def param_names(self):
         return list(self.cm.param_names)
+
+    @property
+    def b_param_names(self):
+        return self.cm.b_param_names()
 
     def initial_sample(self, generator=None):
         """(C, nx) prior draw, one start per chain, on the model's device
@@ -49,13 +68,145 @@ class PTABlockGibbs:
         pa, pb = cm.pa.to(torch.float64), cm.pb.to(torch.float64)
         return pa + (pb - pa) * u
 
-    def sample(self, x0, outdir="./chains", niter=10000):
-        """Run ``niter`` rows from ``x0``; write and return the chain."""
-        chain = self.driver.run(x0, niter)
-        out = Path(outdir)
-        out.mkdir(parents=True, exist_ok=True)
-        np.save(out / "chain.npy", chain)
-        np.savetxt(out / "pars_chain.txt", np.asarray(self.param_names),
-                   fmt="%s")
-        self.chain = chain
+    def _checkpoint_extra(self):
+        """The manifest's ``layout`` section: the logical identity of
+        the sampled process (facade, chains, pulsars, padded width,
+        thinning, stream rule)."""
+        drv = self.driver
+        return {"layout": {"facade": type(self).__name__,
+                           "backend": "torch",
+                           "nchains": drv.C,
+                           "record_every": drv.record_every,
+                           "pulsars": [str(p) for p in self.cm.pulsars],
+                           "pad_pulsars": int(self.cm.P),
+                           "rng": RNG_RULE},
+                "shard_map": None}
+
+    def sample(self, x0, outdir="./chains", niter=10000, resume=False,
+               save_every=100):
+        """Run an ``niter``-sweep chain from ``x0`` ((nx,) or (C, nx)),
+        checkpointing to ``outdir``; with ``resume=True``, continue the
+        verified checkpoint there.  Returns the chain rows (the chains
+        axis dropped at C = 1)."""
+        drv = self.driver
+        if torch.is_tensor(x0):
+            x0 = x0.cpu().numpy()
+        xs = np.atleast_1d(np.asarray(x0, dtype=np.float64))
+        npar = len(self.param_names)
+        C = drv.C
+        ok_shapes = [(npar,)] + ([(C, npar)] if C > 1 else [])
+        if xs.shape not in ok_shapes:
+            raise ValueError(
+                f"x0 has shape {xs.shape}; this model has {npar} parameters "
+                f"(see .param_names)" + (f" and {C} chains" if C > 1 else ""))
+        store = self.store = ChainStore(outdir, self.param_names,
+                                        self.b_param_names)
+        cshape, bshape = drv.chain_shapes(niter)
+        total_rows = cshape[0]
+        rec_k = drv.record_every
+        chain = np.zeros(cshape)
+        bchain = np.zeros(bshape)
+        start = 0
+        x = xs
+        if resume:
+            got = store.load_resume()
+            if got is not None:
+                prev_c, prev_b, upto, adapt = got
+                upto = min(upto, total_rows)
+                if prev_c.shape[1:] != chain.shape[1:]:
+                    raise RuntimeError(
+                        f"{outdir}: cannot resume — saved chain rows have "
+                        f"shape {prev_c.shape[1:]} but this sampler "
+                        f"(nchains={C}) produces {chain.shape[1:]}; resume "
+                        "with the original nchains or start fresh")
+                chain[:upto] = prev_c[:upto]
+                bchain[:upto] = prev_b[:upto]
+                start = upto
+                if upto > 0:
+                    x = chain[upto - 1].copy()
+                if adapt is not None:
+                    drv.load_adapt_state(adapt)
+                    # the post-sweep carry (never a chain row yet):
+                    # resuming from it replays the uninterrupted run
+                    x = drv.x_cur
+                elif upto > 0:
+                    raise RuntimeError(
+                        f"{outdir}: chain files exist but adapt.npz is "
+                        "missing; cannot resume the adapted sampler state "
+                        "(delete the directory to start fresh)")
+
+        t0 = time.time()
+        self.save_seconds = 0.0
+        last_saved = upto_done = start
+        # save_every is in sweeps; yields count recorded rows
+        save_rows = max(1, save_every // rec_k)
+        ck_extra = self._checkpoint_extra()
+        # one save at a time runs on a thread beside the sampling loop,
+        # which meanwhile queues the next chunk and writes only later rows
+        saver = ThreadPoolExecutor(max_workers=1)
+        inflight = None
+        no_flush = False
+
+        def settle():
+            """Wait for the save in flight; its error propagates."""
+            nonlocal inflight, no_flush
+            if inflight is not None:
+                ts = time.perf_counter()
+                fut, inflight = inflight, None
+                fut.result()
+                no_flush = False
+                self.save_seconds += time.perf_counter() - ts
+
+        def save(upto):
+            nonlocal inflight, no_flush
+            settle()
+            ts = time.perf_counter()
+            no_flush = True              # a crash inside save: don't re-save
+            inflight = saver.submit(store.save, chain, bchain, upto,
+                                    adapt_state=drv.adapt_state(),
+                                    extra=ck_extra)
+            self.save_seconds += time.perf_counter() - ts
+
+        try:
+            for upto in drv.run(x, chain, bchain, start, niter):
+                upto_done = upto
+                if upto - last_saved >= save_rows or upto >= total_rows:
+                    save(upto)
+                    if upto >= total_rows:
+                        settle()     # the run ends with its last save
+                    el = time.time() - t0
+                    rate = ((upto - start) * rec_k / el if el > 0
+                            else float("nan"))
+                    store.log_metrics({
+                        "iter": int(drv.it_cur), "niter": int(niter),
+                        "rows": int(upto) if rec_k > 1 else None,
+                        "elapsed_s": round(el, 3),
+                        "sweeps_per_s": round(rate, 3),
+                        "record_every": rec_k if rec_k > 1 else None,
+                        "backend": "torch", "nchains": C,
+                        "aclength_white": drv.aclength_white})
+                    last_saved = upto
+            settle()
+        finally:
+            try:
+                settle()       # an exception left a save in flight
+            except Exception as exc:
+                # the exception in flight is the one to raise; record this
+                store.log_metrics({"event": "save_failed",
+                                   "error": repr(exc)})
+            if upto_done > last_saved and not no_flush:
+                # bounded-loss flush: an interrupt or a failure between
+                # checkpoints still persists every verified row
+                try:
+                    save(upto_done)
+                    settle()
+                    store.log_metrics({"event": "final_flush",
+                                       "rows": int(upto_done),
+                                       "backend": "torch"})
+                except Exception:
+                    # never mask the original exception with a failed
+                    # best-effort flush
+                    pass
+            saver.shutdown()
+        self.chain, self.bchain = chain, bchain
         return chain

@@ -1,0 +1,124 @@
+"""The steady sweep replayed from CUDA graphs.
+
+The port's counterpart of the JAX package's compiled chunk program
+(``jax_backend.py::_make_chunk``): after adaptation every shape of the
+steady sweep is fixed (the white sub-chain length ``aclength_white``
+included), so each of its blocks (white, red, rho, scale, b_mh,
+b_refresh) is captured once as a CUDA graph and a sweep is a few graph
+launches in place of ~12 600 kernel launches from the host.
+
+- ``x``, ``b``, ``u = T b`` and the b_mh acceptance counters live in
+  static buffers that every graph reads and writes in place.
+- The driver's generator is registered with every graph, so a replay
+  draws from the generator's current seed and offset and advances the
+  offset by what the capture drew; the driver re-seeds it between
+  replays (never during a capture), and a replay after
+  ``manual_seed(s)`` draws what the eager block draws from offset 0.
+- Each block is run once on copies of the state, on the capturing
+  stream, before it is captured: the kernels load and the library
+  handles and workspaces are made outside the capture.
+- The kernels count their own runs on the card, replays included
+  (``ops.kernels.device_launches``).  :attr:`SteadyGraphs.launches` holds
+  the launches each capture recorded and :attr:`SteadyGraphs.replays` the
+  replays of each graph, so the runs the replays should have made can be
+  held against the device's count since the captures
+  (:meth:`SteadyGraphs.replayed_launches`, :attr:`SteadyGraphs.
+  device_at_capture`).
+- A capture failure raises: there is no quiet return to the eager sweep.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+
+import torch
+
+from ..ops import kernels
+from . import blocks
+
+
+class SteadyGraphs:
+    """One CUDA graph per steady block of ``drv`` (a
+    :class:`.driver.TorchGibbsDriver` after adaptation), captured around
+    static copies of ``x`` (C, nx) and ``b`` (C, P, Bmax)."""
+
+    graphed = True
+
+    def __init__(self, drv, x, b):
+        cm = drv.cm
+        if cm.device.type != "cuda":
+            raise ValueError("CUDA graphs need a model on a cuda device")
+        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            raise RuntimeError(
+                "this PyTorch cannot register a generator with a CUDA "
+                "graph (CUDAGraph.register_generator_state); run the "
+                "driver with graphs=False")
+        self.drv = drv
+        self.x = x.clone()
+        self.b = b.clone()
+        self.u = blocks.b_matvec(cm, self.b)
+        names = dict.fromkeys(drv.sweep_blocks(False)
+                              + drv.sweep_blocks(True))
+        stream = torch.cuda.Stream(cm.device)
+        torch.cuda.synchronize(cm.device)
+        t0 = time.perf_counter()
+        acc0 = drv.b_mh_accepts.clone()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            for name in names:
+                drv.block(name, self.x.clone(), self.b.clone(),
+                          self.u.clone())
+        torch.cuda.current_stream().wait_stream(stream)
+        drv.b_mh_accepts.copy_(acc0)
+        torch.cuda.synchronize(cm.device)
+        # every capture empties the allocator's cache first; so does this
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved(cm.device)
+        pool = torch.cuda.graph_pool_handle()
+        #: the graphs, and the kernel launches ``{(kernel, form): n}``
+        #: each capture recorded, by block
+        self.graphs, self.launches = {}, {}
+        for name in names:
+            g = torch.cuda.CUDAGraph()
+            g.register_generator_state(drv.gen)
+            before = kernels.launch_counts()
+            with torch.cuda.graph(g, pool=pool, stream=stream):
+                x, b, u = drv.block(name, self.x, self.b, self.u)
+                for dst, src in ((self.x, x), (self.b, b), (self.u, u)):
+                    if src is not dst:
+                        dst.copy_(src)
+            after = kernels.launch_counts()
+            self.graphs[name] = g
+            self.launches[name] = {k: after[k] - before[k] for k in after
+                                   if after[k] != before[k]}
+        torch.cuda.synchronize(cm.device)
+        #: host seconds of the warm-up pass and the captures
+        self.capture_seconds = time.perf_counter() - t0
+        #: device memory the captures reserved (the graphs' pool)
+        self.pool_bytes = torch.cuda.memory_reserved(cm.device) - mem0
+        #: the kernels' device counts once the captures are done
+        self.device_at_capture = kernels.device_launches()
+        #: replays of each graph
+        self.replays = collections.Counter()
+
+    def replayed_launches(self):
+        """``{(kernel, form): n}``: the kernel runs the replays so far
+        should have made (each capture's launches times its replays)."""
+        out = collections.Counter()
+        for name, counts in self.launches.items():
+            for key, n in counts.items():
+                out[key] += n * self.replays[name]
+        return dict(out)
+
+    def reset_u(self):
+        """``u = T b`` afresh, into the static buffer."""
+        self.u.copy_(blocks.b_matvec(self.drv.cm, self.b))
+
+    def sweep(self, exact):
+        """Replay one steady sweep's graphs in the JAX order, each inside
+        the driver's block timer."""
+        for name in self.drv.sweep_blocks(exact):
+            with self.drv.timer(name):
+                self.graphs[name].replay()
+            self.replays[name] += 1

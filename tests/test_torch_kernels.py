@@ -239,6 +239,7 @@ def test_cpu_tensors_never_build_or_launch():
     assert build._lib is None
     assert kernels.gram_accumulate.launches == 0
     assert kernels.chol_solve_sample.launches == 0
+    assert not any(kernels.device_launches().values())
 
 
 def test_cpu_sampler_blocks_never_build_or_launch():

@@ -61,13 +61,24 @@ def test_common_spectrum_posterior_matches_jax(runs):
 
 
 def test_chain_files_and_layout(runs):
+    from pulsar_timing_gibbsspec_torch.runtime import integrity
+
     _, tg, tchain, out, _ = runs
     cm = tg.cm
     assert tchain.shape == (NITER, C, cm.nx)
-    assert np.isfinite(tchain).all()
+    assert tg.bchain.shape == (NITER, C, sum(cm.widths))
+    assert np.isfinite(tchain).all() and np.isfinite(tg.bchain).all()
     assert np.array_equal(np.load(out / "chain.npy"), tchain)
+    assert np.array_equal(np.load(out / "bchain.npy"), tg.bchain)
     names = (out / "pars_chain.txt").read_text().split()
     assert names == list(cm.param_names)
+    bnames = (out / "pars_bchain.txt").read_text().split()
+    assert bnames == cm.b_param_names() and len(bnames) == sum(cm.widths)
+    rep = integrity.verify(out)
+    assert rep["ok"] and rep["rows"] == NITER
+    with np.load(out / "adapt.npz") as z:
+        assert np.array_equal(z["x_cur"], tg.driver.x_cur)
+        assert int(z["it_cur"]) == NITER
     # rows 0..WARM-1 are warmup states, row WARM the post-warmup state:
     # chains diverge from the shared start
     assert np.ptp(tchain[0], axis=0).max() == 0.0
