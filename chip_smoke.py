@@ -4,9 +4,9 @@
 Usage: python3 chip_smoke.py [--seed S] [--outdir DIR] [--steady N]
 
 (``DIR``, default ``build/chip_smoke``, receives the checkpoint
-directories of phases 3b, 4 and 6; ``N``, default 240, is the main
-path's steady sweeps: a deeper run reads what checkpoints cost as the
-record grows.)
+directories of phases 3b, 4, 6 and 7; ``N``, default 240, is the steady
+sweeps of both main paths: a deeper run reads what checkpoints cost as
+the record grows.)
 
 Phases (any failure exits non-zero):
 
@@ -21,7 +21,12 @@ Phases (any failure exits non-zero):
    equivalent and the least time the card could take (bytes over the HBM
    rate, operations over the peak rate of their type); the Gram also
    beside the path that materialized ``TNa = Ta / N`` before
-   ``torch.matmul``, with the peak device memory of one call of each;
+   ``torch.matmul``, with the peak device memory of one call of each.
+   The wide forms likewise at the single-pulsar path's shape (README's
+   Quick-start model of the J1713+0747 snapshot, 30 bins, 8 chains:
+   Bmax = 673, Nmax = 720), the wide factor also held to the plain
+   chain's backward error, and both wide forms timed at 64 systems
+   too (the 45-pulsar path's batch, where the card is full);
 3. small-input agreement: the steady b-draw on a 3-pulsar model, with
    the same state and noise on the card and on the CPU;
 3b. graphs against eager: on the 45-pulsar model at 64 chains, after a
@@ -49,7 +54,19 @@ Phases (any failure exits non-zero):
    a second window traced on the host as well;
 6. resume: the same model at 8 chains, 5 warmup and 64 steady sweeps,
    run whole and split at a chunk boundary then resumed, both through
-   the graphs: ``chain.npy`` and ``bchain.npy`` bitwise equal.
+   the graphs: ``chain.npy`` and ``bchain.npy`` bitwise equal;
+7. the single-pulsar main path: README's Quick-start model of
+   ``tests/data/enterprise_J1713+0747.npz`` (basis ECORR, the inverse-CDF
+   rho draw) sampled by ``PulsarBlockGibbs(nchains=8)`` through 50
+   warmup sweeps, adaptation and 240 steady sweeps replayed from the
+   CUDA graphs, checkpointed every 100 sweeps, with the launch counts set
+   to 0 just before it: samples/s, per-block ms, the white and ECORR
+   sub-chain lengths, the b_mh and refresh acceptance per chain, every
+   record finite, every log10_rho median inside (-10, -4), the final
+   checkpoint verified, every wide kernel form run on the card and each
+   graphed one replayed as often as captured times replays; then (7b)
+   17 graph-replayed steady sweeps bitwise equal to eager ones and (7c)
+   a split-and-resumed run bitwise equal to a whole one, as in 3b and 6.
 
 The kernels' JSON record and the card as ``nvidia-smi`` reports it are
 the two lines before the last; the last line is the JSON result.
@@ -75,8 +92,11 @@ _PALLAS = "pulsar_timing_gibbsspec_tpu/ops/kernels/pallas_tpu.py"
 _CSRC = "pulsar_timing_gibbsspec_torch/ops/kernels/csrc"
 REPLACES = {"chol_solve_sample": f"{_PALLAS}:33",
             "gram_accumulate": f"{_PALLAS}:61"}
-SOURCES = {"chol_solve_sample": f"{_CSRC}/chol_solve_sample.cu",
-           "gram_accumulate": f"{_CSRC}/gram_accumulate.cu"}
+#: each kernel's source: narrow form, wide form
+SOURCES = {"chol_solve_sample": (f"{_CSRC}/chol_solve_sample.cu",
+                                 f"{_CSRC}/chol_solve_sample_wide.cu"),
+           "gram_accumulate": (f"{_CSRC}/gram_accumulate.cu",
+                               f"{_CSRC}/gram_accumulate_wide.cu")}
 #: the device the run drives
 DEVICE = "cuda"
 #: the main path: chains, warmup sweeps, steady sweeps after adaptation
@@ -96,9 +116,17 @@ TRACE_NAMES = {("chol_solve_sample", "f32"): "chol_solve_sample_kernel<float",
 #: widening Gram runs eagerly, in the warmup and the adaptation)
 GRAPHED = (("chol_solve_sample", "f32"), ("gram_accumulate", "f32"),
            ("gram_accumulate", "f32_dot_f64_reduce"))
+#: the same for the wide forms on the single-pulsar path
+WIDE_GRAPHED = (("chol_solve_sample", "f32_wide"),
+                ("gram_accumulate", "f32_wide"),
+                ("gram_accumulate", "f32_dot_f64_reduce_wide"))
 #: steady sweeps of the graphs-against-eager phase, from iteration 5
 #: (so iteration 16 is its one refresh)
 GRAPH_CHECK_SWEEPS = 17
+#: the single-pulsar path: the snapshot, its frequency bins, its chains;
+#: the systems the wide forms are also timed at
+SNAPSHOT = "tests/data/enterprise_J1713+0747.npz"
+SINGLE_BINS, SINGLE_CHAINS, WIDE_TIMING_SYSTEMS = 30, 8, 64
 #: the resume phase: chains, warmup and steady sweeps, chunk length
 RESUME_CHAINS, RESUME_WARMUP, RESUME_STEADY, RESUME_CHUNK = 8, 5, 64, 16
 
@@ -109,6 +137,45 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def resource_usage(lib):
+    """Registers, stack frame (spills land there) and static shared
+    memory of every kernel in the built library, from ``cuobjdump
+    -res-usage`` (names demangled by ``cu++filt``, argument lists cut;
+    a narrow kernel's dynamic shared memory is not in it):
+    ``[(name, REG, STACK, SHARED), ...]``, empty where the tools fail."""
+    import re
+
+    tools = Path("/usr/local/cuda/bin")
+    try:
+        out = subprocess.run([str(tools / "cuobjdump"), "-res-usage",
+                              str(lib)], capture_output=True, text=True,
+                             timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return []
+    rows, name = [], None
+    for line in out.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+) SHARED:(\d+)", line)
+        if m and name:
+            rows.append([name] + [int(v) for v in m.groups()])
+            name = None
+    try:
+        names = subprocess.run([str(tools / "cu++filt")]
+                               + [r[0] for r in rows], capture_output=True,
+                               text=True, timeout=60,
+                               check=True).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                # drop the argument list (template arguments stay)
+                r[0] = re.sub(r"\([^()]*\)$", "", n.strip())
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return [tuple(r) for r in rows]
 
 
 def cuda_ms(fn, reps=30, warm=3):
@@ -169,7 +236,8 @@ def bound_ms(nbytes, flops, kind):
 
 def parity_state(cm, C, gen):
     """A seeded state near the sampler's stationary region: efac in
-    [0.8, 1.2], equad in [-8.5, -6.5], the common log10_rho at the
+    [0.8, 1.2], equad in [-8.5, -6.5], ecorr in [-8, -6.5], the common
+    log10_rho at the
     injected power law (log10_A = log10(2e-15), gamma = 13/3) +-0.3 dex,
     the red log10_rho in [-9, -8.5]."""
     import torch
@@ -186,6 +254,8 @@ def parity_state(cm, C, gen):
             x[:, j] = 0.8 + 0.4 * u[:, j]
         elif nm.endswith("_log10_tnequad"):
             x[:, j] = -8.5 + 2.0 * u[:, j]
+        elif nm.endswith("_log10_ecorr"):
+            x[:, j] = -8.0 + 1.5 * u[:, j]
         elif "red_noise_log10_rho" in nm:
             x[:, j] = -9.0 + 0.5 * u[:, j]
         elif nm.startswith("gw_crn_log10_rho_"):
@@ -211,7 +281,8 @@ def gram_parity(cm, x, timer):
     the rows this run's data needs (rows past a pulsar's last nonzero Ta
     row add exact zeros, and the kernel skips them); the bound over the
     whole grid, and that of a kernel reading a materialized ``TNa``, are
-    printed beside it."""
+    printed beside it.  A width beyond the narrow form's runs the wide
+    form (``*_wide``)."""
     import torch
 
     from pulsar_timing_gibbsspec_torch.config import settings
@@ -224,6 +295,7 @@ def gram_parity(cm, x, timer):
     C = N.shape[0]
     N = N.reshape(-1, N.shape[-1]).contiguous()
     P, nseg, m, B1 = Ta.shape
+    suffix = "_wide" if B1 > kernels.GRAM_MAX_B1 else ""
     Bt = N.shape[0]
     TNa = ref.gram_operand(Ta, N)
     # the rows this run's data needs: a row past a pulsar's last nonzero Ta
@@ -280,10 +352,11 @@ def gram_parity(cm, x, timer):
                                 "f64" if widen else "f32")
         old_bms, old_bby = bound_ms((TNa.numel() + Ta.numel()) * 4 + gbytes,
                                     flops, "f64" if widen else "f32")
-        recs[("gram_accumulate", form)] = dict(
+        recs[("gram_accumulate", form + suffix)] = dict(
             max_abs_err=diff.max().item(), ms=ms_k, plain_ms=ms_p,
             bound_ms=bms, bound_by=bby, library_ms=lib)
-        print(f"phase 2 gram_accumulate[{form}]: max |kernel-plain| / "
+        print(f"phase 2 gram_accumulate[{form}{suffix}] (B1 {B1}, {Bt} "
+              "rows of N): max |kernel-plain| / "
               f"Jacobi scale {err:.3e} (tol {tol:.3e}) "
               f"{'ok' if good else 'FAIL'}; device ms (event ms): kernel "
               f"{ms_k:.4f} ({ev_k:.4f}), plain {ms_p:.4f} ({ev_p:.4f}), "
@@ -313,12 +386,45 @@ def peak_mb(fn):
     return peak / 1e6
 
 
+def _backward(L, Li, A):
+    """Largest backward errors of a factor over the batch, in float64:
+    ``|L L^T - A|`` and ``|Li L - I|``."""
+    import torch
+
+    L, Li = L.double(), Li.double()
+    eye = torch.eye(A.shape[-1], dtype=torch.float64, device=A.device)
+    return ((L @ L.transpose(-1, -2) - A).abs().amax().item(),
+            (Li @ L - eye).abs().amax().item())
+
+
+def library_factor(Sig, d, z, ridge):
+    """The factor chain's five outputs from PyTorch's library calls
+    (``torch.linalg.cholesky`` and ``solve_triangular``): the yardstick
+    beside the kernel, never called by the port."""
+    import torch
+
+    eye = torch.eye(Sig.shape[-1], dtype=Sig.dtype, device=Sig.device)
+    dj = 1.0 / torch.sqrt(torch.diagonal(Sig, dim1=-2, dim2=-1))
+    A = Sig * dj[:, :, None] * dj[:, None, :] + ridge * eye
+    L = torch.linalg.cholesky(A)
+    Li = torch.linalg.solve_triangular(L, eye.expand_as(A), upper=False)
+    w = torch.linalg.solve_triangular(L, (dj * d)[..., None], upper=False)
+    mz = torch.linalg.solve_triangular(
+        L.transpose(-1, -2), torch.cat([w, z[..., None]], -1), upper=True)
+    mean = dj * mz[..., 0]
+    return L, Li, dj, mean, mean + dj * mz[..., 1]
+
+
 def chol_parity(cm, x, gen, timer):
     """Phase 2, factor chain: the float32 kernel's error against a
     float64 evaluation of the same float32 inputs must stay in the plain
     float32 chain's class (at most 8x its error plus 64 eps of the
     output's scale), and the float64 kernel must match the float64 chain
-    to 1e-8 of the output's scale."""
+    to 1e-8 of the output's scale.  An order beyond the narrow form's
+    runs the wide form (``*_wide``), which is also held to the plain
+    chain's backward errors ``|L L^T - A|`` and ``|Li L - I|`` (A the
+    preconditioned matrix in float64): at most 8x the plain chain's plus
+    64 eps_f32 of the matrix scale."""
     import torch
 
     from pulsar_timing_gibbsspec_torch.ops import kernels
@@ -341,6 +447,8 @@ def chol_parity(cm, x, gen, timer):
     def run_p():
         return ref(Sig, d, z, ridge=ridge)
 
+    wide = n > kernels.CHOL_MAX_N
+    form = "f32_wide" if wide else "f32"
     K, Pl = run_k(), run_p()
     R = ref(Sig.double(), d.double(), z.double(), ridge=ridge)
     K64 = kernels.chol_solve_sample(Sig.double(), d.double(), z.double(),
@@ -357,38 +465,100 @@ def chol_parity(cm, x, gen, timer):
                 and e64 <= 1e-8 * rmax)
         ok &= good
         mae = max(mae, (k - p).abs().max().item())
-        print(f"phase 2 chol_solve_sample {name}: |kernel-f64| {ek:.3e}, "
+        print(f"phase 2 chol_solve_sample[{form}] {name}: "
+              f"|kernel-f64| {ek:.3e}, "
               f"|plain-f64| {ep:.3e}, tol {tol:.3e}; float64 kernel "
               f"{e64:.3e} (tol {1e-8 * rmax:.3e}) {'ok' if good else 'FAIL'}",
               flush=True)
-
-    def library_chain():
-        dj = 1.0 / torch.sqrt(torch.diagonal(Sig, dim1=-2, dim2=-1))
-        A = Sig * dj[:, :, None] * dj[:, None, :] + ridge * eye
-        L = torch.linalg.cholesky(A)
-        Li = torch.linalg.solve_triangular(L, eye.expand_as(A), upper=False)
-        w = torch.linalg.solve_triangular(L, (dj * d)[..., None],
-                                          upper=False)
-        mz = torch.linalg.solve_triangular(
-            L.transpose(-1, -2), torch.cat([w, z[..., None]], -1),
-            upper=True)
-        mean = dj * mz[..., 0]
-        return L, Li, dj, mean, mean + dj * mz[..., 1]
+    if wide:
+        dj = K[2].double()
+        A = (Sig.double() * dj[:, :, None] * dj[:, None, :]
+             + ridge * torch.eye(n, dtype=torch.float64, device=Sig.device))
+        bk, bp = _backward(K[0], K[1], A), _backward(Pl[0], Pl[1], A)
+        tol = [8.0 * e + 64.0 * EPS["f32"] for e in bp]
+        good = all(k <= t for k, t in zip(bk, tol))
+        ok &= good
+        print(f"phase 2 chol_solve_sample[{form}] backward errors |L L^T - "
+              f"A|, |Li L - I|: kernel {bk[0]:.3e}, {bk[1]:.3e}; plain "
+              f"{bp[0]:.3e}, {bp[1]:.3e}; tol {tol[0]:.3e}, {tol[1]:.3e} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+    del K64, R
 
     (ms_k, ev_k), (ms_p, ev_p), (lib, ev_lib) = (
-        timer(run_k), timer(run_p), timer(library_chain))
+        timer(run_k), timer(run_p),
+        timer(lambda: library_factor(Sig, d, z, ridge)))
     Bt = Sig.shape[0]
     nbytes = Bt * (3 * n * n + 5 * n) * 4
     flops = Bt * (2.0 * n ** 3 / 3.0 + 6.0 * n * n)
     bms, bby = bound_ms(nbytes, flops, "f32")
-    print(f"phase 2 chol_solve_sample[f32]: {'ok' if ok else 'FAIL'}; max "
+    print(f"phase 2 chol_solve_sample[{form}] ({Bt} systems of order {n}): "
+          f"{'ok' if ok else 'FAIL'}; max "
           f"|kernel-plain| {mae:.3e}; device ms (event ms): kernel "
           f"{ms_k:.4f} ({ev_k:.4f}), plain {ms_p:.4f} ({ev_p:.4f}), "
           f"cholesky+solve_triangular chain {lib:.4f} ({ev_lib:.4f}); bound "
           f"{bms:.4f} ms ({bby})", flush=True)
-    return {("chol_solve_sample", "f32"): dict(
+    return {("chol_solve_sample", form): dict(
         max_abs_err=mae, ms=ms_k, plain_ms=ms_p, bound_ms=bms,
         bound_by=bby, library_ms=lib)}, ok
+
+
+def wide_at_scale(cm, x, timer):
+    """Phase 2, the wide forms at ``WIDE_TIMING_SYSTEMS`` systems (the
+    single-pulsar state repeated over chains): device and event ms of
+    each against its bound and its library call (printed only; the JSON
+    record holds the main path's shape)."""
+    import torch
+
+    from pulsar_timing_gibbsspec_torch.config import settings
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+    from pulsar_timing_gibbsspec_torch.sampler import blocks
+
+    ref = kernels.reference
+    xs = x.repeat(-(-WIDE_TIMING_SYSTEMS // x.shape[0]), 1)[
+        :WIDE_TIMING_SYSTEMS]
+    Ta, N = blocks._gram_operands(cm, cm.ndiag_fast(xs),
+                                  settings.gram_seg_len)
+    N = N.reshape(-1, N.shape[-1]).contiguous()
+    P, nseg, m, B1 = Ta.shape
+    Bt = N.shape[0]
+    TNa = ref.gram_operand(Ta, N).reshape(Bt // P, P, nseg * m, B1)
+    for form, odt, widen in (("f32", torch.float32, False),
+                             ("f32_dot_f64_reduce", torch.float64, False),
+                             ("widen_f64", torch.float64, True)):
+        ms_k, ev_k = timer(lambda: kernels.gram_accumulate(
+            Ta, N, out_dtype=odt, widen=widen))
+        A = TNa.transpose(-1, -2).to(odt)
+        B = Ta.reshape(P, nseg * m, B1).to(odt)
+        lib, ev_lib = timer(lambda: torch.matmul(A, B))
+        del A, B
+        obytes = 4 if odt == torch.float32 else 8
+        bms, bby = bound_ms((Ta.numel() + N.numel()) * 4
+                            + Bt * B1 * B1 * obytes,
+                            2.0 * Bt * N.shape[1] * B1 * B1,
+                            "f64" if widen else "f32")
+        print(f"phase 2 gram_accumulate[{form}_wide] at {Bt} rows of N: "
+              f"device ms (event ms) kernel {ms_k:.4f} ({ev_k:.4f}), "
+              f"torch.matmul {lib:.4f} ({ev_lib:.4f}); bound {bms:.4f} ms "
+              f"({bby})", flush=True)
+    del TNa
+    TNT, d = blocks.tnt_d_seg32(cm, cm.ndiag_fast(xs))
+    n = cm.Bmax
+    phi32 = cm.phi(xs, dtype=torch.float32)
+    eye = torch.eye(n, dtype=torch.float32, device=cm.device)
+    Sig = (TNT + (1.0 / phi32)[..., :, None] * eye).reshape(-1, n, n)
+    d = d.reshape(-1, n).contiguous()
+    z = torch.ones_like(d)
+    ridge = blocks._PROP_RIDGE
+    ms_k, ev_k = timer(lambda: kernels.chol_solve_sample(Sig, d, z,
+                                                         ridge=ridge))
+    lib, ev_lib = timer(lambda: library_factor(Sig, d, z, ridge))
+    Bt = Sig.shape[0]
+    bms, bby = bound_ms(Bt * (3 * n * n + 5 * n) * 4,
+                        Bt * (2.0 * n ** 3 / 3.0 + 6.0 * n * n), "f32")
+    print(f"phase 2 chol_solve_sample[f32_wide] at {Bt} systems of order "
+          f"{n}: device ms (event ms) kernel {ms_k:.4f} ({ev_k:.4f}), "
+          f"cholesky+solve_triangular {lib:.4f} ({ev_lib:.4f}); bound "
+          f"{bms:.4f} ms ({bby})", flush=True)
 
 
 def small_agreement(dev, seed):
@@ -431,18 +601,20 @@ def small_agreement(dev, seed):
     return ok
 
 
-def graph_against_eager(cm, seed, outdir):
-    """Phase 3b: adapt a 64-chain sampler with a short eager run, then
-    run ``GRAPH_CHECK_SWEEPS`` steady sweeps from its final state
-    eagerly and from the CUDA graphs; x, b and the b_mh acceptance
-    counts must be bitwise equal (every draw comes from the per-sweep
-    stream, and no atomic add of the sweep meets one real slot twice)."""
+def graph_against_eager(cm, seed, outdir, facade="PTABlockGibbs",
+                        nchains=NCHAINS, phase="3b"):
+    """Phase 3b (7b): adapt an ``nchains`` sampler (the ``facade``) with
+    a short eager run, then run ``GRAPH_CHECK_SWEEPS`` steady sweeps from
+    its final state eagerly and from the CUDA graphs; x, b and the b_mh
+    and refresh acceptance counts must be bitwise equal (every draw comes
+    from the per-sweep stream, and no atomic add of the sweep meets one
+    real slot twice)."""
     import torch
 
     import pulsar_timing_gibbsspec_torch as ptt
 
-    g = ptt.PTABlockGibbs(cm, nchains=NCHAINS, device=cm.device, seed=seed,
-                          warmup_sweeps=2, graphs=False)
+    g = getattr(ptt, facade)(cm, nchains=nchains, device=cm.device,
+                             seed=seed, warmup_sweeps=2, graphs=False)
     g.sample(g.initial_sample(torch.Generator(device=cm.device).manual_seed(
         seed + 1)), outdir=outdir, niter=4)
     drv = g.driver
@@ -452,6 +624,7 @@ def graph_against_eager(cm, seed, outdir):
     for graphs in (False, True):
         drv.graphs = graphs
         drv.b_mh_accepts.zero_()
+        drv.b_refresh_accepts.zero_()
         drv.begin_steady(x.clone(), b.clone())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -459,14 +632,16 @@ def graph_against_eager(cm, seed, outdir):
         torch.cuda.synchronize()
         wall[graphs] = 1e3 * (time.perf_counter() - t0) / GRAPH_CHECK_SWEEPS
         out[graphs] = (drv.carry.x.clone(), drv.carry.b.clone(),
-                       drv.b_mh_accepts.clone())
+                       drv.b_mh_accepts.clone(),
+                       drv.b_refresh_accepts.clone())
     diffs = {what: (e - r).abs().max().item()
              for e, r, what in zip(out[False], out[True],
-                                   ("x", "b", "accepts"))}
+                                   ("x", "b", "accepts", "refresh"))}
     same = all(torch.equal(e, r) for e, r in zip(out[False], out[True]))
     ok = same and bool(torch.isfinite(out[True][1]).all())
-    print(f"phase 3b graphs against eager, {GRAPH_CHECK_SWEEPS} steady "
-          f"sweeps (one refresh) at {NCHAINS} chains: bitwise "
+    print(f"phase {phase} graphs against eager, {facade}, "
+          f"{GRAPH_CHECK_SWEEPS} steady sweeps (one refresh) at {nchains} "
+          f"chains, graphs {sorted(drv.carry.graphs)}: bitwise "
           f"{'equal' if same else 'DIFFERENT'} (max |eager - graph| "
           + json.dumps(diffs) + f"); {wall[False]:.3f} ms per sweep eager, "
           f"{wall[True]:.3f} graphed; capture {drv.carry.capture_seconds:.3f}"
@@ -474,10 +649,11 @@ def graph_against_eager(cm, seed, outdir):
     return ok
 
 
-def resume_check(cm, seed, outdir):
-    """Phase 6: at ``RESUME_CHAINS`` chains, a run whole and a run split
-    at a chunk boundary then resumed in a fresh sampler, both through the
-    graphs, write bitwise equal ``chain.npy`` and ``bchain.npy``."""
+def resume_check(cm, seed, outdir, facade="PTABlockGibbs", phase="6"):
+    """Phase 6 (7c): at ``RESUME_CHAINS`` chains of the ``facade``, a run
+    whole and a run split at a chunk boundary then resumed in a fresh
+    sampler, both through the graphs, write bitwise equal ``chain.npy``
+    and ``bchain.npy``."""
     import numpy as np
     import torch
 
@@ -487,10 +663,10 @@ def resume_check(cm, seed, outdir):
     split = RESUME_WARMUP + 1 + RESUME_STEADY // 2
 
     def gibbs():
-        return ptt.PTABlockGibbs(cm, nchains=RESUME_CHAINS,
-                                 device=cm.device, seed=seed,
-                                 warmup_sweeps=RESUME_WARMUP,
-                                 chunk_size=RESUME_CHUNK)
+        return getattr(ptt, facade)(cm, nchains=RESUME_CHAINS,
+                                    device=cm.device, seed=seed,
+                                    warmup_sweeps=RESUME_WARMUP,
+                                    chunk_size=RESUME_CHUNK)
 
     def x0(g):
         return g.initial_sample(torch.Generator(
@@ -509,7 +685,8 @@ def resume_check(cm, seed, outdir):
             for nm in ("chain.npy", "bchain.npy")}
     finite = bool(np.isfinite(np.load(out / "whole" / "bchain.npy")).all())
     ok = all(same.values()) and finite and g.driver.carry.graphed
-    print(f"phase 6 resume at {RESUME_CHAINS} chains, {RESUME_WARMUP} "
+    print(f"phase {phase} resume, {facade}, at {RESUME_CHAINS} chains, "
+          f"{RESUME_WARMUP} "
           f"warmup + {RESUME_STEADY} steady sweeps split at row {split} "
           f"(chunks of {RESUME_CHUNK}), through the graphs: bitwise equal "
           + json.dumps(same) + f"; {time.perf_counter() - t0:.1f} s "
@@ -641,6 +818,139 @@ def profile_steady(drv, t0):
     return ok
 
 
+def launch_counts(graphs):
+    """The kernels' runs on the card since the counts were set to 0, the
+    host's launches, the captures' launches times their replays, the
+    launches recorded into the graphs, and the runs since the captures:
+    each ``{(kernel, form): n}``."""
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+
+    runs, host = kernels.device_launches(), kernels.launch_counts()
+    replayed = graphs.replayed_launches()
+    captured = {k: sum(c.get(k, 0) for c in graphs.launches.values())
+                for k in runs}
+    since = {k: runs[k] - graphs.device_at_capture[k] for k in runs}
+    return runs, host, replayed, captured, since
+
+
+def count_faults(counts, forms, graphed):
+    """``(never run, not replayed as captured, runs other than eager
+    launches plus replays)`` of a path's kernel forms."""
+    runs, host, replayed, captured, since = counts
+    missing = [f"{k}[{f}]" for k, f in forms if runs[(k, f)] == 0]
+    unreplayed = [f"{k}[{f}]" for k, f in graphed
+                  if not since[(k, f)] == replayed.get((k, f), 0) > 0]
+    unaccounted = [f"{k}[{f}]" for (k, f) in runs if runs[(k, f)] != host[
+        (k, f)] - captured[(k, f)] + replayed.get((k, f), 0)]
+    return missing, unreplayed, unaccounted
+
+
+def print_counts(phase, counts):
+    runs, host, replayed, captured, since = counts
+
+    def fmt(d):
+        return json.dumps({f"{k}[{f}]": n for (k, f), n in d.items() if n})
+
+    print(f"phase {phase} kernel runs counted on the card: " + fmt(runs)
+          + "; of them replayed since the captures " + fmt(since)
+          + ", the captures' launches times their replays " + fmt(replayed)
+          + "; host launches " + fmt(host) + ", recorded into graphs "
+          + fmt(captured), flush=True)
+
+
+def single_pulsar_path(cm, seed, outdir, steady, forms):
+    """Phase 7: ``PulsarBlockGibbs`` on the J1713+0747 Quick-start model
+    through warmup, adaptation and ``steady`` sweeps replayed from the
+    graphs, checkpointed every ``SAVE_EVERY`` sweeps, with the launch
+    counts set to 0 just before it.  Returns ``(ok, runs)``, ``runs`` the
+    kernels' device counts of the path."""
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+    from pulsar_timing_gibbsspec_torch.runtime import integrity
+
+    C, niter = SINGLE_CHAINS, WARMUP + 1 + steady
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    g = ptt.PulsarBlockGibbs(cm, nchains=C, device=cm.device, seed=seed,
+                             warmup_sweeps=WARMUP)
+    x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
+        seed))
+    chain = g.sample(x0, outdir=outdir, niter=niter, save_every=SAVE_EVERY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    drv, graphs = g.driver, g.driver.carry
+    counts = launch_counts(graphs)
+    missing, unreplayed, unaccounted = count_faults(counts, forms,
+                                                    WIDE_GRAPHED)
+    sps = drv.steady_sweeps / drv.steady_seconds
+    acc = (drv.b_mh_accepts[:, 0] / max(drv.b_mh_sweeps, 1)).tolist()
+    racc = (drv.b_refresh_accepts[:, 0]
+            / max(drv.b_refresh_sweeps, 1)).tolist()
+    rho = chain[WARMUP + 1:, :, cm.rho_ix_x.cpu().numpy()]
+    med = np.median(rho.reshape(-1, rho.shape[-1]), axis=0)
+    ecorr = chain[WARMUP + 1:, :, cm.idx.ecorr]
+    rep = integrity.verify(outdir)
+    print(f"phase 7 single-pulsar path ({cm.pulsars[0]}, Bmax {cm.Bmax}, "
+          f"Nmax {cm.Nmax}, nx {cm.nx}, {cm.ec_cols.shape[1]} ECORR "
+          f"columns): {niter} rows x {C} chains in {wall:.1f} s (warmup "
+          f"{WARMUP}); white sub-chain {drv.aclength_white} steps, ECORR "
+          f"sub-chain {drv.aclength_ecorr} steps; steady "
+          f"{drv.steady_sweeps} sweeps in {drv.steady_seconds:.3f} s = "
+          f"{sps:.3f} sweeps/s = {sps * C:.1f} samples/s", flush=True)
+    print(f"phase 7 CUDA graphs: {len(graphs.graphs)} captured in "
+          f"{graphs.capture_seconds:.3f} s (with the warm-up pass), pool "
+          f"{graphs.pool_bytes / 1e6:.1f} MB; by graph, capture s "
+          + json.dumps({k: round(v, 3) for k, v in graphs.capture_by.items()})
+          + ", pool MB " + json.dumps(
+              {k: round(v / 1e6, 1) for k, v in graphs.pool_by.items()})
+          + "; replays per sweep " + json.dumps(
+              {"b_mh": len(drv.sweep_blocks(False)),
+               "b_refresh": len(drv.sweep_blocks(True))}), flush=True)
+    print("phase 7 per-block ms per steady sweep (CUDA events): "
+          + json.dumps({k: round(v / drv.steady_sweeps, 4)
+                        for k, v in sorted(drv.timer.ms.items())})
+          + "; per refresh sweep b_refresh " + (
+              f"{drv.timer.ms['b_refresh'] / drv.b_refresh_sweeps:.4f}"
+              if drv.b_refresh_sweeps else "-"), flush=True)
+    print("phase 7 warmup block ms in all (CUDA events, eager; "
+          f"{WARMUP} sweeps): " + json.dumps(
+              {k: round(v, 1) for k, v in sorted(drv.warmup_ms.items())}),
+          flush=True)
+    busy = sum(g.store.seconds.values())
+    print(f"phase 7 checkpoints every {SAVE_EVERY} sweeps: saves ran "
+          f"{busy:.3f} s on their thread, the loop waited "
+          f"{g.save_seconds:.3f} s; final manifest verified {rep['ok']} at "
+          f"{rep['rows']} rows", flush=True)
+    print("phase 7 draw_b_mh acceptance per chain: "
+          + json.dumps([round(a, 4) for a in acc]) + f" over "
+          f"{drv.b_mh_sweeps} sweeps; refresh acceptance per chain "
+          + json.dumps([round(a, 4) for a in racc]) + f" over "
+          f"{drv.b_refresh_sweeps} sweeps", flush=True)
+    print("phase 7 log10_rho medians per bin: "
+          + json.dumps([round(float(v), 3) for v in med])
+          + "; log10_ecorr medians " + json.dumps(
+              [round(float(v), 3) for v in np.median(
+                  ecorr.reshape(-1, ecorr.shape[-1]), axis=0)]), flush=True)
+    print_counts(7, counts)
+    print(f"phase 7 non-finite Laplace blocks in warmup and adaptation: "
+          f"{int(drv.laplace_nonfinite)}", flush=True)
+    finite = bool(np.isfinite(chain).all() and np.isfinite(g.bchain).all())
+    inside = bool(((med > -10.0) & (med < -4.0)).all())
+    saved = rep["ok"] and rep["rows"] == niter and graphs.graphed
+    ok = (finite and inside and not missing and not unreplayed
+          and not unaccounted and saved)
+    if not ok:
+        print(f"chip_smoke: single-pulsar path failed (finite={finite}, "
+              f"medians inside the prior={inside}, never run={missing}, "
+              f"not replayed as captured={unreplayed}, runs other than "
+              f"eager launches plus replays={unaccounted}, verified "
+              f"checkpoint through the graphs={saved})", file=sys.stderr)
+    return ok, counts[0]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -656,7 +966,8 @@ def main(argv=None):
         return 2
     try:
         import pulsar_timing_gibbsspec_torch as ptt
-        from pulsar_timing_gibbsspec_torch.data import synthetic_array
+        from pulsar_timing_gibbsspec_torch.data import (
+            load_enterprise_snapshot, synthetic_array)
         from pulsar_timing_gibbsspec_torch.ops import kernels
         from pulsar_timing_gibbsspec_torch.ops.kernels import build
         from pulsar_timing_gibbsspec_torch.runtime import integrity
@@ -673,6 +984,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     build.library(verbose=True)
     print(f"phase 1 build: {time.perf_counter() - t0:.1f} s", flush=True)
+    usage = resource_usage(build.BUILD_DIR / "ptg_torch_kernels.so")
 
     dev = torch.device(DEVICE)
     C = NCHAINS
@@ -681,11 +993,25 @@ def main(argv=None):
     cm = ptt.build_crn_spectrum(psrs, nbins=10, red_bins=10, device=dev)
     print(f"model: P={cm.P} Nmax={cm.Nmax} Bmax={cm.Bmax} nx={cm.nx}, "
           f"{C} chains", flush=True)
+    cm1 = ptt.model_general([load_enterprise_snapshot(SNAPSHOT)],
+                            red_var=False, white_vary=True,
+                            common_psd="spectrum",
+                            common_components=SINGLE_BINS, device=dev)
+    print(f"single-pulsar model: {cm1.pulsars[0]} P={cm1.P} "
+          f"Nmax={cm1.Nmax} Bmax={cm1.Bmax} nx={cm1.nx}, {SINGLE_CHAINS} "
+          "chains", flush=True)
     x = parity_state(cm, C, gen)
     records, ok_g = gram_parity(cm, x, time_ms)
     rec_c, ok_c = chol_parity(cm, x, gen, time_ms)
     records.update(rec_c)
-    if not (ok_g and ok_c):
+    x1 = parity_state(cm1, SINGLE_CHAINS, gen)
+    rec_g1, ok_g1 = gram_parity(cm1, x1, time_ms)
+    rec_c1, ok_c1 = chol_parity(cm1, x1, gen, time_ms)
+    records.update(rec_g1)
+    records.update(rec_c1)
+    wide_at_scale(cm1, x1, time_ms)
+    del x, x1
+    if not (ok_g and ok_c and ok_g1 and ok_c1):
         print("chip_smoke: kernel parity failed", file=sys.stderr)
         return 1
     if not small_agreement(dev, args.seed):
@@ -713,16 +1039,10 @@ def main(argv=None):
     graphs = drv.carry
     # kernel runs the card counted, eager and replayed, and the host's
     # launches (a capture's launch is recorded, not run)
-    runs, host = kernels.device_launches(), kernels.launch_counts()
-    replayed = graphs.replayed_launches()
-    captured = {k: sum(c.get(k, 0) for c in graphs.launches.values())
-                for k in runs}
-    since = {k: runs[k] - graphs.device_at_capture[k] for k in runs}
-    unreplayed = [f"{k}[{f}]" for k, f in GRAPHED
-                  if not since[(k, f)] == replayed.get((k, f), 0) > 0]
-    unaccounted = [f"{k}[{f}]" for (k, f) in runs if runs[(k, f)] != host[
-        (k, f)] - captured[(k, f)] + replayed.get((k, f), 0)]
-    missing = [f"{k}[{f}]" for (k, f) in records if runs[(k, f)] == 0]
+    counts = launch_counts(graphs)
+    runs = counts[0]
+    narrow = [k for k in records if not k[1].endswith("_wide")]
+    missing, unreplayed, unaccounted = count_faults(counts, narrow, GRAPHED)
     sps = drv.steady_sweeps / drv.steady_seconds
     acc = drv.b_mh_accepts[:, :cm.P_real] / max(drv.b_mh_sweeps, 1)
     rho = chain[WARMUP + 1:, :, cm.rho_ix_x.cpu().numpy()]
@@ -764,16 +1084,7 @@ def main(argv=None):
           f"min over (chain, pulsar) {acc.min().item():.4f}", flush=True)
     print("phase 4 common log10_rho medians per bin: "
           + json.dumps([round(float(v), 3) for v in med]), flush=True)
-    print("phase 4 kernel runs counted on the card: " + json.dumps(
-        {f"{k}[{f}]": n for (k, f), n in runs.items()}) + "; of them "
-        "replayed since the captures " + json.dumps(
-            {f"{k}[{f}]": n for (k, f), n in since.items() if n}) + ", the "
-        "captures' launches times their replays " + json.dumps(
-            {f"{k}[{f}]": n for (k, f), n in replayed.items()}) + "; host "
-        "launches " + json.dumps({f"{k}[{f}]": n for (k, f), n in
-                                  host.items()}) + ", recorded into graphs "
-        + json.dumps({f"{k}[{f}]": n for (k, f), n in captured.items() if n}),
-        flush=True)
+    print_counts(4, counts)
     print(f"phase 4 non-finite Laplace blocks in warmup and adaptation: "
           f"{int(drv.laplace_nonfinite)} of "
           f"{(WARMUP + 1) * C * cm.P_real}", flush=True)
@@ -796,10 +1107,35 @@ def main(argv=None):
         print("chip_smoke: the resumed run differs from the whole one",
               file=sys.stderr)
         return 1
+    del g, drv, graphs, chain
+    torch.cuda.empty_cache()
 
+    # ---- phase 7: the single-pulsar path, launch counts from 0 -------------
+    wide = [k for k in records if k[1].endswith("_wide")]
+    ok7, runs1 = single_pulsar_path(cm1, args.seed, outdir / "single",
+                                    args.steady, wide)
+    if not ok7:
+        return 1
+    runs.update({k: runs1[k] for k in wide})
+    if not graph_against_eager(cm1, args.seed, outdir / "single_graph_check",
+                               "PulsarBlockGibbs", SINGLE_CHAINS, "7b"):
+        print("chip_smoke: single-pulsar graph replay differs from the "
+              "eager sweep", file=sys.stderr)
+        return 1
+    if not resume_check(cm1, args.seed, outdir / "single_resume",
+                        "PulsarBlockGibbs", "7c"):
+        print("chip_smoke: the resumed single-pulsar run differs from the "
+              "whole one", file=sys.stderr)
+        return 1
+
+    print("phase 1 kernel resources (cuobjdump -res-usage: registers, "
+          "stack frame bytes, static shared memory bytes): " + (json.dumps(
+              {n: [r, st, sh] for n, r, st, sh in usage})
+              if usage else "not available"), flush=True)
     print(json.dumps({"kernels": [
-        dict(name=f"{k}[{f}]", route="cuda", source=SOURCES[k],
-             replaces=REPLACES[k], launches=runs[(k, f)], **r)
+        dict(name=f"{k}[{f}]", route="cuda", source=SOURCES[k][
+            f.endswith("_wide")], replaces=REPLACES[k],
+             launches=runs[(k, f)], **r)
         for (k, f), r in records.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,10 @@
-"""Host-side data of the port: the pulsar record, the Fourier basis and
-the seeded synthetic array."""
+"""Host-side data of the port: the pulsar record, its enterprise
+adapter and snapshot loader, the Fourier basis and the seeded synthetic
+array."""
 
-from .dataset import Pulsar, get_tspan
+from .dataset import (Pulsar, from_enterprise, get_tspan,
+                      load_enterprise_snapshot)
 from .simulate import inject_residuals, synthetic_array
 
-__all__ = ["Pulsar", "get_tspan", "inject_residuals", "synthetic_array"]
+__all__ = ["Pulsar", "from_enterprise", "get_tspan", "inject_residuals",
+           "load_enterprise_snapshot", "synthetic_array"]

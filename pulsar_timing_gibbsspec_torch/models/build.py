@@ -1,19 +1,24 @@
-"""Build the CRN free-spectrum PTA model straight from pulsar arrays.
+"""Build the compiled free-spectrum model straight from pulsar arrays.
 
-The CRN-spectrum subset of the JAX package's ``models/factory.py::
-model_general`` followed by ``sampler/compiled.py::compile_pta``, for
+The subset of the JAX package's ``models/factory.py::model_general``
+followed by ``sampler/compiled.py::compile_pta`` that the port samples:
 
-    model_general(psrs, tm_svd=True, white_vary=True,
-                  common_psd="spectrum", common_components=nbins,
-                  red_var=True, red_psd="spectrum",
-                  red_components=red_bins)
+    model_general(psrs, tm_svd=..., white_vary=True,
+                  common_psd="spectrum", common_components=K,
+                  red_var=..., red_psd="spectrum", red_components=Kr,
+                  is_wideband=...)
 
-(the model of the repo's headline benchmark): an SVD timing-model basis
-with marginalized (``BIG_PHI``) columns, a common free spectrum and a
-per-pulsar free-spectrum red process sharing the Fourier columns, and
-per-backend EFAC/EQUAD.  The arrays, parameter order (sorted by parameter
-name, vectors expanded in place), constant pool and padding are those of
-``compile_pta``, field by field.
+a timing-model basis with marginalized (``BIG_PHI``) columns (SVD, or
+the column-normalized design matrix of ``tm_norm``'s default), a common
+free spectrum, optionally a per-pulsar free-spectrum red process sharing
+the Fourier columns,
+per-backend EFAC/EQUAD, and, for a pulsar whose ``pta`` flag names
+NANOGrav (unless ``is_wideband``), per-backend basis ECORR: one column
+per observing epoch per backend (TOAs grouped into epochs of at most 10
+days), with prior variance ``10^(2 log10_ecorr)`` of its backend.  The
+basis is laid out ``[timing model | Fourier | ECORR]``.  The arrays,
+parameter order (sorted by parameter name, vectors expanded in place),
+constant pool and padding are those of ``compile_pta``, field by field.
 """
 
 from __future__ import annotations
@@ -21,13 +26,16 @@ from __future__ import annotations
 import numpy as np
 
 from ..data.dataset import get_tspan
-from ..data.fourier import fourier_basis
+from ..data.fourier import DAY, fourier_basis
 from ..sampler.compiled import BIG_PHI, PHI_FLOOR, from_arrays
 
 #: prior bounds of the model's parameters (model_general's defaults)
 _RHO_BOUNDS = (-10.0, -4.0)
 _EFAC_BOUNDS = (0.01, 10.0)
 _EQUAD_BOUNDS = (-8.5, -5.0)
+_ECORR_BOUNDS = (-8.5, -5.0)
+#: widest ECORR epoch (``EcorrBasisSignal``'s ``dt_days``)
+ECORR_DT_DAYS = 10.0
 
 
 def _bin_widths(f):
@@ -37,44 +45,93 @@ def _bin_widths(f):
     return np.repeat(np.diff(np.concatenate([[0.0], fu])), 2)
 
 
-def crn_spectrum_arrays(psrs, nbins: int = 10, red_bins: int = 10,
-                        pad_pulsars: int | None = None) -> dict:
+def _quantize(toas, dt_sec):
+    """Group TOAs [s] into epochs no wider than ``dt_sec``, in time
+    order: a list of index arrays into ``toas``."""
+    if len(toas) == 0:
+        return []
+    order = np.argsort(toas)
+    groups, cur = [], [order[0]]
+    for idx in order[1:]:
+        if toas[idx] - toas[cur[0]] <= dt_sec:
+            cur.append(idx)
+        else:
+            groups.append(np.array(cur))
+            cur = [idx]
+    groups.append(np.array(cur))
+    return groups
+
+
+def _ecorr_basis(toas, labels, masks):
+    """The basis-ECORR columns of one pulsar: ``(U, owners)``, one 0/1
+    column per epoch per backend (backends in label order, epochs in
+    time order) and each column's backend label."""
+    cols, owners = [], []
+    for lab in labels:
+        sel = np.where(masks[lab])[0]
+        for ep in _quantize(toas[masks[lab]], ECORR_DT_DAYS * DAY):
+            col = np.zeros(len(toas))
+            col[sel[ep]] = 1.0
+            cols.append(col)
+            owners.append(lab)
+    U = np.column_stack(cols) if cols else np.zeros((len(toas), 0))
+    return U, owners
+
+
+def _has_ecorr(p, is_wideband):
+    """The factory's gate: basis ECORR for a NANOGrav-flagged pulsar
+    that is not wideband."""
+    return "NANOGrav" in p.flags.get("pta", "") and not is_wideband
+
+
+def _timing_basis(M, tm_svd):
+    Mn = M / np.linalg.norm(M, axis=0)
+    return np.linalg.svd(Mn, full_matrices=False)[0] if tm_svd else Mn
+
+
+def model_arrays(psrs, *, tm_svd=False, common_components=30,
+                 red_var=True, red_components=30, is_wideband=False,
+                 pad_pulsars=None) -> dict:
     """The compiled model's fields as numpy arrays, named as the JAX
     ``CompiledPTA`` names them (the input of
-    :func:`~..sampler.compiled.from_arrays`)."""
+    :func:`~..sampler.compiled.from_arrays`), for the model of the
+    module docstring."""
     psrs = list(psrs)
-    for p in psrs:
-        if "NANOGrav" in p.flags.get("pta", ""):
-            raise NotImplementedError(
-                f"{p.name}: ECORR (NANOGrav-flagged data) is not in the "
-                "port yet")
     Tspan = get_tspan(psrs)
     P_real = len(psrs)
     P = pad_pulsars or P_real
     if P < P_real:
         raise ValueError("pad_pulsars smaller than the pulsar count")
+    nbins = int(common_components)
+    red_bins = int(red_components) if red_var else 0
 
     # ---- per-pulsar bases and the parameter list ---------------------------
     params = [("gw_crn_log10_rho", nbins) + _RHO_BOUNDS]
     per = []
     for p in psrs:
-        M = p.Mmat
-        U, _, _ = np.linalg.svd(M / np.linalg.norm(M, axis=0),
-                                full_matrices=False)
-        Fg, fg = fourier_basis(p.toas / 86400.0, nbins, Tspan)
-        Fr, fr = fourier_basis(p.toas / 86400.0, red_bins, Tspan)
+        U = _timing_basis(p.Mmat, tm_svd)
+        Fg, fg = fourier_basis(p.toas / DAY, nbins, Tspan)
+        Fr, fr = (fourier_basis(p.toas / DAY, red_bins, Tspan) if red_var
+                  else (Fg[:, :0], fg[:0]))
         # shared Fourier block: the widest member donates its basis
         donor = Fg if Fg.shape[1] >= Fr.shape[1] else Fr
         labels = sorted(set(p.backend_flags.tolist()))
         masks = {lab: p.backend_flags == lab for lab in labels}
         rname = f"{p.name}_red_noise_log10_rho"
-        params.append((rname, red_bins) + _RHO_BOUNDS)
+        if red_var:
+            params.append((rname, red_bins) + _RHO_BOUNDS)
+        ecorr = _has_ecorr(p, is_wideband)
         for lab in labels:
             stem = f"{p.name}_{lab}" if lab else p.name
             params.append((f"{stem}_efac", None) + _EFAC_BOUNDS)
             params.append((f"{stem}_log10_tnequad", None) + _EQUAD_BOUNDS)
-        per.append(dict(U=U, Fg=Fg, fg=fg, Fr=Fr, fr=fr, donor=donor,
-                        labels=labels, masks=masks, rname=rname))
+            if ecorr:
+                params.append((f"{stem}_log10_ecorr", None) + _ECORR_BOUNDS)
+        E, owners = (_ecorr_basis(p.toas, labels, masks) if ecorr
+                     else (np.zeros((p.ntoa, 0)), []))
+        per.append(dict(U=U, fg=fg, fr=fr, donor=donor, E=E, owners=owners,
+                        labels=labels, masks=masks, rname=rname,
+                        ecorr=ecorr))
     params.sort(key=lambda t: t[0])
     names = []
     for nm, size, _, _ in params:
@@ -90,7 +147,8 @@ def crn_spectrum_arrays(psrs, nbins: int = 10, red_bins: int = 10,
 
     ntms = [d["U"].shape[1] for d in per]
     wf = [d["donor"].shape[1] for d in per]
-    widths = tuple(int(a + b) for a, b in zip(ntms, wf))
+    wes = [d["E"].shape[1] for d in per]
+    widths = tuple(int(a + b + c) for a, b, c in zip(ntms, wf, wes))
     Nmax = max(p.ntoa for p in psrs)
     Bmax = max(widths)
 
@@ -107,6 +165,7 @@ def crn_spectrum_arrays(psrs, nbins: int = 10, red_bins: int = 10,
     phi_base = np.ones((P, Bmax), f32)
     gp_mask = np.zeros((P, Bmax), f32)
     K, Kr = nbins, red_bins
+    Kr1 = max(Kr, 1)
     gcols = np.full((P, 2 * K), Bmax, np.int32)
     grho = np.full((P, 2 * K), sentinel, np.int32)
     gf = np.ones((P, 2 * K), f32)
@@ -120,61 +179,78 @@ def crn_spectrum_arrays(psrs, nbins: int = 10, red_bins: int = 10,
     gw_f = np.ones((P, K), f32)
     gw_df = np.zeros((P, K), f32)
     gw_rho = np.full((P, K), floor_ref, np.int32)
-    red_rho = np.full((P, Kr), floor_ref, np.int32)
-    red_rho_x = np.full((P, Kr), nx, np.int32)
-    red_sin = np.zeros((P, Kr), np.int32)
-    red_cos = np.zeros((P, Kr), np.int32)
-    red_f = np.ones((P, Kr), f32)
-    red_df = np.zeros((P, Kr), f32)
+    red_rho = np.full((P, Kr1), floor_ref if Kr else sentinel, np.int32)
+    red_rho_x = np.full((P, Kr1), nx, np.int32)
+    red_sin = np.zeros((P, Kr1), np.int32)
+    red_cos = np.zeros((P, Kr1), np.int32)
+    red_f = np.ones((P, Kr1), f32)
+    red_df = np.zeros((P, Kr1), f32)
     red_valid = np.zeros(P, f32)
-    wrows = []
+    We = max(wes)
+    ecols = np.full((P, We), Bmax, np.int32)
+    erho = np.full((P, We), sentinel, np.int32)
+    wrows, erows = [], []
 
     for ii, (p, d) in enumerate(zip(psrs, per)):
-        n, w, ntm = p.ntoa, widths[ii], ntms[ii]
+        n, ntm, nf, ne = p.ntoa, ntms[ii], wf[ii], wes[ii]
+        w = widths[ii]
         y[ii, :n] = p.residuals
-        T[ii, :n, :w] = np.hstack([d["U"], d["donor"]])
+        T[ii, :n, :w] = np.hstack([d["U"], d["donor"], d["E"]])
         toa_mask[ii, :n] = 1.0
         basis_mask[ii, :w] = 1.0
         psr_mask[ii] = 1.0
         sigma2[ii, :n] = p.toaerrs ** 2
-        wp = []
+        wp, ep = [], []
         for lab in d["labels"]:
             where = np.where(d["masks"][lab])[0]
             stem = f"{p.name}_{lab}" if lab else p.name
             efac_ix[ii, where] = pos[f"{stem}_efac"]
             equad_ix[ii, where] = pos[f"{stem}_log10_tnequad"]
             wp += [pos[f"{stem}_efac"], pos[f"{stem}_log10_tnequad"]]
+            if d["ecorr"]:
+                ep.append(pos[f"{stem}_log10_ecorr"])
         wrows.append(sorted(set(wp)))
+        erows.append(sorted(set(ep)))
         phi_base[ii, :ntm] = np.clip(1e40, PHI_FLOOR, BIG_PHI)
         phi_base[ii, ntm:ntm + 2 * K] = 0.0
         phi_base[ii, ntm:ntm + 2 * Kr] = 0.0
+        phi_base[ii, ntm + nf:ntm + nf + ne] = 0.0
         gp_mask[ii, ntm:ntm + 2 * K] = 1.0
         gp_mask[ii, ntm:ntm + 2 * Kr] = 1.0
         gc = np.arange(ntm, ntm + 2 * K)
-        rc = np.arange(ntm, ntm + 2 * Kr)
         gcols[ii] = gc
         grho[ii] = [pos[f"gw_crn_log10_rho_{j // 2}"] for j in range(2 * K)]
         gf[ii] = d["fg"]
         gdf[ii] = _bin_widths(d["fg"])
-        rcols[ii] = rc
-        rrho[ii] = [pos[f"{d['rname']}_{j // 2}"] for j in range(2 * Kr)]
-        rf[ii] = d["fr"]
-        rdf[ii] = _bin_widths(d["fr"])
         gw_sin[ii], gw_cos[ii] = gc[::2], gc[1::2]
         gw_f[ii], gw_df[ii] = d["fg"][::2], _bin_widths(d["fg"])[::2]
         gw_rho[ii] = [pos[f"gw_crn_log10_rho_{k}"] for k in range(K)]
-        red_valid[ii] = 1.0
-        red_sin[ii], red_cos[ii] = rc[::2], rc[1::2]
-        red_f[ii], red_df[ii] = d["fr"][::2], _bin_widths(d["fr"])[::2]
-        red_rho[ii] = [pos[f"{d['rname']}_{k}"] for k in range(Kr)]
-        red_rho_x[ii] = red_rho[ii]
+        if red_var:
+            rc = np.arange(ntm, ntm + 2 * Kr)
+            rcols[ii] = rc
+            rrho[ii] = [pos[f"{d['rname']}_{j // 2}"] for j in range(2 * Kr)]
+            rf[ii] = d["fr"]
+            rdf[ii] = _bin_widths(d["fr"])
+            red_valid[ii] = 1.0
+            red_sin[ii], red_cos[ii] = rc[::2], rc[1::2]
+            red_f[ii], red_df[ii] = d["fr"][::2], _bin_widths(d["fr"])[::2]
+            red_rho[ii] = [pos[f"{d['rname']}_{k}"] for k in range(Kr)]
+            red_rho_x[ii] = red_rho[ii]
+        if ne:
+            ecols[ii, :ne] = np.arange(ntm + nf, w)
+            erho[ii, :ne] = [pos[f"{p.name}_{lab}_log10_ecorr" if lab
+                                 else f"{p.name}_log10_ecorr"]
+                             for lab in d["owners"]]
 
-    Wp = max(len(r) for r in wrows)
-    white_par_ix = np.full((P, max(Wp, 1)), nx, np.int32)
-    for ii, r in enumerate(wrows):
-        white_par_ix[ii, :len(r)] = r
-    white_nper = np.asarray([len(r) for r in wrows] + [0] * (P - P_real),
-                            np.int32)
+    def table(rows):
+        out = np.full((P, max(max(len(r) for r in rows), 1)), nx, np.int32)
+        for ii, r in enumerate(rows):
+            out[ii, :len(r)] = r
+        return out, np.asarray([len(r) for r in rows] + [0] * (P - P_real),
+                               np.int32)
+
+    white_par_ix, white_nper = table(wrows)
+    ecorr_par_ix, ecorr_nper = table(erows)
 
     pkind = np.zeros(nx, np.int32)
     pa = np.zeros(nx, f32)
@@ -188,10 +264,18 @@ def crn_spectrum_arrays(psrs, nbins: int = 10, red_bins: int = 10,
 
     rho_lo = 10.0 ** (2.0 * _RHO_BOUNDS[0])
     rho_hi = 10.0 ** (2.0 * _RHO_BOUNDS[1])
+    none = np.zeros((P, 0), np.int32)
     comps = [dict(kind="free_spectrum", cols=gcols, f=gf, df=gdf,
-                  hyp_ix=np.zeros((P, 0), np.int32), rho_ix=grho),
-             dict(kind="free_spectrum", cols=rcols, f=rf, df=rdf,
-                  hyp_ix=np.zeros((P, 0), np.int32), rho_ix=rrho)]
+                  hyp_ix=none, rho_ix=grho)]
+    if red_var:
+        comps.append(dict(kind="free_spectrum", cols=rcols, f=rf, df=rdf,
+                          hyp_ix=none, rho_ix=rrho))
+    if We:
+        live = ecols < Bmax
+        comps.append(dict(kind="ecorr", cols=ecols,
+                          f=np.where(live, 0.0, 1.0).astype(f32),
+                          df=np.zeros((P, We), f32), hyp_ix=none,
+                          rho_ix=erho))
     return dict(
         P=P, P_real=P_real, Nmax=Nmax, Bmax=Bmax, nx=nx, K=K, Kr=Kr,
         widths=widths, pulsars=tuple(p.name for p in psrs),
@@ -206,24 +290,63 @@ def crn_spectrum_arrays(psrs, nbins: int = 10, red_bins: int = 10,
         gw_hyp_ix=np.full((P, 1), sentinel, np.int32), gw_rho_ix=gw_rho,
         rho_ix_x=np.asarray([pos[f"gw_crn_log10_rho_{k}"]
                              for k in range(K)], np.int32),
-        red_valid=red_valid, red_kind="free_spectrum",
+        red_valid=red_valid, red_kind="free_spectrum" if red_var else "",
         red_hyp_ix=np.full((P, 1), sentinel, np.int32),
         red_rho_ix=red_rho, red_rho_ix_x=red_rho_x,
         red_sin_ix=red_sin, red_cos_ix=red_cos,
-        ec_cols=np.zeros((P, 0), np.int32),
-        ec_ix=np.zeros((P, 0), np.int32),
+        ec_cols=ecols, ec_ix=erho,
         white_par_ix=white_par_ix, white_nper=white_nper,
-        ecorr_par_ix=np.full((P, 1), nx, np.int32),
-        ecorr_nper=np.zeros(P, np.int32),
+        ecorr_par_ix=ecorr_par_ix, ecorr_nper=ecorr_nper,
         rhomin=rho_lo, rhomax=rho_hi, red_rhomin=rho_lo, red_rhomax=rho_hi,
         orf_name="crn", orf_Ginv=None, gp_mask=gp_mask, red_f=red_f,
         red_df=red_df, orf_B=None, orf_par_ix=None, red_shares_gw=True,
         ke_eid=None, ke_par_ix=None)
 
 
+def crn_spectrum_arrays(psrs, nbins: int = 10, red_bins: int = 10,
+                        pad_pulsars: int | None = None) -> dict:
+    """The arrays of the repository's headline model: SVD timing model,
+    a common and a per-pulsar red free spectrum (``nbins`` /
+    ``red_bins``), EFAC/EQUAD and, for NANOGrav-flagged pulsars, ECORR."""
+    return model_arrays(psrs, tm_svd=True, common_components=nbins,
+                        red_var=True, red_components=red_bins,
+                        pad_pulsars=pad_pulsars)
+
+
 def build_crn_spectrum(psrs, nbins: int = 10, red_bins: int = 10,
                        pad_pulsars: int | None = None, device=None):
-    """The compiled CRN free-spectrum model of ``psrs`` on ``device``
+    """The compiled model of :func:`crn_spectrum_arrays` on ``device``
     (``cuda`` unless the caller passes another)."""
     return from_arrays(crn_spectrum_arrays(psrs, nbins, red_bins,
                                            pad_pulsars), device=device)
+
+
+def model_general(psrs, tm_svd=False, white_vary=False,
+                  common_psd="powerlaw", common_components=30,
+                  red_var=True, red_psd="powerlaw", red_components=30,
+                  is_wideband=False, device=None):
+    """The compiled model of the JAX package's ``model_general`` with
+    these options (its defaults) followed by ``compile_pta``, on
+    ``device`` (``cuda`` unless the caller passes another).  The port takes ``white_vary=True``,
+    ``common_psd="spectrum"`` and, with ``red_var=True``,
+    ``red_psd="spectrum"``; other values raise ``NotImplementedError``.
+    README's Quick start::
+
+        model_general([psr], red_var=False, white_vary=True,
+                      common_psd="spectrum", common_components=30)
+    """
+    if not white_vary:
+        raise NotImplementedError(
+            "fixed white noise (white_vary=False) is not in the port yet")
+    if common_psd != "spectrum":
+        raise NotImplementedError(
+            f"common_psd={common_psd!r} is not in the port yet "
+            "(common_psd='spectrum' is)")
+    if red_var and red_psd != "spectrum":
+        raise NotImplementedError(
+            f"red_psd={red_psd!r} is not in the port yet (red_var=False, "
+            "or red_psd='spectrum', is)")
+    return from_arrays(model_arrays(
+        psrs, tm_svd=tm_svd, common_components=common_components,
+        red_var=red_var, red_components=red_components,
+        is_wideband=is_wideband), device=device)

@@ -4,7 +4,11 @@ Port of ``pulsar_timing_gibbsspec_tpu/ops/kernels/__init__.py``'s
 dispatch.  The route follows the tensor, never a setting:
 
 - a CUDA tensor launches the CUDA kernel (``csrc/``, built at first use
-  by :mod:`.build`); a build or launch failure raises;
+  by :mod:`.build`) of its shape: the narrow form up to ``CHOL_MAX_N`` /
+  ``GRAM_MAX_B1``, the wide form (``*_wide``, the matrix or the output
+  tiled over many CTAs) beyond, up to ``CHOL_WIDE_MAX_N`` /
+  ``GRAM_WIDE_MAX_B1``; a build or launch failure, or a larger shape,
+  raises;
 - a CPU tensor runs the plain PyTorch version (:mod:`.reference`);
 - ``chol_solve_sample(..., factor="tf")`` (the two-float refresh factor)
   runs the plain version on either device, as the JAX package never put
@@ -59,8 +63,8 @@ def _chol_solve_sample_cuda(Sig, d, z, ridge):
     batch, n, n2 = Sig.shape
     if n != n2:
         raise ValueError(f"Sig must be square, got {tuple(Sig.shape)}")
-    if not 1 <= n <= CHOL_MAX_N:
-        raise ValueError(f"chol_solve_sample takes n <= {CHOL_MAX_N}, "
+    if not 1 <= n <= CHOL_WIDE_MAX_N:
+        raise ValueError(f"chol_solve_sample takes n <= {CHOL_WIDE_MAX_N}, "
                          f"got {n}")
     for t, nm in ((d, "d"), (z, "z")):
         _need(t, nm, dt, 2)
@@ -69,16 +73,23 @@ def _chol_solve_sample_cuda(Sig, d, z, ridge):
                              f"{tuple(t.shape)}")
         if t.device != Sig.device:
             raise ValueError(f"{nm} is on {t.device}, Sig on {Sig.device}")
-    count = _counter(Sig.device, ("chol_solve_sample", CHOL_FORMS[dt]))
+    wide = n > CHOL_MAX_N
+    form = CHOL_FORMS[dt] + ("_wide" if wide else "")
+    count = _counter(Sig.device, ("chol_solve_sample", form))
     L = torch.empty_like(Sig)
     Li = torch.empty_like(Sig)
     dj, mean, bp = (torch.empty_like(d) for _ in range(3))
-    code = library().ptg_chol_solve_sample(
-        int(dt == torch.float64), _ptr(Sig), _ptr(d), _ptr(z), _ptr(L),
-        _ptr(Li), _ptr(dj), _ptr(mean), _ptr(bp), batch, n, float(ridge),
-        count, _stream(Sig))
+    f64, ptrs = int(dt == torch.float64), [_ptr(t) for t in (
+        Sig, d, z, L, Li, dj, mean, bp)]
+    if wide:
+        w = torch.empty_like(d)
+        code = library().ptg_chol_solve_sample_wide(
+            f64, *ptrs, _ptr(w), batch, n, float(ridge), count, _stream(Sig))
+    else:
+        code = library().ptg_chol_solve_sample(
+            f64, *ptrs, batch, n, float(ridge), count, _stream(Sig))
     check(code, "chol_solve_sample")
-    return L, Li, dj, mean, bp
+    return (L, Li, dj, mean, bp), form
 
 
 def chol_solve_sample(Sig, d, z, *, ridge=0.0, factor="blocked"):
@@ -91,26 +102,32 @@ def chol_solve_sample(Sig, d, z, *, ridge=0.0, factor="blocked"):
     if factor == "tf" or Sig.device.type == "cpu":
         return reference.chol_solve_sample_ref(Sig, d, z, ridge=ridge,
                                                factor=factor)
-    out = _chol_solve_sample_cuda(Sig.contiguous(), d.contiguous(),
-                                  z.to(Sig.dtype).contiguous(), ridge)
+    out, form = _chol_solve_sample_cuda(Sig.contiguous(), d.contiguous(),
+                                        z.to(Sig.dtype).contiguous(), ridge)
     chol_solve_sample.launches += 1
-    chol_solve_sample.form_launches[CHOL_FORMS[Sig.dtype]] += 1
+    chol_solve_sample.form_launches[form] += 1
     return out
 
 
-#: instantiation name of chol_solve_sample by element type.  No sampler
-#: path launches "f64" (the exact draws factor in plain float64 linear
-#: algebra, as the JAX package does): it exists to check the kernel's
-#: algorithm at float64 (``chip_smoke.py`` phase 2, the card test)
+#: instantiation name of chol_solve_sample by element type (the wide form
+#: adds ``_wide``).  No sampler path launches "f64" (the exact draws factor
+#: in plain float64 linear algebra, as the JAX package does): it exists to
+#: check the kernel's algorithm at float64 (``chip_smoke.py`` phase 2, the
+#: card test)
 CHOL_FORMS = {torch.float32: "f32", torch.float64: "f64"}
-#: instantiation name of gram_accumulate by kernel form number
+#: instantiation name of gram_accumulate by kernel form number (the wide
+#: form adds ``_wide``)
 GRAM_FORMS = ("f32", "f32_dot_f64_reduce", "widen_f64")
 #: largest matrix order of chol_solve_sample and augmented width of
-#: gram_accumulate the kernels take, and the row slices per pulsar of the
-#: Gram's extent scan (``csrc/kernels.h``)
+#: gram_accumulate the narrow kernels take, the largest the wide forms
+#: take, and the row slices per pulsar of the Gram's extent scan
+#: (``csrc/kernels.h``)
 CHOL_MAX_N, GRAM_MAX_B1, GRAM_EXTENT_SLICES = 96, 64, 8
+CHOL_WIDE_MAX_N = GRAM_WIDE_MAX_B1 = 1024
+_CHOL_ALL = [f + w for w in ("", "_wide") for f in CHOL_FORMS.values()]
+_GRAM_ALL = [f + w for w in ("", "_wide") for f in GRAM_FORMS]
 chol_solve_sample.launches = 0
-chol_solve_sample.form_launches = dict.fromkeys(CHOL_FORMS.values(), 0)
+chol_solve_sample.form_launches = dict.fromkeys(_CHOL_ALL, 0)
 
 
 def _gram_accumulate_cuda(Ta, N, out_dtype, widen):
@@ -124,8 +141,8 @@ def _gram_accumulate_cuda(Ta, N, out_dtype, widen):
     if batch % Pt or Nmax > nseg * m:
         raise ValueError(f"N {tuple(N.shape)} does not pair with Ta "
                          f"{tuple(Ta.shape)}")
-    if not 1 <= B1 <= GRAM_MAX_B1:
-        raise ValueError(f"gram_accumulate takes B1 <= {GRAM_MAX_B1}, "
+    if not 1 <= B1 <= GRAM_WIDE_MAX_B1:
+        raise ValueError(f"gram_accumulate takes B1 <= {GRAM_WIDE_MAX_B1}, "
                          f"got {B1}")
     if N.device != Ta.device:
         raise ValueError(f"N is on {N.device}, Ta on {Ta.device}")
@@ -140,15 +157,18 @@ def _gram_accumulate_cuda(Ta, N, out_dtype, widen):
     else:
         raise TypeError(f"out_dtype must be float32 or float64, got "
                         f"{out_dtype}")
-    count = _counter(Ta.device, ("gram_accumulate", GRAM_FORMS[form]))
+    wide = B1 > GRAM_MAX_B1
+    name = GRAM_FORMS[form] + ("_wide" if wide else "")
+    count = _counter(Ta.device, ("gram_accumulate", name))
     G = torch.empty((batch, B1, B1), dtype=out_dtype, device=Ta.device)
     extent = torch.empty(Pt * GRAM_EXTENT_SLICES, dtype=torch.int32,
                          device=Ta.device)
-    code = library().ptg_gram_accumulate(
-        _ptr(Ta), _ptr(N), _ptr(G), _ptr(extent), batch, Pt, nseg, m, B1,
-        Nmax, form, count, _stream(Ta))
+    fn = (library().ptg_gram_accumulate_wide if wide
+          else library().ptg_gram_accumulate)
+    code = fn(_ptr(Ta), _ptr(N), _ptr(G), _ptr(extent), batch, Pt, nseg, m,
+              B1, Nmax, form, count, _stream(Ta))
     check(code, "gram_accumulate")
-    return G, GRAM_FORMS[form]
+    return G, name
 
 
 def gram_accumulate(Ta, N, *, out_dtype=None, widen=False):
@@ -175,14 +195,14 @@ def gram_accumulate(Ta, N, *, out_dtype=None, widen=False):
 
 
 gram_accumulate.launches = 0
-gram_accumulate.form_launches = dict.fromkeys(GRAM_FORMS, 0)
+gram_accumulate.form_launches = dict.fromkeys(_GRAM_ALL, 0)
 
 
 _WRAPPERS = {fn.__name__: fn for fn in (chol_solve_sample, gram_accumulate)}
 #: slot of each (kernel, form) in a device's launch counters
 _SLOTS = {(k, f): i for i, (k, f) in enumerate(
-    [("chol_solve_sample", f) for f in CHOL_FORMS.values()]
-    + [("gram_accumulate", f) for f in GRAM_FORMS])}
+    [("chol_solve_sample", f) for f in _CHOL_ALL]
+    + [("gram_accumulate", f) for f in _GRAM_ALL])}
 #: int64 launch counters per CUDA device, one slot per (kernel, form)
 _DEVICE_COUNTS = {}
 

@@ -17,7 +17,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("chol_solve_sample.cu", "gram_accumulate.cu", "bindings.cpp")
+SOURCES = ("chol_solve_sample.cu", "chol_solve_sample_wide.cu",
+           "gram_accumulate.cu", "gram_accumulate_wide.cu", "bindings.cpp")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 
 _lib = None
@@ -33,6 +34,12 @@ def _declare(lib):
     lib.ptg_gram_accumulate.argtypes = [P, P, P, P, I, I, I, I, I, I, I,
                                         P, P]
     lib.ptg_gram_accumulate.restype = I
+    lib.ptg_chol_solve_sample_wide.argtypes = [I, P, P, P, P, P, P, P, P, P,
+                                               I, I, D, P, P]
+    lib.ptg_chol_solve_sample_wide.restype = I
+    lib.ptg_gram_accumulate_wide.argtypes = [P, P, P, P, I, I, I, I, I, I,
+                                             I, P, P]
+    lib.ptg_gram_accumulate_wide.restype = I
     return lib
 
 

@@ -50,4 +50,44 @@ int ptg_gram_accumulate(const void* Ta, const void* N, void* G, void* extent,
       static_cast<cudaStream_t>(stream)));
 }
 
+int ptg_chol_solve_sample_wide(int is_f64, const void* Sig, const void* d,
+                               const void* z, void* L, void* Li, void* dj,
+                               void* mean, void* bp, void* w, int batch,
+                               int n, double ridge, void* count,
+                               void* stream) {
+  if (batch < 0 || batch > 65535 || n <= kCholMaxN || n > kCholWideMaxN ||
+      count == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* c = static_cast<unsigned long long*>(count);
+  if (is_f64)
+    return static_cast<int>(ptg_launch_chol_solve_sample_wide_f64(
+        static_cast<const double*>(Sig), static_cast<const double*>(d),
+        static_cast<const double*>(z), static_cast<double*>(L),
+        static_cast<double*>(Li), static_cast<double*>(dj),
+        static_cast<double*>(mean), static_cast<double*>(bp),
+        static_cast<double*>(w), batch, n, ridge, c, s));
+  return static_cast<int>(ptg_launch_chol_solve_sample_wide_f32(
+      static_cast<const float*>(Sig), static_cast<const float*>(d),
+      static_cast<const float*>(z), static_cast<float*>(L),
+      static_cast<float*>(Li), static_cast<float*>(dj),
+      static_cast<float*>(mean), static_cast<float*>(bp),
+      static_cast<float*>(w), batch, n, static_cast<float>(ridge), c, s));
+}
+
+int ptg_gram_accumulate_wide(const void* Ta, const void* N, void* G,
+                             void* extent, int batch, int P, int nseg, int m,
+                             int B1, int Nmax, int form, void* count,
+                             void* stream) {
+  if (batch < 0 || batch > 65535 || P < 1 || batch % P != 0 || nseg < 1 ||
+      m < 1 || B1 <= kGramMaxB1 || B1 > kGramWideMaxB1 || Nmax < 1 ||
+      Nmax > nseg * m || form < 0 || form > 2 || count == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(ptg_launch_gram_accumulate_wide(
+      static_cast<const float*>(Ta), static_cast<const float*>(N), G,
+      static_cast<int*>(extent), batch, P, nseg, m, B1, Nmax, form,
+      static_cast<unsigned long long*>(count),
+      static_cast<cudaStream_t>(stream)));
+}
+
 }  // extern "C"

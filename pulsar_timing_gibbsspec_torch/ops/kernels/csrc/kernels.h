@@ -20,6 +20,11 @@ constexpr int kGramMaxB1 = 64;
 // Row slices per pulsar of gram_accumulate's extent scan; the caller's
 // extent scratch holds P * kGramExtentSlices ints.
 constexpr int kGramExtentSlices = 8;
+// Largest matrix order of the wide chol_solve_sample form (n >
+// kCholMaxN) and augmented width of the wide gram_accumulate form (B1 >
+// kGramMaxB1).
+constexpr int kCholWideMaxN = 1024;
+constexpr int kGramWideMaxB1 = 1024;
 
 cudaError_t ptg_launch_chol_solve_sample_f32(
     const float* Sig, const float* d, const float* z, float* L, float* Li,
@@ -39,6 +44,33 @@ cudaError_t ptg_launch_chol_solve_sample_f64(
 // form 1: float32 segment dots, float64 segment reduce, float64 out
 // form 2: float64 ("widen") accumulation inside and across segments
 cudaError_t ptg_launch_gram_accumulate(
+    const float* Ta, const float* N, void* G, int* extent, int batch, int P,
+    int nseg, int m, int B1, int Nmax, int form, unsigned long long* count,
+    cudaStream_t stream);
+
+// Wide form of chol_solve_sample (kCholMaxN < n <= kCholWideMaxN): the same
+// outputs, from a chain of launches with the matrix in device memory; w is
+// (batch, n) scratch.  The last launch counts the run.
+cudaError_t ptg_launch_chol_solve_sample_wide_f32(
+    const float* Sig, const float* d, const float* z, float* L, float* Li,
+    float* dj, float* mean, float* bp, float* w, int batch, int n,
+    float ridge, unsigned long long* count, cudaStream_t stream);
+
+cudaError_t ptg_launch_chol_solve_sample_wide_f64(
+    const double* Sig, const double* d, const double* z, double* L,
+    double* Li, double* dj, double* mean, double* bp, double* w, int batch,
+    int n, double ridge, unsigned long long* count, cudaStream_t stream);
+
+// The extent scan of gram_accumulate alone (its first launch).
+cudaError_t ptg_launch_gram_extent(const float* Ta, const float* N,
+                                   int* extent, int batch, int P, int nseg,
+                                   int m, int B1, int Nmax,
+                                   cudaStream_t stream);
+
+// Wide form of gram_accumulate (kGramMaxB1 < B1 <= kGramWideMaxB1): the
+// same arguments, forms and result, the output tiled across CTAs.  Two
+// launches: the extent scan, then the Gram.
+cudaError_t ptg_launch_gram_accumulate_wide(
     const float* Ta, const float* N, void* G, int* extent, int batch, int P,
     int nseg, int m, int B1, int Nmax, int form, unsigned long long* count,
     cudaStream_t stream);

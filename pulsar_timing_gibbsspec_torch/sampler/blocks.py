@@ -2,10 +2,10 @@
 
 Port of the CRN pieces of ``pulsar_timing_gibbsspec_tpu/sampler/
 jax_backend.py``: the segmented Grams and the b-draws (steady
-Metropolised draw, refresh, exact draw), the white-noise block
-(relative likelihood, adapted full-block MH, Laplace proposals), and the
-hyper block (common-rho grid draw, per-pulsar red draw, rho <-> b scale
-moves).  Every function takes the chains as leading dimensions of ``x``
+Metropolised draw, refresh, exact draw), the white-noise and basis-ECORR
+blocks (relative likelihoods, adapted full-block MH, Laplace proposals),
+and the hyper block (common-rho grid draw, or the single-pulsar
+inverse-CDF draw; per-pulsar red draw; rho <-> b scale moves).  Every function takes the chains as leading dimensions of ``x``
 (``(C, nx)``), ``b`` (``(C, P, Bmax)``) and ``u = T b`` (``(C, P,
 Nmax)``); the kernels see ``C * P`` systems at once.
 
@@ -351,6 +351,55 @@ def white_block_ll(cm, x, r, r2):
     return white_ll_rel(cm, x, r2)
 
 
+def _ecorr_coeffs(cm, b):
+    """``(b at the ECORR columns, live mask)``, each (..., P, We)."""
+    B = cm.Bmax
+    bj = torch.gather(b, -1, torch.clamp(cm.ec_cols, max=B - 1).expand(
+        b.shape[:-1] + cm.ec_cols.shape[-1:]))
+    return bj, cm.ec_cols < B
+
+
+def lnlike_ecorr_per(cm, x, b):
+    """Per-pulsar ECORR conditional log-likelihood (..., P) in the compute
+    dtype: the coefficients on the ECORR columns are independent
+    ``N(0, 10^(2 e))``, ``e`` the owning backend's log10_ecorr.  The
+    Laplace curvature's target."""
+    cdt = cm.cdtype
+    bj, live = _ecorr_coeffs(cm, b)
+    mask = live.to(cdt)
+    bj = bj.to(cdt)
+    e = cm.xe(x)[..., cm.ec_ix]
+    return (mask * (-_LN10 * e - 0.5 * bj * bj * torch.pow(10.0, -2.0 * e))
+            ).sum(-1)
+
+
+def ecorr_ll_rel(cm, x0, b):
+    """Closure ``q -> ll(q) - ll(x0)`` of the ECORR conditional per
+    pulsar in the storage dtype: ``-ln10 (e_q - e_0) + 0.5 u (1 -
+    10^(2 (e_0 - e_q)))`` per column with ``u = b^2 / 10^(2 e_0)``."""
+    fdt = cm.dtype
+    xev0 = cm.xe(x0)
+    e0c = xev0[..., cm.ec_ix]
+    e0 = e0c.to(fdt)
+    bj, live = _ecorr_coeffs(cm, b)
+    mask = live.to(fdt)
+    u = (bj * bj * torch.pow(10.0, -2.0 * e0c)).to(fdt)
+
+    def ll_rel(q):
+        eq = cm.xe(q).to(fdt)[..., cm.ec_ix]
+        ratio = torch.pow(10.0, 2.0 * (e0 - eq))
+        return (mask * (-_LN10 * (eq - e0) + 0.5 * u * (1.0 - ratio))
+                ).sum(-1)
+
+    return ll_rel
+
+
+def ecorr_block_ll(cm, x, b, r):
+    """The ECORR MH block's target (basis ECORR: the coefficients'
+    conditional; ``r`` is unused, as kernel ECORR is not in the port)."""
+    return ecorr_ll_rel(cm, x, b)
+
+
 def _mh_step(cm, lnlike, ind):
     """One single-site Metropolis step with the scale-mixture proposal,
     jump sd tied to the coordinate's prior width; returns
@@ -609,9 +658,9 @@ def rho_update_core(cm, x, b, gumbel):
     (..., K, R) in the storage dtype."""
     if cm.K == 0 or len(cm.rho_ix_x) == 0:
         return x
-    if cm.P_real == 1 and cm.red_kind == "":
-        raise NotImplementedError(
-            "the single-pulsar inverse-CDF rho draw is not in the port yet")
+    if _rho_invcdf_applies(cm):
+        raise ValueError("a single pulsar without intrinsic red noise "
+                         "draws its rho by inverse CDF: rho_invcdf_core")
     fdt = cm.dtype
     grid = _rho_grid(cm, cm.rhomin, cm.rhomax)
     ltau = torch.log(cm.gw_tau(b)).to(fdt)
@@ -627,8 +676,38 @@ def rho_update_core(cm, x, b, gumbel):
     return x
 
 
+def _rho_invcdf_applies(cm) -> bool:
+    """One pulsar without intrinsic red noise: its common rho has an
+    exact truncated inverse-CDF draw."""
+    return cm.P_real == 1 and cm.red_kind == ""
+
+
+def rho_invcdf_core(cm, x, b, u):
+    """Single-pulsar common free-spectrum log10_rho draw, exact by the
+    truncated inverse CDF of ``p(rho_k) ~ exp(-tau_k / rho_k) / rho_k``
+    on ``[rhomin, rhomax]``, in the compute dtype; ``u`` (..., K) float64
+    uniforms.  ``tau`` is clamped at ``rhomin * 1e-6``: at ``tau = 0`` the
+    inverse CDF is 0/0, and the clamped draw has the ``tau -> 0`` limit
+    with a relative density error ~1e-6."""
+    if cm.K == 0 or len(cm.rho_ix_x) == 0:
+        return x
+    t = torch.clamp(cm.gw_tau(b)[..., 0, :], min=cm.rhomin * 1e-6)
+    hi = -torch.expm1(t / cm.rhomax - t / cm.rhomin)
+    eta = hi * u
+    rhonew = t / (t / cm.rhomax - torch.log1p(-eta))
+    x = x.clone()
+    x[..., cm.rho_ix_x] = (0.5 * torch.log10(rhonew)).to(x.dtype)
+    return x
+
+
 def rho_update(cm, x, b, gen):
-    """:func:`rho_update_core` with its Gumbels drawn from ``gen``."""
+    """The common log10_rho draw with its noise drawn from ``gen``:
+    :func:`rho_invcdf_core` (uniforms) for a single pulsar without
+    intrinsic red noise, :func:`rho_update_core` (Gumbels) otherwise."""
+    if _rho_invcdf_applies(cm):
+        u = torch.rand(x.shape[:-1] + (cm.K,), generator=gen,
+                       dtype=cm.cdtype, device=cm.device)
+        return rho_invcdf_core(cm, x, b, u)
     shape = x.shape[:-1] + (cm.K, settings.rho_grid_size)
     return rho_update_core(cm, x, b, _gumbel(gen, shape, cm.dtype,
                                              cm.device))

@@ -1,7 +1,7 @@
 """The compiled PTA model as tensors on one device.
 
 Port of ``pulsar_timing_gibbsspec_tpu/sampler/compiled.py`` for the CRN
-free-spectrum model: ragged per-pulsar shapes padded to ``(P, Nmax)`` /
+free-spectrum model with basis ECORR: ragged per-pulsar shapes padded to ``(P, Nmax)`` /
 ``(P, Bmax)``, hyperparameter references compiled to integer gathers into
 ``xe = [x, 0-sentinel, constants]``, and ``phi(x)`` as a scatter-add of
 the per-component variances onto the basis columns.
@@ -69,9 +69,10 @@ class BlockIndex:
 
 @dataclasses.dataclass
 class GPComponent:
-    """One free-spectrum Fourier-GP component, stacked over pulsars:
-    ``cols`` index the basis axis (pad ``Bmax``, dropped on scatter),
-    ``rho_ix`` gathers each column's log10_rho out of ``xe``."""
+    """One free-spectrum Fourier-GP or basis-ECORR component, stacked
+    over pulsars: ``cols`` index the basis axis (pad ``Bmax``, dropped on
+    scatter), ``rho_ix`` gathers each column's log10_rho (log10_ecorr)
+    out of ``xe``; a column's variance is ``10^(2 xe[rho_ix])``."""
 
     kind: str
     cols: torch.Tensor       # (P, W) int64
@@ -122,6 +123,10 @@ class CompiledPTA:
     red_cos_ix: torch.Tensor   # (P, Kr)
     white_par_ix: torch.Tensor  # (P, Wp) -> x (pad nx)
     white_nper: torch.Tensor   # (P,)
+    ec_cols: torch.Tensor      # (P, We) ECORR columns of b (pad Bmax)
+    ec_ix: torch.Tensor        # (P, We) their log10_ecorr -> xe
+    ecorr_par_ix: torch.Tensor  # (P, Ep) -> x (pad nx)
+    ecorr_nper: torch.Tensor   # (P,)
     rhomin: float
     rhomax: float
     red_rhomin: float
@@ -140,28 +145,30 @@ class CompiledPTA:
         ``b_param_names``: per real pulsar, ``<pulsar>_<signal>_<j>`` for
         its timing-model columns (``linear_timing_model``), then each
         Fourier column named after the first signal holding it, in the
-        model's signal order (the common process before intrinsic red).
-        A signal's name is its parameters' stem (``gw_crn``,
+        model's signal order (the common process before intrinsic red),
+        then the ECORR columns (``<pulsar>_basis_ecorr_<j>``).  A
+        Fourier signal's name is its parameters' stem (``gw_crn``,
         ``<pulsar>_red_noise``)."""
         if len(self.pulsars) != self.P_real:
             raise ValueError("the model carries no pulsar names; build it "
                              "with build_crn_spectrum or pass 'pulsars' "
                              "to from_arrays")
-        comps = [(c.cols.cpu().numpy(), c.rho_ix.cpu().numpy())
+        comps = [(c.cols.cpu().numpy(), c.rho_ix.cpu().numpy(), c.kind)
                  for c in self.components]
         out = []
         for p, (psr, width) in enumerate(zip(self.pulsars, self.widths)):
-            gp = {int(j) for cols, _ in comps for j in cols[p]
+            gp = {int(j) for cols, _, _ in comps for j in cols[p]
                   if j < self.Bmax}
             ntm = width - len(gp)
             named = {j: f"{psr}_linear_timing_model_{j}"
                      for j in range(ntm)}
-            for cols, rix in comps:
+            for cols, rix, kind in comps:
                 live = cols[p] < self.Bmax
                 if not live.any():
                     continue
-                sig = self.param_names[rix[p][live][0]].rsplit(
-                    "_log10_rho_", 1)[0]
+                sig = ("basis_ecorr" if kind == "ecorr" else
+                       self.param_names[rix[p][live][0]].rsplit(
+                           "_log10_rho_", 1)[0])
                 start = int(cols[p][live].min())
                 for j in cols[p][live]:
                     named.setdefault(int(j), f"{psr}_{sig}_{j - start}")
@@ -316,14 +323,13 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
     ``cols``, ``rho_ix``), plus the pulsar names under ``pulsars`` where
     the arrays carry them.  Both sides then compute on the same
     model.  Raises ``NotImplementedError`` for models the port does not
-    cover yet (anything but the CRN free-spectrum model)."""
+    cover yet (anything but the CRN free-spectrum model with optional
+    intrinsic free-spectrum red noise and basis ECORR)."""
     dev = resolve_device(device)
     if fields.get("orf_name", "crn") != "crn":
         raise NotImplementedError("correlated ORFs are not in the port yet")
     if fields.get("ke_eid") is not None:
         raise NotImplementedError("kernel ECORR is not in the port yet")
-    if np.asarray(fields.get("ec_cols", np.zeros((1, 0)))).shape[1]:
-        raise NotImplementedError("ECORR is not in the port yet")
     if fields["gw_kind"] not in ("free_spectrum",):
         raise NotImplementedError(
             f"common PSD {fields['gw_kind']!r} is not in the port yet")
@@ -341,7 +347,7 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
 
     comps = []
     for c in fields["components"]:
-        if c["kind"] != "free_spectrum":
+        if c["kind"] not in ("free_spectrum", "ecorr"):
             raise NotImplementedError(
                 f"GP component {c['kind']!r} is not in the port yet")
         comps.append(GPComponent(
@@ -368,7 +374,9 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
         red_kind=str(fields["red_kind"]), red_rho_ix=ix("red_rho_ix"),
         red_rho_ix_x=ix("red_rho_ix_x"), red_sin_ix=ix("red_sin_ix"),
         red_cos_ix=ix("red_cos_ix"), white_par_ix=ix("white_par_ix"),
-        white_nper=ix("white_nper"),
+        white_nper=ix("white_nper"), ec_cols=ix("ec_cols"),
+        ec_ix=ix("ec_ix"), ecorr_par_ix=ix("ecorr_par_ix"),
+        ecorr_nper=ix("ecorr_nper"),
         rhomin=float(fields["rhomin"]), rhomax=float(fields["rhomax"]),
         red_rhomin=float(fields["red_rhomin"]),
         red_rhomax=float(fields["red_rhomax"]),

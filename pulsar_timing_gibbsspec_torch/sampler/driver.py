@@ -1,14 +1,16 @@
 """The CRN free-spectrum Gibbs driver, with the chains as a batch axis.
 
 Port of the CRN path of ``pulsar_timing_gibbsspec_tpu/sampler/
-jax_backend.py::JaxGibbsDriver``: an initial exact b-draw, ``W`` warmup
-sweeps (``_warmup_body``), the first-sweep adaptation (``_first_sweep``:
-Laplace proposals, a record scan, the moment-matched independence
-proposal, the ACT that sizes the white sub-chain), then steady sweeps
-(``_sweep_body``) in the JAX order
+jax_backend.py::JaxGibbsDriver``, for one pulsar or an array: an initial
+exact b-draw, ``W`` warmup sweeps (``_warmup_body``), the first-sweep
+adaptation (``_first_sweep``: for the white block and, with basis ECORR,
+the ECORR block, Laplace proposals, a record scan, the moment-matched
+independence proposal and the ACT that sizes the block's sub-chain),
+then steady sweeps (``_sweep_body``) in the JAX order
 
-    white MH -> red conditional -> common rho -> rho <-> b scale moves
-    -> Metropolised b-draw (``draw_b_mh``),
+    white MH -> ECORR MH -> red conditional -> common rho (grid draw, or
+    the inverse-CDF draw of a single pulsar without red noise) -> rho <->
+    b scale moves -> Metropolised b-draw (``draw_b_mh``),
 
 with the near-exact ``draw_b_refresh`` in place of ``draw_b_mh`` on every
 iteration ``t`` with ``t % exact_every == 0``.  State is carried as
@@ -53,7 +55,7 @@ from .graphs import SteadyGraphs
 
 #: single-site white MH steps per warmup sweep (before adaptation)
 WARMUP_WHITE_STEPS = 16
-#: cap on the ACT-sized white sub-chain of a steady sweep
+#: cap on the ACT-sized white (and ECORR) sub-chain of a steady sweep
 WHITE_STEPS_MAX = 64
 #: stream index of the initial exact b-draw
 INIT_STREAM = -1
@@ -239,7 +241,8 @@ class _Records:
 
 class TorchGibbsDriver:
     """Blocked Gibbs over ``nchains`` independent chains of the CRN
-    free-spectrum model ``cm`` (a compiled model on its device).
+    free-spectrum model ``cm`` (a compiled model on its device; basis
+    ECORR and intrinsic free-spectrum red noise optional).
 
     ``graphs`` (default: on when ``cm`` lives on a card) replays the
     steady sweep from CUDA graphs; ``graphs=False`` runs it eagerly, the
@@ -251,8 +254,6 @@ class TorchGibbsDriver:
         if len(cm.idx.red):
             raise NotImplementedError(
                 "powerlaw-family hyper MH blocks are not in the port yet")
-        if len(cm.idx.ecorr):
-            raise NotImplementedError("ECORR is not in the port yet")
         if not (cm.K and len(cm.rho_ix_x)):
             raise ValueError("the model has no sampled common free "
                              "spectrum (the port's CRN sweep needs one)")
@@ -281,6 +282,7 @@ class TorchGibbsDriver:
         self.warmup_white_steps = WARMUP_WHITE_STEPS
         self.white_steps_max = WHITE_STEPS_MAX
         self.do_white = len(cm.idx.white) > 0
+        self.do_ecorr = len(cm.idx.ecorr) > 0 and cm.ec_cols.shape[1] > 0
         self.do_red_conditional = bool((cm.red_rho_ix_x < cm.nx).any())
         self.do_scale = blocks._rho_scale_applies(cm)
         self.gen = torch.Generator(device=cm.device)
@@ -288,10 +290,12 @@ class TorchGibbsDriver:
         #: block milliseconds of the warmup and adaptation (``timer.ms``
         #: then holds the steady sweeps alone)
         self.warmup_ms = {}
-        self.aclength_white = None
+        self.aclength_white = self.aclength_ecorr = None
         self.chol_white = self.mode_white = self.asqrt_white = None
-        #: host copies of the white adaptation state, for checkpoints
-        self._white_host = {}
+        self.chol_ecorr = self.mode_ecorr = self.asqrt_ecorr = None
+        #: host copies of the white and ECORR adaptation state, for
+        #: checkpoints
+        self._adapt_host = {}
         # flat (pulsar, col) gather of padded (P, Bmax) b into the
         # reference's concatenated per-pulsar layout
         pi, ci = [], []
@@ -315,6 +319,10 @@ class TorchGibbsDriver:
         self.b_mh_accepts = torch.zeros((self.C, cm.P), dtype=torch.float64,
                                         device=cm.device)
         self.b_mh_sweeps = 0
+        #: the same for the steady refresh b-draws since this driver was
+        #: made (a diagnostic: not checkpointed)
+        self.b_refresh_accepts = torch.zeros_like(self.b_mh_accepts)
+        self.b_refresh_sweeps = 0
         self._acc_cur = np.zeros((self.C, cm.P))
         self._b_mh_sweeps_cur = 0
         #: (chain, pulsar) Laplace factors of the warmup and adaptation
@@ -343,12 +351,14 @@ class TorchGibbsDriver:
     def sweep_blocks(self, exact):
         """Names of a steady sweep's blocks in the JAX order."""
         white = ["white"] if self.do_white and self.aclength_white else []
-        return white + self._hyper_blocks() + [
+        ecorr = ["ecorr"] if self.do_ecorr and self.aclength_ecorr else []
+        return white + ecorr + self._hyper_blocks() + [
             "b_refresh" if exact else "b_mh"]
 
     def block(self, name, x, b, u):
         """One steady block on ``(x, b, u)``; returns the new triple.
-        ``b_mh`` adds its accept mask to :attr:`b_mh_accepts` in place."""
+        ``b_mh`` (``b_refresh``) adds its accept mask to
+        :attr:`b_mh_accepts` (:attr:`b_refresh_accepts`) in place."""
         cm, gen = self.cm, self.gen
         if name == "white":
             r = cm.y - u
@@ -357,6 +367,12 @@ class TorchGibbsDriver:
                 cm.white_par_ix, cm.white_nper, self.chol_white,
                 self.aclength_white, record=False, mode=self.mode_white,
                 asqrt=self.asqrt_white)
+        elif name == "ecorr":
+            x, _ = blocks.parallel_cov_mh_scan(
+                cm, x, gen, blocks.ecorr_block_ll(cm, x, b, None),
+                cm.ecorr_par_ix, cm.ecorr_nper, self.chol_ecorr,
+                self.aclength_ecorr, record=False, mode=self.mode_ecorr,
+                asqrt=self.asqrt_ecorr)
         elif name == "red":
             x = blocks.red_conditional_update(cm, x, b, gen)
         elif name == "rho":
@@ -367,29 +383,31 @@ class TorchGibbsDriver:
             b, u, acc = blocks.draw_b_mh(cm, x, b, u, gen)
             self.b_mh_accepts += acc.to(torch.float64)
         elif name == "b_refresh":
-            b, u, _ = blocks.draw_b_refresh(cm, x, b, u, gen)
+            b, u, acc = blocks.draw_b_refresh(cm, x, b, u, gen)
+            self.b_refresh_accepts += acc.to(torch.float64)
         else:
             raise ValueError(f"unknown block {name!r}")
         return x, b, u
 
-    def _set_white(self, **state):
-        """Set the white adaptation state (``chol_white``, ``mode_white``,
-        ``asqrt_white`` arrays) on the device, in the model's storage
-        type, and keep host copies: a checkpoint taken while a chunk runs
-        must not wait for the device."""
+    def _set_adapt(self, **state):
+        """Set adaptation arrays (``chol_white``, ``mode_white``,
+        ``asqrt_white`` and their ECORR twins) on the device, in the
+        model's storage type, and keep host copies: a checkpoint taken
+        while a chunk runs must not wait for the device."""
         for key, val in state.items():
             t = torch.as_tensor(np.asarray(val), dtype=self.cm.dtype,
                                 device=self.cm.device)
             setattr(self, key, t)
-            self._white_host[key] = t.cpu().numpy()
+            self._adapt_host[key] = t.cpu().numpy()
 
     def _count_nonfinite(self, chol):
         self.laplace_nonfinite += (~torch.isfinite(chol)).any(-1).any(
             -1).sum()
 
     def _warmup_sweep(self, x, b, u):
-        """Pre-adaptation sweep: Laplace random-walk white sub-chain at
-        the current state, the hyper blocks, the Metropolised refresh."""
+        """Pre-adaptation sweep: Laplace random-walk white and ECORR
+        sub-chains at the current state, the hyper blocks, the
+        Metropolised refresh."""
         cm, tm = self.cm, self.timer
         if self.do_white:
             with tm("white"):
@@ -402,6 +420,16 @@ class TorchGibbsDriver:
                 x, _ = blocks.parallel_cov_mh_scan(
                     cm, x, self.gen, blocks.white_block_ll(cm, x, r, r2),
                     cm.white_par_ix, cm.white_nper, chol,
+                    self.warmup_white_steps, record=False)
+        if self.do_ecorr:
+            with tm("ecorr"):
+                _, chol, _ = blocks.laplace_newton_chol(
+                    cm, x, lambda q: blocks.lnlike_ecorr_per(cm, q, b),
+                    cm.ecorr_par_ix, cm.ecorr_nper, newton_iters=0)
+                self._count_nonfinite(chol)
+                x, _ = blocks.parallel_cov_mh_scan(
+                    cm, x, self.gen, blocks.ecorr_block_ll(cm, x, b, None),
+                    cm.ecorr_par_ix, cm.ecorr_nper, chol,
                     self.warmup_white_steps, record=False)
         for name in self._hyper_blocks():
             with tm(name):
@@ -417,41 +445,55 @@ class TorchGibbsDriver:
                 x, b, u = self.block(name, x, b, u)
         return x, b, u
 
-    def _first_sweep(self, x, b):
-        """Adaptation: Laplace proposals at the white conditional mode, a
-        record scan, the moment-matched proposal, a second record whose
-        ACT fixes the steady white sub-chain length; then the red and
-        rho draws and a fresh exact b.  Returns ``(x, b)``."""
+    def _adapt_block(self, x, which, curv, target, par_ix, nper):
+        """One MH block's adaptation: Laplace proposals at its conditional
+        mode (``curv``: per-pulsar log-likelihood), a record scan of the
+        block's ``target``, the moment-matched proposal, a second record
+        whose ACT (capped) sets the steady sub-chain length.  Sets
+        ``chol_<which>``, ``mode_<which>``, ``asqrt_<which>`` and
+        ``aclength_<which>``; returns ``x``."""
         cm = self.cm
         f32 = cm.dtype
+        x, chol, asq = blocks.laplace_newton_chol(cm, x, curv, par_ix, nper)
+        self._count_nonfinite(chol)
+        mode = x[..., torch.clamp(par_ix, max=cm.nx - 1)]
+
+        def record(x, chol, mode, asq):
+            return blocks.parallel_cov_mh_scan(
+                cm, x, self.gen, target(x), par_ix, nper, chol.to(f32),
+                self.white_adapt_iters, mode=mode.to(f32),
+                asqrt=asq.to(f32))
+
+        nper_h = nper.cpu().numpy()
+        x, rec2 = record(x, chol, mode, asq)
+        m2, c2, a2 = _moment_proposal(rec2.cpu().numpy(), nper_h)
+        self._set_adapt(**{f"mode_{which}": m2, f"chol_{which}": c2,
+                           f"asqrt_{which}": a2})
+        x, rec3 = record(x, *(getattr(self, f"{k}_{which}")
+                              for k in ("chol", "mode", "asqrt")))
+        setattr(self, f"aclength_{which}", min(
+            _act_from_rec(rec3.cpu().numpy(), nper_h, cm.P_real),
+            self.white_steps_max))
+        return x
+
+    def _first_sweep(self, x, b):
+        """Adaptation of the white block, then of the ECORR block (each
+        by :meth:`_adapt_block`), at one exact b; then the red and rho
+        draws and a fresh exact b.  Returns ``(x, b)``."""
+        cm = self.cm
         b = blocks.draw_b_fn(cm, x, self.gen, b)
         if self.do_white:
             r2 = blocks.residual_sq(cm, b)
-            x, chol, asq = blocks.laplace_newton_chol(
-                cm, x, lambda q: blocks.lnlike_white_per(cm, q, r2),
-                cm.white_par_ix, cm.white_nper)
-            self._count_nonfinite(chol)
-            safe = torch.clamp(cm.white_par_ix, max=cm.nx - 1)
-            mode = x[..., safe]
             r = cm.y - blocks.b_matvec(cm, b)
-
-            def record(x, chol, mode, asq):
-                return blocks.parallel_cov_mh_scan(
-                    cm, x, self.gen, blocks.white_block_ll(cm, x, r, r * r),
-                    cm.white_par_ix, cm.white_nper, chol.to(f32),
-                    self.white_adapt_iters, mode=mode.to(f32),
-                    asqrt=asq.to(f32))
-
-            x, rec2 = record(x, chol, mode, asq)
-            m2, c2, a2 = _moment_proposal(rec2.cpu().numpy(),
-                                          cm.white_nper.cpu().numpy())
-            self._set_white(mode_white=m2, chol_white=c2, asqrt_white=a2)
-            x, rec3 = record(x, self.chol_white, self.mode_white,
-                             self.asqrt_white)
-            self.aclength_white = min(
-                _act_from_rec(rec3.cpu().numpy(),
-                              cm.white_nper.cpu().numpy(), cm.P_real),
-                self.white_steps_max)
+            x = self._adapt_block(
+                x, "white", lambda q: blocks.lnlike_white_per(cm, q, r2),
+                lambda x: blocks.white_block_ll(cm, x, r, r * r),
+                cm.white_par_ix, cm.white_nper)
+        if self.do_ecorr:
+            x = self._adapt_block(
+                x, "ecorr", lambda q: blocks.lnlike_ecorr_per(cm, q, b),
+                lambda x: blocks.ecorr_block_ll(cm, x, b, None),
+                cm.ecorr_par_ix, cm.ecorr_nper)
         if self.do_red_conditional:
             x = blocks.red_conditional_update(cm, x, b, self.gen)
         x = blocks.rho_update(cm, x, b, self.gen)
@@ -485,7 +527,9 @@ class TorchGibbsDriver:
             self._reseed(t)
             exact = t % self.exact_every == 0
             c.sweep(exact)
-            if not exact:
+            if exact:
+                self.b_refresh_sweeps += 1
+            else:
                 self.b_mh_sweeps += 1
         self.steady_sweeps += n
 
@@ -678,7 +722,7 @@ class TorchGibbsDriver:
     def adapt_state(self):
         """The state a resume needs, at the last writeback: the seed
         (streams are pure in it and the iteration), the carry, the
-        iteration counter and the white adaptation."""
+        iteration counter and the white and ECORR adaptation."""
         out = {"seed": np.uint64(self.seed & _MASK64),
                "nchains": np.int64(self.C),
                "b_pad": self.b.numpy().astype(np.float64),
@@ -689,9 +733,10 @@ class TorchGibbsDriver:
                    else np.zeros((self.C, self.cm.nx))),
                "b_mh_accepts": np.asarray(self._acc_cur),
                "b_mh_sweeps": np.int64(self._b_mh_sweeps_cur),
-               **self._white_host}
-        if self.aclength_white is not None:
-            out["aclength_white"] = np.asarray(self.aclength_white)
+               **self._adapt_host}
+        for key in ("aclength_white", "aclength_ecorr"):
+            if getattr(self, key) is not None:
+                out[key] = np.asarray(getattr(self, key))
         return out
 
     def load_adapt_state(self, state):
@@ -735,10 +780,12 @@ class TorchGibbsDriver:
             self.b_mh_sweeps = int(state.get("b_mh_sweeps", 0))
             self._acc_cur = np.asarray(state["b_mh_accepts"])
             self._b_mh_sweeps_cur = self.b_mh_sweeps
-        if "aclength_white" in state:
-            self.aclength_white = int(state["aclength_white"])
-        self._set_white(**{k: state[k] for k in (
-            "chol_white", "mode_white", "asqrt_white") if k in state})
+        for key in ("aclength_white", "aclength_ecorr"):
+            if key in state:
+                setattr(self, key, int(state[key]))
+        self._set_adapt(**{k: state[k] for k in (
+            "chol_white", "mode_white", "asqrt_white", "chol_ecorr",
+            "mode_ecorr", "asqrt_ecorr") if k in state})
         if self.do_white and (self.aclength_white is None
                               or self.chol_white is None
                               or self.mode_white is None):
@@ -746,3 +793,10 @@ class TorchGibbsDriver:
                 "resume checkpoint lacks white-noise adaptation state "
                 "(chol/mode_white) — it was written by an incompatible "
                 "version; delete the chain directory to start fresh")
+        if self.do_ecorr and (self.aclength_ecorr is None
+                              or self.chol_ecorr is None
+                              or self.mode_ecorr is None):
+            raise RuntimeError(
+                "resume checkpoint lacks ECORR adaptation state "
+                "(chol/mode_ecorr); delete the chain directory to start "
+                "fresh")

@@ -1,10 +1,12 @@
-"""User-facing facade of the port's PTA Gibbs sampler.
+"""User-facing facades of the port's Gibbs samplers.
 
-``PTABlockGibbs(cm, nchains=C, device="cuda", seed=0)`` runs the CRN
-free-spectrum sweep of :mod:`.driver` on the compiled model ``cm``;
-``.sample(x0, outdir, niter, resume=False, save_every=100)`` is the JAX
-facade's (``pulsar_timing_gibbsspec_tpu/sampler/gibbs.py::_GibbsBase.
-sample``) without its fault, sentinel, drain and HDF5 branches: it writes
+``PulsarBlockGibbs(cm, nchains=C, device="cuda", seed=0)`` (one pulsar)
+and ``PTABlockGibbs(cm, ...)`` (an array) run the sweep of :mod:`.driver`
+on the compiled model ``cm``; they share :class:`_GibbsBase`, as the JAX
+package's facades do.  ``.sample(x0, outdir, niter, resume=False,
+save_every=100)`` is the JAX facade's (``pulsar_timing_gibbsspec_tpu/
+sampler/gibbs.py::_GibbsBase.sample``) without its fault, sentinel,
+drain and HDF5 branches: it writes
 ``chain.npy`` / ``bchain.npy`` (rows of the JAX layout), ``pars_chain.txt``
 / ``pars_bchain.txt``, ``adapt.npz`` and ``manifest.json`` every
 ``save_every`` sweeps (rounded up to whole chunks) through
@@ -26,8 +28,9 @@ from .chains import ChainStore
 from .driver import RNG_RULE, TorchGibbsDriver
 
 
-class PTABlockGibbs:
-    """Multi-pulsar blocked Gibbs with a common free spectrum."""
+class _GibbsBase:
+    """What both facades share: the driver on ``cm``, the names, the
+    initial draw and ``sample``."""
 
     def __init__(self, cm, nchains=1, device="cuda", seed=0, **driver_opts):
         dev = resolve_device(device)
@@ -184,7 +187,8 @@ class PTABlockGibbs:
                         "sweeps_per_s": round(rate, 3),
                         "record_every": rec_k if rec_k > 1 else None,
                         "backend": "torch", "nchains": C,
-                        "aclength_white": drv.aclength_white})
+                        "aclength_white": drv.aclength_white,
+                        "aclength_ecorr": drv.aclength_ecorr})
                     last_saved = upto
             settle()
         finally:
@@ -210,3 +214,20 @@ class PTABlockGibbs:
             saver.shutdown()
         self.chain, self.bchain = chain, bchain
         return chain
+
+
+class PulsarBlockGibbs(_GibbsBase):
+    """Single-pulsar blocked Gibbs with a free-spectrum common process
+    (the JAX package's ``PulsarBlockGibbs``): white, basis-ECORR, rho
+    (inverse-CDF draw without intrinsic red noise) and b blocks."""
+
+    def __init__(self, cm, nchains=1, device="cuda", seed=0, **driver_opts):
+        if cm.P_real != 1:
+            raise ValueError(f"PulsarBlockGibbs samples one pulsar; the "
+                             f"model holds {cm.P_real} (use PTABlockGibbs)")
+        super().__init__(cm, nchains=nchains, device=device, seed=seed,
+                         **driver_opts)
+
+
+class PTABlockGibbs(_GibbsBase):
+    """Multi-pulsar blocked Gibbs with a common free spectrum."""

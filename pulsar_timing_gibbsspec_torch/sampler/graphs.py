@@ -2,10 +2,11 @@
 
 The port's counterpart of the JAX package's compiled chunk program
 (``jax_backend.py::_make_chunk``): after adaptation every shape of the
-steady sweep is fixed (the white sub-chain length ``aclength_white``
-included), so each of its blocks (white, red, rho, scale, b_mh,
-b_refresh) is captured once as a CUDA graph and a sweep is a few graph
-launches in place of ~12 600 kernel launches from the host.
+steady sweep is fixed (the white and ECORR sub-chain lengths
+``aclength_white`` and ``aclength_ecorr`` included), so each of its
+blocks (white, ecorr, red, rho, scale, b_mh, b_refresh, as the model has
+them) is captured once as a CUDA graph and a sweep is a few graph
+launches in place of thousands of kernel launches from the host.
 
 - ``x``, ``b``, ``u = T b`` and the b_mh acceptance counters live in
   static buffers that every graph reads and writes in place.
@@ -63,14 +64,15 @@ class SteadyGraphs:
         stream = torch.cuda.Stream(cm.device)
         torch.cuda.synchronize(cm.device)
         t0 = time.perf_counter()
-        acc0 = drv.b_mh_accepts.clone()
+        acc0 = (drv.b_mh_accepts.clone(), drv.b_refresh_accepts.clone())
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
             for name in names:
                 drv.block(name, self.x.clone(), self.b.clone(),
                           self.u.clone())
         torch.cuda.current_stream().wait_stream(stream)
-        drv.b_mh_accepts.copy_(acc0)
+        drv.b_mh_accepts.copy_(acc0[0])
+        drv.b_refresh_accepts.copy_(acc0[1])
         torch.cuda.synchronize(cm.device)
         # every capture empties the allocator's cache first; so does this
         torch.cuda.empty_cache()
@@ -79,7 +81,11 @@ class SteadyGraphs:
         #: the graphs, and the kernel launches ``{(kernel, form): n}``
         #: each capture recorded, by block
         self.graphs, self.launches = {}, {}
+        #: host seconds and pool bytes each capture took, by block
+        self.capture_by, self.pool_by = {}, {}
         for name in names:
+            tc = time.perf_counter()
+            mc = torch.cuda.memory_reserved(cm.device)
             g = torch.cuda.CUDAGraph()
             g.register_generator_state(drv.gen)
             before = kernels.launch_counts()
@@ -92,6 +98,8 @@ class SteadyGraphs:
             self.graphs[name] = g
             self.launches[name] = {k: after[k] - before[k] for k in after
                                    if after[k] != before[k]}
+            self.capture_by[name] = time.perf_counter() - tc
+            self.pool_by[name] = torch.cuda.memory_reserved(cm.device) - mc
         torch.cuda.synchronize(cm.device)
         #: host seconds of the warm-up pass and the captures
         self.capture_seconds = time.perf_counter() - t0

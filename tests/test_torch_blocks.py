@@ -25,7 +25,7 @@ import torch
 
 from pulsar_timing_gibbsspec_torch.ops.kernels import reference
 from pulsar_timing_gibbsspec_torch.sampler import blocks
-from test_torch_cases import close, models, state, t32, t64
+from test_torch_cases import close, cov_noise, models, state, t32, t64
 
 torch.set_num_threads(2)
 
@@ -215,24 +215,6 @@ def test_white_likelihoods_match_jax(case):
     close(got, ref[1], 0, atol=1e-4)
 
 
-def _cov_noise(cmj, key, W, nsteps, with_mode):
-    import jax.numpy as jnp
-    import jax.random as jr
-
-    from pulsar_timing_gibbsspec_tpu.sampler.jax_backend import (_SCALE_P,
-                                                                 _SCALES)
-
-    fdt = jnp.float32
-    k1, k3, k4, k5 = jr.split(key, 4)
-    scale = jr.choice(k1, jnp.asarray(_SCALES, fdt), (nsteps, cmj.P),
-                      p=jnp.asarray(_SCALE_P, fdt))
-    z = jr.normal(k3, (nsteps, cmj.P, W), dtype=fdt)
-    logu = jnp.log(jr.uniform(k4, (nsteps, cmj.P), dtype=fdt))
-    coin = (jr.uniform(k5, (nsteps, cmj.P), dtype=fdt) < 0.5
-            if with_mode else jnp.zeros((nsteps, cmj.P), bool))
-    return scale, z, logu, coin
-
-
 @pytest.fixture(scope="module")
 def white_ref(case):
     """The JAX white block in one compiled call: the Laplace proposal
@@ -263,7 +245,7 @@ def white_ref(case):
                 cmj, xx, key, jb.white_block_ll(cmj, xx, rr, r2),
                 cmj.white_par_ix, cmj.white_nper, L.astype(jnp.float32),
                 NSTEPS, mode=mode, asqrt=asq32),
-                _cov_noise(cmj, key, W, NSTEPS, with_mode), mode, asq32)
+                cov_noise(cmj, key, W, NSTEPS, with_mode), mode, asq32)
         return out
 
     return r, _jit(run, x, r)
@@ -352,7 +334,7 @@ def nan_block_ref(case):
         return (xm, L, jb.parallel_cov_mh_scan(
             cmj, xx, key, jb.white_block_ll(cmj, xx, rr, r2),
             cmj.white_par_ix, cmj.white_nper, L.astype(jnp.float32),
-            NSTEPS), _cov_noise(cmj, key, W, NSTEPS, False))
+            NSTEPS), cov_noise(cmj, key, W, NSTEPS, False))
 
     return r, poison, _jit(run, x, r)
 

@@ -63,6 +63,53 @@ def jax_fields(cm):
     return out
 
 
+def nanograv_psr(i=2, seed=1):
+    """Pulsar ``i`` of :func:`small_psrs` flagged NANOGrav, so the model
+    gives it per-backend basis ECORR (JSYN02: 120 TOAs, 3 backends, 107
+    ECORR columns; JSYN01: 95 columns wide in all)."""
+    p = small_psrs(seed)[i]
+    p.flags = {"pta": "NANOGrav"}
+    return p
+
+
+def snapshot_psrs():
+    """``(jax_pulsar, port_pulsar)`` of the recorded J1713+0747 snapshot,
+    each through its package's enterprise adapter."""
+    import os
+
+    from pulsar_timing_gibbsspec_torch.data import load_enterprise_snapshot
+    from pulsar_timing_gibbsspec_tpu.data import load_enterprise_snapshot \
+        as jax_load
+
+    path = os.path.join(os.path.dirname(__file__), "data",
+                        "enterprise_J1713+0747.npz")
+    return jax_load(path), load_enterprise_snapshot(path)
+
+
+def jax_single_pta(psr, nbins=NBINS, **kw):
+    """The JAX package's model of README's Quick start on one pulsar
+    (``red_var=False``, varied white noise, common free spectrum)."""
+    from pulsar_timing_gibbsspec_tpu.data.dataset import Pulsar
+    from pulsar_timing_gibbsspec_tpu.models.factory import model_general
+
+    if not isinstance(psr, Pulsar):
+        psr = Pulsar(**dataclasses.asdict(psr))
+    return model_general([psr], red_var=False, white_vary=True,
+                         common_psd="spectrum", common_components=nbins,
+                         **kw)
+
+
+def single_models(psr=None, nbins=NBINS):
+    """``(jax_cm, port_cm)`` of the Quick-start model of ``psr`` (default
+    :func:`nanograv_psr`)."""
+    from pulsar_timing_gibbsspec_tpu.sampler.compiled import compile_pta
+
+    psr = psr or nanograv_psr()
+    cmj = compile_pta(jax_single_pta(psr, nbins))
+    return cmj, from_arrays(dict(jax_fields(cmj), pulsars=[psr.name]),
+                            device="cpu")
+
+
 def models(seed=1):
     """``(jax_cm, port_cm)``: one model on both sides."""
     cmj = jax_compiled(small_psrs(seed))
@@ -71,7 +118,8 @@ def models(seed=1):
 
 def state(cm, C=None, seed=0):
     """A seeded state near the stationary region as numpy float64:
-    efac in [0.8, 1.2], equad in [-8.5, -6.5], common log10_rho at the
+    efac in [0.8, 1.2], equad in [-8.5, -6.5], ecorr in [-8, -6.5],
+    common log10_rho at the
     injected power law +-0.3 dex, red log10_rho in [-9, -8.5].  Shape
     (nx,), or (C, nx)."""
     rng = np.random.default_rng(seed)
@@ -86,12 +134,46 @@ def state(cm, C=None, seed=0):
             x[..., j] = -8.5 + 2.0 * u[..., j]
         elif "red_noise_log10_rho" in nm:
             x[..., j] = -9.0 + 0.5 * u[..., j]
+        elif nm.endswith("_log10_ecorr"):
+            x[..., j] = -8.0 + 1.5 * u[..., j]
         elif nm.startswith("gw_crn_log10_rho_"):
             k = int(nm.rsplit("_", 1)[1])
             phi = powerlaw_psd((k + 1) / Tspan, math.log10(2e-15),
                                13.0 / 3.0, 1.0 / Tspan)
             x[..., j] = 0.5 * math.log10(phi) + 0.6 * (u[..., j] - 0.5)
     return x
+
+
+def same_field(a, b, where):
+    """Exact equality of one compiled-model field: value, dtype, shape."""
+    if isinstance(a, (str, int, float, tuple, bool)) or a is None:
+        assert a == b, where
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype, (where, a.dtype, b.dtype)
+    assert a.shape == b.shape, (where, a.shape, b.shape)
+    assert np.array_equal(a, b), where
+
+
+def cov_noise(cmj, key, W, nsteps, with_mode):
+    """The noise the JAX ``parallel_cov_mh_scan`` draws from ``key``:
+    scale, normals, log-uniforms and the independence coin (all False
+    without a mode)."""
+    import jax.numpy as jnp
+    import jax.random as jr
+
+    from pulsar_timing_gibbsspec_tpu.sampler.jax_backend import (_SCALE_P,
+                                                                 _SCALES)
+
+    fdt = jnp.float32
+    k1, k3, k4, k5 = jr.split(key, 4)
+    scale = jr.choice(k1, jnp.asarray(_SCALES, fdt), (nsteps, cmj.P),
+                      p=jnp.asarray(_SCALE_P, fdt))
+    z = jr.normal(k3, (nsteps, cmj.P, W), dtype=fdt)
+    logu = jnp.log(jr.uniform(k4, (nsteps, cmj.P), dtype=fdt))
+    coin = (jr.uniform(k5, (nsteps, cmj.P), dtype=fdt) < 0.5
+            if with_mode else jnp.zeros((nsteps, cmj.P), bool))
+    return scale, z, logu, coin
 
 
 def t64(a):

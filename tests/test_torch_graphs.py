@@ -3,7 +3,8 @@
 On the small model (3 pulsars, 4 + 4 bins, 4 chains), after a short
 eager run has adapted the sampler: 17 steady sweeps from one state (one
 of them the refresh at iteration 16) replayed from the graphs equal the
-eager sweeps bitwise in x, b and the b_mh acceptance counts, and a run
+eager sweeps bitwise in x, b and the b_mh acceptance counts (and so do
+those of the single-pulsar path with basis ECORR), and a run
 split at a chunk boundary and resumed through the graph path equals the
 uninterrupted graphed run bitwise in ``chain.npy`` and ``bchain.npy``.
 The kernels' own device counters see every launch the graphs replay.
@@ -67,6 +68,51 @@ def test_graph_replay_equals_the_eager_sweep(tmp_path):
     assert drv.carry.graphed and set(drv.carry.graphs) == {
         "white", "red", "rho", "scale", "b_mh", "b_refresh"}
     assert torch.isfinite(out[True][1]).all()
+
+
+@pytest.mark.cuda
+def test_single_pulsar_graph_replay_equals_the_eager_sweep(tmp_path):
+    """The single-pulsar path (``PulsarBlockGibbs`` on a NANOGrav-flagged
+    pulsar: basis ECORR, the inverse-CDF rho draw, Bmax = 125, so both
+    wide kernel forms): 17 steady sweeps replayed from the white, ecorr,
+    rho, scale, b_mh and b_refresh graphs equal the eager sweeps
+    bitwise."""
+    from pulsar_timing_gibbsspec_torch import PulsarBlockGibbs, model_general
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+    from test_torch_cases import nanograv_psr
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode "
+                    "(the eager sweep they replay is tested on the CPU)")
+    cm = model_general([nanograv_psr()], red_var=False, white_vary=True,
+                       common_psd="spectrum", common_components=4,
+                       device="cuda")
+    assert cm.Bmax > kernels.CHOL_MAX_N
+    g = PulsarBlockGibbs(cm, nchains=C, device="cuda", seed=4,
+                         warmup_sweeps=WARM, white_adapt_iters=ADAPT,
+                         chunk_size=8, graphs=False)
+    g.sample(_x0(g), outdir=tmp_path, niter=WARM + 2)
+    drv = g.driver
+    x = torch.as_tensor(drv.x_cur, device="cuda")
+    b = drv.b.to("cuda")
+    out = {}
+    for graphs in (False, True):
+        drv.graphs = graphs
+        drv.b_mh_accepts.zero_()
+        drv.begin_steady(x.clone(), b.clone())
+        drv.steady_chunk(5, 17)
+        out[graphs] = (drv.carry.x.clone(), drv.carry.b.clone(),
+                       drv.b_mh_accepts.clone())
+    for e, r, what in zip(out[False], out[True], ("x", "b", "accepts")):
+        assert torch.equal(e, r), what
+    assert drv.carry.graphed and set(drv.carry.graphs) == {
+        "white", "ecorr", "rho", "scale", "b_mh", "b_refresh"}
+    assert torch.isfinite(out[True][1]).all()
+    replayed = drv.carry.replayed_launches()
+    for key in (("chol_solve_sample", "f32_wide"),
+                ("gram_accumulate", "f32_wide"),
+                ("gram_accumulate", "f32_dot_f64_reduce_wide")):
+        assert replayed.get(key, 0) > 0, key
 
 
 @pytest.mark.cuda

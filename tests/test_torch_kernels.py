@@ -363,3 +363,63 @@ def test_cuda_kernels_match_plain_on_the_card():
                 rng.standard_normal((batch, n)))))
     assert kernels.gram_accumulate.launches >= 3 * 9
     assert kernels.chol_solve_sample.launches >= 2 * 8
+
+
+@pytest.mark.cuda
+def test_wide_kernels_match_plain_on_the_card():
+    """On a card: the wide forms (n > CHOL_MAX_N, B1 > GRAM_MAX_B1)
+    against their plain versions, in the classes of the narrow forms
+    above, at the single-pulsar path's shape (README's Quick-start model
+    of the J1713+0747 snapshot, 30 bins: 8 systems of order 673, Ta (1,
+    8, 90, 674)) and at ragged widths (n in {97, 129, 160}, B1 in {65,
+    129} with 3 chains of 2 pulsars); each wide form counted on the
+    card.  Needs no JAX: ``python -m pytest --noconftest -m cuda
+    tests/test_torch_kernels.py``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU "
+                    "mode (their plain versions are tested above)")
+    import os
+
+    from pulsar_timing_gibbsspec_torch import model_general
+    from pulsar_timing_gibbsspec_torch.config import settings
+    from pulsar_timing_gibbsspec_torch.data import load_enterprise_snapshot
+
+    dev = torch.device("cuda")
+    psr = load_enterprise_snapshot(os.path.join(
+        os.path.dirname(__file__), "data", "enterprise_J1713+0747.npz"))
+    cm = model_general([psr], red_var=False, white_vary=True,
+                       common_psd="spectrum", common_components=30,
+                       device=dev)
+    assert cm.Bmax == 673
+    C = 8
+    x = t64(state(cm, C=C, seed=11)).to(dev)
+    kernels.reset_launches()
+    Ta, N = blocks._gram_operands(cm, cm.ndiag_fast(x),
+                                  settings.gram_seg_len)
+    _gram_close_on_card(Ta, N.reshape(-1, N.shape[-1]))
+    TNT, d = blocks.tnt_d(cm, cm.ndiag_fast(x))
+    Sig = TNT + torch.diag_embed(1.0 / cm.phi(x))
+    z = torch.randn(d.shape, generator=torch.Generator(dev).manual_seed(1),
+                    dtype=torch.float64, device=dev)
+    _chol_close_on_card(Sig.reshape(-1, 673, 673), d.reshape(-1, 673),
+                        z.reshape(-1, 673))
+    rng = np.random.default_rng(12)
+    for B1 in (65, 129):
+        Tn = rng.standard_normal((2, 2 * 40, B1)).astype(np.float32)
+        Nn = rng.uniform(0.25, 4.0, (6, 75)).astype(np.float32)
+        _gram_close_on_card(
+            torch.as_tensor(Tn.reshape(2, 2, 40, B1), device=dev),
+            torch.as_tensor(Nn, device=dev))
+    for n in (97, 129, 160):
+        X = rng.standard_normal((5, n, n))
+        D = 10.0 ** rng.uniform(-2, 2, (5, n))
+        A = X @ X.transpose(0, 2, 1) / n + 0.5 * np.eye(n)
+        _chol_close_on_card(*(torch.as_tensor(v, device=dev) for v in (
+            D[:, :, None] * A * D[:, None, :],
+            rng.standard_normal((5, n)) * D, rng.standard_normal((5, n)))))
+    runs = kernels.device_launches()
+    for key in [("chol_solve_sample", f) for f in ("f32_wide", "f64_wide")] \
+            + [("gram_accumulate", f + "_wide") for f in kernels.GRAM_FORMS]:
+        assert runs[key] > 0, key
+    assert runs[("chol_solve_sample", "f32")] == 0
+    assert runs[("gram_accumulate", "f32")] == 0

@@ -22,20 +22,9 @@ from pulsar_timing_gibbsspec_torch.models.build import (build_crn_spectrum,
                                                         crn_spectrum_arrays)
 from pulsar_timing_gibbsspec_torch.sampler.compiled import from_arrays
 from test_torch_cases import (close, jax_compiled, jax_fields, models,
-                              small_psrs, state, t64)
+                              same_field, small_psrs, state, t64)
 
 torch.set_num_threads(2)
-
-
-def _same(a, b, where):
-    if isinstance(a, str) or a is None or isinstance(a, (int, float, tuple,
-                                                          bool)):
-        assert a == b, where
-        return
-    a, b = np.asarray(a), np.asarray(b)
-    assert a.dtype == b.dtype, (where, a.dtype, b.dtype)
-    assert a.shape == b.shape, (where, a.shape, b.shape)
-    assert np.array_equal(a, b), where
 
 
 @pytest.mark.parametrize("nbins,red_bins,pad", [
@@ -50,11 +39,11 @@ def test_build_matches_compile_pta(nbins, red_bins, pad):
             assert len(v) == len(got[name])
             for c, d in zip(v, got[name]):
                 for k in c:
-                    _same(c[k], d[k], f"components.{k}")
+                    same_field(c[k], d[k], f"components.{k}")
         elif name in ("dtype", "cdtype"):
             assert np.dtype(v) == np.dtype(got[name])
         else:
-            _same(v, got[name], name)
+            same_field(v, got[name], name)
 
 
 def test_from_arrays_carries_the_jax_model():
