@@ -17,7 +17,8 @@ Phases (any failure exits non-zero):
    (64 chains x 45 pulsars, Bmax = 37, Nmax = 720), from a seeded state
    near the stationary region; each is timed (device time from
    ``torch.profiler``, mean of 30 calls, and CUDA events around each
-   call, median of 30) beside its plain version, the PyTorch library
+   call, median of 30; 5 calls for a call slower than 20 ms) beside its
+   plain version, the PyTorch library
    equivalent and the least time the card could take (bytes over the HBM
    rate, operations over the peak rate of their type); the Gram also
    beside the path that materialized ``TNa = Ta / N`` before
@@ -26,7 +27,11 @@ Phases (any failure exits non-zero):
    Quick-start model of the J1713+0747 snapshot, 30 bins, 8 chains:
    Bmax = 673, Nmax = 720), the wide factor also held to the plain
    chain's backward error, and both wide forms timed at 64 systems
-   too (the 45-pulsar path's batch, where the card is full);
+   too (the 45-pulsar path's batch, where the card is full); the wide
+   forms' kernel launches per call are counted from the device trace,
+   and their launch configuration (the factor's cluster size, the
+   Gram's output tile, threads, dynamic shared memory) is printed
+   beside the ``cuobjdump`` resources;
 3. small-input agreement: the steady b-draw on a 3-pulsar model, with
    the same state and noise on the card and on the CPU;
 3b. graphs against eager: on the 45-pulsar model at 64 chains, after a
@@ -200,30 +205,110 @@ def cuda_ms(fn, reps=30, warm=3):
     return ts[len(ts) // 2]
 
 
-def device_ms(fn, reps=30, warm=3):
-    """Mean device milliseconds of one ``fn()``: the summed durations of
-    the kernels and copies it runs on the card, from ``torch.profiler``'s
-    device trace over ``reps`` calls (no host time)."""
+def _trace(fn, reps):
+    """``(device events, kernels among them, kernel launch calls on the
+    host)`` of ``reps`` calls of ``fn`` under ``torch.profiler``, tracing
+    the host and the device."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        raise RuntimeError("the device trace holds no kernel")
-    return sum(e.time_range.end - e.time_range.start for e in dev) / 1e3 / reps
+    ev = prof.events()
+    dev = [e for e in ev if e.device_type == DeviceType.CUDA]
+    kern = sum(not e.name.startswith(("Memcpy", "Memset")) for e in dev)
+    host = sum(e.device_type != DeviceType.CUDA and "LaunchKernel" in e.name
+               for e in ev)
+    return dev, kern, host
+
+
+def device_ms(fn, reps=30, warm=3):
+    """Mean device milliseconds of one ``fn()``: the summed durations of
+    the kernels and copies it runs on the card, from ``torch.profiler``'s
+    device trace over ``reps`` calls (no host time).  The trace can hold
+    fewer kernels than the host launched (on the H100 it loses one at a
+    session's edge on some sessions, and on a few all of them): a trace
+    that lost at most a tenth is scaled by launched / found; else it is
+    taken once more, and then the calls are timed back to back between
+    two CUDA events instead (said on a line of its own)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        dev, kern, host = _trace(fn, reps)
+        if dev and kern >= 0.9 * host:
+            return (sum(e.time_range.end - e.time_range.start for e in dev)
+                    * max(1.0, host / kern) / 1e3 / reps)
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    ms = s.elapsed_time(e) / reps
+    print(f"note: the device trace lost kernels twice ({kern} of {host} "
+          f"launched); {ms:.4f} ms is {reps} back-to-back calls between two "
+          "CUDA events", flush=True)
+    return ms
+
+
+def trace_launches(fn, reps=5):
+    """Kernel launches per ``fn()`` in ``torch.profiler``'s trace over
+    ``reps`` calls: ``(kernels in the device trace, launch calls in the
+    host trace)``, copies and memsets left out; taken once more when the
+    device trace holds fewer kernels than were launched."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        _, kern, host = _trace(fn, reps)
+        if kern >= host:
+            break
+    return kern / reps, host / reps
+
+
+def wide_configs(lib, batch):
+    """The wide forms' launch configuration at ``batch`` systems as their
+    launchers use it (``ptg_wide_config``): cluster size, output tile,
+    threads per CTA, dynamic shared memory bytes, and how many 16-CTA
+    clusters of the factor the card runs at once."""
+    import ctypes
+
+    out = {}
+    for name, kernel, variant in (
+            ("chol_solve_sample[f32_wide]", 0, 0),
+            ("chol_solve_sample[f64_wide]", 0, 1),
+            ("gram_accumulate[f32_wide]", 1, 0),
+            ("gram_accumulate[f32_dot_f64_reduce_wide]", 1, 1),
+            ("gram_accumulate[widen_f64_wide]", 1, 2)):
+        buf = (ctypes.c_int * 5)()
+        code = lib.ptg_wide_config(kernel, variant, batch, buf)
+        keys = ("cluster", "tile", "threads", "dynamic_smem_bytes") + (
+            ("clusters_of_16_at_once",) if kernel == 0 else ())
+        out[name] = (dict(zip(keys, buf)) if code == 0 else f"error {code}")
+    return out
 
 
 def time_ms(fn):
-    """``(device ms, event ms)`` of one ``fn()``."""
-    return device_ms(fn), cuda_ms(fn)
+    """``(device ms, event ms)`` of one ``fn()``, over 30 calls, or 5 for
+    a call slower than 20 ms (the plain versions at the wide order, whose
+    traces hold thousands of kernels per call)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    reps = 30 if time.perf_counter() - t0 < 0.02 else 5
+    return device_ms(fn, reps), cuda_ms(fn, reps)
 
 
 def bound_ms(nbytes, flops, kind):
@@ -343,6 +428,9 @@ def gram_parity(cm, x, timer):
 
         ms_mat, ev_mat = timer(materialized)
         peak_k, peak_mat = peak_mb(run_k), peak_mb(materialized)
+        per_call = ("; kernel launches per call (device trace, host "
+                    "launch calls) %g, %g" % trace_launches(run_k)
+                    if suffix else "")
         obytes = 4 if odt == torch.float32 else 8
         gbytes = Bt * B1 * B1 * obytes
         nbytes = (Ta.numel() + N.numel()) * 4 + gbytes
@@ -367,7 +455,7 @@ def gram_parity(cm, x, timer):
               f"whole grid), with a materialized TNa {old_bms:.4f} ms "
               f"({old_bby}); peak device "
               f"memory of one call {peak_k:.1f} MB fused, {peak_mat:.1f} MB "
-              "materialized", flush=True)
+              f"materialized{per_call}", flush=True)
     return recs, ok
 
 
@@ -491,12 +579,14 @@ def chol_parity(cm, x, gen, timer):
     nbytes = Bt * (3 * n * n + 5 * n) * 4
     flops = Bt * (2.0 * n ** 3 / 3.0 + 6.0 * n * n)
     bms, bby = bound_ms(nbytes, flops, "f32")
+    per_call = ("; kernel launches per call (device trace, host launch "
+                "calls) %g, %g" % trace_launches(run_k) if wide else "")
     print(f"phase 2 chol_solve_sample[{form}] ({Bt} systems of order {n}): "
           f"{'ok' if ok else 'FAIL'}; max "
           f"|kernel-plain| {mae:.3e}; device ms (event ms): kernel "
           f"{ms_k:.4f} ({ev_k:.4f}), plain {ms_p:.4f} ({ev_p:.4f}), "
           f"cholesky+solve_triangular chain {lib:.4f} ({ev_lib:.4f}); bound "
-          f"{bms:.4f} ms ({bby})", flush=True)
+          f"{bms:.4f} ms ({bby}){per_call}", flush=True)
     return {("chol_solve_sample", form): dict(
         max_abs_err=mae, ms=ms_k, plain_ms=ms_p, bound_ms=bms,
         bound_by=bby, library_ms=lib)}, ok
@@ -1132,6 +1222,11 @@ def main(argv=None):
           "stack frame bytes, static shared memory bytes): " + (json.dumps(
               {n: [r, st, sh] for n, r, st, sh in usage})
               if usage else "not available"), flush=True)
+    for bt in (SINGLE_CHAINS, WIDE_TIMING_SYSTEMS):
+        print(f"phase 1 wide forms' launch configuration at {bt} systems "
+              "(ptg_wide_config; dynamic shared memory is not in "
+              "cuobjdump's static count): "
+              + json.dumps(wide_configs(build.library(), bt)), flush=True)
     print(json.dumps({"kernels": [
         dict(name=f"{k}[{f}]", route="cuda", source=SOURCES[k][
             f.endswith("_wide")], replaces=REPLACES[k],

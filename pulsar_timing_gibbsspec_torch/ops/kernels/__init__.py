@@ -5,10 +5,10 @@ dispatch.  The route follows the tensor, never a setting:
 
 - a CUDA tensor launches the CUDA kernel (``csrc/``, built at first use
   by :mod:`.build`) of its shape: the narrow form up to ``CHOL_MAX_N`` /
-  ``GRAM_MAX_B1``, the wide form (``*_wide``, the matrix or the output
-  tiled over many CTAs) beyond, up to ``CHOL_WIDE_MAX_N`` /
-  ``GRAM_WIDE_MAX_B1``; a build or launch failure, or a larger shape,
-  raises;
+  ``GRAM_MAX_B1``, the wide form (``*_wide``: one thread-block cluster
+  per system, or the output tiled over many CTAs) beyond, up to
+  ``CHOL_WIDE_MAX_N`` / ``GRAM_WIDE_MAX_B1``; a build or launch
+  failure, or a larger shape, raises;
 - a CPU tensor runs the plain PyTorch version (:mod:`.reference`);
 - ``chol_solve_sample(..., factor="tf")`` (the two-float refresh factor)
   runs the plain version on either device, as the JAX package never put
@@ -161,12 +161,15 @@ def _gram_accumulate_cuda(Ta, N, out_dtype, widen):
     name = GRAM_FORMS[form] + ("_wide" if wide else "")
     count = _counter(Ta.device, ("gram_accumulate", name))
     G = torch.empty((batch, B1, B1), dtype=out_dtype, device=Ta.device)
-    extent = torch.empty(Pt * GRAM_EXTENT_SLICES, dtype=torch.int32,
-                         device=Ta.device)
-    fn = (library().ptg_gram_accumulate_wide if wide
-          else library().ptg_gram_accumulate)
-    code = fn(_ptr(Ta), _ptr(N), _ptr(G), _ptr(extent), batch, Pt, nseg, m,
-              B1, Nmax, form, count, _stream(Ta))
+    if wide:    # every row is multiplied: no extent scan
+        fn, extent = library().ptg_gram_accumulate_wide, None
+    else:
+        fn = library().ptg_gram_accumulate
+        extent = torch.empty(Pt * GRAM_EXTENT_SLICES, dtype=torch.int32,
+                             device=Ta.device)
+    code = fn(_ptr(Ta), _ptr(N), _ptr(G),
+              0 if extent is None else _ptr(extent), batch, Pt, nseg, m, B1,
+              Nmax, form, count, _stream(Ta))
     check(code, "gram_accumulate")
     return G, name
 

@@ -90,4 +90,30 @@ int ptg_gram_accumulate_wide(const void* Ta, const void* N, void* G,
       static_cast<cudaStream_t>(stream)));
 }
 
+// out[0..4] = cluster size at `batch` systems (the factor; 1 for the
+// Gram), output tile (the Gram; 0 for the factor), threads per CTA,
+// dynamic shared memory bytes, and (the factor) how many 16-CTA clusters
+// the card runs at once, of the wide form of `kernel` (0:
+// chol_solve_sample, `variant` = is_f64; 1: gram_accumulate, `variant` =
+// form).
+int ptg_wide_config(int kernel, int variant, int batch, int* out) {
+  int a = 0, active16 = 0, threads = 0;
+  size_t smem = 0;
+  int code;
+  if (kernel == 0) {
+    code = ptg_chol_wide_config(variant, batch, &a, &active16, &threads,
+                                &smem);
+    out[0] = a;
+    out[1] = 0;
+  } else {
+    code = ptg_gram_wide_config(variant, &a, &threads, &smem);
+    out[0] = 1;
+    out[1] = a;
+  }
+  out[2] = threads;
+  out[3] = static_cast<int>(smem);
+  out[4] = active16;
+  return code;
+}
+
 }  // extern "C"

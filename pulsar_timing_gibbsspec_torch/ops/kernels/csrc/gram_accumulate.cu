@@ -414,25 +414,6 @@ cudaError_t launch(void (*kernel)(const float*, const float*, const int*,
 
 }  // namespace
 
-cudaError_t ptg_launch_gram_extent(const float* Ta, const float* N,
-                                   int* extent, int batch, int P, int nseg,
-                                   int m, int B1, int Nmax,
-                                   cudaStream_t stream) {
-  Geom g;
-  g.P = P;
-  g.chains = batch / P;
-  g.nseg = nseg;
-  g.m = m;
-  g.B1 = B1;
-  g.Nmax = Nmax;
-  g.spseg = (m + kStageRows - 1) / kStageRows;
-  g.rows_per_slice = (Nmax + kGramExtentSlices - 1) / kGramExtentSlices;
-  g.cg = 1;
-  gram_extent_kernel<<<dim3(P, kGramExtentSlices), kExtentThreads, 0,
-                       stream>>>(Ta, N, extent, g);
-  return cudaGetLastError();
-}
-
 cudaError_t ptg_launch_gram_accumulate(const float* Ta, const float* N,
                                        void* G, int* extent, int batch,
                                        int P, int nseg, int m, int B1,

@@ -49,8 +49,8 @@ cudaError_t ptg_launch_gram_accumulate(
     cudaStream_t stream);
 
 // Wide form of chol_solve_sample (kCholMaxN < n <= kCholWideMaxN): the same
-// outputs, from a chain of launches with the matrix in device memory; w is
-// (batch, n) scratch.  The last launch counts the run.
+// outputs, from one launch of a thread-block cluster per system with the
+// matrices in device memory; w is (batch, n) scratch.
 cudaError_t ptg_launch_chol_solve_sample_wide_f32(
     const float* Sig, const float* d, const float* z, float* L, float* Li,
     float* dj, float* mean, float* bp, float* w, int batch, int n,
@@ -61,16 +61,21 @@ cudaError_t ptg_launch_chol_solve_sample_wide_f64(
     double* Li, double* dj, double* mean, double* bp, double* w, int batch,
     int n, double ridge, unsigned long long* count, cudaStream_t stream);
 
-// The extent scan of gram_accumulate alone (its first launch).
-cudaError_t ptg_launch_gram_extent(const float* Ta, const float* N,
-                                   int* extent, int batch, int P, int nseg,
-                                   int m, int B1, int Nmax,
-                                   cudaStream_t stream);
-
 // Wide form of gram_accumulate (kGramMaxB1 < B1 <= kGramWideMaxB1): the
-// same arguments, forms and result, the output tiled across CTAs.  Two
-// launches: the extent scan, then the Gram.
+// same arguments (extent unused: every row is multiplied), forms and
+// result, the output tiled across CTAs.  One launch.
 cudaError_t ptg_launch_gram_accumulate_wide(
     const float* Ta, const float* N, void* G, int* extent, int batch, int P,
     int nseg, int m, int B1, int Nmax, int form, unsigned long long* count,
     cudaStream_t stream);
+
+// Launch configuration of the wide forms, as their launchers use it: the
+// factor's cluster size at `batch` systems and the number of 16-CTA
+// clusters the card runs at once (found, with the kernel's attributes
+// set, on the first call on the current device), threads per CTA and
+// dynamic shared memory; the Gram's output tile, threads per CTA and
+// dynamic shared memory of form `form`.  Return a CUDA error code / -1
+// for a bad form.
+int ptg_chol_wide_config(int is_f64, int batch, int* cluster,
+                         int* active16, int* threads, size_t* smem);
+int ptg_gram_wide_config(int form, int* tile, int* threads, size_t* smem);

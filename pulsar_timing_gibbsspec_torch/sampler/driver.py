@@ -733,6 +733,7 @@ class TorchGibbsDriver:
                    else np.zeros((self.C, self.cm.nx))),
                "b_mh_accepts": np.asarray(self._acc_cur),
                "b_mh_sweeps": np.int64(self._b_mh_sweeps_cur),
+               "rng_device": np.str_(self.gen.device.type),
                **self._adapt_host}
         for key in ("aclength_white", "aclength_ecorr"):
             if getattr(self, key) is not None:
@@ -756,6 +757,14 @@ class TorchGibbsDriver:
             raise RuntimeError(
                 f"resume checkpoint was written with nchains={got_c} but "
                 f"this sampler has nchains={self.C}; they must match")
+        got_dev = state.pop("rng_device", None)
+        if got_dev is not None and str(got_dev) != self.gen.device.type:
+            raise ValueError(
+                f"resume checkpoint's streams were drawn on {got_dev} but "
+                f"this sampler draws them on {self.gen.device.type}; the "
+                "two devices' generators give different streams (RNG_RULE),"
+                " so the resumed chain would not continue the saved one — "
+                f"resume on {got_dev} or start fresh")
         got_k = int(state.pop("record_every", 1))
         if got_k != self.record_every:
             raise RuntimeError(

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..runtime import integrity
 from .chains import ChainStore
 from .driver import RNG_RULE, TorchGibbsDriver
 
@@ -74,7 +75,8 @@ class _GibbsBase:
     def _checkpoint_extra(self):
         """The manifest's ``layout`` section: the logical identity of
         the sampled process (facade, chains, pulsars, padded width,
-        thinning, stream rule)."""
+        thinning, stream rule and the device type its streams come
+        from)."""
         drv = self.driver
         return {"layout": {"facade": type(self).__name__,
                            "backend": "torch",
@@ -82,7 +84,8 @@ class _GibbsBase:
                            "record_every": drv.record_every,
                            "pulsars": [str(p) for p in self.cm.pulsars],
                            "pad_pulsars": int(self.cm.P),
-                           "rng": RNG_RULE},
+                           "rng": RNG_RULE,
+                           "rng_device": drv.gen.device.type},
                 "shard_map": None}
 
     def sample(self, x0, outdir="./chains", niter=10000, resume=False,
@@ -128,6 +131,10 @@ class _GibbsBase:
                 if upto > 0:
                     x = chain[upto - 1].copy()
                 if adapt is not None:
+                    layout = (integrity.read_manifest(outdir) or {}).get(
+                        "layout") or {}
+                    if "rng_device" in layout:
+                        adapt = {**adapt, "rng_device": layout["rng_device"]}
                     drv.load_adapt_state(adapt)
                     # the post-sweep carry (never a chain row yet):
                     # resuming from it replays the uninterrupted run

@@ -365,15 +365,44 @@ def test_cuda_kernels_match_plain_on_the_card():
     assert kernels.chol_solve_sample.launches >= 2 * 8
 
 
+def _gram_equal_on_card(Ta, N):
+    """Every Gram form bitwise equal to its plain version on the card:
+    within a segment each output is one FMA chain over the TOA rows in
+    index order, and segments are added in order, on both sides."""
+    for odt, widen in ((torch.float32, False), (torch.float64, False),
+                       (torch.float64, True)):
+        k = kernels.gram_accumulate(Ta, N, out_dtype=odt, widen=widen)
+        p = reference.gram_accumulate_ref(Ta, N, out_dtype=odt, widen=widen)
+        assert torch.equal(k, p), (tuple(Ta.shape), tuple(N.shape), odt,
+                                   widen, (k - p).abs().max().item())
+
+
+def _spd_case(rng, batch, n):
+    """A seeded ``(Sig, d, z)`` on the card: a well-conditioned SPD
+    matrix under a diagonal scaling spanning four decades."""
+    X = rng.standard_normal((batch, n, n))
+    D = 10.0 ** rng.uniform(-2, 2, (batch, n))
+    A = X @ X.transpose(0, 2, 1) / n + 0.5 * np.eye(n)
+    return tuple(torch.as_tensor(v, device="cuda") for v in (
+        D[:, :, None] * A * D[:, None, :], rng.standard_normal((batch, n)) * D,
+        rng.standard_normal((batch, n))))
+
+
 @pytest.mark.cuda
 def test_wide_kernels_match_plain_on_the_card():
     """On a card: the wide forms (n > CHOL_MAX_N, B1 > GRAM_MAX_B1)
-    against their plain versions, in the classes of the narrow forms
-    above, at the single-pulsar path's shape (README's Quick-start model
-    of the J1713+0747 snapshot, 30 bins: 8 systems of order 673, Ta (1,
-    8, 90, 674)) and at ragged widths (n in {97, 129, 160}, B1 in {65,
-    129} with 3 chains of 2 pulsars); each wide form counted on the
-    card.  Needs no JAX: ``python -m pytest --noconftest -m cuda
+    against their plain versions, the Gram bitwise and the factor (both
+    element types) in the narrow forms' class above, at the single-pulsar
+    path's shape (README's Quick-start model of the J1713+0747 snapshot,
+    30 bins: 8 systems of order 673, Ta (1, 8, 90, 674)) and at the
+    redesign's edges: Gram widths B1 in {65, 129, 136, 674, 1024} (one
+    output tile and a ragged last tile of each form's tiling), 3 chains
+    of 2 pulsars, segments of 40 rows (not a multiple of the 16-row
+    stage) on a grid with pad rows, one pulsar whose rows end before
+    Nmax; batches of 1 and 64; factor orders n in {97, 128, 129, 160,
+    1024} (a one-row last panel at 129, 97 and 673) at 5 systems, and
+    batches of 1 and 64; each wide form counted on the card.  Needs no
+    JAX: ``python -m pytest --noconftest -m cuda
     tests/test_torch_kernels.py``."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU "
@@ -396,7 +425,7 @@ def test_wide_kernels_match_plain_on_the_card():
     kernels.reset_launches()
     Ta, N = blocks._gram_operands(cm, cm.ndiag_fast(x),
                                   settings.gram_seg_len)
-    _gram_close_on_card(Ta, N.reshape(-1, N.shape[-1]))
+    _gram_equal_on_card(Ta, N.reshape(-1, N.shape[-1]))
     TNT, d = blocks.tnt_d(cm, cm.ndiag_fast(x))
     Sig = TNT + torch.diag_embed(1.0 / cm.phi(x))
     z = torch.randn(d.shape, generator=torch.Generator(dev).manual_seed(1),
@@ -404,19 +433,22 @@ def test_wide_kernels_match_plain_on_the_card():
     _chol_close_on_card(Sig.reshape(-1, 673, 673), d.reshape(-1, 673),
                         z.reshape(-1, 673))
     rng = np.random.default_rng(12)
-    for B1 in (65, 129):
+    for B1 in (65, 129, 136, 674, 1024):
         Tn = rng.standard_normal((2, 2 * 40, B1)).astype(np.float32)
+        Tn[1, 50:] = 0.0               # pulsar 1's rows end at row 50
         Nn = rng.uniform(0.25, 4.0, (6, 75)).astype(np.float32)
-        _gram_close_on_card(
+        _gram_equal_on_card(
             torch.as_tensor(Tn.reshape(2, 2, 40, B1), device=dev),
             torch.as_tensor(Nn, device=dev))
-    for n in (97, 129, 160):
-        X = rng.standard_normal((5, n, n))
-        D = 10.0 ** rng.uniform(-2, 2, (5, n))
-        A = X @ X.transpose(0, 2, 1) / n + 0.5 * np.eye(n)
-        _chol_close_on_card(*(torch.as_tensor(v, device=dev) for v in (
-            D[:, :, None] * A * D[:, None, :],
-            rng.standard_normal((5, n)) * D, rng.standard_normal((5, n)))))
+    for batch, B1 in ((1, 136), (64, 129)):
+        Tn = rng.standard_normal((1, 2 * 40, B1)).astype(np.float32)
+        Nn = rng.uniform(0.25, 4.0, (batch, 75)).astype(np.float32)
+        _gram_equal_on_card(
+            torch.as_tensor(Tn.reshape(1, 2, 40, B1), device=dev),
+            torch.as_tensor(Nn, device=dev))
+    for batch, n in ((5, 97), (5, 128), (5, 129), (5, 160), (5, 1024),
+                     (1, 129), (64, 160)):
+        _chol_close_on_card(*_spd_case(rng, batch, n))
     runs = kernels.device_launches()
     for key in [("chol_solve_sample", f) for f in ("f32_wide", "f64_wide")] \
             + [("gram_accumulate", f + "_wide") for f in kernels.GRAM_FORMS]:

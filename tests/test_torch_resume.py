@@ -4,7 +4,8 @@ A run split as ``sample(niter=N1)`` then ``sample(niter=N,
 resume=True)`` in a fresh sampler equals the uninterrupted run bitwise,
 in ``chain.npy`` and ``bchain.npy``, at ``record_every`` 1 and 2 (the
 split on a chunk boundary of the grid anchored at the first steady
-sweep).  A chain-count or thinning mismatch raises; a corrupted
+sweep).  A chain-count or thinning mismatch raises, as does a resume
+on another device type than the checkpoint's streams; a corrupted
 ``chain.npy`` rolls back to the ``.bak`` generation (and the resumed run
 is still bitwise), with both generations corrupt ``CheckpointError`` is
 raised.  The JAX package's ``integrity.verify`` accepts a port
@@ -118,6 +119,30 @@ def test_resume_mismatches_raise(cm, full, tmp_path):
     state.pop("chol_white")
     with pytest.raises(RuntimeError, match="white-noise adaptation"):
         _gibbs(cm).driver.load_adapt_state(state)
+
+
+@pytest.mark.parametrize("saved", ["cuda", "cpu"])
+def test_resume_checks_the_stream_device(cm, full, tmp_path, saved):
+    """The checkpoint's layout names the device type of the sampling
+    generator; a resume on another device type is refused (its streams
+    differ), one on the same device type continues."""
+    import shutil
+
+    _, d = full[1]
+    out = tmp_path / "c"
+    shutil.copytree(d, out)
+    man = json.loads((out / "manifest.json").read_text())
+    assert man["layout"]["rng_device"] == "cpu"
+    man["layout"]["rng_device"] = saved
+    (out / "manifest.json").write_text(json.dumps(man))
+    g = _gibbs(cm)
+    if saved == "cpu":
+        chain = g.sample(_x0(g), outdir=out, niter=NITER + 2, resume=True,
+                         save_every=CHUNK)
+        assert np.isfinite(chain).all() and len(chain) == NITER + 2
+    else:
+        with pytest.raises(ValueError, match="cuda.*cpu"):
+            g.sample(_x0(g), outdir=out, niter=NITER + 2, resume=True)
 
 
 @pytest.mark.parametrize("key", ["it_cur", "x_cur"])
