@@ -1,18 +1,22 @@
-"""Build the compiled free-spectrum model straight from pulsar arrays.
+"""Build the compiled CRN model straight from pulsar arrays.
 
 The subset of the JAX package's ``models/factory.py::model_general``
 followed by ``sampler/compiled.py::compile_pta`` that the port samples:
 
     model_general(psrs, tm_svd=..., white_vary=True,
-                  common_psd="spectrum", common_components=K,
-                  red_var=..., red_psd="spectrum", red_components=Kr,
-                  is_wideband=...)
+                  common_psd="spectrum" | "powerlaw", common_components=K,
+                  red_var=..., red_psd="spectrum" | "powerlaw",
+                  red_components=Kr, is_wideband=...,
+                  upper_limit=..., upper_limit_red=...,
+                  upper_limit_common=...)
 
 a timing-model basis with marginalized (``BIG_PHI``) columns (SVD, or
 the column-normalized design matrix of ``tm_norm``'s default), a common
-free spectrum, optionally a per-pulsar free-spectrum red process sharing
-the Fourier columns,
-per-backend EFAC/EQUAD, and, for a pulsar whose ``pta`` flag names
+process (free spectrum, or a powerlaw with ``log10_A`` ~ U(-18, -11) and
+``gamma`` ~ U(0, 7)), optionally a per-pulsar red process sharing the
+Fourier columns (free spectrum, or a powerlaw with ``log10_A`` ~ U(-20,
+-11)); an upper-limit flag makes an amplitude prior LinearExp over the
+same bounds, per-backend EFAC/EQUAD, and, for a pulsar whose ``pta`` flag names
 NANOGrav (unless ``is_wideband``), per-backend basis ECORR: one column
 per observing epoch per backend (TOAs grouped into epochs of at most 10
 days), with prior variance ``10^(2 log10_ecorr)`` of its backend.  The
@@ -31,11 +35,18 @@ from ..sampler.compiled import BIG_PHI, PHI_FLOOR, from_arrays
 
 #: prior bounds of the model's parameters (model_general's defaults)
 _RHO_BOUNDS = (-10.0, -4.0)
+_GW_AMP_BOUNDS = (-18.0, -11.0)
+_RED_AMP_BOUNDS = (-20.0, -11.0)
+_GAMMA_BOUNDS = (0.0, 7.0)
 _EFAC_BOUNDS = (0.01, 10.0)
 _EQUAD_BOUNDS = (-8.5, -5.0)
 _ECORR_BOUNDS = (-8.5, -5.0)
 #: widest ECORR epoch (``EcorrBasisSignal``'s ``dt_days``)
 ECORR_DT_DAYS = 10.0
+#: prior kinds as the compiled ``pkind`` codes them
+UNIFORM, NORMAL, LINEAR_EXP = 0, 1, 2
+#: the PSDs of the common and red processes the port builds
+PSDS = ("spectrum", "powerlaw")
 
 
 def _bin_widths(f):
@@ -89,13 +100,30 @@ def _timing_basis(M, tm_svd):
     return np.linalg.svd(Mn, full_matrices=False)[0] if tm_svd else Mn
 
 
-def model_arrays(psrs, *, tm_svd=False, common_components=30,
-                 red_var=True, red_components=30, is_wideband=False,
+def _amp_priors(upper_limit, upper_limit_red, upper_limit_common):
+    """``(red, common)`` amplitude prior kinds of the factory: with no
+    per-class flag both follow ``upper_limit``; once one is given, each
+    is LinearExp only under its own flag."""
+    if upper_limit_red is None and upper_limit_common is None:
+        kind = LINEAR_EXP if upper_limit else UNIFORM
+        return kind, kind
+    return (LINEAR_EXP if upper_limit_red else UNIFORM,
+            LINEAR_EXP if upper_limit_common else UNIFORM)
+
+
+def model_arrays(psrs, *, tm_svd=False, common_psd="spectrum",
+                 common_components=30, red_var=True, red_psd="spectrum",
+                 red_components=30, is_wideband=False, upper_limit=False,
+                 upper_limit_red=None, upper_limit_common=None,
                  pad_pulsars=None) -> dict:
     """The compiled model's fields as numpy arrays, named as the JAX
     ``CompiledPTA`` names them (the input of
     :func:`~..sampler.compiled.from_arrays`), for the model of the
     module docstring."""
+    for what, psd in (("common_psd", common_psd), ("red_psd", red_psd)):
+        if psd not in PSDS:
+            raise NotImplementedError(f"{what}={psd!r} is not in the port "
+                                      f"yet (it takes {PSDS})")
     psrs = list(psrs)
     Tspan = get_tspan(psrs)
     P_real = len(psrs)
@@ -104,9 +132,18 @@ def model_arrays(psrs, *, tm_svd=False, common_components=30,
         raise ValueError("pad_pulsars smaller than the pulsar count")
     nbins = int(common_components)
     red_bins = int(red_components) if red_var else 0
+    gw_pl = common_psd == "powerlaw"
+    red_pl = red_var and red_psd == "powerlaw"
+    amp_red, amp_gw = _amp_priors(upper_limit, upper_limit_red,
+                                  upper_limit_common)
 
     # ---- per-pulsar bases and the parameter list ---------------------------
-    params = [("gw_crn_log10_rho", nbins) + _RHO_BOUNDS]
+    # (name, size, prior kind, a, b)
+    if gw_pl:
+        params = [("gw_crn_log10_A", None, amp_gw) + _GW_AMP_BOUNDS,
+                  ("gw_crn_gamma", None, UNIFORM) + _GAMMA_BOUNDS]
+    else:
+        params = [("gw_crn_log10_rho", nbins, UNIFORM) + _RHO_BOUNDS]
     per = []
     for p in psrs:
         U = _timing_basis(p.Mmat, tm_svd)
@@ -117,16 +154,23 @@ def model_arrays(psrs, *, tm_svd=False, common_components=30,
         donor = Fg if Fg.shape[1] >= Fr.shape[1] else Fr
         labels = sorted(set(p.backend_flags.tolist()))
         masks = {lab: p.backend_flags == lab for lab in labels}
-        rname = f"{p.name}_red_noise_log10_rho"
-        if red_var:
-            params.append((rname, red_bins) + _RHO_BOUNDS)
+        rname = f"{p.name}_red_noise"
+        if red_pl:
+            params.append((f"{rname}_log10_A", None, amp_red)
+                          + _RED_AMP_BOUNDS)
+            params.append((f"{rname}_gamma", None, UNIFORM) + _GAMMA_BOUNDS)
+        elif red_var:
+            params.append((f"{rname}_log10_rho", red_bins, UNIFORM)
+                          + _RHO_BOUNDS)
         ecorr = _has_ecorr(p, is_wideband)
         for lab in labels:
             stem = f"{p.name}_{lab}" if lab else p.name
-            params.append((f"{stem}_efac", None) + _EFAC_BOUNDS)
-            params.append((f"{stem}_log10_tnequad", None) + _EQUAD_BOUNDS)
+            params.append((f"{stem}_efac", None, UNIFORM) + _EFAC_BOUNDS)
+            params.append((f"{stem}_log10_tnequad", None, UNIFORM)
+                          + _EQUAD_BOUNDS)
             if ecorr:
-                params.append((f"{stem}_log10_ecorr", None) + _ECORR_BOUNDS)
+                params.append((f"{stem}_log10_ecorr", None, UNIFORM)
+                              + _ECORR_BOUNDS)
         E, owners = (_ecorr_basis(p.toas, labels, masks) if ecorr
                      else (np.zeros((p.ntoa, 0)), []))
         per.append(dict(U=U, fg=fg, fr=fr, donor=donor, E=E, owners=owners,
@@ -134,7 +178,7 @@ def model_arrays(psrs, *, tm_svd=False, common_components=30,
                         ecorr=ecorr))
     params.sort(key=lambda t: t[0])
     names = []
-    for nm, size, _, _ in params:
+    for nm, size, _, _, _ in params:
         names += ([f"{nm}_{k}" for k in range(size)] if size else [nm])
     nx = len(names)
     pos = {nm: ii for ii, nm in enumerate(names)}
@@ -168,10 +212,12 @@ def model_arrays(psrs, *, tm_svd=False, common_components=30,
     Kr1 = max(Kr, 1)
     gcols = np.full((P, 2 * K), Bmax, np.int32)
     grho = np.full((P, 2 * K), sentinel, np.int32)
+    ghyp = np.full((P, 2 if gw_pl else 0), sentinel, np.int32)
     gf = np.ones((P, 2 * K), f32)
     gdf = np.zeros((P, 2 * K), f32)
     rcols = np.full((P, 2 * Kr), Bmax, np.int32)
     rrho = np.full((P, 2 * Kr), sentinel, np.int32)
+    rhyp = np.full((P, 2 if red_pl else 0), sentinel, np.int32)
     rf = np.ones((P, 2 * Kr), f32)
     rdf = np.zeros((P, 2 * Kr), f32)
     gw_sin = np.zeros((P, K), np.int32)
@@ -179,8 +225,10 @@ def model_arrays(psrs, *, tm_svd=False, common_components=30,
     gw_f = np.ones((P, K), f32)
     gw_df = np.zeros((P, K), f32)
     gw_rho = np.full((P, K), floor_ref, np.int32)
+    gw_hyp = np.full((P, 2 if gw_pl else 1), sentinel, np.int32)
     red_rho = np.full((P, Kr1), floor_ref if Kr else sentinel, np.int32)
     red_rho_x = np.full((P, Kr1), nx, np.int32)
+    red_hyp = np.full((P, 2 if red_pl else 1), sentinel, np.int32)
     red_sin = np.zeros((P, Kr1), np.int32)
     red_cos = np.zeros((P, Kr1), np.int32)
     red_f = np.ones((P, Kr1), f32)
@@ -219,23 +267,34 @@ def model_arrays(psrs, *, tm_svd=False, common_components=30,
         gp_mask[ii, ntm:ntm + 2 * Kr] = 1.0
         gc = np.arange(ntm, ntm + 2 * K)
         gcols[ii] = gc
-        grho[ii] = [pos[f"gw_crn_log10_rho_{j // 2}"] for j in range(2 * K)]
         gf[ii] = d["fg"]
         gdf[ii] = _bin_widths(d["fg"])
         gw_sin[ii], gw_cos[ii] = gc[::2], gc[1::2]
         gw_f[ii], gw_df[ii] = d["fg"][::2], _bin_widths(d["fg"])[::2]
-        gw_rho[ii] = [pos[f"gw_crn_log10_rho_{k}"] for k in range(K)]
+        if gw_pl:
+            ghyp[ii] = gw_hyp[ii] = [pos["gw_crn_log10_A"],
+                                     pos["gw_crn_gamma"]]
+        else:
+            grho[ii] = [pos[f"gw_crn_log10_rho_{j // 2}"]
+                        for j in range(2 * K)]
+            gw_rho[ii] = [pos[f"gw_crn_log10_rho_{k}"] for k in range(K)]
         if red_var:
+            rn = d["rname"]
             rc = np.arange(ntm, ntm + 2 * Kr)
             rcols[ii] = rc
-            rrho[ii] = [pos[f"{d['rname']}_{j // 2}"] for j in range(2 * Kr)]
             rf[ii] = d["fr"]
             rdf[ii] = _bin_widths(d["fr"])
             red_valid[ii] = 1.0
             red_sin[ii], red_cos[ii] = rc[::2], rc[1::2]
             red_f[ii], red_df[ii] = d["fr"][::2], _bin_widths(d["fr"])[::2]
-            red_rho[ii] = [pos[f"{d['rname']}_{k}"] for k in range(Kr)]
-            red_rho_x[ii] = red_rho[ii]
+            if red_pl:
+                rhyp[ii] = red_hyp[ii] = [pos[f"{rn}_log10_A"],
+                                          pos[f"{rn}_gamma"]]
+            else:
+                rrho[ii] = [pos[f"{rn}_log10_rho_{j // 2}"]
+                            for j in range(2 * Kr)]
+                red_rho[ii] = [pos[f"{rn}_log10_rho_{k}"] for k in range(Kr)]
+                red_rho_x[ii] = red_rho[ii]
         if ne:
             ecols[ii, :ne] = np.arange(ntm + nf, w)
             erho[ii, :ne] = [pos[f"{p.name}_{lab}_log10_ecorr" if lab
@@ -256,26 +315,39 @@ def model_arrays(psrs, *, tm_svd=False, common_components=30,
     pa = np.zeros(nx, f32)
     pb = np.ones(nx, f32)
     ct = 0
-    for _, size, lo, hi in params:
+    for _, size, kind, lo, hi in params:
         n = size or 1
+        pkind[ct:ct + n] = kind
         pa[ct:ct + n], pb[ct:ct + n] = lo, hi
         ct += n
-    prop_scale = (0.1 * np.abs(pb - pa)).astype(f32)
+    prop_scale = np.where(pkind == NORMAL, pb,
+                          0.1 * np.abs(pb - pa)).astype(f32)
 
-    rho_lo = 10.0 ** (2.0 * _RHO_BOUNDS[0])
-    rho_hi = 10.0 ** (2.0 * _RHO_BOUNDS[1])
-    none = np.zeros((P, 0), np.int32)
-    comps = [dict(kind="free_spectrum", cols=gcols, f=gf, df=gdf,
-                  hyp_ix=none, rho_ix=grho)]
+    # the free spectra's variance bounds (compile_pta's defaults without
+    # one; the red falls back to the common's)
+    if gw_pl:
+        rho_lo, rho_hi = 1e-20, 1e-8
+    else:
+        rho_lo = 10.0 ** (2.0 * _RHO_BOUNDS[0])
+        rho_hi = 10.0 ** (2.0 * _RHO_BOUNDS[1])
+    if red_var and not red_pl:
+        red_lo = 10.0 ** (2.0 * _RHO_BOUNDS[0])
+        red_hi = 10.0 ** (2.0 * _RHO_BOUNDS[1])
+    else:
+        red_lo, red_hi = rho_lo, rho_hi
+    comps = [dict(kind="powerlaw" if gw_pl else "free_spectrum", cols=gcols,
+                  f=gf, df=gdf, hyp_ix=ghyp, rho_ix=grho)]
     if red_var:
-        comps.append(dict(kind="free_spectrum", cols=rcols, f=rf, df=rdf,
-                          hyp_ix=none, rho_ix=rrho))
+        comps.append(dict(kind="powerlaw" if red_pl else "free_spectrum",
+                          cols=rcols, f=rf, df=rdf, hyp_ix=rhyp,
+                          rho_ix=rrho))
     if We:
         live = ecols < Bmax
         comps.append(dict(kind="ecorr", cols=ecols,
                           f=np.where(live, 0.0, 1.0).astype(f32),
-                          df=np.zeros((P, We), f32), hyp_ix=none,
-                          rho_ix=erho))
+                          df=np.zeros((P, We), f32),
+                          hyp_ix=np.zeros((P, 0), np.int32), rho_ix=erho))
+    red_kind = ("powerlaw" if red_pl else "free_spectrum") if red_var else ""
     return dict(
         P=P, P_real=P_real, Nmax=Nmax, Bmax=Bmax, nx=nx, K=K, Kr=Kr,
         widths=widths, pulsars=tuple(p.name for p in psrs),
@@ -286,18 +358,17 @@ def model_arrays(psrs, *, tm_svd=False, common_components=30,
         const_pool=const_pool, phi_base=phi_base, components=comps,
         pkind=pkind, pa=pa, pb=pb, prop_scale=prop_scale,
         gw_sin_ix=gw_sin, gw_cos_ix=gw_cos, gw_f=gw_f, gw_df=gw_df,
-        gw_kind="free_spectrum",
-        gw_hyp_ix=np.full((P, 1), sentinel, np.int32), gw_rho_ix=gw_rho,
-        rho_ix_x=np.asarray([pos[f"gw_crn_log10_rho_{k}"]
-                             for k in range(K)], np.int32),
-        red_valid=red_valid, red_kind="free_spectrum" if red_var else "",
-        red_hyp_ix=np.full((P, 1), sentinel, np.int32),
+        gw_kind="powerlaw" if gw_pl else "free_spectrum",
+        gw_hyp_ix=gw_hyp, gw_rho_ix=gw_rho,
+        rho_ix_x=(np.zeros(0, np.int32) if gw_pl else np.asarray(
+            [pos[f"gw_crn_log10_rho_{k}"] for k in range(K)], np.int32)),
+        red_valid=red_valid, red_kind=red_kind, red_hyp_ix=red_hyp,
         red_rho_ix=red_rho, red_rho_ix_x=red_rho_x,
         red_sin_ix=red_sin, red_cos_ix=red_cos,
         ec_cols=ecols, ec_ix=erho,
         white_par_ix=white_par_ix, white_nper=white_nper,
         ecorr_par_ix=ecorr_par_ix, ecorr_nper=ecorr_nper,
-        rhomin=rho_lo, rhomax=rho_hi, red_rhomin=rho_lo, red_rhomax=rho_hi,
+        rhomin=rho_lo, rhomax=rho_hi, red_rhomin=red_lo, red_rhomax=red_hi,
         orf_name="crn", orf_Ginv=None, gp_mask=gp_mask, red_f=red_f,
         red_df=red_df, orf_B=None, orf_par_ix=None, red_shares_gw=True,
         ke_eid=None, ke_par_ix=None)
@@ -324,29 +395,29 @@ def build_crn_spectrum(psrs, nbins: int = 10, red_bins: int = 10,
 def model_general(psrs, tm_svd=False, white_vary=False,
                   common_psd="powerlaw", common_components=30,
                   red_var=True, red_psd="powerlaw", red_components=30,
-                  is_wideband=False, device=None):
+                  is_wideband=False, upper_limit=False, upper_limit_red=None,
+                  upper_limit_common=None, device=None):
     """The compiled model of the JAX package's ``model_general`` with
     these options (its defaults) followed by ``compile_pta``, on
-    ``device`` (``cuda`` unless the caller passes another).  The port takes ``white_vary=True``,
-    ``common_psd="spectrum"`` and, with ``red_var=True``,
-    ``red_psd="spectrum"``; other values raise ``NotImplementedError``.
-    README's Quick start::
+    ``device`` (``cuda`` unless the caller passes another).  The port
+    takes ``white_vary=True``, ``common_psd`` and ``red_psd`` of
+    ``"spectrum"`` or ``"powerlaw"``, and the upper-limit flags (LinearExp
+    amplitude priors); any other PSD, or fixed white noise, raises
+    ``NotImplementedError``.  README's Quick start, and the standard PTA
+    noise model (a free spectrum with intrinsic powerlaw red noise)::
 
         model_general([psr], red_var=False, white_vary=True,
                       common_psd="spectrum", common_components=30)
+        model_general([psr], white_vary=True, common_psd="spectrum",
+                      red_psd="powerlaw")
     """
     if not white_vary:
         raise NotImplementedError(
             "fixed white noise (white_vary=False) is not in the port yet")
-    if common_psd != "spectrum":
-        raise NotImplementedError(
-            f"common_psd={common_psd!r} is not in the port yet "
-            "(common_psd='spectrum' is)")
-    if red_var and red_psd != "spectrum":
-        raise NotImplementedError(
-            f"red_psd={red_psd!r} is not in the port yet (red_var=False, "
-            "or red_psd='spectrum', is)")
     return from_arrays(model_arrays(
-        psrs, tm_svd=tm_svd, common_components=common_components,
-        red_var=red_var, red_components=red_components,
-        is_wideband=is_wideband), device=device)
+        psrs, tm_svd=tm_svd, common_psd=common_psd,
+        common_components=common_components, red_var=red_var,
+        red_psd=red_psd, red_components=red_components,
+        is_wideband=is_wideband, upper_limit=upper_limit,
+        upper_limit_red=upper_limit_red,
+        upper_limit_common=upper_limit_common), device=device)

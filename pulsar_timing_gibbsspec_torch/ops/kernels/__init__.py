@@ -110,10 +110,11 @@ def chol_solve_sample(Sig, d, z, *, ridge=0.0, factor="blocked"):
 
 
 #: instantiation name of chol_solve_sample by element type (the wide form
-#: adds ``_wide``).  No sampler path launches "f64" (the exact draws factor
-#: in plain float64 linear algebra, as the JAX package does): it exists to
-#: check the kernel's algorithm at float64 (``chip_smoke.py`` phase 2, the
-#: card test)
+#: adds ``_wide``).  "f32" is the steady b-draw's proposal factor; "f64"
+#: is the b-marginalized likelihood's factor
+#: (``blocks.lnlike_fullmarg_fn``), which the powerlaw hyper block's
+#: adaptation runs (the exact b-draws factor in plain float64 linear
+#: algebra, as the JAX package does)
 CHOL_FORMS = {torch.float32: "f32", torch.float64: "f64"}
 #: instantiation name of gram_accumulate by kernel form number (the wide
 #: form adds ``_wide``)

@@ -4,8 +4,11 @@ Port of the CRN pieces of ``pulsar_timing_gibbsspec_tpu/sampler/
 jax_backend.py``: the segmented Grams and the b-draws (steady
 Metropolised draw, refresh, exact draw), the white-noise and basis-ECORR
 blocks (relative likelihoods, adapted full-block MH, Laplace proposals),
-and the hyper block (common-rho grid draw, or the single-pulsar
-inverse-CDF draw; per-pulsar red draw; rho <-> b scale moves).  Every function takes the chains as leading dimensions of ``x``
+the hyper blocks (common-rho grid draw, or the single-pulsar
+inverse-CDF draw; per-pulsar free-spectrum red draw; rho <-> b scale
+moves; the powerlaw hyper MH block with its b-conditional and
+b-marginalized likelihoods) and the facade's sampling-flag check.  Every
+function takes the chains as leading dimensions of ``x``
 (``(C, nx)``), ``b`` (``(C, P, Bmax)``) and ``u = T b`` (``(C, P,
 Nmax)``); the kernels see ``C * P`` systems at once.
 
@@ -19,6 +22,7 @@ to the cores.  Numerics constants are the JAX package's.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,6 +40,52 @@ _PROP_RIDGE = 4e-6
 #: step scale (natural log of the variance ratio) of the rho <-> b moves
 RHO_SCALE_SIGMA = 0.65
 _LN10 = math.log(10.0)
+
+
+# ===========================================================================
+# sampling flags
+# ===========================================================================
+
+def validate_sampling_flags(cm, hypersample=None, ecorrsample=None,
+                            redsample=None):
+    """The reference's block-kernel selectors, checked against the model
+    (``cm.param_names``) as the JAX package checks them: ``None`` means
+    the kernel follows the model; an explicit value that asks for a
+    kernel the model cannot take raises."""
+    names = list(cm.param_names)
+    has_red_rho = any("rho" in n and "red" in n for n in names)
+    has_red_pl = any(("log10_A" in n or "gamma" in n) and "red" in n
+                     for n in names)
+    if hypersample not in (None, "conditional"):
+        raise NotImplementedError(
+            f"hypersample={hypersample!r}: the common free-spectrum block "
+            "is sampled by its exact conditional (inverse-CDF / Gumbel-max "
+            "grid); an MH alternative is not implemented")
+    if ecorrsample == "kernel":
+        if not any("ecorr" in n for n in names):
+            raise ValueError(
+                "ecorrsample='kernel' but the model has no ECORR "
+                "parameters (need white_vary=True on NANOGrav-flagged "
+                "data with a backend selection)")
+    elif ecorrsample not in (None, "mh"):
+        raise NotImplementedError(
+            f"ecorrsample={ecorrsample!r}: ECORR amplitudes are sampled by "
+            "adapted-proposal MH on the basis representation, or by the "
+            "in-N Woodbury kernel with ecorrsample='kernel'; other "
+            "kernels are not implemented")
+    if redsample == "conditional" and has_red_pl and not has_red_rho:
+        raise NotImplementedError(
+            "redsample='conditional' but the intrinsic red process has "
+            "powerlaw-family hypers, which only the adaptive-MH block "
+            "samples; build the model with red_psd='spectrum' for "
+            "conditional red draws")
+    if redsample == "mh" and has_red_rho:
+        raise NotImplementedError(
+            "redsample='mh' but the intrinsic red process is a free "
+            "spectrum, which is sampled by its exact per-pulsar "
+            "conditional; an MH alternative is not implemented")
+    if redsample not in (None, "mh", "conditional"):
+        raise NotImplementedError(f"redsample={redsample!r} is not known")
 
 
 # ===========================================================================
@@ -812,3 +862,166 @@ def rho_scale_moves(cm, x, b, u, gen):
     eps = _normal(gen, shape, cm.cdtype, cm.device)
     logu = torch.log(_uniform(gen, shape, cm.cdtype, cm.device))
     return rho_scale_moves_core(cm, x, b, u, eps, logu)
+
+
+# ===========================================================================
+# powerlaw hyper block
+# ===========================================================================
+
+def lnlike_hyper_fn(cm, x, b, phi_fn=None):
+    """b-conditional log-likelihood of the GP hyperparameters (..., ):
+    ``-0.5 sum over the Fourier-GP columns of (log phi + b^2 / phi)``.
+    ``phi_fn`` (from ``cm.phi_hyper_split``) evaluates only the
+    hyper-dependent components."""
+    phi = cm.phi(x) if phi_fn is None else phi_fn(x)
+    b2 = (b * b).to(cm.cdtype)
+    return -0.5 * (cm.gp_mask.to(cm.cdtype)
+                   * (torch.log(phi) + b2 / phi)).sum((-2, -1))
+
+
+def lnlike_fullmarg_fn(cm, x, TNT, d):
+    """b-marginalized log-likelihood (..., ) given the Gram ``(TNT, d)``
+    of the state's white noise (float64): the factor chain of
+    ``kernels.chol_solve_sample`` at float64 (a CUDA kernel on a card)
+    gives ``L``, ``dj`` and the mean ``Sigma^-1 d``, and ``log det Sigma =
+    2 sum log L_ii - 2 sum log dj``."""
+    N = cm.ndiag(x)
+    phi = cm.phi(x)
+    out = -0.5 * (cm.toa_mask * (torch.log(N) + cm.y ** 2 / N)).sum((-2, -1))
+    logdet_phi = torch.log(phi).sum(-1)
+    Sigma = TNT + _batched_diag(1.0 / phi)
+    L, _, dj, mean, _ = _factor_batch(Sigma, d, torch.zeros_like(d))
+    logdet_sigma = (2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1))
+                    .sum(-1) - 2.0 * torch.log(dj).sum(-1))
+    return out + 0.5 * ((d * mean).sum(-1) - logdet_sigma
+                        - logdet_phi).sum(-1)
+
+
+class RedNoise(NamedTuple):
+    """The noise of :func:`red_mh_block_core`, each (steps, ...): the
+    branch uniform ``r``; the SCAM eigendirection ``j`` and normal
+    ``eps_scam``; the AM normals ``z_am`` (steps, ..., d); the single-site
+    scale ``scale``, position ``jj`` (into the block) and normal
+    ``eps_ss``; the DE history rows ``a_ix``, ``b_ix`` and the gamma
+    uniform ``g`` (None without a history); the accept log-uniform
+    ``logu``."""
+
+    r: torch.Tensor
+    j: torch.Tensor
+    eps_scam: torch.Tensor
+    z_am: torch.Tensor
+    scale: torch.Tensor
+    jj: torch.Tensor
+    eps_ss: torch.Tensor
+    a_ix: torch.Tensor
+    b_ix: torch.Tensor
+    g: torch.Tensor
+    logu: torch.Tensor
+
+
+def _rows(a, ix):
+    """``a[..., ix, :]`` for a per-batch index ``ix`` (...,)."""
+    return torch.gather(a, -2, ix[..., None, None].expand(
+        ix.shape + (1, a.shape[-1])))[..., 0, :]
+
+
+def red_mh_block_core(cm, x, b, U, S, noise, hist=None, accepts=None):
+    """The powerlaw hyper block: Metropolis steps on the b-conditional
+    likelihood of every ``log10_A``/``gamma`` (``cm.idx.red``), each step
+    one of four symmetric proposals by the branch uniform: with a DE
+    history ``hist`` (..., H, d), differential evolution ``gamma (h_a -
+    h_b)`` (r < .5; gamma = 1 on 10% of jumps), a jump along one adapted
+    covariance eigendirection (SCAM, < .65), a full adapted-covariance
+    jump (AM, < .8) or a single-site scale-mixture jump; without one,
+    SCAM (< .25), AM (< .5), single-site.  ``U``/``S`` (..., d, d) /
+    (..., d): the SVD of the adapted covariance; ``noise`` a
+    :class:`RedNoise`.  ``accepts`` (..., ), when given, gains each
+    chain's accepted steps in place.  Returns ``x'``."""
+    cdt = cm.cdtype
+    rind = cm.red_ix
+    d = int(rind.numel())
+    sigma = 0.05 * d
+    _, phi_dyn = cm.phi_hyper_split(x)
+
+    def lnlike(q):
+        return lnlike_hyper_fn(cm, q, b, phi_fn=phi_dyn)
+
+    gamma0 = 2.38 / math.sqrt(2.0 * d)
+    am_scale = 2.38 / math.sqrt(d)
+    am_sqrt = U * torch.sqrt(S)[..., None, :]
+    pos = torch.arange(d, device=cm.device)
+    ll0, lp0 = lnlike(x), cm.lnprior(x)
+    ninf = torch.full_like(ll0, -math.inf)
+    for s in range(noise.r.shape[0]):
+        j = noise.j[s]
+        Sj = torch.gather(S, -1, j[..., None])[..., 0]
+        Uj = torch.gather(U, -1, j[..., None, None].expand(
+            j.shape + (d, 1)))[..., 0]
+        d_scam = (2.38 * torch.sqrt(Sj) * noise.eps_scam[s])[..., None] * Uj
+        d_am = am_scale * torch.matmul(am_sqrt, noise.z_am[s][..., None])[
+            ..., 0]
+        v_ss = noise.eps_ss[s] * sigma * noise.scale[s]
+        d_ss = torch.where(pos == noise.jj[s][..., None], v_ss[..., None],
+                           torch.zeros((), dtype=cdt, device=cm.device))
+        r = noise.r[s][..., None]
+        if hist is not None:
+            g = noise.g[s]
+            gamma = torch.where(g < 0.1, torch.ones_like(g),
+                                torch.full_like(g, gamma0))
+            d_de = gamma[..., None] * (_rows(hist, noise.a_ix[s])
+                                       - _rows(hist, noise.b_ix[s]))
+            delta = torch.where(r < 0.5, d_de, torch.where(
+                r < 0.65, d_scam, torch.where(r < 0.8, d_am, d_ss)))
+        else:
+            delta = torch.where(r < 0.25, d_scam,
+                                torch.where(r < 0.5, d_am, d_ss))
+        q = _add_x(x, rind, delta)
+        lp1 = cm.lnprior(q)
+        ll1 = lnlike(q)
+        ok = torch.isfinite(lp1) & torch.isfinite(ll1)
+        logr = torch.where(ok, (ll1 + lp1) - (ll0 + lp0), ninf)
+        acc = logr > noise.logu[s]
+        x = torch.where(acc[..., None], q, x)
+        ll0 = torch.where(acc, ll1, ll0)
+        lp0 = torch.where(acc, lp1, lp0)
+        if accepts is not None:
+            accepts += acc
+    return x
+
+
+def red_noise(cm, gen, lead, nsteps, H=None):
+    """A :class:`RedNoise` of ``nsteps`` steps for chains ``lead`` drawn
+    from ``gen`` (the DE entries only with a history of ``H`` rows)."""
+    cdt, dev = cm.cdtype, cm.device
+    d = len(cm.idx.red)
+    shape = (nsteps,) + tuple(lead)
+
+    def uni():
+        return torch.rand(shape, generator=gen, dtype=cdt, device=dev)
+
+    def ints(n):
+        return torch.randint(0, n, shape, generator=gen, device=dev)
+
+    r, j = uni(), ints(d)
+    eps_scam = _normal(gen, shape, cdt, dev)
+    z_am = _normal(gen, shape + (d,), cdt, dev)
+    scale = _scale_choice(gen, shape, cdt, dev)
+    jj = ints(d)
+    eps_ss = _normal(gen, shape, cdt, dev)
+    a_ix = b_ix = g = None
+    if H is not None:
+        a_ix = ints(H)
+        b_ix = (a_ix + 1 + ints(H - 1)) % H
+        g = uni()
+    logu = torch.log(_uniform(gen, shape, cdt, dev))
+    return RedNoise(r, j, eps_scam, z_am, scale, jj, eps_ss, a_ix, b_ix, g,
+                    logu)
+
+
+def red_mh_block(cm, x, b, gen, U, S, nsteps, hist=None, accepts=None):
+    """:func:`red_mh_block_core` with ``nsteps`` steps of noise drawn
+    from ``gen``."""
+    H = None if hist is None else hist.shape[-2]
+    return red_mh_block_core(cm, x, b, U, S,
+                             red_noise(cm, gen, x.shape[:-1], nsteps, H),
+                             hist, accepts)

@@ -1,10 +1,12 @@
 """The compiled PTA model as tensors on one device.
 
 Port of ``pulsar_timing_gibbsspec_tpu/sampler/compiled.py`` for the CRN
-free-spectrum model with basis ECORR: ragged per-pulsar shapes padded to ``(P, Nmax)`` /
-``(P, Bmax)``, hyperparameter references compiled to integer gathers into
-``xe = [x, 0-sentinel, constants]``, and ``phi(x)`` as a scatter-add of
-the per-component variances onto the basis columns.
+model with basis ECORR, a free-spectrum or powerlaw common process and
+free-spectrum or powerlaw intrinsic red noise: ragged per-pulsar shapes
+padded to ``(P, Nmax)`` / ``(P, Bmax)``, hyperparameter references
+compiled to integer gathers into ``xe = [x, 0-sentinel, constants]``,
+and ``phi(x)`` as a scatter-add of the per-component variances onto the
+basis columns.
 
 Every method broadcasts over leading batch dimensions of ``x`` / ``b``:
 the driver carries the chains as a leading axis, ``x`` of shape
@@ -31,6 +33,25 @@ from ..config import resolve_device, settings
 BIG_PHI = 1e30
 #: floor where a process has no variance on a column (``PHI_FLOOR``)
 PHI_FLOOR = 1e-30
+#: powerlaw constants: ln 10, ln(12 pi^2), ln(1 / year)
+_LN10 = math.log(10.0)
+_LN12PI2 = math.log(12.0 * math.pi ** 2)
+_LNFYR = math.log(1.0 / (365.25 * 86400.0))
+#: the PSDs the port evaluates from hyperparameters
+POWERLAW_KINDS = ("powerlaw",)
+
+
+def _lnphi_powerlaw(f, df, log10_A, gamma):
+    """Log of the powerlaw prior variance per column, evaluated in log
+    space (``f**-gamma`` overflows float32) and summed in float64.  Each
+    term is rounded where the JAX package rounds it: ``f``/``df`` in the
+    storage dtype and their logs taken there, ``gamma - 3`` and ``gamma
+    log f`` in the hypers' dtype (the dtype phi is asked in), the
+    float64 constants' products in float64."""
+    f64 = torch.float64
+    return (2.0 * _LN10 * log10_A.to(f64) - _LN12PI2
+            + (gamma - 3.0).to(f64) * _LNFYR
+            - (gamma * torch.log(f)).to(f64) + torch.log(df).to(f64))
 
 
 @dataclasses.dataclass
@@ -69,14 +90,19 @@ class BlockIndex:
 
 @dataclasses.dataclass
 class GPComponent:
-    """One free-spectrum Fourier-GP or basis-ECORR component, stacked
-    over pulsars: ``cols`` index the basis axis (pad ``Bmax``, dropped on
-    scatter), ``rho_ix`` gathers each column's log10_rho (log10_ecorr)
-    out of ``xe``; a column's variance is ``10^(2 xe[rho_ix])``."""
+    """One Fourier-GP or basis-ECORR component, stacked over pulsars:
+    ``cols`` index the basis axis (pad ``Bmax``, dropped on scatter).  A
+    free spectrum (ECORR) gathers each column's log10_rho (log10_ecorr)
+    out of ``xe`` through ``rho_ix``, the column's variance being
+    ``10^(2 xe[rho_ix])``; a powerlaw gathers its ``(log10_A, gamma)``
+    through ``hyp_ix`` and evaluates at the column's ``f`` and ``df``."""
 
     kind: str
     cols: torch.Tensor       # (P, W) int64
     rho_ix: torch.Tensor     # (P, W) int64
+    f: torch.Tensor = None   # (P, W) storage dtype, per-column frequency
+    df: torch.Tensor = None  # (P, W) per-column bin width
+    hyp_ix: torch.Tensor = None  # (P, H) int64 -> xe
 
 
 @dataclasses.dataclass
@@ -112,11 +138,15 @@ class CompiledPTA:
     idx: BlockIndex
     gw_sin_ix: torch.Tensor    # (P, K) -> b columns
     gw_cos_ix: torch.Tensor    # (P, K)
+    gw_f: torch.Tensor         # (P, K) per-frequency (storage dtype)
+    gw_df: torch.Tensor        # (P, K) bin widths
     gw_kind: str
+    gw_hyp_ix: torch.Tensor    # (P, H) -> xe (powerlaw hypers)
     gw_rho_ix: torch.Tensor    # (P, K) -> xe
     rho_ix_x: torch.Tensor     # (K,) -> x
     red_valid: torch.Tensor    # (P,)
     red_kind: str
+    red_hyp_ix: torch.Tensor   # (P, H) -> xe (powerlaw hypers)
     red_rho_ix: torch.Tensor   # (P, Kr) -> xe
     red_rho_ix_x: torch.Tensor  # (P, Kr) -> x (pad nx: dropped)
     red_sin_ix: torch.Tensor   # (P, Kr)
@@ -127,6 +157,7 @@ class CompiledPTA:
     ec_ix: torch.Tensor        # (P, We) their log10_ecorr -> xe
     ecorr_par_ix: torch.Tensor  # (P, Ep) -> x (pad nx)
     ecorr_nper: torch.Tensor   # (P,)
+    gp_mask: torch.Tensor      # (P, Bmax) 1.0 on the Fourier-GP columns
     rhomin: float
     rhomax: float
     red_rhomin: float
@@ -137,6 +168,12 @@ class CompiledPTA:
     widths: tuple = ()
     #: pulsar names in logical order (empty when the arrays carry none)
     pulsars: tuple = ()
+    #: ``idx.red`` on the device: the powerlaw hypers' positions in x
+    red_ix: torch.Tensor = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.red_ix = torch.as_tensor(self.idx.red, dtype=torch.int64,
+                                      device=self.device)
 
     # ---- names ------------------------------------------------------------
 
@@ -153,22 +190,29 @@ class CompiledPTA:
             raise ValueError("the model carries no pulsar names; build it "
                              "with build_crn_spectrum or pass 'pulsars' "
                              "to from_arrays")
-        comps = [(c.cols.cpu().numpy(), c.rho_ix.cpu().numpy(), c.kind)
-                 for c in self.components]
+        def stem(c, p, live):
+            """The signal name of component ``c`` on pulsar ``p``."""
+            if c.kind == "ecorr":
+                return "basis_ecorr"
+            if c.kind == "free_spectrum":
+                nm = self.param_names[int(c.rho_ix[p][live][0])]
+                return nm.rsplit("_log10_rho_", 1)[0]
+            return self.param_names[int(c.hyp_ix[p][0])].rsplit(
+                "_log10_A", 1)[0]
+
+        comps = [(c.cols.cpu().numpy(), c) for c in self.components]
         out = []
         for p, (psr, width) in enumerate(zip(self.pulsars, self.widths)):
-            gp = {int(j) for cols, _, _ in comps for j in cols[p]
+            gp = {int(j) for cols, _ in comps for j in cols[p]
                   if j < self.Bmax}
             ntm = width - len(gp)
             named = {j: f"{psr}_linear_timing_model_{j}"
                      for j in range(ntm)}
-            for cols, rix, kind in comps:
+            for cols, c in comps:
                 live = cols[p] < self.Bmax
                 if not live.any():
                     continue
-                sig = ("basis_ecorr" if kind == "ecorr" else
-                       self.param_names[rix[p][live][0]].rsplit(
-                           "_log10_rho_", 1)[0])
+                sig = stem(c, p, torch.as_tensor(live, device=c.cols.device))
                 start = int(cols[p][live].min())
                 for j in cols[p][live]:
                     named.setdefault(int(j), f"{psr}_{sig}_{j - start}")
@@ -201,26 +245,56 @@ class CompiledPTA:
         """(..., P, Nmax) measurement covariance in the storage dtype."""
         return self._ndiag_from(self.xe(x).to(self.dtype))
 
+    def _powerlaw(self, xev, f, df, hyp_ix):
+        """Powerlaw variances ``(..., P, W)`` (float64) at ``f``/``df``
+        (P, W) with the hypers ``hyp_ix`` (P, 2) gathered out of
+        ``xev``."""
+        args = [xev[..., hyp_ix[:, h]][..., None] for h in range(2)]
+        return torch.exp(_lnphi_powerlaw(f, df, *args))
+
     def _phi_accum(self, x, base, comps, dtype=None):
-        """Scatter-add the components' variances onto ``base``; columns
-        at index ``Bmax`` (pads) are dropped."""
+        """Scatter-add the components' variances onto ``base`` (P, Bmax)
+        or (..., P, Bmax); columns at index ``Bmax`` (pads) are
+        dropped."""
         dtype = dtype or self.cdtype
         xev = self.xe(x).to(dtype)
         lead = xev.shape[:-1]
         B = self.Bmax
         phi = torch.cat([
-            base.to(dtype).expand(lead + base.shape),
+            torch.broadcast_to(base.to(dtype), lead + (self.P, B)),
             xev.new_zeros(lead + (self.P, 1))], dim=-1)
         for c in comps:
-            vals = torch.pow(10.0, 2.0 * xev[..., c.rho_ix])
+            if c.kind in ("free_spectrum", "ecorr"):
+                vals = torch.pow(10.0, 2.0 * xev[..., c.rho_ix])
+            else:
+                vals = self._powerlaw(xev, c.f, c.df, c.hyp_ix)
             phi = phi.scatter_add(
                 -1, c.cols.expand(lead + c.cols.shape), vals.to(dtype))
         return phi[..., :B]
 
     def phi(self, x, dtype=None):
-        """(..., P, Bmax) per-column prior variance (pads = 1)."""
+        """(..., P, Bmax) per-column prior variance (pads = 1), floored
+        at PHI_FLOOR (a powerlaw at a prior corner can underflow)."""
         phi = self._phi_accum(x, self.phi_base, self.components, dtype)
         return torch.clamp(phi, min=PHI_FLOOR)
+
+    def phi_hyper_split(self, x, dtype=None):
+        """``(static, dyn)``: the part of phi that stays constant while
+        only the powerlaw hypers move (free spectra and ECORR, whose
+        parameters belong to other blocks), evaluated once at ``x``, and
+        a function ``q -> phi(q)`` adding the powerlaw components to it
+        (floored as :meth:`phi`)."""
+        stat = [c for c in self.components
+                if c.kind in ("free_spectrum", "ecorr")]
+        dyn_comps = [c for c in self.components
+                     if c.kind not in ("free_spectrum", "ecorr")]
+        static = self._phi_accum(x, self.phi_base, stat, dtype)
+
+        def dyn(q):
+            return torch.clamp(self._phi_accum(q, static, dyn_comps, dtype),
+                               min=PHI_FLOOR)
+
+        return static, dyn
 
     # ---- priors -------------------------------------------------------------
 
@@ -277,10 +351,10 @@ class CompiledPTA:
 
     def gw_phi(self, x):
         """(..., P, K) common-process prior variance per frequency."""
-        if self.gw_kind != "free_spectrum":
-            raise NotImplementedError(
-                f"common PSD {self.gw_kind!r} is not in the port yet")
-        return torch.pow(10.0, 2.0 * self.xe(x)[..., self.gw_rho_ix])
+        xev = self.xe(x)
+        if self.gw_kind == "free_spectrum":
+            return torch.pow(10.0, 2.0 * xev[..., self.gw_rho_ix])
+        return self._powerlaw(xev, self.gw_f, self.gw_df, self.gw_hyp_ix)
 
     def gw_phi_at_red(self, x):
         """(..., P, Kr) common-process phi on the red frequency grid,
@@ -302,13 +376,17 @@ class CompiledPTA:
                            dtype=self.cdtype, device=self.device)
         if self.red_kind == "" or not self.red_shares_gw:
             return floor
-        if self.red_kind != "free_spectrum":
-            raise NotImplementedError(
-                f"red PSD {self.red_kind!r} is not in the port yet")
-        vals = torch.pow(10.0, 2.0 * self.xe(x)[..., self.red_rho_ix])
-        n = min(self.K, self.red_rho_ix.shape[1])
-        out = floor.clone()
-        out[..., :n] = vals[..., :n]
+        xev = self.xe(x)
+        if self.red_kind == "free_spectrum":
+            vals = torch.pow(10.0, 2.0 * xev[..., self.red_rho_ix])
+            n = min(self.K, self.red_rho_ix.shape[1])
+            out = floor.clone()
+            out[..., :n] = vals[..., :n]
+        else:
+            vals = self._powerlaw(xev, self.gw_f, self.gw_df,
+                                  self.red_hyp_ix)
+            k = torch.arange(self.K, device=self.device)
+            out = torch.where(k < self.Kr, vals, floor)
         return torch.where(self.red_valid[:, None] > 0, out, floor)
 
 
@@ -320,41 +398,42 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
     """Build the port's :class:`CompiledPTA` from the arrays of a
     compiled model: ``fields`` maps the JAX ``CompiledPTA`` field names
     to numpy arrays / Python values (components as dicts with ``kind``,
-    ``cols``, ``rho_ix``), plus the pulsar names under ``pulsars`` where
-    the arrays carry them.  Both sides then compute on the same
-    model.  Raises ``NotImplementedError`` for models the port does not
-    cover yet (anything but the CRN free-spectrum model with optional
-    intrinsic free-spectrum red noise and basis ECORR)."""
+    ``cols``, ``f``, ``df``, ``hyp_ix``, ``rho_ix``), plus the pulsar
+    names under ``pulsars`` where the arrays carry them.  Both sides then
+    compute on the same model.  The port covers the CRN model with basis
+    ECORR, a free-spectrum or powerlaw common process and free-spectrum
+    or powerlaw intrinsic red noise (or none); any other ORF, PSD or
+    component kind, or kernel ECORR, raises ``NotImplementedError``."""
     dev = resolve_device(device)
     if fields.get("orf_name", "crn") != "crn":
         raise NotImplementedError("correlated ORFs are not in the port yet")
     if fields.get("ke_eid") is not None:
         raise NotImplementedError("kernel ECORR is not in the port yet")
-    if fields["gw_kind"] not in ("free_spectrum",):
+    if fields["gw_kind"] not in ("free_spectrum",) + POWERLAW_KINDS:
         raise NotImplementedError(
             f"common PSD {fields['gw_kind']!r} is not in the port yet")
-    if fields["red_kind"] not in ("free_spectrum", ""):
+    if fields["red_kind"] not in ("free_spectrum", "") + POWERLAW_KINDS:
         raise NotImplementedError(
             f"red PSD {fields['red_kind']!r} is not in the port yet")
     dt, cdt = settings.dtype, settings.cdtype
 
+    def t(v, dtype=dt):
+        return torch.as_tensor(np.asarray(v), dtype=dtype, device=dev)
+
     def f(name, dtype=dt):
-        return torch.as_tensor(np.asarray(fields[name]), dtype=dtype,
-                               device=dev)
+        return t(fields[name], dtype)
 
     def ix(name):
         return f(name, torch.int64)
 
     comps = []
     for c in fields["components"]:
-        if c["kind"] not in ("free_spectrum", "ecorr"):
+        if c["kind"] not in ("free_spectrum", "ecorr") + POWERLAW_KINDS:
             raise NotImplementedError(
                 f"GP component {c['kind']!r} is not in the port yet")
         comps.append(GPComponent(
-            c["kind"], torch.as_tensor(np.asarray(c["cols"]),
-                                       dtype=torch.int64, device=dev),
-            torch.as_tensor(np.asarray(c["rho_ix"]), dtype=torch.int64,
-                            device=dev)))
+            c["kind"], t(c["cols"], torch.int64), t(c["rho_ix"], torch.int64),
+            f=t(c["f"]), df=t(c["df"]), hyp_ix=t(c["hyp_ix"], torch.int64)))
     names = tuple(fields["param_names"])
     return CompiledPTA(
         P=int(fields["P"]), P_real=int(fields["P_real"]),
@@ -369,14 +448,16 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
         pkind=ix("pkind"), pa=f("pa"), pb=f("pb"),
         prop_scale=f("prop_scale"), idx=BlockIndex.build(names),
         gw_sin_ix=ix("gw_sin_ix"), gw_cos_ix=ix("gw_cos_ix"),
-        gw_kind=str(fields["gw_kind"]), gw_rho_ix=ix("gw_rho_ix"),
+        gw_f=f("gw_f"), gw_df=f("gw_df"), gw_kind=str(fields["gw_kind"]),
+        gw_hyp_ix=ix("gw_hyp_ix"), gw_rho_ix=ix("gw_rho_ix"),
         rho_ix_x=ix("rho_ix_x"), red_valid=f("red_valid"),
-        red_kind=str(fields["red_kind"]), red_rho_ix=ix("red_rho_ix"),
+        red_kind=str(fields["red_kind"]), red_hyp_ix=ix("red_hyp_ix"),
+        red_rho_ix=ix("red_rho_ix"),
         red_rho_ix_x=ix("red_rho_ix_x"), red_sin_ix=ix("red_sin_ix"),
         red_cos_ix=ix("red_cos_ix"), white_par_ix=ix("white_par_ix"),
         white_nper=ix("white_nper"), ec_cols=ix("ec_cols"),
         ec_ix=ix("ec_ix"), ecorr_par_ix=ix("ecorr_par_ix"),
-        ecorr_nper=ix("ecorr_nper"),
+        ecorr_nper=ix("ecorr_nper"), gp_mask=f("gp_mask"),
         rhomin=float(fields["rhomin"]), rhomax=float(fields["rhomax"]),
         red_rhomin=float(fields["red_rhomin"]),
         red_rhomax=float(fields["red_rhomax"]),

@@ -1,16 +1,19 @@
-"""The CRN free-spectrum Gibbs driver, with the chains as a batch axis.
+"""The CRN Gibbs driver, with the chains as a batch axis.
 
 Port of the CRN path of ``pulsar_timing_gibbsspec_tpu/sampler/
 jax_backend.py::JaxGibbsDriver``, for one pulsar or an array: an initial
 exact b-draw, ``W`` warmup sweeps (``_warmup_body``), the first-sweep
 adaptation (``_first_sweep``: for the white block and, with basis ECORR,
 the ECORR block, Laplace proposals, a record scan, the moment-matched
-independence proposal and the ACT that sizes the block's sub-chain),
-then steady sweeps (``_sweep_body``) in the JAX order
+independence proposal and the ACT that sizes the block's sub-chain; for
+the powerlaw hypers, an MH scan on the b-marginalized likelihood whose
+record gives the proposal covariance and seeds the DE history), then
+steady sweeps (``_sweep_body``) in the JAX order
 
-    white MH -> ECORR MH -> red conditional -> common rho (grid draw, or
-    the inverse-CDF draw of a single pulsar without red noise) -> rho <->
-    b scale moves -> Metropolised b-draw (``draw_b_mh``),
+    white MH -> ECORR MH -> free-spectrum red conditional -> powerlaw
+    hyper MH (``red_mh``) -> common rho (grid draw, or the inverse-CDF
+    draw of a single pulsar without red noise) -> rho <-> b scale moves
+    -> Metropolised b-draw (``draw_b_mh``),
 
 with the near-exact ``draw_b_refresh`` in place of ``draw_b_mh`` on every
 iteration ``t`` with ``t % exact_every == 0``.  State is carried as
@@ -26,6 +29,15 @@ form of the JAX ``fold_in(base_key, iteration)``.  So a resumed run
 replays the uninterrupted one bitwise, and a CUDA graph replayed after
 the re-seed draws what the eager sweep draws.  The CPU generator
 (mt19937) and the CUDA one (Philox) give different streams for one seed.
+
+**DE history.**  The powerlaw block's differential-evolution jumps read
+a frozen (C, DE_HIST_LEN, d) buffer: for the iterations of DE period
+``m`` (``[m DE_Q, (m+1) DE_Q)``) the chain rows ``[m DE_Q - DE_DELAY -
+DE_HIST_LEN, m DE_Q - DE_DELAY)``, read from the host record by
+iteration index, or the adaptation's seed rows until that window exists.
+What a sweep sees is a function of its iteration alone, so resume and
+graph replay stay bitwise.  The buffer is one device tensor that the
+host refills in place between sweeps when the period changes.
 
 **Steady loop.**  Steady sweeps run in chunks of ``chunk_size`` on a
 grid anchored at the first steady iteration, so every checkpoint lands
@@ -59,6 +71,10 @@ WARMUP_WHITE_STEPS = 16
 WHITE_STEPS_MAX = 64
 #: stream index of the initial exact b-draw
 INIT_STREAM = -1
+#: rows of the DE history; its refresh period and chain-row delay, in
+#: iterations (a chunk may not outrun the delay: chunk_size <= DE_DELAY -
+#: DE_Q)
+DE_HIST_LEN, DE_Q, DE_DELAY = 64, 128, 256
 _MASK64 = (1 << 64) - 1
 
 
@@ -165,6 +181,22 @@ def _act_from_rec(rec, nper, P_real, pct=95.0):
     return max(1, int(np.ceil(np.percentile(acts, pct))))
 
 
+def red_adaptation(rec):
+    """The powerlaw block's adaptation from its MH record (C, steps, d):
+    per chain the post-burn covariance plus 1e-12 I, its SVD ``(U, S)``,
+    and the seed DE history of ``DE_HIST_LEN`` rows spread over the
+    post-burn record.  Returns ``(cov, U, S, hist)``, float64 host
+    arrays."""
+    rec = np.asarray(rec, dtype=np.float64)
+    C, n, d = rec.shape
+    burn0 = min(100, n // 2)
+    cov = np.stack([np.atleast_2d(np.cov(rec[c, burn0:], rowvar=False))
+                    + 1e-12 * np.eye(d) for c in range(C)])
+    U, S, _ = np.linalg.svd(cov)
+    take = np.linspace(burn0, n - 1, DE_HIST_LEN).astype(int)
+    return cov, U, S, rec[:, take, :]
+
+
 class _Carry:
     """The eager steady carry ``(x, b, u)`` and its sweep
     (:class:`.graphs.SteadyGraphs` is the graphed one)."""
@@ -240,23 +272,18 @@ class _Records:
 
 
 class TorchGibbsDriver:
-    """Blocked Gibbs over ``nchains`` independent chains of the CRN
-    free-spectrum model ``cm`` (a compiled model on its device; basis
-    ECORR and intrinsic free-spectrum red noise optional).
+    """Blocked Gibbs over ``nchains`` independent chains of the CRN model
+    ``cm`` (a compiled model on its device: a free-spectrum or powerlaw
+    common process; basis ECORR and free-spectrum or powerlaw intrinsic
+    red noise optional).
 
     ``graphs`` (default: on when ``cm`` lives on a card) replays the
     steady sweep from CUDA graphs; ``graphs=False`` runs it eagerly, the
     check of the graphs against the eager sweep."""
 
     def __init__(self, cm, nchains=1, seed=0, warmup_sweeps=50,
-                 white_adapt_iters=1000, record_every=1, chunk_size=100,
-                 graphs=None):
-        if len(cm.idx.red):
-            raise NotImplementedError(
-                "powerlaw-family hyper MH blocks are not in the port yet")
-        if not (cm.K and len(cm.rho_ix_x)):
-            raise ValueError("the model has no sampled common free "
-                             "spectrum (the port's CRN sweep needs one)")
+                 white_adapt_iters=1000, red_adapt_iters=2000, red_steps=20,
+                 record_every=1, chunk_size=100, graphs=None):
         self.cm = cm
         self.C = int(nchains)
         if self.C < 1:
@@ -274,6 +301,19 @@ class TorchGibbsDriver:
             raise ValueError(
                 f"record_every={self.record_every} must divide "
                 f"chunk_size={self.chunk_size}")
+        self.red_adapt_iters = int(red_adapt_iters)
+        self.red_steps = int(red_steps)
+        self.do_red_mh = len(cm.idx.red) > 0
+        if self.do_red_mh and self.record_every > 1:
+            raise ValueError(
+                "record_every > 1 is unavailable for models with a "
+                "red-hyper MH block: the DE jump history reads recorded "
+                "chain rows by iteration index; run with record_every=1")
+        if self.do_red_mh and self.chunk_size > DE_DELAY - DE_Q:
+            raise ValueError(
+                f"chunk_size={self.chunk_size} exceeds the DE history "
+                f"delay margin ({DE_DELAY - DE_Q}); use chunk_size <= "
+                f"{DE_DELAY - DE_Q} for models with a red hyper MH block")
         on_card = cm.device.type == "cuda"
         self.graphs = on_card if graphs is None else bool(graphs)
         if self.graphs and not on_card:
@@ -284,6 +324,7 @@ class TorchGibbsDriver:
         self.do_white = len(cm.idx.white) > 0
         self.do_ecorr = len(cm.idx.ecorr) > 0 and cm.ec_cols.shape[1] > 0
         self.do_red_conditional = bool((cm.red_rho_ix_x < cm.nx).any())
+        self.do_rho = bool(cm.K and len(cm.rho_ix_x))
         self.do_scale = blocks._rho_scale_applies(cm)
         self.gen = torch.Generator(device=cm.device)
         self.timer = BlockTimer(cm.device)
@@ -296,6 +337,19 @@ class TorchGibbsDriver:
         #: host copies of the white and ECORR adaptation state, for
         #: checkpoints
         self._adapt_host = {}
+        #: the powerlaw block's adaptation (host float64): covariance
+        #: (C, d, d) and the seed DE history (C, H, d); on the device the
+        #: covariance's SVD U, S and the live DE buffer (one tensor,
+        #: refilled in place), and which period's rows it holds
+        self.cov_red = self.red_hist = None
+        self._red_U_t = self._red_S_t = self._hist_t = None
+        self._de_key = None
+        #: the host record the DE window reads (set by :meth:`run`)
+        self._chain = None
+        #: DE periods whose buffer came from chain rows, in order
+        self.de_chain_periods = []
+        #: host seconds of the powerlaw block's adaptation scan
+        self.red_adapt_seconds = 0.0
         # flat (pulsar, col) gather of padded (P, Bmax) b into the
         # reference's concatenated per-pulsar layout
         pi, ci = [], []
@@ -323,6 +377,11 @@ class TorchGibbsDriver:
         #: made (a diagnostic: not checkpointed)
         self.b_refresh_accepts = torch.zeros_like(self.b_mh_accepts)
         self.b_refresh_sweeps = 0
+        #: the same for the steady powerlaw block's accepted MH steps per
+        #: chain (``red_steps`` per sweep; not checkpointed)
+        self.red_mh_accepts = torch.zeros(self.C, dtype=torch.float64,
+                                          device=cm.device)
+        self.red_mh_sweeps = 0
         self._acc_cur = np.zeros((self.C, cm.P))
         self._b_mh_sweeps_cur = 0
         #: (chain, pulsar) Laplace factors of the warmup and adaptation
@@ -345,7 +404,9 @@ class TorchGibbsDriver:
         self.gen.manual_seed(stream_seed(self.seed, t))
 
     def _hyper_blocks(self):
-        return ((["red"] if self.do_red_conditional else []) + ["rho"]
+        return ((["red"] if self.do_red_conditional else [])
+                + (["red_mh"] if self.do_red_mh else [])
+                + (["rho"] if self.do_rho else [])
                 + (["scale"] if self.do_scale else []))
 
     def sweep_blocks(self, exact):
@@ -375,6 +436,11 @@ class TorchGibbsDriver:
                 asqrt=self.asqrt_ecorr)
         elif name == "red":
             x = blocks.red_conditional_update(cm, x, b, gen)
+        elif name == "red_mh":
+            x = blocks.red_mh_block(cm, x, b, gen, self._red_U_t,
+                                    self._red_S_t, self.red_steps,
+                                    hist=self._hist_t,
+                                    accepts=self.red_mh_accepts)
         elif name == "rho":
             x = blocks.rho_update(cm, x, b, gen)
         elif name == "scale":
@@ -433,7 +499,16 @@ class TorchGibbsDriver:
                     self.warmup_white_steps, record=False)
         for name in self._hyper_blocks():
             with tm(name):
-                x, b, u = self.block(name, x, b, u)
+                if name == "red_mh":
+                    # single-site on the b-conditional (no proposal
+                    # adaptation yet)
+                    _, dyn = cm.phi_hyper_split(x)
+                    x, _ = blocks.mh_scan(
+                        cm, x, self.gen,
+                        lambda q: blocks.lnlike_hyper_fn(cm, q, b, dyn),
+                        cm.idx.red, self.red_steps)
+                else:
+                    x, b, u = self.block(name, x, b, u)
         with tm("b_refresh"):
             b, u, _ = blocks.draw_b_refresh(cm, x, b, u, self.gen)
         return x, b, u
@@ -476,10 +551,76 @@ class TorchGibbsDriver:
             self.white_steps_max))
         return x
 
+    def _set_red(self, cov, U, S, hist):
+        """Take the powerlaw block's adaptation (host arrays): keep the
+        host copies and put U, S and the seed DE history on the device
+        (the history into the live buffer, made once)."""
+        cm = self.cm
+        self.cov_red = cov
+        self.red_hist = np.asarray(hist, dtype=np.float64)
+        self._red_U_t = torch.as_tensor(U, dtype=cm.cdtype, device=cm.device)
+        self._red_S_t = torch.as_tensor(S, dtype=cm.cdtype, device=cm.device)
+        h = torch.as_tensor(self.red_hist, dtype=cm.cdtype)
+        if self._hist_t is None or self._hist_t.shape != h.shape:
+            self._hist_t = torch.empty(h.shape, dtype=cm.cdtype,
+                                       device=cm.device)
+        self._hist_t.copy_(h)
+        self._de_key = -1
+
+    def _de_hist_for(self, chain, m):
+        """(C, H, d) DE history of period ``m``: chain rows ``[m DE_Q -
+        DE_DELAY - H, m DE_Q - DE_DELAY)`` of the host record, or the seed
+        history before that window exists."""
+        lo = m * DE_Q - DE_DELAY - DE_HIST_LEN
+        hi = m * DE_Q - DE_DELAY
+        if lo < 0:
+            return self.red_hist
+        rows = np.asarray(chain[lo:hi], dtype=np.float64)
+        if rows.ndim == 2:          # squeezed single-chain layout
+            rows = rows[:, None, :]
+        return np.ascontiguousarray(
+            rows[:, :, np.asarray(self.cm.idx.red)].transpose(1, 0, 2))
+
+    def _de_select(self, t):
+        """Before sweep ``t``: refill the DE buffer in place when ``t``
+        starts a period whose rows it does not hold."""
+        m = t // DE_Q
+        key = -1 if m * DE_Q - DE_DELAY - DE_HIST_LEN < 0 else m
+        if key == self._de_key:
+            return
+        if key >= 0 and self._chain is None:
+            raise RuntimeError("the DE history needs the chain record: "
+                               "sample through run()")
+        self._hist_t.copy_(torch.as_tensor(self._de_hist_for(self._chain, m),
+                                           dtype=self.cm.cdtype))
+        self._de_key = key
+        if key >= 0:
+            self.de_chain_periods.append(m)
+
+    def _adapt_red(self, x):
+        """The powerlaw block's adaptation: ``red_adapt_iters`` single-site
+        MH steps on the b-marginalized likelihood at the state's white
+        noise (its Gram formed once), then :func:`red_adaptation` of the
+        record on the host.  Returns ``x``."""
+        cm = self.cm
+        if cm.device.type == "cuda":
+            torch.cuda.synchronize(cm.device)
+        t0 = time.perf_counter()
+        TNT, d = blocks.tnt_d_x(cm, x, cm.ndiag(x))
+        x, rec = blocks.mh_scan(
+            cm, x, self.gen,
+            lambda q: blocks.lnlike_fullmarg_fn(cm, q, TNT, d),
+            cm.idx.red, self.red_adapt_iters)
+        rec = rec.transpose(0, 1).cpu().numpy()
+        self.red_adapt_seconds = time.perf_counter() - t0
+        self._set_red(*red_adaptation(rec))
+        return x
+
     def _first_sweep(self, x, b):
         """Adaptation of the white block, then of the ECORR block (each
-        by :meth:`_adapt_block`), at one exact b; then the red and rho
-        draws and a fresh exact b.  Returns ``(x, b)``."""
+        by :meth:`_adapt_block`), at one exact b; the red conditional
+        draw; the powerlaw block's adaptation (:meth:`_adapt_red`); the
+        rho draw and a fresh exact b.  Returns ``(x, b)``."""
         cm = self.cm
         b = blocks.draw_b_fn(cm, x, self.gen, b)
         if self.do_white:
@@ -496,7 +637,10 @@ class TorchGibbsDriver:
                 cm.ecorr_par_ix, cm.ecorr_nper)
         if self.do_red_conditional:
             x = blocks.red_conditional_update(cm, x, b, self.gen)
-        x = blocks.rho_update(cm, x, b, self.gen)
+        if self.do_red_mh:
+            x = self._adapt_red(x)
+        if self.do_rho:
+            x = blocks.rho_update(cm, x, b, self.gen)
         return x, blocks.draw_b_fn(cm, x, self.gen, b)
 
     # ---- steady loop -------------------------------------------------------
@@ -505,6 +649,7 @@ class TorchGibbsDriver:
         """Make ``(x, b)`` (device tensors) the steady carry; with graphs
         on, capture the steady blocks' graphs around it (a capture
         failure raises)."""
+        self._de_key = None     # the first sweep loads its period's rows
         if self.graphs:
             self.carry = None        # release an earlier run's graphs
             self.carry = SteadyGraphs(self, x, b)
@@ -524,6 +669,8 @@ class TorchGibbsDriver:
                 rec.dev["xs"][r].copy_(c.x)
                 rec.dev["bs"][r].copy_(c.b[:, self._b_pi_t, self._b_ci_t])
                 r += 1
+            if self.do_red_mh:
+                self._de_select(t)
             self._reseed(t)
             exact = t % self.exact_every == 0
             c.sweep(exact)
@@ -531,6 +678,7 @@ class TorchGibbsDriver:
                 self.b_refresh_sweeps += 1
             else:
                 self.b_mh_sweeps += 1
+        self.red_mh_sweeps += n if self.do_red_mh else 0
         self.steady_sweeps += n
 
     # ---- row layout (``jax_backend.py`` facade protocol) --------------------
@@ -671,6 +819,7 @@ class TorchGibbsDriver:
         if niter < 1:
             raise ValueError("niter must be >= 1")
         x = self._x_in(x)
+        self._chain = chain
         if start == 0:
             x, b, ii, rowc = self._start(x, chain, bchain, niter)
             self.x_cur = x.cpu().numpy()
@@ -722,7 +871,8 @@ class TorchGibbsDriver:
     def adapt_state(self):
         """The state a resume needs, at the last writeback: the seed
         (streams are pure in it and the iteration), the carry, the
-        iteration counter and the white and ECORR adaptation."""
+        iteration counter, the white and ECORR adaptation and the
+        powerlaw block's covariance and seed DE history."""
         out = {"seed": np.uint64(self.seed & _MASK64),
                "nchains": np.int64(self.C),
                "b_pad": self.b.numpy().astype(np.float64),
@@ -735,7 +885,8 @@ class TorchGibbsDriver:
                "b_mh_sweeps": np.int64(self._b_mh_sweeps_cur),
                "rng_device": np.str_(self.gen.device.type),
                **self._adapt_host}
-        for key in ("aclength_white", "aclength_ecorr"):
+        for key in ("aclength_white", "aclength_ecorr", "cov_red",
+                    "red_hist"):
             if getattr(self, key) is not None:
                 out[key] = np.asarray(getattr(self, key))
         return out
@@ -795,6 +946,16 @@ class TorchGibbsDriver:
         self._set_adapt(**{k: state[k] for k in (
             "chol_white", "mode_white", "asqrt_white", "chol_ecorr",
             "mode_ecorr", "asqrt_ecorr") if k in state})
+        if self.do_red_mh:
+            if "cov_red" not in state or "red_hist" not in state:
+                raise RuntimeError(
+                    "resume checkpoint lacks the red-block adaptation "
+                    "(cov_red) or DE history (red_hist) — it was written by "
+                    "an incompatible version; delete the chain directory to "
+                    "start fresh")
+            cov = np.asarray(state["cov_red"], dtype=np.float64)
+            U, S, _ = np.linalg.svd(cov)
+            self._set_red(cov, U, S, state["red_hist"])
         if self.do_white and (self.aclength_white is None
                               or self.chol_white is None
                               or self.mode_white is None):

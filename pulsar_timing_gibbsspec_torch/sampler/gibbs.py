@@ -25,19 +25,31 @@ import torch
 
 from ..config import resolve_device
 from ..runtime import integrity
+from .blocks import validate_sampling_flags
 from .chains import ChainStore
 from .driver import RNG_RULE, TorchGibbsDriver
 
 
 class _GibbsBase:
     """What both facades share: the driver on ``cm``, the names, the
-    initial draw and ``sample``."""
+    initial draw and ``sample``.  ``hypersample``, ``ecorrsample`` and
+    ``redsample`` are the reference's block-kernel selectors: ``None``
+    lets the model choose; an explicit value is checked against the
+    model as the JAX package checks it (``blocks.
+    validate_sampling_flags``), and ``ecorrsample="kernel"`` (kernel
+    ECORR) is not in the port."""
 
-    def __init__(self, cm, nchains=1, device="cuda", seed=0, **driver_opts):
+    def __init__(self, cm, nchains=1, device="cuda", seed=0,
+                 hypersample=None, ecorrsample=None, redsample=None,
+                 **driver_opts):
         dev = resolve_device(device)
         if cm.device != dev:
             raise ValueError(f"the model lives on {cm.device} but the "
                              f"sampler was asked to run on {dev}")
+        validate_sampling_flags(cm, hypersample, ecorrsample, redsample)
+        if ecorrsample == "kernel":
+            raise NotImplementedError("kernel ECORR (ecorrsample='kernel') "
+                                      "is not in the port yet")
         self.cm = cm
         self.driver = TorchGibbsDriver(cm, nchains=nchains, seed=seed,
                                        **driver_opts)
@@ -60,17 +72,31 @@ class _GibbsBase:
 
     def initial_sample(self, generator=None):
         """(C, nx) prior draw, one start per chain, on the model's device
-        (``generator``: a torch.Generator on any device)."""
+        (``generator``: a torch.Generator on any device), each coordinate
+        from its prior: uniform on ``[a, b]``, normal ``(a, b)``,
+        LinearExp (``log10`` of a uniform on ``[10^a, 10^b]``) or
+        InvGamma (shape ``a``, rate ``b``)."""
         cm = self.cm
-        if bool((cm.pkind != 0).any()):
-            raise NotImplementedError(
-                "initial draws from non-uniform priors are not in the "
-                "port yet")
         gdev = generator.device if generator is not None else cm.device
-        u = torch.rand((self.driver.C, cm.nx), generator=generator,
-                       dtype=torch.float64, device=gdev).to(cm.device)
-        pa, pb = cm.pa.to(torch.float64), cm.pb.to(torch.float64)
-        return pa + (pb - pa) * u
+        shape = (self.driver.C, cm.nx)
+        f64 = torch.float64
+
+        def draw(fn):
+            return fn(shape, generator=generator, dtype=f64,
+                      device=gdev).to(cm.device)
+
+        u, z = draw(torch.rand), draw(torch.randn)
+        pa, pb = cm.pa.to(f64), cm.pb.to(f64)
+        shape_ig = torch.where(cm.pkind == 3, pa, torch.ones_like(pa))
+        g = torch._standard_gamma(torch.broadcast_to(
+            shape_ig.to(gdev), shape).contiguous(), generator)
+        lo, hi = torch.pow(10.0, pa), torch.pow(10.0, pb)
+        by_kind = (pa + (pb - pa) * u, pa + pb * z,
+                   torch.log10(lo + u * (hi - lo)), pb / g.to(cm.device))
+        out = by_kind[0]
+        for kind in (1, 2, 3):
+            out = torch.where(cm.pkind == kind, by_kind[kind], out)
+        return out
 
     def _checkpoint_extra(self):
         """The manifest's ``layout`` section: the logical identity of
@@ -224,9 +250,10 @@ class _GibbsBase:
 
 
 class PulsarBlockGibbs(_GibbsBase):
-    """Single-pulsar blocked Gibbs with a free-spectrum common process
-    (the JAX package's ``PulsarBlockGibbs``): white, basis-ECORR, rho
-    (inverse-CDF draw without intrinsic red noise) and b blocks."""
+    """Single-pulsar blocked Gibbs (the JAX package's
+    ``PulsarBlockGibbs``): white, basis-ECORR, powerlaw hyper MH (red
+    and/or common powerlaw), rho (inverse-CDF draw without intrinsic red
+    noise, else the grid draw) and b blocks."""
 
     def __init__(self, cm, nchains=1, device="cuda", seed=0, **driver_opts):
         if cm.P_real != 1:
@@ -237,4 +264,5 @@ class PulsarBlockGibbs(_GibbsBase):
 
 
 class PTABlockGibbs(_GibbsBase):
-    """Multi-pulsar blocked Gibbs with a common free spectrum."""
+    """Multi-pulsar blocked Gibbs with a common free spectrum or
+    powerlaw."""

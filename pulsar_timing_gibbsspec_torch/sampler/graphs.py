@@ -4,12 +4,15 @@ The port's counterpart of the JAX package's compiled chunk program
 (``jax_backend.py::_make_chunk``): after adaptation every shape of the
 steady sweep is fixed (the white and ECORR sub-chain lengths
 ``aclength_white`` and ``aclength_ecorr`` included), so each of its
-blocks (white, ecorr, red, rho, scale, b_mh, b_refresh, as the model has
-them) is captured once as a CUDA graph and a sweep is a few graph
+blocks (white, ecorr, red, red_mh, rho, scale, b_mh, b_refresh, as the
+model has them) is captured once as a CUDA graph and a sweep is a few graph
 launches in place of thousands of kernel launches from the host.
 
-- ``x``, ``b``, ``u = T b`` and the b_mh acceptance counters live in
-  static buffers that every graph reads and writes in place.
+- ``x``, ``b``, ``u = T b`` and the acceptance counters live in static
+  buffers that every graph reads and writes in place; so do the powerlaw
+  block's adapted ``U``, ``S`` and its DE history, which the driver
+  refills in place between replays when a DE period starts
+  (``driver._de_select``).
 - The driver's generator is registered with every graph, so a replay
   draws from the generator's current seed and offset and advances the
   offset by what the capture drew; the driver re-seeds it between
@@ -64,15 +67,17 @@ class SteadyGraphs:
         stream = torch.cuda.Stream(cm.device)
         torch.cuda.synchronize(cm.device)
         t0 = time.perf_counter()
-        acc0 = (drv.b_mh_accepts.clone(), drv.b_refresh_accepts.clone())
+        counters = (drv.b_mh_accepts, drv.b_refresh_accepts,
+                    drv.red_mh_accepts)
+        acc0 = [c.clone() for c in counters]
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
             for name in names:
                 drv.block(name, self.x.clone(), self.b.clone(),
                           self.u.clone())
         torch.cuda.current_stream().wait_stream(stream)
-        drv.b_mh_accepts.copy_(acc0[0])
-        drv.b_refresh_accepts.copy_(acc0[1])
+        for c, c0 in zip(counters, acc0):
+            c.copy_(c0)
         torch.cuda.synchronize(cm.device)
         # every capture empties the allocator's cache first; so does this
         torch.cuda.empty_cache()

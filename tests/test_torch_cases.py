@@ -191,6 +191,47 @@ def close(a, b, rtol, atol=0.0):
     np.testing.assert_allclose(a, b, rtol=rtol, atol=atol)
 
 
+def run_both(tmp_path_factory, psrs, facade, *, nchains, warmup, niter,
+             white_adapt, red_adapt, **model_kw):
+    """``(jax facade, jax chain, port facade, port chain, port outdir)``
+    of ``model_general(psrs, white_vary=True, **model_kw)`` sampled by
+    the ``facade`` of each package from one start (every chain there)."""
+    import pulsar_timing_gibbsspec_torch as ptt
+    import pulsar_timing_gibbsspec_tpu.sampler.gibbs as jgibbs
+    from pulsar_timing_gibbsspec_tpu.data.dataset import Pulsar
+    from pulsar_timing_gibbsspec_tpu.models.factory import model_general
+
+    jp = [Pulsar(**dataclasses.asdict(p)) for p in psrs]
+    pta = model_general(jp, white_vary=True, **model_kw)
+    x0 = pta.initial_sample(np.random.default_rng(0))
+    opts = dict(nchains=nchains, seed=0, warmup_sweeps=warmup,
+                white_adapt_iters=white_adapt, red_adapt_iters=red_adapt)
+    jg = getattr(jgibbs, facade)(pta, backend="jax", progress=False,
+                                 chunk_size=niter - warmup - 1, **opts)
+    jchain = jg.sample(x0, outdir=str(tmp_path_factory.mktemp("jax")),
+                       niter=niter)
+    cm = ptt.model_general(psrs, white_vary=True, device="cpu", **model_kw)
+    assert list(cm.param_names) == list(pta.param_names)
+    tg = getattr(ptt, facade)(cm, device="cpu", **opts)
+    out = tmp_path_factory.mktemp("torch")
+    tchain = tg.sample(x0, outdir=str(out), niter=niter)
+    return jg, jchain, tg, tchain, out
+
+
+def medians_agree(jchain, tchain, first, cols, names):
+    """Per column, the means over chains of each chain's median over rows
+    ``first ..`` agree within 5 combined standard errors (the chains'
+    spread over sqrt(chains) on each side).  Returns the port's means."""
+    def medians(chain):
+        med = np.median(chain[first:][:, :, cols], axis=0)      # (C, k)
+        return med.mean(0), med.std(0, ddof=1) / np.sqrt(med.shape[0])
+
+    (mj, sj), (mt, st) = medians(jchain), medians(tchain)
+    z = np.abs(mj - mt) / np.sqrt(sj ** 2 + st ** 2)
+    assert np.all(z <= 5.0), dict(zip(names, zip(mj, mt, z)))
+    return mt
+
+
 def test_synthetic_array_geometry():
     """The benchmark geometry: 45 pulsars, TOA counts log-spread over
     71-720, 1-4 backends, timing models of 8-17 columns, Bmax = 37."""

@@ -115,8 +115,8 @@ def test_model_general_surface():
                          common_psd="spectrum", common_components=4,
                          is_wideband=True, device="cpu")
     assert wide.ec_cols.shape[1] == 0 and len(wide.idx.ecorr) == 0
-    for kw in (dict(white_vary=False), dict(common_psd="powerlaw"),
-               dict(red_var=True, red_psd="powerlaw")):
+    for kw in (dict(white_vary=False), dict(common_psd="turnover"),
+               dict(red_var=True, red_psd="broken_powerlaw")):
         opts = dict(red_var=False, white_vary=True, common_psd="spectrum")
         opts.update(kw)
         with pytest.raises(NotImplementedError):

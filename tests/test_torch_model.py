@@ -66,7 +66,9 @@ def test_unsupported_models_are_refused():
     with pytest.raises(NotImplementedError):
         from_arrays(dict(fields, orf_name="hd"), device="cpu")
     with pytest.raises(NotImplementedError):
-        from_arrays(dict(fields, gw_kind="powerlaw"), device="cpu")
+        from_arrays(dict(fields, gw_kind="turnover"), device="cpu")
+    with pytest.raises(NotImplementedError):
+        from_arrays(dict(fields, red_kind="tprocess"), device="cpu")
 
 
 def test_entry_points_need_a_card_unless_told_cpu():
