@@ -4,7 +4,8 @@
 Usage: python3 chip_smoke.py [--seed S] [--outdir DIR] [--steady N]
 
 (``DIR``, default ``build/chip_smoke``, receives the checkpoint
-directories of phases 3b, 4, 6, 7, 8, 8c, 9 and 9b; ``N``, default 240,
+directories of phases 3b, 4, 6, 7, 8, 8c, 9, 9b, 10 and 10c; ``N``,
+default 240,
 is the steady sweeps of the main paths of phases 4 and 7: a deeper run
 reads what checkpoints cost as the record grows.)
 
@@ -98,7 +99,27 @@ Phases (any failure exits non-zero):
    warmup and 100 steady sweeps, the gates of 9 without rho.
    Phase 2 also holds the float64 factor forms against their plain
    version on the marginalized likelihood's systems of R2 (2880 of order
-   37) and R1 (8 of order 673).
+   37) and R1 (8 of order 673), and the Gram's float32-product,
+   float64-reduce form at the Hellings-Downs path's shape (B1 = 58, 32
+   chains x 45 pulsars) against its plain version, timed beside it and
+   float64 ``torch.matmul``;
+10. the Hellings-Downs array: ``bench.py``'s HD model,
+   ``model_general(psrs, tm_svd=True, white_vary=True,
+   common_psd="spectrum", common_components=10, red_psd="spectrum",
+   red_components=10, orf="hd")`` on the synthetic 45-pulsar array (the
+   common process on columns of its own: Bmax = 57), by
+   ``PTABlockGibbs(nchains=32)`` through 50 warmup sweeps (the float64
+   joint b-draw), adaptation and 240 steady sweeps from the CUDA graphs
+   (the two-float joint draw ``b_joint``, float64 ``b_joint_exact`` on
+   every 16th), checkpointed every 100, launch counts from 0:
+   samples/s, per-block ms, the warmup's ms, capture seconds and pool MB,
+   the two-float breakdowns, the Gram form's runs on the card; every
+   record finite, every common log10_rho median inside (-10, -4), the
+   final checkpoint verified, the Gram form run on the card and replayed
+   as captured; (10b) 17 steady sweeps from iteration 296, across the
+   refresh at 304, graphed equal to eager bitwise; (10c) 8 chains, 3
+   warmup and 32 steady sweeps, a run split at row 20 and resumed equal
+   to the whole run bitwise.
 
 The kernels' JSON record and the card as ``nvidia-smi`` reports it are
 the two lines before the last; the last line is the JSON result.
@@ -175,6 +196,14 @@ R1_RESUME_STEADY, R1_RESUME_SPLIT, R1_RESUME_ADAPT = 416, 390, 500
 #: the float64 factor forms: the b-marginalized likelihood's (the
 #: powerlaw adaptation), run on the powerlaw paths alone
 F64_FORMS = (("chol_solve_sample", "f64"), ("chol_solve_sample", "f64_wide"))
+#: the Hellings-Downs path: chains, frequency bins, the one kernel form it
+#: runs (every b-draw's Gram), where its graphs-against-eager sweeps
+#: start (crossing the refresh at 304)
+HD_CHAINS, HD_BINS, HD_GRAPH_CHECK_AT = 32, 10, 296
+#: its resume check's warmup and steady sweeps (split at row 20, after the
+#: refresh at 16, before the one at 32)
+HD_RESUME_WARMUP, HD_RESUME_STEADY = 3, 32
+HD_FORMS = (("gram_accumulate", "f32_dot_f64_reduce"),)
 
 
 def card_line():
@@ -389,7 +418,7 @@ def parity_state(cm, C, gen):
             x[:, j] = -14.5 + u[:, j]
         elif nm.endswith("_gamma"):
             x[:, j] = 3.0 + 2.0 * u[:, j]
-        elif nm.startswith("gw_crn_log10_rho_"):
+        elif nm.startswith("gw_") and "_log10_rho_" in nm:
             k = int(nm.rsplit("_", 1)[1])
             phi = powerlaw_psd((k + 1) / Tspan, math.log10(2e-15),
                                13.0 / 3.0, 1.0 / Tspan)
@@ -397,7 +426,8 @@ def parity_state(cm, C, gen):
     return x
 
 
-def gram_parity(cm, x, timer):
+def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
+                                      "widen_f64")):
     """Phase 2, Gram: the three kernel forms, which take ``(Ta, N)`` and
     form ``TNa = Ta / N`` on chip, against the plain version.  The
     difference is measured at the Jacobi scale sqrt(G_ii G_jj), and the
@@ -413,7 +443,7 @@ def gram_parity(cm, x, timer):
     row add exact zeros, and the kernel skips them); the bound over the
     whole grid, and that of a kernel reading a materialized ``TNa``, are
     printed beside it.  A width beyond the narrow form's runs the wide
-    form (``*_wide``)."""
+    form (``*_wide``).  ``forms`` names the forms to hold."""
     import torch
 
     from pulsar_timing_gibbsspec_torch.config import settings
@@ -442,6 +472,8 @@ def gram_parity(cm, x, timer):
     for form, odt, widen in (("f32", torch.float32, False),
                              ("f32_dot_f64_reduce", torch.float64, False),
                              ("widen_f64", torch.float64, True)):
+        if form not in forms:
+            continue
         def run_k():
             return kernels.gram_accumulate(Ta, N, out_dtype=odt,
                                            widen=widen)
@@ -797,12 +829,14 @@ def small_agreement(dev, seed):
 def graphs_vs_eager(drv, x, b, it0, phase, label):
     """``GRAPH_CHECK_SWEEPS`` steady sweeps of the adapted driver ``drv``
     from ``(x, b)`` at iteration ``it0``, eagerly and from the CUDA
-    graphs: x, b and the b_mh, refresh and powerlaw-block acceptance
-    counts must be bitwise equal (every draw comes from the per-sweep
-    stream, and no atomic add of the sweep meets one real slot twice)."""
+    graphs: x, b, the b_mh, refresh and powerlaw-block acceptance counts
+    and the joint draw's breakdown count must be bitwise equal (every
+    draw comes from the per-sweep stream, and no atomic add of the sweep
+    meets one real slot twice)."""
     import torch
 
-    counters = (drv.b_mh_accepts, drv.b_refresh_accepts, drv.red_mh_accepts)
+    counters = (drv.b_mh_accepts, drv.b_refresh_accepts, drv.red_mh_accepts,
+                drv.b_joint_breakdowns)
     out, wall = {}, {}
     for graphs in (False, True):
         drv.graphs = graphs
@@ -819,7 +853,7 @@ def graphs_vs_eager(drv, x, b, it0, phase, label):
     diffs = {what: (e - r).abs().max().item()
              for e, r, what in zip(out[False], out[True],
                                    ("x", "b", "accepts", "refresh",
-                                    "red_mh"))}
+                                    "red_mh", "joint_breakdowns"))}
     same = all(torch.equal(e, r) for e, r in zip(out[False], out[True]))
     ok = same and bool(torch.isfinite(out[True][1]).all())
     print(f"phase {phase} graphs against eager, {label}, "
@@ -1265,6 +1299,104 @@ def powerlaw_path(phase, cm, facade, C, warmup, steady, seed, outdir,
     return ok, counts[0], g
 
 
+def hd_path(cm, seed, outdir, steady):
+    """Phase 10: ``PTABlockGibbs`` on the Hellings-Downs model through
+    warmup, adaptation and ``steady`` sweeps replayed from the graphs,
+    checkpointed every ``SAVE_EVERY`` sweeps, with the launch counts set
+    to 0 just before it.  Gates: every record finite, every common
+    log10_rho median inside (-10, -4), the final checkpoint verified,
+    the Gram form of ``HD_FORMS`` run on the card, replayed as captured
+    times replays and run as often as the eager launches plus replays.
+    Returns ``(ok, runs, sampler)``."""
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+    from pulsar_timing_gibbsspec_torch.runtime import integrity
+
+    C, niter = HD_CHAINS, WARMUP + 1 + steady
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = ptt.PTABlockGibbs(cm, nchains=C, device=cm.device, seed=seed,
+                          warmup_sweeps=WARMUP)
+    x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
+        seed))
+    chain = g.sample(x0, outdir=outdir, niter=niter, save_every=SAVE_EVERY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    drv, graphs = g.driver, g.driver.carry
+    counts = launch_counts(graphs)
+    missing, unreplayed, unaccounted = count_faults(counts, HD_FORMS,
+                                                    HD_FORMS)
+    sps = drv.steady_sweeps / drv.steady_seconds
+    rho = chain[WARMUP + 1:, :, cm.rho_ix_x.cpu().numpy()]
+    med = np.median(rho.reshape(-1, rho.shape[-1]), axis=0)
+    red = chain[WARMUP + 1:, :, cm.idx.red_rho]
+    rep = integrity.verify(outdir)
+    total = drv.b_joint_breakdowns.tolist()
+    breakdowns = {"warmup and adaptation (float64)": drv.warmup_breakdowns[1],
+                  "steady two-float": total[0] - drv.warmup_breakdowns[0],
+                  "steady float64": total[1] - drv.warmup_breakdowns[1]}
+    print(f"phase 10 Hellings-Downs array ({cm.orf_name}, P {cm.P_real}, "
+          f"Bmax {cm.Bmax}, Nmax {cm.Nmax}, nx {cm.nx}, K {cm.K}, "
+          f"joint_mixed {drv.joint_mixed}): {niter} rows x {C} chains in "
+          f"{wall:.1f} s (warmup {WARMUP}); white sub-chain "
+          f"{drv.aclength_white} steps; steady {drv.steady_sweeps} sweeps "
+          f"in {drv.steady_seconds:.3f} s = {sps:.3f} sweeps/s = "
+          f"{sps * C:.1f} samples/s", flush=True)
+    print("phase 10 per-block ms per steady sweep (CUDA events): "
+          + json.dumps({k: round(v / drv.steady_sweeps, 4)
+                        for k, v in sorted(drv.timer.ms.items())})
+          + "; per sweep of its own: b_joint "
+          f"{drv.timer.ms['b_joint'] / max(drv.b_mh_sweeps, 1):.4f}, "
+          "b_joint_exact "
+          f"{drv.timer.ms['b_joint_exact'] / max(drv.b_refresh_sweeps, 1):.4f}"
+          f" ({drv.b_mh_sweeps} and {drv.b_refresh_sweeps} sweeps)",
+          flush=True)
+    print(f"phase 10 warmup and adaptation block ms in all (CUDA events, "
+          f"eager; {WARMUP} sweeps): " + json.dumps(
+              {k: round(v, 1) for k, v in sorted(drv.warmup_ms.items())})
+          + f"; {sum(drv.warmup_ms.values()):.1f} ms in all", flush=True)
+    print(f"phase 10 CUDA graphs: {len(graphs.graphs)} captured in "
+          f"{graphs.capture_seconds:.3f} s (with the warm-up pass), pool "
+          f"{graphs.pool_bytes / 1e6:.1f} MB; by graph, capture s "
+          + json.dumps({k: round(v, 3) for k, v in graphs.capture_by.items()})
+          + ", pool MB " + json.dumps(
+              {k: round(v / 1e6, 1) for k, v in graphs.pool_by.items()})
+          + f"; peak device memory {torch.cuda.max_memory_allocated() / 1e6:.1f}"
+          " MB", flush=True)
+    busy = sum(g.store.seconds.values())
+    print(f"phase 10 checkpoints every {SAVE_EVERY} sweeps: saves ran "
+          f"{busy:.3f} s on their thread, the loop waited "
+          f"{g.save_seconds:.3f} s; final manifest verified {rep['ok']} at "
+          f"{rep['rows']} rows; joint draws that kept their b (not "
+          f"finite) {json.dumps(breakdowns)} of {C} chains x "
+          f"{WARMUP + 3}, {drv.b_mh_sweeps}, {drv.b_refresh_sweeps} draws; "
+          "gram_accumulate[f32_dot_f64_reduce] "
+          f"runs on the card {counts[0][HD_FORMS[0]]}", flush=True)
+    print("phase 10 common log10_rho medians per bin: "
+          + json.dumps([round(float(v), 3) for v in med])
+          + "; red log10_rho medians, mean over pulsars per bin "
+          + json.dumps([round(float(v), 3) for v in np.median(
+              red.reshape(-1, red.shape[-1]), axis=0).reshape(
+                  cm.P_real, -1).mean(0)]), flush=True)
+    print_counts(10, counts)
+    finite = bool(np.isfinite(chain).all() and np.isfinite(g.bchain).all())
+    inside = bool(((med > -10.0) & (med < -4.0)).all())
+    saved = rep["ok"] and rep["rows"] == niter and graphs.graphed
+    ok = (finite and inside and not missing and not unreplayed
+          and not unaccounted and saved)
+    if not ok:
+        print(f"chip_smoke: Hellings-Downs path failed (finite={finite}, "
+              f"medians inside the prior={inside}, never run={missing}, "
+              f"not replayed as captured={unreplayed}, runs other than "
+              f"eager launches plus replays={unaccounted}, verified "
+              f"checkpoint through the graphs={saved})", file=sys.stderr)
+    return ok, counts[0], g
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1330,6 +1462,16 @@ def main(argv=None):
         print(f"powerlaw model {nm}: P={m.P} Nmax={m.Nmax} Bmax={m.Bmax} "
               f"nx={m.nx}, common {m.gw_kind} ({m.K}), red {m.red_kind} "
               f"({m.Kr}), {len(m.idx.red)} powerlaw hypers", flush=True)
+    # the Hellings-Downs array: bench.py's HD model
+    cm_hd = ptt.model_general(psrs, tm_svd=True, white_vary=True,
+                              common_psd="spectrum",
+                              common_components=HD_BINS, red_psd="spectrum",
+                              red_components=HD_BINS, orf="hd", device=dev)
+    print(f"Hellings-Downs model: P={cm_hd.P} Nmax={cm_hd.Nmax} "
+          f"Bmax={cm_hd.Bmax} nx={cm_hd.nx}, orf {cm_hd.orf_name} (K "
+          f"{cm_hd.K}), red {cm_hd.red_kind} ({cm_hd.Kr}), red on its own "
+          f"columns {not cm_hd.red_shares_gw}, {HD_CHAINS} chains",
+          flush=True)
     x = parity_state(cm, C, gen)
     records, ok_g = gram_parity(cm, x, time_ms)
     rec_c, ok_c = chol_parity(cm, x, gen, time_ms)
@@ -1346,9 +1488,15 @@ def main(argv=None):
     rec_f64w, ok_f64w = chol64_parity(
         cm_r1, parity_state(cm_r1, SINGLE_CHAINS, gen), time_ms)
     records.update(rec_f64w)
+    # the Hellings-Downs path's Gram: the float32-product, float64-reduce
+    # form at B1 = 58 (its own record: the key is the CRN row's)
+    hd_records, ok_hd = gram_parity(
+        cm_hd, parity_state(cm_hd, HD_CHAINS, gen), time_ms,
+        forms=("f32_dot_f64_reduce",))
     del x, x1
     torch.cuda.empty_cache()
-    if not (ok_g and ok_c and ok_g1 and ok_c1 and ok_f64 and ok_f64w):
+    if not (ok_g and ok_c and ok_g1 and ok_c1 and ok_f64 and ok_f64w
+            and ok_hd):
         print("chip_smoke: kernel parity failed", file=sys.stderr)
         return 1
     if not small_agreement(dev, args.seed):
@@ -1508,6 +1656,28 @@ def main(argv=None):
                                wide64, WIDE_GRAPHED)
     if not ok9b:
         return 1
+    torch.cuda.empty_cache()
+
+    # ---- phases 10-10c: the Hellings-Downs array, launch counts from 0 ------
+    ok10, runs10, g10 = hd_path(cm_hd, args.seed, outdir / "hd", args.steady)
+    if not ok10:
+        return 1
+    drv10 = g10.driver
+    if not graphs_vs_eager(drv10, torch.as_tensor(drv10.x_cur, device=dev),
+                           drv10.b.to(dev), HD_GRAPH_CHECK_AT, "10b",
+                           "PTABlockGibbs, Hellings-Downs, across the "
+                           "refresh at 304"):
+        print("chip_smoke: Hellings-Downs graph replay differs from the "
+              "eager sweep", file=sys.stderr)
+        return 1
+    del g10, drv10
+    torch.cuda.empty_cache()
+    if not resume_check(cm_hd, args.seed, outdir / "hd_resume",
+                        "PTABlockGibbs", "10c", warmup=HD_RESUME_WARMUP,
+                        steady=HD_RESUME_STEADY):
+        print("chip_smoke: the resumed Hellings-Downs run differs from the "
+              "whole one", file=sys.stderr)
+        return 1
 
     print("phase 1 kernel resources (cuobjdump -res-usage: registers, "
           "stack frame bytes, static shared memory bytes): " + (json.dumps(
@@ -1522,7 +1692,11 @@ def main(argv=None):
         dict(name=f"{k}[{f}]", route="cuda", source=SOURCES[k][
             f.endswith("_wide")], replaces=REPLACES[k],
              launches=runs[(k, f)], **r)
-        for (k, f), r in records.items()]}))
+        for (k, f), r in records.items()] + [
+        dict(name=f"{k}[{f}] (Hellings-Downs path, B1 {cm_hd.Bmax + 1})",
+             route="cuda", source=SOURCES[k][0], replaces=REPLACES[k],
+             launches=runs10[(k, f)], **r)
+        for (k, f), r in hd_records.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,10 +1,10 @@
 """Settings of the PyTorch port and the device rule of its entry points.
 
-The subset of ``pulsar_timing_gibbsspec_tpu/config.py`` the CRN
-free-spectrum sweep reads: float32 storage of the large arrays (basis,
-residuals, per-TOA noise), float64 compute of the sampler state,
-reductions and exact factorizations, the TOA-segment lengths of the
-segmented Gram and the rho grid size.
+The subset of ``pulsar_timing_gibbsspec_tpu/config.py`` the port's
+sweeps read: float32 storage of the large arrays (basis, residuals,
+per-TOA noise), float64 compute of the sampler state, reductions and
+exact factorizations, the TOA-segment lengths of the segmented Gram, the
+rho grid size and the correlated-ORF joint draw's mixed precision.
 
 Float32 products are full IEEE float32 everywhere in the port (the JAX
 package's ``precision="highest"``): :func:`resolve_device` turns TF32 off
@@ -34,6 +34,12 @@ class Settings:
     gram_seg_len_exact: int = 96
     #: points of the log-uniform rho grid of the free-spectrum draws
     rho_grid_size: int = 1000
+    #: mixed precision of the correlated-ORF joint b-draw: steady sweeps
+    #: factor both stages with the two-float factor (float32 factors and
+    #: one refinement step, ``ops.linalg.tf_chol_factor``); every
+    #: ``EXACT_EVERY``-th sweep, the warmup and the initial draws factor
+    #: in float64 whatever this says.  False: float64 everywhere
+    joint_mixed: bool = True
 
 
 settings = Settings()

@@ -8,7 +8,8 @@ followed by ``sampler/compiled.py::compile_pta`` that the port samples:
                   red_var=..., red_psd="spectrum" | "powerlaw",
                   red_components=Kr, is_wideband=...,
                   upper_limit=..., upper_limit_red=...,
-                  upper_limit_common=...)
+                  upper_limit_common=..., orf="crn" | fixed ORF,
+                  orf_ifreq=...)
 
 a timing-model basis with marginalized (``BIG_PHI``) columns (SVD, or
 the column-normalized design matrix of ``tm_norm``'s default), a common
@@ -20,7 +21,13 @@ same bounds, per-backend EFAC/EQUAD, and, for a pulsar whose ``pta`` flag names
 NANOGrav (unless ``is_wideband``), per-backend basis ECORR: one column
 per observing epoch per backend (TOAs grouped into epochs of at most 10
 days), with prior variance ``10^(2 log10_ecorr)`` of its backend.  The
-basis is laid out ``[timing model | Fourier | ECORR]``.  The arrays,
+basis is laid out ``[timing model | Fourier | ECORR]``.  Under a
+correlated ORF (``orf="hd"`` and the other fixed ORFs of
+:mod:`.orf`) the common free spectrum ``gw_<orf>_log10_rho`` gets
+Fourier columns of its own ahead of the red process's, ``[timing model
+| common | red | ECORR]``, and the compiled model carries the
+per-frequency inverse ORF stack ``orf_Ginv`` (K, P, P), identity on pad
+pulsars.  The arrays,
 parameter order (sorted by parameter name, vectors expanded in place),
 constant pool and padding are those of ``compile_pta``, field by field.
 """
@@ -32,6 +39,7 @@ import numpy as np
 from ..data.dataset import get_tspan
 from ..data.fourier import DAY, fourier_basis
 from ..sampler.compiled import BIG_PHI, PHI_FLOOR, from_arrays
+from .orf import orf_ginv_stack, refuse_sampled_weights
 
 #: prior bounds of the model's parameters (model_general's defaults)
 _RHO_BOUNDS = (-10.0, -4.0)
@@ -115,7 +123,7 @@ def model_arrays(psrs, *, tm_svd=False, common_psd="spectrum",
                  common_components=30, red_var=True, red_psd="spectrum",
                  red_components=30, is_wideband=False, upper_limit=False,
                  upper_limit_red=None, upper_limit_common=None,
-                 pad_pulsars=None) -> dict:
+                 orf="crn", orf_ifreq=0, pad_pulsars=None) -> dict:
     """The compiled model's fields as numpy arrays, named as the JAX
     ``CompiledPTA`` names them (the input of
     :func:`~..sampler.compiled.from_arrays`), for the model of the
@@ -124,6 +132,16 @@ def model_arrays(psrs, *, tm_svd=False, common_psd="spectrum",
         if psd not in PSDS:
             raise NotImplementedError(f"{what}={psd!r} is not in the port "
                                       f"yet (it takes {PSDS})")
+    orfs = orf.split(",")
+    if len(orfs) > 1:
+        if set(orfs) - {"crn"} and len(set(orfs)) > 1:
+            raise NotImplementedError(
+                f"mixed common-process ORFs {set(orfs)}")
+        raise NotImplementedError("several common processes are not in the "
+                                  "port yet")
+    corr = orf != "crn"
+    if corr:
+        _refuse_orf(orf, common_psd)
     psrs = list(psrs)
     Tspan = get_tspan(psrs)
     P_real = len(psrs)
@@ -139,19 +157,25 @@ def model_arrays(psrs, *, tm_svd=False, common_psd="spectrum",
 
     # ---- per-pulsar bases and the parameter list ---------------------------
     # (name, size, prior kind, a, b)
+    gname = f"gw_{orf}"
     if gw_pl:
-        params = [("gw_crn_log10_A", None, amp_gw) + _GW_AMP_BOUNDS,
-                  ("gw_crn_gamma", None, UNIFORM) + _GAMMA_BOUNDS]
+        params = [(f"{gname}_log10_A", None, amp_gw) + _GW_AMP_BOUNDS,
+                  (f"{gname}_gamma", None, UNIFORM) + _GAMMA_BOUNDS]
     else:
-        params = [("gw_crn_log10_rho", nbins, UNIFORM) + _RHO_BOUNDS]
+        params = [(f"{gname}_log10_rho", nbins, UNIFORM) + _RHO_BOUNDS]
     per = []
     for p in psrs:
         U = _timing_basis(p.Mmat, tm_svd)
         Fg, fg = fourier_basis(p.toas / DAY, nbins, Tspan)
         Fr, fr = (fourier_basis(p.toas / DAY, red_bins, Tspan) if red_var
                   else (Fg[:, :0], fg[:0]))
-        # shared Fourier block: the widest member donates its basis
-        donor = Fg if Fg.shape[1] >= Fr.shape[1] else Fr
+        if corr:
+            # a correlated common process keeps its own columns, ahead of
+            # the red process's
+            donor = np.hstack([Fg, Fr])
+        else:
+            # shared Fourier block: the widest member donates its basis
+            donor = Fg if Fg.shape[1] >= Fr.shape[1] else Fr
         labels = sorted(set(p.backend_flags.tolist()))
         masks = {lab: p.backend_flags == lab for lab in labels}
         rname = f"{p.name}_red_noise"
@@ -260,11 +284,13 @@ def model_arrays(psrs, *, tm_svd=False, common_psd="spectrum",
         wrows.append(sorted(set(wp)))
         erows.append(sorted(set(ep)))
         phi_base[ii, :ntm] = np.clip(1e40, PHI_FLOOR, BIG_PHI)
+        # the red columns start after the common's under a correlated ORF
+        r0 = ntm + 2 * K if corr else ntm
         phi_base[ii, ntm:ntm + 2 * K] = 0.0
-        phi_base[ii, ntm:ntm + 2 * Kr] = 0.0
+        phi_base[ii, r0:r0 + 2 * Kr] = 0.0
         phi_base[ii, ntm + nf:ntm + nf + ne] = 0.0
         gp_mask[ii, ntm:ntm + 2 * K] = 1.0
-        gp_mask[ii, ntm:ntm + 2 * Kr] = 1.0
+        gp_mask[ii, r0:r0 + 2 * Kr] = 1.0
         gc = np.arange(ntm, ntm + 2 * K)
         gcols[ii] = gc
         gf[ii] = d["fg"]
@@ -272,15 +298,15 @@ def model_arrays(psrs, *, tm_svd=False, common_psd="spectrum",
         gw_sin[ii], gw_cos[ii] = gc[::2], gc[1::2]
         gw_f[ii], gw_df[ii] = d["fg"][::2], _bin_widths(d["fg"])[::2]
         if gw_pl:
-            ghyp[ii] = gw_hyp[ii] = [pos["gw_crn_log10_A"],
-                                     pos["gw_crn_gamma"]]
+            ghyp[ii] = gw_hyp[ii] = [pos[f"{gname}_log10_A"],
+                                     pos[f"{gname}_gamma"]]
         else:
-            grho[ii] = [pos[f"gw_crn_log10_rho_{j // 2}"]
+            grho[ii] = [pos[f"{gname}_log10_rho_{j // 2}"]
                         for j in range(2 * K)]
-            gw_rho[ii] = [pos[f"gw_crn_log10_rho_{k}"] for k in range(K)]
+            gw_rho[ii] = [pos[f"{gname}_log10_rho_{k}"] for k in range(K)]
         if red_var:
             rn = d["rname"]
-            rc = np.arange(ntm, ntm + 2 * Kr)
+            rc = np.arange(r0, r0 + 2 * Kr)
             rcols[ii] = rc
             rf[ii] = d["fr"]
             rdf[ii] = _bin_widths(d["fr"])
@@ -348,6 +374,11 @@ def model_arrays(psrs, *, tm_svd=False, common_psd="spectrum",
                           df=np.zeros((P, We), f32),
                           hyp_ix=np.zeros((P, 0), np.int32), rho_ix=erho))
     red_kind = ("powerlaw" if red_pl else "free_spectrum") if red_var else ""
+    orf_Ginv = None
+    if corr:
+        orf_Ginv = np.tile(np.eye(P), (K, 1, 1))
+        orf_Ginv[:, :P_real, :P_real] = orf_ginv_stack(
+            orf, [p.pos for p in psrs], K, orf_ifreq=orf_ifreq)
     return dict(
         P=P, P_real=P_real, Nmax=Nmax, Bmax=Bmax, nx=nx, K=K, Kr=Kr,
         widths=widths, pulsars=tuple(p.name for p in psrs),
@@ -361,7 +392,7 @@ def model_arrays(psrs, *, tm_svd=False, common_psd="spectrum",
         gw_kind="powerlaw" if gw_pl else "free_spectrum",
         gw_hyp_ix=gw_hyp, gw_rho_ix=gw_rho,
         rho_ix_x=(np.zeros(0, np.int32) if gw_pl else np.asarray(
-            [pos[f"gw_crn_log10_rho_{k}"] for k in range(K)], np.int32)),
+            [pos[f"{gname}_log10_rho_{k}"] for k in range(K)], np.int32)),
         red_valid=red_valid, red_kind=red_kind, red_hyp_ix=red_hyp,
         red_rho_ix=red_rho, red_rho_ix_x=red_rho_x,
         red_sin_ix=red_sin, red_cos_ix=red_cos,
@@ -369,9 +400,28 @@ def model_arrays(psrs, *, tm_svd=False, common_psd="spectrum",
         white_par_ix=white_par_ix, white_nper=white_nper,
         ecorr_par_ix=ecorr_par_ix, ecorr_nper=ecorr_nper,
         rhomin=rho_lo, rhomax=rho_hi, red_rhomin=red_lo, red_rhomax=red_hi,
-        orf_name="crn", orf_Ginv=None, gp_mask=gp_mask, red_f=red_f,
-        red_df=red_df, orf_B=None, orf_par_ix=None, red_shares_gw=True,
-        ke_eid=None, ke_par_ix=None)
+        orf_name=orf, orf_Ginv=orf_Ginv, gp_mask=gp_mask, red_f=red_f,
+        red_df=red_df, orf_B=None, orf_par_ix=None,
+        red_shares_gw=not (corr and red_var), ke_eid=None, ke_par_ix=None)
+
+
+def _refuse_orf(orf, common_psd):
+    """What ``compile_pta`` refuses of a correlated ORF, with its
+    messages, and the sampled-weight ORFs the port does not take yet."""
+    if orf.startswith("zero_diag_"):
+        raise NotImplementedError(
+            f"orf='{orf}' builds (fixed-amplitude detection-"
+            "statistic model) but cannot be *sampled*: the zero-"
+            "diagonal correlation is not a positive-definite "
+            "coefficient prior.  Evaluate it with your own "
+            "likelihood machinery, or sample the full-diagonal "
+            f"'{orf[len('zero_diag_'):]}' instead")
+    if common_psd != "spectrum":
+        raise NotImplementedError(
+            "correlated ORF is implemented for a varied common free "
+            "spectrum (common_psd='spectrum'); the powerlaw-family "
+            "HD marginalized-likelihood MH block is not implemented")
+    refuse_sampled_weights(orf)
 
 
 def crn_spectrum_arrays(psrs, nbins: int = 10, red_bins: int = 10,
@@ -396,20 +446,28 @@ def model_general(psrs, tm_svd=False, white_vary=False,
                   common_psd="powerlaw", common_components=30,
                   red_var=True, red_psd="powerlaw", red_components=30,
                   is_wideband=False, upper_limit=False, upper_limit_red=None,
-                  upper_limit_common=None, device=None):
+                  upper_limit_common=None, orf="crn", orf_ifreq=0,
+                  device=None):
     """The compiled model of the JAX package's ``model_general`` with
     these options (its defaults) followed by ``compile_pta``, on
     ``device`` (``cuda`` unless the caller passes another).  The port
     takes ``white_vary=True``, ``common_psd`` and ``red_psd`` of
     ``"spectrum"`` or ``"powerlaw"``, and the upper-limit flags (LinearExp
     amplitude priors); any other PSD, or fixed white noise, raises
-    ``NotImplementedError``.  README's Quick start, and the standard PTA
-    noise model (a free spectrum with intrinsic powerlaw red noise)::
+    ``NotImplementedError``.  ``orf`` takes ``"crn"`` and the fixed
+    positive-definite ORFs (``hd``, ``freq_hd`` with ``orf_ifreq``,
+    ``st``, ``gw_monopole``, ``gw_dipole``) under a common free spectrum.
+    README's Quick start, the standard PTA noise model (a free spectrum
+    with intrinsic powerlaw red noise) and ``bench.py``'s Hellings-Downs
+    array::
 
         model_general([psr], red_var=False, white_vary=True,
                       common_psd="spectrum", common_components=30)
         model_general([psr], white_vary=True, common_psd="spectrum",
                       red_psd="powerlaw")
+        model_general(psrs, tm_svd=True, white_vary=True,
+                      common_psd="spectrum", common_components=10,
+                      red_psd="spectrum", red_components=10, orf="hd")
     """
     if not white_vary:
         raise NotImplementedError(
@@ -420,4 +478,5 @@ def model_general(psrs, tm_svd=False, white_vary=False,
         red_psd=red_psd, red_components=red_components,
         is_wideband=is_wideband, upper_limit=upper_limit,
         upper_limit_red=upper_limit_red,
-        upper_limit_common=upper_limit_common), device=device)
+        upper_limit_common=upper_limit_common, orf=orf,
+        orf_ifreq=orf_ifreq), device=device)

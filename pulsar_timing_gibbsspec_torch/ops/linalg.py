@@ -4,7 +4,9 @@ Port of ``pulsar_timing_gibbsspec_tpu/ops/linalg.py`` (main-path
 subset), with the same recursion order: the blocked Cholesky with its
 explicit inverse halves the matrix until 1x1/2x2 closed forms and
 combines with batched matrix products, and every solve is then a
-matrix-vector product with the inverse factor.  All functions broadcast
+matrix-vector product with the inverse factor.  The block-grid Cholesky
+factors the correlated-ORF joint draw's Schur complement block by
+block.  All functions broadcast
 over leading batch dimensions.  Float32 products are IEEE float32 (TF32
 is off in the port, see ``config.resolve_device``).
 """
@@ -159,3 +161,92 @@ def mvn_conditional_draw(TNT, phiinv, d, z):
     _, Li, dj, mean = jacobi_factor_mean(Sigma, d)
     samp = mean + dj * _mv(_t(Li), z)
     return samp, mean
+
+
+# ---------------------------------------------------------------------------
+# block-grid Cholesky: an SPD matrix as an m x m grid of P x P blocks
+# ---------------------------------------------------------------------------
+#
+# The correlated-ORF joint b-draw's Schur complement on the common
+# process's coordinates is a (2K, 2K) grid of (P, P) blocks.  Factoring it
+# blockwise keeps every operation at the block size: m unrolled stages,
+# each one diagonal-block factor and batched (P, P) products for the
+# trailing update.  It is the Cholesky of the flattened matrix in the
+# same coordinate order (block_grid_to_dense), so a sample drawn through
+# either factor is the same up to rounding.
+
+def _mm_t(a, b, transpose_b=False):
+    """Batched product with :func:`tf_mm`'s calling convention, so the
+    grid factor runs in float64 (this) or in two-float (``tf_mm``)."""
+    return _mm(a, _t(b) if transpose_b else b)
+
+
+def block_grid_cholinv(S, factor=None, mm=None):
+    """Right-looking Cholesky of an SPD matrix laid out as an ``(..., m,
+    m, P, P)`` grid of blocks (``S[..., i, j]`` block row ``i``, block
+    column ``j``; ``S[i, j] == S[j, i]^T``).  Returns ``(Ld, Ldi, Loff)``:
+    the lower diagonal blocks of the factor (..., m, P, P), their
+    inverses, and the strictly lower off-diagonal blocks (..., m, m, P, P)
+    (zeros elsewhere).  ``factor`` is the diagonal block's ``(L, L^-1)``
+    (:func:`blocked_chol_inv`, or :func:`tf_chol_factor` in two-float),
+    ``mm`` the matching product (:func:`_mm_t` / :func:`tf_mm`)."""
+    if factor is None:
+        factor = _cholinv_rec
+    if mm is None:
+        mm = _mm_t
+    m = S.shape[-4]
+    Ld, Ldi = [], []
+    Loff = torch.zeros_like(S)
+    T = S
+    for g in range(m):
+        Lg, Lgi = factor(T[..., 0, 0, :, :])
+        Ld.append(Lg)
+        Ldi.append(Lgi)
+        if g == m - 1:
+            break
+        # column panel L[j, g] = T[j, 0] Lg^-T for every trailing j
+        Lcol = mm(T[..., 1:, 0, :, :], Lgi[..., None, :, :],
+                  transpose_b=True)
+        Loff[..., g + 1:, g, :, :] = Lcol
+        # trailing update, every (j, l) pair in one batched product
+        upd = mm(Lcol[..., :, None, :, :], Lcol[..., None, :, :, :],
+                 transpose_b=True)
+        T = T[..., 1:, 1:, :, :] - upd
+    return torch.stack(Ld, dim=-3), torch.stack(Ldi, dim=-3), Loff
+
+
+def block_grid_solve_lower(Ldi, Loff, r):
+    """``L v = r`` with the grid factor of :func:`block_grid_cholinv`;
+    ``r`` (..., m, P) block-major.  Forward substitution by block stage,
+    each stage's earlier blocks subtracted in one contraction."""
+    m = r.shape[-2]
+    vs = []
+    for g in range(m):
+        acc = r[..., g, :]
+        if g:
+            acc = acc - torch.einsum("...jik,...jk->...i",
+                                     Loff[..., g, :g, :, :],
+                                     torch.stack(vs, dim=-2))
+        vs.append(_mv(Ldi[..., g, :, :], acc))
+    return torch.stack(vs, dim=-2)
+
+
+def block_grid_solve_upper(Ldi, Loff, r):
+    """``L^T w = r`` with the grid factor (backward substitution)."""
+    m = r.shape[-2]
+    ws = [None] * m
+    for g in reversed(range(m)):
+        acc = r[..., g, :]
+        if g < m - 1:
+            acc = acc - torch.einsum("...jki,...jk->...i",
+                                     Loff[..., g + 1:, g, :, :],
+                                     torch.stack(ws[g + 1:], dim=-2))
+        ws[g] = _mv(_t(Ldi[..., g, :, :]), acc)
+    return torch.stack(ws, dim=-2)
+
+
+def block_grid_to_dense(S):
+    """``(..., m, m, P, P)`` grid -> ``(..., mP, mP)`` dense matrix in
+    block-major order (``dense[g P + p, h P + q] = S[g, h, p, q]``)."""
+    m, P = S.shape[-4], S.shape[-1]
+    return S.movedim(-2, -3).reshape(S.shape[:-4] + (m * P, m * P))

@@ -1,16 +1,19 @@
-"""Gibbs blocks of the CRN free-spectrum sweep, batched over chains.
+"""Gibbs blocks of the port's sweeps, batched over chains.
 
-Port of the CRN pieces of ``pulsar_timing_gibbsspec_tpu/sampler/
+Port of the sweep's pieces of ``pulsar_timing_gibbsspec_tpu/sampler/
 jax_backend.py``: the segmented Grams and the b-draws (steady
-Metropolised draw, refresh, exact draw), the white-noise and basis-ECORR
-blocks (relative likelihoods, adapted full-block MH, Laplace proposals),
-the hyper blocks (common-rho grid draw, or the single-pulsar
-inverse-CDF draw; per-pulsar free-spectrum red draw; rho <-> b scale
-moves; the powerlaw hyper MH block with its b-conditional and
-b-marginalized likelihoods) and the facade's sampling-flag check.  Every
-function takes the chains as leading dimensions of ``x``
-(``(C, nx)``), ``b`` (``(C, P, Bmax)``) and ``u = T b`` (``(C, P,
-Nmax)``); the kernels see ``C * P`` systems at once.
+Metropolised draw, refresh, exact draw; under a correlated ORF the
+structured two-stage joint draw over all pulsars, with its dense
+reference), the white-noise and basis-ECORR blocks (relative
+likelihoods, adapted full-block MH, Laplace proposals), the hyper blocks
+(common-rho grid draw, its correlated-ORF form on the quadratic form of
+the common coefficients, or the single-pulsar inverse-CDF draw;
+per-pulsar free-spectrum red draw; rho <-> b scale moves; the powerlaw
+hyper MH block with its b-conditional and b-marginalized likelihoods)
+and the facade's sampling-flag check.  Every function takes the chains
+as leading dimensions of ``x`` (``(C, nx)``), ``b`` (``(C, P, Bmax)``)
+and ``u = T b`` (``(C, P, Nmax)``); the kernels see ``C * P`` systems at
+once.
 
 Each stochastic block is split: ``*_core`` takes its noise as tensors
 (normals, log-uniforms, Gumbels, drawn as the JAX function draws them),
@@ -29,7 +32,10 @@ import torch
 
 from ..config import settings
 from ..ops import kernels
-from ..ops.linalg import _batched_diag, mvn_conditional_draw
+from ..ops.linalg import (_batched_diag, _mm_t, _mv, _t, block_grid_cholinv,
+                          block_grid_solve_lower, block_grid_solve_upper,
+                          block_grid_to_dense, blocked_chol_inv,
+                          mvn_conditional_draw, tf_chol_factor, tf_mm)
 
 _SCALES = (0.1, 0.5, 1.0, 3.0, 10.0)
 _SCALE_P = (0.1, 0.15, 0.5, 0.15, 0.1)
@@ -40,6 +46,9 @@ _PROP_RIDGE = 4e-6
 #: step scale (natural log of the variance ratio) of the rho <-> b moves
 RHO_SCALE_SIGMA = 0.65
 _LN10 = math.log(10.0)
+#: at or below this many common-process coordinates (2K P) the joint
+#: draw's Schur complement is factored flat, above it block by block
+SCHUR_DENSE_MAX = 128
 
 
 # ===========================================================================
@@ -332,7 +341,9 @@ def draw_b_refresh(cm, x, b, u, gen):
 def draw_b_fn_core(cm, x, z, b=None):
     """Exact b | everything for the CRN model: float64-accumulated Gram,
     float64 blocked factor, ``mean + Sigma^-1/2 z`` with ``z`` (..., P,
-    Bmax) float64 normals.
+    Bmax) float64 normals.  Under a correlated ORF: the structured joint
+    draw in float64 (:func:`draw_b_joint_structured_core` with
+    ``exact=True``), ``z`` (..., P Bmax + 2K P).
 
     A pulsar whose draw is not finite keeps its current ``b`` (zeros
     when none is given): the float32-rounded Gram loses positive
@@ -342,7 +353,7 @@ def draw_b_fn_core(cm, x, z, b=None):
     CRN draw has none, and a NaN ``b`` there is never replaced: every
     later Metropolised draw rejects against it."""
     if cm.orf_name != "crn":
-        raise NotImplementedError("correlated ORFs are not in the port yet")
+        return draw_b_joint_structured_core(cm, x, z, b, exact=True)[0]
     N = cm.ndiag_fast(x)
     TNT, d = tnt_d_x(cm, x, N)
     phi = cm.phi(x)
@@ -354,8 +365,252 @@ def draw_b_fn_core(cm, x, z, b=None):
 
 def draw_b_fn(cm, x, gen, b=None):
     """:func:`draw_b_fn_core` with its noise drawn from ``gen``."""
-    z = _normal(gen, x.shape[:-1] + (cm.P, cm.Bmax), cm.cdtype, cm.device)
+    shape = ((_joint_dim(cm),) if cm.orf_name != "crn"
+             else (cm.P, cm.Bmax))
+    z = _normal(gen, x.shape[:-1] + shape, cm.cdtype, cm.device)
     return draw_b_fn_core(cm, x, z, b)
+
+
+# ===========================================================================
+# the correlated-ORF joint b-draw
+# ===========================================================================
+#
+# With a correlated ORF the common process couples the pulsars through
+# its columns alone: per (frequency, phase) group its prior over pulsars
+# is rho_k G, so the joint precision carries G^-1 / rho_k there and stays
+# diagonal elsewhere.  Both draws below factor one matrix, in one
+# coordinate order: [P Bmax "local" slots, pulsar-major, the common
+# columns replaced by inert identity coordinates | 2K P common slots,
+# group-major (sin k = 0..K-1, cos k = 0..K-1; pulsar inner)].  Identity
+# rows stay exactly decoupled under Cholesky, so every shape is static,
+# and the dense and structured draws give the same sample for the same
+# normals up to rounding.
+
+def _joint_dim(cm):
+    return cm.P * cm.Bmax + 2 * cm.K * cm.P
+
+
+def _gather_last(a, ix):
+    """``take_along_axis(a, ix, -1)`` with ``ix`` broadcast over ``a``'s
+    leading dimensions."""
+    return torch.gather(a, -1, ix.expand(a.shape[:-1] + ix.shape[-1:]))
+
+
+def _scatter_drop(b, cols, vals):
+    """``b.at[p, cols[p]].set(vals, mode="drop")``: ``cols`` (P, W),
+    columns past ``Bmax`` dropped."""
+    B = b.shape[-1]
+    ext = torch.cat([b, b.new_zeros(b.shape[:-1] + (1,))], -1)
+    idx = torch.clamp(cols, max=B).expand(vals.shape)
+    return ext.scatter(-1, idx, vals.to(b.dtype))[..., :B]
+
+
+def _joint_perm_parts(cm, x):
+    """The pieces of the permuted joint system: ``(d, cols, valid, ccl,
+    nm, Snn, Tg, Agg)``: the projected data of the segmented Gram
+    (float32 segments, float64 reduce), the common columns
+    (``cm.gw_cols_valid``), the non-common indicator ``nm`` (P, Bmax),
+    the local block ``Snn`` (..., P, B, B) with the common rows and
+    columns turned into identity, the local-common coupling strips
+    ``Tg`` (..., P, B, 2K) (common rows zeroed) and the common-common
+    Gram blocks ``Agg`` (..., P, 2K, 2K)."""
+    cdt = cm.cdtype
+    B, P = cm.Bmax, cm.P
+    TNT, d = tnt_d_seg(cm, cm.ndiag_fast(x))
+    pinv = 1.0 / cm.phi(x)
+    cols, valid, ccl = cm.gw_cols_valid()
+    gwm = torch.zeros((P, B), dtype=cdt, device=cm.device).scatter_reduce(
+        1, ccl, valid, reduce="amax")
+    nm = 1.0 - gwm
+    eyeB = torch.eye(B, dtype=cdt, device=cm.device)
+    Snn = ((TNT + (pinv * nm)[..., :, None] * eyeB) * nm[:, :, None]
+           * nm[:, None, :] + gwm[:, :, None] * eyeB)
+    # the strips gather through clipped indices: mask by valid
+    Tcols = _gather_last(TNT, ccl[:, None, :]) * valid[:, None, :]
+    Tg = Tcols * nm[:, :, None]
+    Agg = torch.gather(Tcols, -2, ccl[:, :, None].expand(
+        Tcols.shape[:-2] + (ccl.shape[1], ccl.shape[1]))) * valid[:, :, None]
+    return d, cols, valid, ccl, nm, Snn, Tg, Agg
+
+
+def _joint_gw_prior(cm, x, valid):
+    """The common prior blocks ``G^-1 / rho_k`` per group (..., 2K, P, P),
+    identity on invalid slots, and the ``rho`` (..., 2K) and ``G^-1_pp``
+    (2K, P) the Schur diagonal needs: ``(Dg, rho2, Gpp)``."""
+    cdt = cm.cdtype
+    rho = torch.pow(10.0, 2.0 * x.to(cdt)[..., cm.rho_ix_x])
+    Ginv = cm.orf_ginv_k(x)
+    Gfull = torch.cat([Ginv, Ginv], dim=0)
+    rho2 = torch.cat([rho, rho], dim=-1)
+    vg = valid.transpose(0, 1)
+    eyeP = torch.eye(cm.P, dtype=cdt, device=cm.device)
+    Dg = (Gfull / rho2[..., :, None, None] * vg[:, :, None] * vg[:, None, :]
+          + (1.0 - vg)[:, :, None] * eyeP)
+    Gpp = torch.diagonal(Gfull, dim1=-2, dim2=-1)
+    return Dg, rho2, Gpp
+
+
+def draw_b_joint(cm, x, z):
+    """The dense joint draw: the whole permuted system assembled and
+    factored at once, ``z`` (..., P Bmax + 2K P) float64 normals.  The
+    reference the structured draw is held against; no sweep runs it."""
+    cdt = cm.cdtype
+    B, P, K = cm.Bmax, cm.P, cm.K
+    PB, G = P * B, 2 * K
+    n = PB + G * P
+    lead = x.shape[:-1]
+    d, cols, valid, ccl, nm, Snn, Tg, Agg = _joint_perm_parts(cm, x)
+    Dg, _, _ = _joint_gw_prior(cm, x, valid)
+    dev = cm.device
+    lrows = (torch.arange(P, device=dev)[:, None] * B
+             + torch.arange(B, device=dev)[None, :])
+    garr = (PB + torch.arange(G, device=dev)[:, None] * P
+            + torch.arange(P, device=dev)[None, :])
+    gidx = garr.transpose(0, 1)
+    Lam = torch.zeros(lead + (n, n), dtype=cdt, device=dev)
+    Lam[..., lrows[:, :, None], lrows[:, None, :]] = Snn
+    Lam[..., lrows[:, :, None], gidx[:, None, :]] = Tg
+    Lam[..., gidx[:, :, None], lrows[:, None, :]] = Tg.transpose(-1, -2)
+    Lam[..., gidx[:, :, None], gidx[:, None, :]] = Agg
+    Lam[..., garr[:, :, None], garr[:, None, :]] += Dg
+    dn = (d * nm).reshape(lead + (PB,))
+    dgw = (_gather_last(d, ccl) * valid).transpose(-1, -2).reshape(
+        lead + (G * P,))
+    dvec = torch.cat([dn, dgw], dim=-1)
+    dj = 1.0 / torch.sqrt(torch.diagonal(Lam, dim1=-2, dim2=-1))
+    A = Lam * dj[..., :, None] * dj[..., None, :]
+    _, Li = blocked_chol_inv(A)
+    u = _mv(Li, dj * dvec)
+    samp = dj * _mv(_t(Li), u + z)
+    bloc = samp[..., :PB].reshape(lead + (P, B)) * nm
+    bgw = samp[..., PB:].reshape(lead + (G, P)).transpose(-1, -2)
+    return _scatter_drop(bloc, cols, bgw)
+
+
+class JointFactors(NamedTuple):
+    """Stage 1 of the structured joint draw, per pulsar: functions of
+    ``N`` and the non-common phi alone (the white, ECORR and red blocks'
+    coordinates), never of rho or b."""
+
+    d: torch.Tensor        # (..., P, B) projected data
+    cols: torch.Tensor     # (P, 2K) common columns
+    valid: torch.Tensor    # (P, 2K) in-range indicator
+    ccl: torch.Tensor      # (P, 2K) clipped gather indices
+    nm: torch.Tensor       # (P, B) non-common indicator
+    dj_n: torch.Tensor     # (..., P, B) local Jacobi scales
+    Li1: torch.Tensor      # (..., P, B, B) inverse stage-1 factor
+    Tg: torch.Tensor       # (..., P, B, 2K) local-common strips
+    Agg: torch.Tensor      # (..., P, 2K, 2K) common-common Gram blocks
+    mixed: bool            # the two-float factors were taken
+
+
+def joint_factor_cache(cm, x, exact=False, mixed=None):
+    """Stage 1: the batched factor of the P local blocks, float64
+    (``blocked_chol_inv``) or, in mixed precision (``settings.
+    joint_mixed`` unless ``mixed`` says) and not ``exact``, two-float
+    (``tf_chol_factor``)."""
+    if mixed is None:
+        mixed = settings.joint_mixed
+    use_tf = bool(mixed) and not exact
+    d, cols, valid, ccl, nm, Snn, Tg, Agg = _joint_perm_parts(cm, x)
+    dj_n = 1.0 / torch.sqrt(torch.diagonal(Snn, dim1=-2, dim2=-1))
+    An = Snn * dj_n[..., :, None] * dj_n[..., None, :]
+    _, Li1 = tf_chol_factor(An) if use_tf else blocked_chol_inv(An)
+    return JointFactors(d=d, cols=cols, valid=valid, ccl=ccl, nm=nm,
+                        dj_n=dj_n, Li1=Li1, Tg=Tg, Agg=Agg, mixed=use_tf)
+
+
+def draw_b_joint_structured_core(cm, x, z, b=None, exact=False,
+                                 factors=None, mixed=None):
+    """The joint correlated-ORF b-draw in two stages, the production
+    draw: the same conditional and the same sample for the same ``z``
+    (..., P Bmax + 2K P) as :func:`draw_b_joint`, without the (P Bmax)^2
+    system.
+
+    1. per pulsar (:func:`joint_factor_cache`): the (P, B, B) batch of
+       local blocks, the common coordinates inert;
+    2. the Schur complement on the 2K P common coordinates as a (2K, 2K)
+       grid of (P, P) blocks, ``S[g, h] = diag_p(Agg_p - C_p C_p^T)[g,
+       h] + delta_gh G^-1 / rho_g`` with ``C_p`` the factor's panel,
+       factored flat at or below ``SCHUR_DENSE_MAX`` coordinates and
+       block by block (``block_grid_cholinv``) above;
+    3. ``samp = D L^-T (L^-1 d + z)`` through both stages.
+
+    In mixed precision both stages factor in two-float and the products
+    run ``tf_mm``; a chain whose draw is not finite (a two-float
+    breakdown) keeps its ``b`` (zeros when none is given) wholesale.
+    ``exact=True`` factors in float64.  Returns ``(b', ok)``, ``ok``
+    (...,) the chains whose draw was taken."""
+    cdt = cm.cdtype
+    B, P, K = cm.Bmax, cm.P, cm.K
+    PB, G = P * B, 2 * K
+    lead = x.shape[:-1]
+    f = (joint_factor_cache(cm, x, exact=exact, mixed=mixed)
+         if factors is None else factors)
+    mm = tf_mm if f.mixed else _mm_t
+    factor = tf_chol_factor if f.mixed else blocked_chol_inv
+
+    # ---- stage 2: the Schur complement on the common coordinates --------
+    Dg, rho2, Gpp = _joint_gw_prior(cm, x, f.valid)
+    diag_g = (torch.diagonal(f.Agg, dim1=-2, dim2=-1)
+              + torch.where(f.valid > 0, Gpp.transpose(0, 1)
+                            / rho2[..., None, :], 1.0))
+    dj_g = 1.0 / torch.sqrt(diag_g)                           # (..., P, 2K)
+    Bhat = (f.Tg.transpose(-1, -2) * dj_g[..., :, :, None]
+            * f.dj_n[..., :, None, :])                        # (..., P, 2K, B)
+    C = mm(Bhat, f.Li1, transpose_b=True)
+    CCt = mm(C, C, transpose_b=True)                          # (..., P, 2K, 2K)
+    Agg_hat = f.Agg * dj_g[..., :, :, None] * dj_g[..., :, None, :]
+    dj_gT = dj_g.transpose(-1, -2)                            # (..., 2K, P)
+    Dg_hat = Dg * dj_gT[..., :, :, None] * dj_gT[..., :, None, :]
+    M = Agg_hat - CCt
+    gr = torch.arange(G, device=cm.device)
+    S = torch.diag_embed(M.movedim(-3, -1))                   # (..., G, G, P, P)
+    S[..., gr, gr, :, :] = S[..., gr, gr, :, :] + Dg_hat
+
+    # ---- solves and the sample ------------------------------------------
+    dn_hat = f.dj_n * (f.d * f.nm)
+    dg_hat = dj_g * (_gather_last(f.d, f.ccl) * f.valid)
+    v_n = _mv(f.Li1, dn_hat)
+    r_g = dg_hat - _mv(C, v_n)                                # (..., P, 2K)
+    z_n = z[..., :PB].reshape(lead + (P, B))
+    z_g = z[..., PB:].reshape(lead + (G, P))
+    # inner Jacobi scaling of the Schur matrix: chol(D S D) = D chol(S),
+    # so the sample map is unchanged in exact arithmetic
+    sdiag = torch.diagonal(S[..., gr, gr, :, :], dim1=-2, dim2=-1)
+    sj = 1.0 / torch.sqrt(sdiag)                              # (..., G, P)
+    rg = r_g.transpose(-1, -2)
+    if G * P <= SCHUR_DENSE_MAX:
+        sjf = sj.reshape(lead + (G * P,))
+        As = block_grid_to_dense(S) * sjf[..., :, None] * sjf[..., None, :]
+        _, Lsi = factor(As)
+        v_g = _mv(Lsi, sjf * rg.reshape(lead + (G * P,))).reshape(
+            lead + (G, P))
+        w_g = sj * _mv(_t(Lsi), (v_g + z_g).reshape(
+            lead + (G * P,))).reshape(lead + (G, P))
+    else:
+        Ssc = S * sj[..., :, None, :, None] * sj[..., None, :, None, :]
+        _, Ldi, Loff = block_grid_cholinv(Ssc, factor=factor, mm=mm)
+        v_g = block_grid_solve_lower(Ldi, Loff, sj * rg)
+        w_g = sj * block_grid_solve_upper(Ldi, Loff, v_g + z_g)
+    # back through the panel to the local coordinates
+    w_gT = w_g.transpose(-1, -2)                              # (..., P, 2K)
+    t_n = v_n + z_n - _mv(_t(C), w_gT)
+    w_n = _mv(_t(f.Li1), t_n)
+    bnew = _scatter_drop(f.dj_n * w_n * f.nm, f.cols, dj_g * w_gT)
+    if b is None:
+        b = torch.zeros_like(bnew)
+    ok = torch.isfinite(bnew).all(-1).all(-1)
+    return torch.where(ok[..., None, None], bnew, b), ok
+
+
+def draw_b_joint_structured(cm, x, gen, b=None, exact=False, factors=None,
+                            mixed=None):
+    """:func:`draw_b_joint_structured_core` with its normals drawn from
+    ``gen``."""
+    z = _normal(gen, x.shape[:-1] + (_joint_dim(cm),), cm.cdtype, cm.device)
+    return draw_b_joint_structured_core(cm, x, z, b, exact=exact,
+                                        factors=factors, mixed=mixed)
 
 
 # ===========================================================================
@@ -702,10 +957,28 @@ def _grid_logpdf(ltau, lother, grid):
     return logratio - torch.exp(logratio)
 
 
+def _rho_hd_logpdf(cm, x, b, grid):
+    """The correlated-ORF rho conditional on the grid, (..., K, R):
+    ``p(rho_k | a) ~ rho^-P exp(-taut_k / rho)`` with the quadratic form
+    ``taut_k = 1/2 sum_phase a_k^T G_k^-1 a_k`` of the common
+    coefficients ``a_k`` (P,) (``sum_p tau_pk`` at G = I)."""
+    Ginv = cm.orf_ginv_k(x)
+    live = cm.psr_mask.to(cm.cdtype)
+    taut = 0.0
+    for ix in (cm.gw_sin_ix, cm.gw_cos_ix):
+        a = _gather_last(b, ix) * live[:, None]                # (..., P, K)
+        taut = taut + 0.5 * torch.einsum("...pk,kpq,...qk->...k", a, Ginv,
+                                         a)
+    return (-cm.P_real * torch.log(grid)
+            - (taut[..., None] / grid).to(cm.dtype))
+
+
 def rho_update_core(cm, x, b, gumbel):
-    """Common free-spectrum log10_rho draw: per-pulsar log-PDF grids
-    summed over the pulsar axis, then Gumbel-max sampled.  ``gumbel``
-    (..., K, R) in the storage dtype."""
+    """Common free-spectrum log10_rho draw, Gumbel-max sampled on the
+    log-uniform grid: per-pulsar log-PDF grids summed over the pulsar
+    axis or, under a correlated ORF, the quadratic-form conditional of
+    :func:`_rho_hd_logpdf`.  ``gumbel`` (..., K, R) in the storage
+    dtype."""
     if cm.K == 0 or len(cm.rho_ix_x) == 0:
         return x
     if _rho_invcdf_applies(cm):
@@ -713,6 +986,12 @@ def rho_update_core(cm, x, b, gumbel):
                          "draws its rho by inverse CDF: rho_invcdf_core")
     fdt = cm.dtype
     grid = _rho_grid(cm, cm.rhomin, cm.rhomax)
+    if cm.orf_name != "crn":
+        rhonew = grid[torch.argmax(_rho_hd_logpdf(cm, x, b, grid) + gumbel,
+                                   dim=-1)]
+        x = x.clone()
+        x[..., cm.rho_ix_x] = (0.5 * torch.log10(rhonew)).to(x.dtype)
+        return x
     ltau = torch.log(cm.gw_tau(b)).to(fdt)
     lother = torch.log(cm.red_phi(x)).to(fdt)
     logpdf = _grid_logpdf(ltau, lother, grid)
@@ -727,9 +1006,9 @@ def rho_update_core(cm, x, b, gumbel):
 
 
 def _rho_invcdf_applies(cm) -> bool:
-    """One pulsar without intrinsic red noise: its common rho has an
-    exact truncated inverse-CDF draw."""
-    return cm.P_real == 1 and cm.red_kind == ""
+    """One pulsar without intrinsic red noise under the CRN: its common
+    rho has an exact truncated inverse-CDF draw."""
+    return cm.P_real == 1 and cm.red_kind == "" and cm.orf_name == "crn"
 
 
 def rho_invcdf_core(cm, x, b, u):

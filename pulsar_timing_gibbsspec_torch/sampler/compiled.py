@@ -2,7 +2,10 @@
 
 Port of ``pulsar_timing_gibbsspec_tpu/sampler/compiled.py`` for the CRN
 model with basis ECORR, a free-spectrum or powerlaw common process and
-free-spectrum or powerlaw intrinsic red noise: ragged per-pulsar shapes
+free-spectrum or powerlaw intrinsic red noise, and for a common free
+spectrum under a fixed correlated ORF (Hellings-Downs and the others of
+``models/orf.py``: the static inverse ORF stack ``orf_Ginv``, the
+common process on columns of its own): ragged per-pulsar shapes
 padded to ``(P, Nmax)`` / ``(P, Bmax)``, hyperparameter references
 compiled to integer gathers into ``xe = [x, 0-sentinel, constants]``,
 and ``phi(x)`` as a scatter-add of the per-component variances onto the
@@ -164,6 +167,9 @@ class CompiledPTA:
     red_rhomax: float
     red_shares_gw: bool = True
     orf_name: str = "crn"
+    #: (K, P, P) float64 per-frequency inverse ORF stack of a correlated
+    #: common process (identity on pad pulsars); None for CRN
+    orf_Ginv: torch.Tensor = None
     #: true basis width per real pulsar
     widths: tuple = ()
     #: pulsar names in logical order (empty when the arrays carry none)
@@ -331,6 +337,26 @@ class CompiledPTA:
         return self._logpdf(self.pkind[j], self.pa.to(dt)[j],
                             self.pb.to(dt)[j], v)
 
+    # ---- correlated common process -----------------------------------------
+
+    def orf_ginv_k(self, x=None):
+        """(K, P, P) inverse ORF stack in the compute dtype: the static
+        stack of a fixed ORF (``x`` is unused)."""
+        return self.orf_Ginv.to(self.cdtype)
+
+    def gw_cols_valid(self):
+        """``(cols, valid, ccl)`` of the common process's columns in
+        group-major order ``[sin k=0..K-1 | cos k=0..K-1]``, each (P,
+        2K): the b column of group ``t`` per pulsar (out of range where a
+        pulsar lacks it), the in-range indicator (compute dtype) and
+        indices clipped into range.  A gather through ``ccl`` must be
+        masked by ``valid``: a clipped index can collide with a real
+        column."""
+        cols = torch.cat([self.gw_sin_ix, self.gw_cos_ix], dim=1)
+        valid = ((cols >= 0) & (cols < self.Bmax)).to(self.cdtype)
+        ccl = torch.clamp(cols, 0, self.Bmax - 1)
+        return cols, valid, ccl
+
     # ---- common / red process views ----------------------------------------
 
     @staticmethod
@@ -402,11 +428,27 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
     names under ``pulsars`` where the arrays carry them.  Both sides then
     compute on the same model.  The port covers the CRN model with basis
     ECORR, a free-spectrum or powerlaw common process and free-spectrum
-    or powerlaw intrinsic red noise (or none); any other ORF, PSD or
-    component kind, or kernel ECORR, raises ``NotImplementedError``."""
+    or powerlaw intrinsic red noise (or none), and a common free spectrum
+    under a fixed correlated ORF (``orf_Ginv``); sampled ORF weights
+    (``orf_B``), any other PSD or component kind, or kernel ECORR, raise
+    ``NotImplementedError``."""
     dev = resolve_device(device)
-    if fields.get("orf_name", "crn") != "crn":
-        raise NotImplementedError("correlated ORFs are not in the port yet")
+    orf_name = str(fields.get("orf_name", "crn"))
+    if orf_name != "crn":
+        if fields.get("orf_B") is not None:
+            raise NotImplementedError(
+                f"orf='{orf_name}' samples its correlation weights; that is "
+                "not in the port yet (ROADMAP A.11)")
+        if fields.get("orf_Ginv") is None:
+            raise ValueError(f"orf='{orf_name}' needs its inverse ORF "
+                             "stack 'orf_Ginv'")
+        gcols = np.concatenate([np.asarray(fields["gw_sin_ix"]),
+                                np.asarray(fields["gw_cos_ix"])], axis=1)
+        real = gcols[:int(fields["P_real"])]
+        if not ((real >= 0) & (real < int(fields["Bmax"]))).all():
+            raise NotImplementedError(
+                "correlated ORF requires a homogeneous common mode count "
+                "across pulsars")
     if fields.get("ke_eid") is not None:
         raise NotImplementedError("kernel ECORR is not in the port yet")
     if fields["gw_kind"] not in ("free_spectrum",) + POWERLAW_KINDS:
@@ -462,6 +504,9 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
         red_rhomin=float(fields["red_rhomin"]),
         red_rhomax=float(fields["red_rhomax"]),
         red_shares_gw=bool(fields.get("red_shares_gw", True)),
+        orf_name=orf_name,
+        orf_Ginv=(None if orf_name == "crn" else t(fields["orf_Ginv"],
+                                                   torch.float64)),
         widths=tuple(int(w) for w in fields["widths"]),
         pulsars=tuple(str(p) for p in fields.get("pulsars", ())),
     )

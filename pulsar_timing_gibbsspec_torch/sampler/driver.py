@@ -1,7 +1,7 @@
-"""The CRN Gibbs driver, with the chains as a batch axis.
+"""The Gibbs driver, with the chains as a batch axis.
 
-Port of the CRN path of ``pulsar_timing_gibbsspec_tpu/sampler/
-jax_backend.py::JaxGibbsDriver``, for one pulsar or an array: an initial
+Port of ``pulsar_timing_gibbsspec_tpu/sampler/jax_backend.py::
+JaxGibbsDriver`` for the port's models, one pulsar or an array: an initial
 exact b-draw, ``W`` warmup sweeps (``_warmup_body``), the first-sweep
 adaptation (``_first_sweep``: for the white block and, with basis ECORR,
 the ECORR block, Laplace proposals, a record scan, the moment-matched
@@ -16,7 +16,11 @@ steady sweeps (``_sweep_body``) in the JAX order
     -> Metropolised b-draw (``draw_b_mh``),
 
 with the near-exact ``draw_b_refresh`` in place of ``draw_b_mh`` on every
-iteration ``t`` with ``t % exact_every == 0``.  State is carried as
+iteration ``t`` with ``t % exact_every == 0``.  Under a correlated ORF
+(Hellings-Downs) there are no scale moves, and the b-draw is the
+structured joint draw over all pulsars (``b_joint``: two-float factors
+when ``joint_mixed``), in float64 on every ``exact_every``-th iteration
+(``b_joint_exact``), in the warmup and in the initial draws.  State is carried as
 ``(C, ...)`` tensors on the model's device and every block runs on all
 chains at once, so the kernels see ``C * P`` systems.
 
@@ -60,6 +64,7 @@ import time
 import numpy as np
 import torch
 
+from ..config import settings
 from ..ops.acf import integrated_act_columns
 from . import blocks
 from .blocks import EXACT_EVERY
@@ -272,18 +277,22 @@ class _Records:
 
 
 class TorchGibbsDriver:
-    """Blocked Gibbs over ``nchains`` independent chains of the CRN model
+    """Blocked Gibbs over ``nchains`` independent chains of the model
     ``cm`` (a compiled model on its device: a free-spectrum or powerlaw
-    common process; basis ECORR and free-spectrum or powerlaw intrinsic
-    red noise optional).
+    common process, or a common free spectrum under a fixed correlated
+    ORF; basis ECORR and free-spectrum or powerlaw intrinsic red noise
+    optional).
 
     ``graphs`` (default: on when ``cm`` lives on a card) replays the
     steady sweep from CUDA graphs; ``graphs=False`` runs it eagerly, the
-    check of the graphs against the eager sweep."""
+    check of the graphs against the eager sweep.  ``joint_mixed`` (None:
+    ``settings.joint_mixed``) selects the two-float factors of a
+    correlated ORF's steady joint b-draw; False keeps float64."""
 
     def __init__(self, cm, nchains=1, seed=0, warmup_sweeps=50,
                  white_adapt_iters=1000, red_adapt_iters=2000, red_steps=20,
-                 record_every=1, chunk_size=100, graphs=None):
+                 record_every=1, chunk_size=100, graphs=None,
+                 joint_mixed=None):
         self.cm = cm
         self.C = int(nchains)
         if self.C < 1:
@@ -326,6 +335,10 @@ class TorchGibbsDriver:
         self.do_red_conditional = bool((cm.red_rho_ix_x < cm.nx).any())
         self.do_rho = bool(cm.K and len(cm.rho_ix_x))
         self.do_scale = blocks._rho_scale_applies(cm)
+        #: the correlated-ORF joint b-draw in place of b_mh / b_refresh
+        self.do_joint = cm.orf_name != "crn"
+        self.joint_mixed = (settings.joint_mixed if joint_mixed is None
+                            else bool(joint_mixed))
         self.gen = torch.Generator(device=cm.device)
         self.timer = BlockTimer(cm.device)
         #: block milliseconds of the warmup and adaptation (``timer.ms``
@@ -382,6 +395,13 @@ class TorchGibbsDriver:
         self.red_mh_accepts = torch.zeros(self.C, dtype=torch.float64,
                                           device=cm.device)
         self.red_mh_sweeps = 0
+        #: chains whose joint b-draw was not finite and kept their b,
+        #: summed over draws on the device: [two-float b_joint, float64
+        #: b_joint_exact] (not checkpointed), and their host copy at the
+        #: end of the warmup and adaptation
+        self.b_joint_breakdowns = torch.zeros(2, dtype=torch.int64,
+                                              device=cm.device)
+        self.warmup_breakdowns = [0, 0]
         self._acc_cur = np.zeros((self.C, cm.P))
         self._b_mh_sweeps_cur = 0
         #: (chain, pulsar) Laplace factors of the warmup and adaptation
@@ -413,13 +433,19 @@ class TorchGibbsDriver:
         """Names of a steady sweep's blocks in the JAX order."""
         white = ["white"] if self.do_white and self.aclength_white else []
         ecorr = ["ecorr"] if self.do_ecorr and self.aclength_ecorr else []
-        return white + ecorr + self._hyper_blocks() + [
-            "b_refresh" if exact else "b_mh"]
+        return white + ecorr + self._hyper_blocks() + [self._b_block(exact)]
+
+    def _b_block(self, exact):
+        if self.do_joint:
+            return "b_joint_exact" if exact else "b_joint"
+        return "b_refresh" if exact else "b_mh"
 
     def block(self, name, x, b, u):
         """One steady block on ``(x, b, u)``; returns the new triple.
         ``b_mh`` (``b_refresh``) adds its accept mask to
-        :attr:`b_mh_accepts` (:attr:`b_refresh_accepts`) in place."""
+        :attr:`b_mh_accepts` (:attr:`b_refresh_accepts`) in place, and
+        ``b_joint`` / ``b_joint_exact`` the chains that kept their b to
+        :attr:`b_joint_breakdowns`."""
         cm, gen = self.cm, self.gen
         if name == "white":
             r = cm.y - u
@@ -451,6 +477,16 @@ class TorchGibbsDriver:
         elif name == "b_refresh":
             b, u, acc = blocks.draw_b_refresh(cm, x, b, u, gen)
             self.b_refresh_accepts += acc.to(torch.float64)
+        elif name in ("b_joint", "b_joint_exact"):
+            # the stage-1 factor cache is made here: the blocks between
+            # the red blocks and this one move rho alone, which it does
+            # not read
+            b, ok = blocks.draw_b_joint_structured(
+                cm, x, gen, b, exact=name == "b_joint_exact",
+                mixed=self.joint_mixed)
+            self.b_joint_breakdowns[int(name == "b_joint_exact")] += (
+                ~ok).sum()
+            u = blocks.b_matvec(cm, b)
         else:
             raise ValueError(f"unknown block {name!r}")
         return x, b, u
@@ -473,7 +509,8 @@ class TorchGibbsDriver:
     def _warmup_sweep(self, x, b, u):
         """Pre-adaptation sweep: Laplace random-walk white and ECORR
         sub-chains at the current state, the hyper blocks, the
-        Metropolised refresh."""
+        Metropolised refresh (under a correlated ORF the float64 joint
+        draw: warmup states break the two-float factor)."""
         cm, tm = self.cm, self.timer
         if self.do_white:
             with tm("white"):
@@ -509,8 +546,12 @@ class TorchGibbsDriver:
                         cm.idx.red, self.red_steps)
                 else:
                     x, b, u = self.block(name, x, b, u)
-        with tm("b_refresh"):
-            b, u, _ = blocks.draw_b_refresh(cm, x, b, u, self.gen)
+        name = self._b_block(True)
+        with tm(name):
+            if self.do_joint:
+                x, b, u = self.block(name, x, b, u)
+            else:
+                b, u, _ = blocks.draw_b_refresh(cm, x, b, u, self.gen)
         return x, b, u
 
     def _sweep(self, x, b, u, exact):
@@ -787,6 +828,7 @@ class TorchGibbsDriver:
         self.timer.flush()
         self.warmup_ms = dict(self.timer.ms)
         self.timer.ms.clear()
+        self.warmup_breakdowns = self.b_joint_breakdowns.tolist()
         return x, b, W + 1, wr + 1
 
     def _writeback(self, rec, chain, bchain):

@@ -265,4 +265,6 @@ class PulsarBlockGibbs(_GibbsBase):
 
 class PTABlockGibbs(_GibbsBase):
     """Multi-pulsar blocked Gibbs with a common free spectrum or
-    powerlaw."""
+    powerlaw, or a common free spectrum under a fixed correlated ORF
+    (Hellings-Downs: the joint b-draw over all pulsars; driver option
+    ``joint_mixed``)."""

@@ -63,8 +63,10 @@ def test_from_arrays_carries_the_jax_model():
 
 def test_unsupported_models_are_refused():
     fields = jax_fields(jax_compiled(small_psrs()))
+    # a correlated ORF with sampled weights (fixed ORFs are in the port)
     with pytest.raises(NotImplementedError):
-        from_arrays(dict(fields, orf_name="hd"), device="cpu")
+        from_arrays(dict(fields, orf_name="bin_orf",
+                         orf_B=np.zeros((7, 3, 3))), device="cpu")
     with pytest.raises(NotImplementedError):
         from_arrays(dict(fields, gw_kind="turnover"), device="cpu")
     with pytest.raises(NotImplementedError):
