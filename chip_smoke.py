@@ -4,8 +4,8 @@
 Usage: python3 chip_smoke.py [--seed S] [--outdir DIR] [--steady N]
 
 (``DIR``, default ``build/chip_smoke``, receives the checkpoint
-directories of phases 3b, 4, 6, 7, 8, 8c, 9, 9b, 10 and 10c; ``N``,
-default 240,
+directories of phases 3b, 4, 6, 7, 8, 8c, 9, 9b, 10, 10c, 11, 11c, 12
+and 12c; ``N``, default 240,
 is the steady sweeps of the main paths of phases 4 and 7: a deeper run
 reads what checkpoints cost as the record grows.)
 
@@ -119,7 +119,42 @@ Phases (any failure exits non-zero):
    as captured; (10b) 17 steady sweeps from iteration 296, across the
    refresh at 304, graphed equal to eager bitwise; (10c) 8 chains, 3
    warmup and 32 steady sweeps, a run split at row 20 and resumed equal
-   to the whole run bitwise.
+   to the whole run bitwise;
+11. the array with the standard noise model: ``model_general(psrs,
+   tm_svd=True, white_vary=False, noisedict=nd, common_psd="spectrum",
+   common_components=10, red_psd="powerlaw", red_components=10,
+   dm_var=True, dm_components=10, dm_annual=True)`` on the synthetic
+   45-pulsar array, ``nd`` a noise dictionary in the NANOGrav key format
+   seeded from ``--seed`` (``data.synthetic_noisedict``): fixed EFAC and
+   EQUAD, a DM powerlaw GP on columns of its own, the annual DM sinusoid
+   marginalized (Bmax = 17 + 20 + 20 + 2 = 59, the narrow forms), by
+   ``PTABlockGibbs(nchains=64)`` through 50 warmup sweeps, the
+   adaptation (the float64 narrow factor) and 240 steady sweeps from the
+   graphs, checkpointed every 100, launch counts from 0: samples/s,
+   per-block ms, the adaptation's seconds, red_mh acceptance, capture
+   seconds and pool MB; the gates of 4 and 9 (every record finite,
+   common log10_rho medians inside (-10, -4), every powerlaw hyper's
+   median inside its prior, DM included, the final checkpoint verified,
+   every narrow form run on the card and the graphed ones replayed as
+   captured), and no white or ECORR block in the sweep; (11b) 17 steady
+   sweeps from iteration 296, across the refresh at 304, graphed equal
+   to eager bitwise; (11c) 8 chains, 5 warmup and 64 steady sweeps, a
+   run split at row 38 and resumed equal to the whole run bitwise;
+12. the single pulsar with the NANOGrav single-pulsar noise model:
+   ``model_general([J1713+0747], white_vary=False, noisedict=nd,
+   common_psd="turnover", gamma_common=13/3, common_components=30,
+   red_psd="powerlaw", dm_var=True, dm_components=30, bayesephem=True)``
+   (fixed EFAC/EQUAD, fixed ECORR on 508 columns, the 11 BayesEphem
+   columns: Bmax = 744, the wide forms at an order they had not run at)
+   by ``PulsarBlockGibbs(nchains=8)`` through 50 warmup sweeps, the
+   adaptation (the float64 wide factor) and 480 steady sweeps, so the DE
+   history reads chain rows; the gates of 8 but the rho one, and no
+   white or ECORR block; (12c) a split-and-resumed run bitwise as 7c.
+   Phase 2 also holds and times every kernel form of these two paths at
+   their shapes: the narrow factor (float32 and float64) at 2880 systems
+   of order 59, the narrow Gram's three forms at B1 = 60, and the wide
+   factor (float32 and float64) and the wide Gram's three forms at 8
+   systems of order 744 (B1 = 745).
 
 The kernels' JSON record and the card as ``nvidia-smi`` reports it are
 the two lines before the last; the last line is the JSON result.
@@ -204,6 +239,13 @@ HD_CHAINS, HD_BINS, HD_GRAPH_CHECK_AT = 32, 10, 296
 #: refresh at 16, before the one at 32)
 HD_RESUME_WARMUP, HD_RESUME_STEADY = 3, 32
 HD_FORMS = (("gram_accumulate", "f32_dot_f64_reduce"),)
+#: the array with the standard noise model (phase 11): its frequency
+#: bins and where its graphs-against-eager sweeps start (crossing the
+#: refresh at 304); the single pulsar with the NANOGrav single-pulsar
+#: noise model (phase 12): its bins and steady sweeps (past 384, where
+#: the DE history first reads chain rows)
+N11_BINS, N11_GRAPH_CHECK_AT = 10, 296
+N12_BINS, N12_STEADY = 30, 480
 
 
 def card_line():
@@ -734,9 +776,17 @@ def chol64_parity(cm, x, timer):
     likelihood's systems (``blocks.lnlike_fullmarg_fn``, which the
     powerlaw adaptation runs): ``Sigma = TNT + diag(1/phi)`` from the
     exact widening Gram at a seeded state, ``d``, and ``z = 0`` (the
-    likelihood draws nothing).  Every output within 1e-8 of its scale of
-    the plain float64 chain; timed beside the plain chain and the
-    library chain (``torch.linalg.cholesky`` and ``solve_triangular``)."""
+    likelihood draws nothing).  Every output within ``max(1e-8 scale, 8
+    spread + 64 eps_f64 scale)`` of the plain float64 chain, ``scale``
+    the output's largest magnitude and ``spread`` the largest difference
+    between the plain chain and the library chain (``torch.linalg.
+    cholesky`` and ``solve_triangular``), an independent float64
+    evaluation of the same outputs: where the Jacobi-scaled systems are
+    ill-conditioned two float64 orders of operation differ by more than
+    1e-8 of the scale (the DM GP's low frequencies beside the timing
+    model's DM columns: condition numbers to ~4e8 at order 59), and the
+    kernel is held to that class, as the float32 forms are.  Timed
+    beside the plain chain and the library chain."""
     import torch
 
     from pulsar_timing_gibbsspec_torch.ops import kernels
@@ -759,14 +809,17 @@ def chol64_parity(cm, x, timer):
 
     form = "f64_wide" if n > kernels.CHOL_MAX_N else "f64"
     K, Pl = run_k(), run_p()
+    Lib = library_factor(Sig, d, z, 0.0)
     ok, mae, errs = True, 0.0, {}
-    for name, k, p in zip(("L", "Li", "dj", "mean", "bp"), K, Pl):
+    for name, k, p, q in zip(("L", "Li", "dj", "mean", "bp"), K, Pl, Lib):
         e = (k - p).abs().max().item()
-        tol = 1e-8 * p.abs().max().item()
-        errs[name] = [e, tol]
+        scale = p.abs().max().item()
+        spread = (q - p).abs().max().item()
+        tol = max(1e-8 * scale, 8.0 * spread + 64.0 * EPS["f64"] * scale)
+        errs[name] = [e, spread, tol]
         ok &= bool(torch.isfinite(k).all()) and e <= tol
         mae = max(mae, e)
-    del K, Pl
+    del K, Pl, Lib
     (ms_k, ev_k), (ms_p, ev_p), (lib, ev_lib) = (
         timer(run_k), timer(run_p),
         timer(lambda: library_factor(Sig, d, z, 0.0)))
@@ -774,9 +827,9 @@ def chol64_parity(cm, x, timer):
     bms, bby = bound_ms(Bt * (3 * n * n + 5 * n) * 8,
                         Bt * (2.0 * n ** 3 / 3.0 + 6.0 * n * n), "f64")
     print(f"phase 2 chol_solve_sample[{form}] ({Bt} systems of order {n}, "
-          "the marginalized likelihood's): |kernel - plain| and tolerance "
-          "by output " + json.dumps({k: [float(f"{a:.3e}"), float(f"{b:.3e}")]
-                                     for k, (a, b) in errs.items()})
+          "the marginalized likelihood's): |kernel - plain|, |library - "
+          "plain| and tolerance by output " + json.dumps(
+              {k: [float(f"{v:.3e}") for v in e] for k, e in errs.items()})
           + f" {'ok' if ok else 'FAIL'}; device ms (event ms): kernel "
           f"{ms_k:.4f} ({ev_k:.4f}), plain {ms_p:.4f} ({ev_p:.4f}), "
           f"cholesky+solve_triangular chain {lib:.4f} ({ev_lib:.4f}); bound "
@@ -886,13 +939,13 @@ def graph_against_eager(cm, seed, outdir, facade="PTABlockGibbs",
 
 def resume_check(cm, seed, outdir, facade="PTABlockGibbs", phase="6",
                  warmup=RESUME_WARMUP, steady=RESUME_STEADY, split=None,
-                 **opts):
-    """Phase 6 (7c, 8c): at ``RESUME_CHAINS`` chains of the ``facade``
-    (driver options ``opts``), a run whole and a run split at a chunk
-    boundary (row ``split``, by default halfway) then resumed in a fresh
-    sampler, both through the graphs, write bitwise equal ``chain.npy``
-    and ``bchain.npy``; with a powerlaw block, both runs must read a DE
-    period from chain rows."""
+                 de_gate=False, **opts):
+    """Phase 6 (7c, 8c, 10c, 11c, 12c): at ``RESUME_CHAINS`` chains of
+    the ``facade`` (driver options ``opts``), a run whole and a run split
+    at a chunk boundary (row ``split``, by default halfway) then resumed
+    in a fresh sampler, both through the graphs, write bitwise equal
+    ``chain.npy`` and ``bchain.npy``; with ``de_gate``, both runs must
+    read a DE period from chain rows."""
     import numpy as np
     import torch
 
@@ -927,7 +980,7 @@ def resume_check(cm, seed, outdir, facade="PTABlockGibbs", phase="6",
     de = ""
     if g.driver.do_red_mh:
         periods = (whole.driver.de_chain_periods, g.driver.de_chain_periods)
-        ok &= all(periods)
+        ok &= all(periods) or not de_gate
         de = (f"; DE periods read from chain rows: whole {periods[0]}, "
               f"resumed {periods[1]}")
     print(f"phase {phase} resume, {facade}, at {RESUME_CHAINS} chains, "
@@ -1206,17 +1259,19 @@ def single_pulsar_path(cm, seed, outdir, steady, forms):
 
 
 def powerlaw_path(phase, cm, facade, C, warmup, steady, seed, outdir,
-                  forms, graphed, de_gate=False):
-    """Phases 8, 9, 9b: the ``facade`` on a model with the powerlaw hyper
-    block, ``C`` chains through ``warmup`` sweeps, the adaptation and
-    ``steady`` sweeps replayed from the graphs, checkpointed every
-    ``SAVE_EVERY`` sweeps, with the launch counts set to 0 just before
-    it.  Gates: every record finite; every common log10_rho median (if
-    any) inside (-10, -4) and every powerlaw hyper's median inside its
-    prior; the final checkpoint verified; every kernel form of ``forms``
-    run on the card and each of ``graphed`` replayed as captured times
-    replays; with ``de_gate``, a DE period read from chain rows.  Returns
-    ``(ok, runs, sampler)``."""
+                  forms, graphed, de_gate=False, no_white=False):
+    """Phases 8, 9, 9b, 11, 12: the ``facade`` on a model with the
+    powerlaw hyper block, ``C`` chains through ``warmup`` sweeps, the
+    adaptation and ``steady`` sweeps replayed from the graphs,
+    checkpointed every ``SAVE_EVERY`` sweeps, with the launch counts set
+    to 0 just before it.  Gates: every record finite; every common
+    log10_rho median (if any) inside (-10, -4) and every powerlaw-family
+    hyper's median (chromatic GPs' too) inside its prior; the final
+    checkpoint verified; every kernel form of ``forms`` run on the card
+    and each of ``graphed`` replayed as captured times replays; with
+    ``de_gate``, a DE period read from chain rows; with ``no_white``
+    (fixed white noise), no white or ECORR block in the steady sweep.
+    Returns ``(ok, runs, sampler)``."""
     import numpy as np
     import torch
 
@@ -1253,7 +1308,8 @@ def powerlaw_path(phase, cm, facade, C, warmup, steady, seed, outdir,
           f"{' ...' if cm.P_real > 2 else ''}; P {cm.P_real}, Bmax {cm.Bmax},"
           f" nx {cm.nx}, common {cm.gw_kind}, red {cm.red_kind}, "
           f"{len(red)} powerlaw hypers): {niter} rows x {C} chains in "
-          f"{wall:.1f} s (warmup {warmup}); white sub-chain "
+          f"{wall:.1f} s (warmup {warmup}); sweep "
+          f"{drv.sweep_blocks(False)}; white sub-chain "
           f"{drv.aclength_white} steps, ECORR {drv.aclength_ecorr}; steady "
           f"{drv.steady_sweeps} sweeps in {drv.steady_seconds:.3f} s = "
           f"{sps:.3f} sweeps/s = {sps * C:.1f} samples/s", flush=True)
@@ -1279,6 +1335,8 @@ def powerlaw_path(phase, cm, facade, C, warmup, steady, seed, outdir,
           + json.dumps({cm.param_names[j]: round(float(m), 3)
                         for j, m in list(zip(red, med_red))[:8]})
           + (f" ... ({len(red)})" if len(red) > 8 else "")
+          + "; by hyper over pulsars (min, median, max) " + json.dumps(
+              by_hyper(cm, red, med_red))
           + "; common log10_rho medians " + json.dumps(
               [round(float(v), 3) for v in med_rho]), flush=True)
     print_counts(phase, counts)
@@ -1287,16 +1345,35 @@ def powerlaw_path(phase, cm, facade, C, warmup, steady, seed, outdir,
                   and ((med_red > pa) & (med_red < pb)).all())
     saved = rep["ok"] and rep["rows"] == niter and graphs.graphed
     de = bool(drv.de_chain_periods) or not de_gate
+    white = not (no_white and {"white", "ecorr"} & set(
+        drv.sweep_blocks(False) + drv.sweep_blocks(True)))
     ok = (finite and inside and not missing and not unreplayed
-          and not unaccounted and saved and de)
+          and not unaccounted and saved and de and white)
     if not ok:
         print(f"chip_smoke: powerlaw path {phase} failed (finite={finite}, "
               f"medians inside the priors={inside}, never run={missing}, "
               f"not replayed as captured={unreplayed}, runs other than "
               f"eager launches plus replays={unaccounted}, verified "
               f"checkpoint through the graphs={saved}, DE periods from "
-              f"chain rows={drv.de_chain_periods})", file=sys.stderr)
+              f"chain rows={drv.de_chain_periods}, no white or ECORR "
+              f"block={white})", file=sys.stderr)
     return ok, counts[0], g
+
+
+def by_hyper(cm, cols, med):
+    """``{hyper: [min, median, max]}`` of the chains' medians ``med`` of
+    the parameters ``cols`` over pulsars, a hyper being a parameter's name
+    without its pulsar (``red_noise_log10_A``, ``dm_gp_gamma``; a common
+    one keeps its name)."""
+    import numpy as np
+
+    groups = {}
+    for j, m in zip(cols, med):
+        nm = cm.param_names[j]
+        key = nm if nm.startswith("gw_") else nm.split("_", 1)[1]
+        groups.setdefault(key, []).append(float(m))
+    return {k: [round(float(f(v)), 3) for f in (np.min, np.median, np.max)]
+            for k, v in groups.items()}
 
 
 def hd_path(cm, seed, outdir, steady):
@@ -1413,7 +1490,7 @@ def main(argv=None):
     try:
         import pulsar_timing_gibbsspec_torch as ptt
         from pulsar_timing_gibbsspec_torch.data import (
-            load_enterprise_snapshot, synthetic_array)
+            load_enterprise_snapshot, synthetic_array, synthetic_noisedict)
         from pulsar_timing_gibbsspec_torch.ops import kernels
         from pulsar_timing_gibbsspec_torch.ops.kernels import build
         from pulsar_timing_gibbsspec_torch.runtime import integrity
@@ -1472,6 +1549,31 @@ def main(argv=None):
           f"{cm_hd.K}), red {cm_hd.red_kind} ({cm_hd.Kr}), red on its own "
           f"columns {not cm_hd.red_shares_gw}, {HD_CHAINS} chains",
           flush=True)
+    # the standard noise model: the array (phase 11) and the single
+    # pulsar with the NANOGrav single-pulsar noise model (phase 12), white
+    # noise fixed from seeded noise dictionaries
+    cm_n11 = ptt.model_general(
+        psrs, tm_svd=True, white_vary=False,
+        noisedict=synthetic_noisedict(psrs, args.seed, ecorr=False),
+        common_psd="spectrum", common_components=N11_BINS,
+        red_psd="powerlaw", red_components=N11_BINS, dm_var=True,
+        dm_components=N11_BINS, dm_annual=True, device=dev)
+    cm_n12 = ptt.model_general(
+        [snap], white_vary=False,
+        noisedict=synthetic_noisedict([snap], args.seed),
+        common_psd="turnover", gamma_common=13.0 / 3.0,
+        common_components=N12_BINS, red_psd="powerlaw",
+        red_components=N12_BINS, dm_var=True, dm_components=N12_BINS,
+        bayesephem=True, device=dev)
+    for nm, m in (("11", cm_n11), ("12", cm_n12)):
+        print(f"standard noise model, phase {nm}: P={m.P} Nmax={m.Nmax} "
+              f"Bmax={m.Bmax} nx={m.nx}, common {m.gw_kind} ({m.K}), red "
+              f"{m.red_kind} ({m.Kr}), components "
+              f"{[c.kind for c in m.components]}, {len(m.idx.red)} "
+              f"powerlaw-family hypers, {len(m.idx.white)} white and "
+              f"{len(m.idx.ecorr)} ECORR parameters sampled, "
+              f"{m.ec_cols.shape[1]} ECORR columns, {m.const_pool.numel()} "
+              "constants", flush=True)
     x = parity_state(cm, C, gen)
     records, ok_g = gram_parity(cm, x, time_ms)
     rec_c, ok_c = chol_parity(cm, x, gen, time_ms)
@@ -1493,10 +1595,24 @@ def main(argv=None):
     hd_records, ok_hd = gram_parity(
         cm_hd, parity_state(cm_hd, HD_CHAINS, gen), time_ms,
         forms=("f32_dot_f64_reduce",))
+    # the standard noise model's shapes (their own records): the narrow
+    # forms at order 59 / B1 = 60, the wide ones at order 744 / B1 = 745
+    ok_n = True
+    noise_records = {}
+    for nm, m, nc in (("11", cm_n11, C), ("12", cm_n12, SINGLE_CHAINS)):
+        xn = parity_state(m, nc, gen)
+        recs, ok = gram_parity(m, xn, time_ms)
+        for rec, good in (chol_parity(m, xn, gen, time_ms),
+                          chol64_parity(m, xn, time_ms)):
+            recs.update(rec)
+            ok &= good
+        noise_records[nm] = recs
+        ok_n &= ok
+        del xn
     del x, x1
     torch.cuda.empty_cache()
     if not (ok_g and ok_c and ok_g1 and ok_c1 and ok_f64 and ok_f64w
-            and ok_hd):
+            and ok_hd and ok_n):
         print("chip_smoke: kernel parity failed", file=sys.stderr)
         return 1
     if not small_agreement(dev, args.seed):
@@ -1638,7 +1754,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     if not resume_check(cm_r1, args.seed, outdir / "r1_resume",
                         "PulsarBlockGibbs", "8c", steady=R1_RESUME_STEADY,
-                        split=R1_RESUME_SPLIT,
+                        split=R1_RESUME_SPLIT, de_gate=True,
                         red_adapt_iters=R1_RESUME_ADAPT):
         print("chip_smoke: the resumed R1 run differs from the whole one",
               file=sys.stderr)
@@ -1678,6 +1794,45 @@ def main(argv=None):
         print("chip_smoke: the resumed Hellings-Downs run differs from the "
               "whole one", file=sys.stderr)
         return 1
+    torch.cuda.empty_cache()
+
+    # ---- phases 11-12c: the standard noise model, launch counts from 0 -----
+    ok11, runs11, g11 = powerlaw_path("11", cm_n11, "PTABlockGibbs", C,
+                                      WARMUP, args.steady, args.seed,
+                                      outdir / "n11", narrow64, GRAPHED,
+                                      no_white=True)
+    if not ok11:
+        return 1
+    drv11 = g11.driver
+    if not graphs_vs_eager(drv11, torch.as_tensor(drv11.x_cur, device=dev),
+                           drv11.b.to(dev), N11_GRAPH_CHECK_AT, "11b",
+                           "PTABlockGibbs, standard noise model, across the "
+                           "refresh at 304"):
+        print("chip_smoke: the standard noise model's graph replay differs "
+              "from the eager sweep", file=sys.stderr)
+        return 1
+    del g11, drv11
+    torch.cuda.empty_cache()
+    if not resume_check(cm_n11, args.seed, outdir / "n11_resume",
+                        "PTABlockGibbs", "11c"):
+        print("chip_smoke: the resumed standard-noise array run differs "
+              "from the whole one", file=sys.stderr)
+        return 1
+    ok12, runs12, _ = powerlaw_path("12", cm_n12, "PulsarBlockGibbs",
+                                    SINGLE_CHAINS, WARMUP, N12_STEADY,
+                                    args.seed, outdir / "n12", wide64,
+                                    WIDE_GRAPHED, de_gate=True,
+                                    no_white=True)
+    if not ok12:
+        return 1
+    torch.cuda.empty_cache()
+    if not resume_check(cm_n12, args.seed, outdir / "n12_resume",
+                        "PulsarBlockGibbs", "12c"):
+        print("chip_smoke: the resumed NANOGrav single-pulsar run differs "
+              "from the whole one", file=sys.stderr)
+        return 1
+    noise_runs = {"11": runs11, "12": runs12}
+    noise_models = {"11": cm_n11, "12": cm_n12}
 
     print("phase 1 kernel resources (cuobjdump -res-usage: registers, "
           "stack frame bytes, static shared memory bytes): " + (json.dumps(
@@ -1696,7 +1851,13 @@ def main(argv=None):
         dict(name=f"{k}[{f}] (Hellings-Downs path, B1 {cm_hd.Bmax + 1})",
              route="cuda", source=SOURCES[k][0], replaces=REPLACES[k],
              launches=runs10[(k, f)], **r)
-        for (k, f), r in hd_records.items()]}))
+        for (k, f), r in hd_records.items()] + [
+        dict(name=f"{k}[{f}] (phase {nm} path, order "
+             f"{noise_models[nm].Bmax})", route="cuda",
+             source=SOURCES[k][f.endswith("_wide")], replaces=REPLACES[k],
+             launches=noise_runs[nm][(k, f)], **r)
+        for nm, recs in noise_records.items()
+        for (k, f), r in recs.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

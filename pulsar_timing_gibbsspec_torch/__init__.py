@@ -1,8 +1,11 @@
 """PyTorch/CUDA port of the blocked Gibbs free-spectrum PTA sampler.
 
-The CRN models of the JAX package (``pulsar_timing_gibbsspec_tpu``):
-a free-spectrum or powerlaw common process, free-spectrum or powerlaw
-intrinsic red noise, for one pulsar (with basis ECORR) or an array,
+The models of the JAX package's ``model_general``
+(``pulsar_timing_gibbsspec_tpu``): a free-spectrum or powerlaw-family
+common process (uncorrelated, or a free spectrum under a fixed
+correlated ORF), free-spectrum or powerlaw intrinsic red noise,
+chromatic DM and scattering GPs, ``dm_annual``, BayesEphem, and sampled
+or fixed white noise with basis ECORR, for one pulsar or an array,
 built from pulsar records and sampled on an NVIDIA H100 with the chains
 as a batch axis; the two Pallas kernels of the JAX package
 are hand-written CUDA here (``ops/kernels``).  Entry points run on

@@ -120,3 +120,26 @@ def synthetic_array(npsr: int = 45, seed: int = 0, ntoa_min: int = 71,
             fitpars=[f"tm{k}" for k in range(M.shape[1])],
             flags={"pta": ""}, pos=v / np.linalg.norm(v)))
     return psrs
+
+
+def synthetic_noisedict(psrs, seed: int = 0, ecorr: bool = True,
+                        gequad: bool = False) -> dict:
+    """A seeded noise dictionary in the NANOGrav key format for fixed
+    white noise (``model_general(white_vary=False, noisedict=...)``):
+    per pulsar and backend ``<pulsar>_<backend>_efac`` in [0.8, 1.3],
+    ``..._log10_tnequad`` in [-8, -6.5] and, with ``ecorr``,
+    ``..._log10_ecorr`` in [-8, -6.5]; with ``gequad``,
+    ``<pulsar>_log10_gequad`` in [-8, -7].  Every value lies inside the
+    priors the varied parameters would have."""
+    rng = np.random.default_rng(seed)
+    nd = {}
+    for p in psrs:
+        for lab in p.backends():
+            stem = f"{p.name}_{lab}" if lab else p.name
+            nd[f"{stem}_efac"] = float(rng.uniform(0.8, 1.3))
+            nd[f"{stem}_log10_tnequad"] = float(rng.uniform(-8.0, -6.5))
+            if ecorr:
+                nd[f"{stem}_log10_ecorr"] = float(rng.uniform(-8.0, -6.5))
+        if gequad:
+            nd[f"{p.name}_log10_gequad"] = float(rng.uniform(-8.0, -7.0))
+    return nd

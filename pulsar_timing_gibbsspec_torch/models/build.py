@@ -1,60 +1,118 @@
-"""Build the compiled CRN model straight from pulsar arrays.
+"""Build the compiled model straight from pulsar arrays.
 
-The subset of the JAX package's ``models/factory.py::model_general``
-followed by ``sampler/compiled.py::compile_pta`` that the port samples:
+The port's form of the JAX package's ``models/factory.py::model_general``
+followed by ``sampler/compiled.py::compile_pta``: the per-pulsar signal
+model of ``model_general`` (timing model, common process, intrinsic red
+noise, chromatic DM and scattering GPs, the annual DM sinusoid,
+BayesEphem, white noise and basis ECORR), laid out and compiled into the
+padded arrays, parameter order (sorted by name, vectors expanded in
+place), constant pool and index tables of ``compile_pta``, field by
+field.
 
-    model_general(psrs, tm_svd=..., white_vary=True,
-                  common_psd="spectrum" | "powerlaw", common_components=K,
-                  red_var=..., red_psd="spectrum" | "powerlaw",
-                  red_components=Kr, is_wideband=...,
-                  upper_limit=..., upper_limit_red=...,
-                  upper_limit_common=..., orf="crn" | fixed ORF,
-                  orf_ifreq=...)
+Per pulsar the basis is ``[timing model | dm_annual | bayesephem |
+Fourier | chromatic | ECORR]``:
 
-a timing-model basis with marginalized (``BIG_PHI``) columns (SVD, or
-the column-normalized design matrix of ``tm_norm``'s default), a common
-process (free spectrum, or a powerlaw with ``log10_A`` ~ U(-18, -11) and
-``gamma`` ~ U(0, 7)), optionally a per-pulsar red process sharing the
-Fourier columns (free spectrum, or a powerlaw with ``log10_A`` ~ U(-20,
--11)); an upper-limit flag makes an amplitude prior LinearExp over the
-same bounds, per-backend EFAC/EQUAD, and, for a pulsar whose ``pta`` flag names
-NANOGrav (unless ``is_wideband``), per-backend basis ECORR: one column
-per observing epoch per backend (TOAs grouped into epochs of at most 10
-days), with prior variance ``10^(2 log10_ecorr)`` of its backend.  The
-basis is laid out ``[timing model | Fourier | ECORR]``.  Under a
-correlated ORF (``orf="hd"`` and the other fixed ORFs of
-:mod:`.orf`) the common free spectrum ``gw_<orf>_log10_rho`` gets
-Fourier columns of its own ahead of the red process's, ``[timing model
-| common | red | ECORR]``, and the compiled model carries the
-per-frequency inverse ORF stack ``orf_Ginv`` (K, P, P), identity on pad
-pulsars.  The arrays,
-parameter order (sorted by parameter name, vectors expanded in place),
-constant pool and padding are those of ``compile_pta``, field by field.
+- the timing model (SVD, or the column-normalized design matrix of
+  ``tm_norm``'s default), the two ``nu^-2`` sin/cos columns of
+  ``dm_annual`` and the 11 sigma-scaled ephemeris columns of
+  ``bayesephem`` (:mod:`.ephem`) are static, marginalized columns whose
+  prior variance ``phi_base`` is constant: 1e40 clipped to ``BIG_PHI``
+  for the first two, 1 for the ephemeris;
+- the common process and intrinsic red noise share the Fourier columns
+  (the widest donates its basis), except under a correlated ORF, where
+  the common free spectrum keeps columns of its own ahead of the red
+  noise's; their PSD is a free spectrum or one of the powerlaw family
+  (``powerlaw``, ``turnover``, ``turnover_knee``, ``broken_powerlaw``,
+  and ``powerlaw_breakflat`` for ``red_breakflat``), whose shape
+  hypers beyond ``(log10_A, gamma)`` are constants;
+- each chromatic GP (``dm_var``: ``(1400/nu)^2``; ``dm_chrom``:
+  ``(1400/nu)^dmchrom_idx``) has columns of its own and a powerlaw-
+  family PSD whose ``log10_A``/``gamma`` join the powerlaw hyper block;
+- basis ECORR (a NANOGrav-flagged pulsar, unless ``is_wideband``): one
+  column per observing epoch (TOAs within 10 days) per backend.
+
+White noise is per-backend EFAC/EQUAD (and a global ``gequad``), with
+ECORR sampled under ``white_vary=True`` and otherwise fixed from a noise
+dictionary (``<pulsar>_<backend>_efac``, ``..._log10_tnequad``,
+``..._log10_ecorr``, ``<pulsar>_log10_gequad``; 1.0 and -40 where a key
+is missing).  Fixed values and constant shape hypers live in the
+constant pool, in ``compile_pta``'s order.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
 from ..data.dataset import get_tspan
 from ..data.fourier import DAY, fourier_basis
 from ..sampler.compiled import BIG_PHI, PHI_FLOOR, from_arrays
+from .ephem import bayesephem_basis
 from .orf import orf_ginv_stack, refuse_sampled_weights
 
-#: prior bounds of the model's parameters (model_general's defaults)
-_RHO_BOUNDS = (-10.0, -4.0)
-_GW_AMP_BOUNDS = (-18.0, -11.0)
-_RED_AMP_BOUNDS = (-20.0, -11.0)
-_GAMMA_BOUNDS = (0.0, 7.0)
-_EFAC_BOUNDS = (0.01, 10.0)
-_EQUAD_BOUNDS = (-8.5, -5.0)
-_ECORR_BOUNDS = (-8.5, -5.0)
 #: widest ECORR epoch (``EcorrBasisSignal``'s ``dt_days``)
 ECORR_DT_DAYS = 10.0
 #: prior kinds as the compiled ``pkind`` codes them
 UNIFORM, NORMAL, LINEAR_EXP = 0, 1, 2
-#: the PSDs of the common and red processes the port builds
-PSDS = ("spectrum", "powerlaw")
+#: the powerlaw family's hypers, in the order their PSDs take them
+PSD_HYPERS = {
+    "powerlaw": ("log10_A", "gamma"),
+    "turnover": ("log10_A", "gamma", "lf0", "kappa"),
+    "turnover_knee": ("log10_A", "gamma", "lfb", "lfk", "kappa", "delta"),
+    "broken_powerlaw": ("log10_A", "gamma", "delta", "log10_fb", "kappa"),
+}
+#: the constant values of the shape hypers beyond (log10_A, gamma)
+PSD_SHAPE_DEFAULTS = {
+    "turnover": {"lf0": -8.5, "kappa": 10.0 / 3.0},
+    "turnover_knee": {"lfb": -8.5, "lfk": -8.0, "kappa": 10.0 / 3.0,
+                      "delta": 0.1},
+    "broken_powerlaw": {"delta": 0.0, "log10_fb": -8.5, "kappa": 0.1},
+}
+#: the year of ``dm_annual``'s sinusoid [s]
+YEAR = 365.25 * 86400.0
+#: the queue item of the frequency-grid and selection options
+_GRID_ITEM = "ROADMAP A.17"
+
+
+@dataclasses.dataclass(frozen=True)
+class _Par:
+    """A sampled parameter: ``size`` entries (None: a scalar) under a
+    prior of kind ``kind`` with bounds ``(lo, hi)``."""
+
+    name: str
+    size: int | None
+    kind: int
+    lo: float
+    hi: float
+
+
+@dataclasses.dataclass(frozen=True)
+class _Fixed:
+    """A constant parameter (enterprise's ``Constant``)."""
+
+    name: str
+    value: float
+
+
+@dataclasses.dataclass
+class _Signal:
+    """One basis signal of a pulsar: ``group`` is ``"static"``, a share
+    group of Fourier signals, ``"chrom"`` or ``"ecorr"``; ``psd`` the
+    compiled component kind of a GP; ``f``/``df`` its per-column
+    frequencies and bin widths; ``params`` its PSD's parameters in the
+    PSD's order (ECORR: one per backend, ``owners`` naming each
+    column's)."""
+
+    name: str
+    group: str
+    T: np.ndarray
+    phi: float = 0.0
+    psd: str = ""
+    f: np.ndarray = None
+    df: np.ndarray = None
+    params: list = dataclasses.field(default_factory=list)
+    owners: list = dataclasses.field(default_factory=list)
 
 
 def _bin_widths(f):
@@ -108,117 +166,317 @@ def _timing_basis(M, tm_svd):
     return np.linalg.svd(Mn, full_matrices=False)[0] if tm_svd else Mn
 
 
-def _amp_priors(upper_limit, upper_limit_red, upper_limit_common):
-    """``(red, common)`` amplitude prior kinds of the factory: with no
-    per-class flag both follow ``upper_limit``; once one is given, each
-    is LinearExp only under its own flag."""
-    if upper_limit_red is None and upper_limit_common is None:
-        kind = LINEAR_EXP if upper_limit else UNIFORM
-        return kind, kind
-    return (LINEAR_EXP if upper_limit_red else UNIFORM,
-            LINEAR_EXP if upper_limit_common else UNIFORM)
+def _amp_priors(upper_limit, upper_limit_red, upper_limit_common,
+                upper_limit_dm):
+    """``(red, common, dm, any)`` amplitude prior kinds of the factory:
+    with no per-class flag every class follows ``upper_limit``; once one
+    is given, each is LinearExp only under its own flag (``any``, the
+    scattering GP's, always follows ``upper_limit``)."""
+    glob = LINEAR_EXP if upper_limit else UNIFORM
+    if (upper_limit_red is None and upper_limit_common is None
+            and upper_limit_dm is None):
+        return glob, glob, glob, glob
+    return tuple(LINEAR_EXP if flag else UNIFORM for flag in (
+        upper_limit_red, upper_limit_common, upper_limit_dm)) + (glob,)
 
 
-def model_arrays(psrs, *, tm_svd=False, common_psd="spectrum",
-                 common_components=30, red_var=True, red_psd="spectrum",
-                 red_components=30, is_wideband=False, upper_limit=False,
-                 upper_limit_red=None, upper_limit_common=None,
-                 orf="crn", orf_ifreq=0, pad_pulsars=None) -> dict:
+def _gp(name, group, toas, ncomp, Tspan, psd, params, chrom=None):
+    """A Fourier-basis GP signal; ``chrom = (radio_freqs, index)`` scales
+    its rows by ``(1400 / nu)^index``."""
+    F, f = fourier_basis(toas / DAY, ncomp, Tspan)
+    if chrom is not None:
+        scale = (1400.0 / np.asarray(chrom[0])) ** float(chrom[1])
+        F = F * scale[:, None]
+    return _Signal(name, group, F, psd=psd, f=f, df=_bin_widths(f),
+                   params=params)
+
+
+def _powerlaw_params(stem, psd, amp_kind, amp_bounds, log10_A=None,
+                     gamma=None):
+    """``[log10_A, gamma, shape constants...]`` of a powerlaw-family PSD:
+    a sampled amplitude (or the constant ``log10_A``), a U(0, 7) index
+    (or the constant ``gamma``), and ``psd``'s shape constants."""
+    ps = [_Fixed(f"{stem}_log10_A", log10_A) if log10_A is not None
+          else _Par(f"{stem}_log10_A", None, amp_kind, *amp_bounds),
+          _Fixed(f"{stem}_gamma", gamma) if gamma is not None
+          else _Par(f"{stem}_gamma", None, UNIFORM, 0.0, 7.0)]
+    for hyper in PSD_HYPERS[psd][2:]:
+        ps.append(_Fixed(f"{stem}_{hyper}", PSD_SHAPE_DEFAULTS[psd][hyper]))
+    return ps
+
+
+def _white(p, labels, white_vary, noisedict, gequad):
+    """``(efac, equad, ecorr, gequad)`` parameters of one pulsar's white
+    noise, the first three by backend label."""
+    nd = noisedict or {}
+    efac, equad, ecorr = {}, {}, {}
+    for lab in labels:
+        stem = f"{p.name}_{lab}" if lab else p.name
+        names = (f"{stem}_efac", f"{stem}_log10_tnequad",
+                 f"{stem}_log10_ecorr")
+        if white_vary:
+            efac[lab] = _Par(names[0], None, UNIFORM, 0.01, 10.0)
+            equad[lab] = _Par(names[1], None, UNIFORM, -8.5, -5.0)
+            ecorr[lab] = _Par(names[2], None, UNIFORM, -8.5, -5.0)
+        else:
+            efac[lab] = _Fixed(names[0], nd.get(names[0], 1.0))
+            equad[lab] = _Fixed(names[1], nd.get(names[1], -40.0))
+            ecorr[lab] = _Fixed(names[2], nd.get(names[2], -40.0))
+    geq = None
+    if gequad:
+        gname = f"{p.name}_log10_gequad"
+        geq = (_Par(gname, None, UNIFORM, -8.5, -5.0) if white_vary
+               else _Fixed(gname, nd.get(gname, -40.0)))
+    return efac, equad, ecorr, geq
+
+
+def _pulsar_model(p, o, Tspan, common):
+    """One pulsar's signals in ``model_general``'s order and its white
+    noise: ``(signals, labels, masks, (efac, equad, ecorr, gequad))``."""
+    toas = p.toas
+    sigs = [_Signal("linear_timing_model", "static",
+                    _timing_basis(p.Mmat, o["tm_svd"]), phi=1e40)]
+    orf = o["orf"]
+    sigs.append(_gp(f"gw_{orf}", "fourier" if orf == "crn" else f"gw_{orf}",
+                    toas, o["common_components"], Tspan, *common))
+    if o["red_var"]:
+        rname = f"{p.name}_red_noise"
+        red_psd = o["red_psd"]
+        if red_psd == "spectrum":
+            psd = "free_spectrum"
+            ps = [_Par(f"{rname}_log10_rho", o["red_components"], UNIFORM,
+                      -10.0, -4.0)]
+        else:
+            psd = "powerlaw_breakflat" if o["red_breakflat"] else "powerlaw"
+            ps = _powerlaw_params(rname, "powerlaw", o["amp"][0],
+                                  (-20.0, -11.0))
+            if o["red_breakflat"]:
+                ps.append(_Fixed(f"{rname}_log10_fb",
+                                np.log10(o["red_breakflat_fq"])))
+        sigs.append(_gp(rname, "fourier", toas, o["red_components"], Tspan,
+                        psd, ps))
+    for on, suffix, psd, index, amp in (
+            (o["dm_var"], "dm_gp", o["dm_psd"], 2.0, o["amp"][2]),
+            (o["dm_chrom"], "chrom_gp", o["dmchrom_psd"], o["dmchrom_idx"],
+             o["amp"][3])):
+        if on:
+            cname = f"{p.name}_{suffix}"
+            sigs.append(_gp(cname, "chrom", toas, o["dm_components"], Tspan,
+                            psd, _powerlaw_params(cname, psd, amp,
+                                                  (-20.0, -11.0)),
+                            chrom=(p.freqs, index)))
+    if o["dm_annual"]:
+        w = 2.0 * np.pi / YEAR
+        scale = (1400.0 / np.asarray(p.freqs)) ** 2
+        sigs.append(_Signal("dm_annual", "static", np.column_stack(
+            [np.sin(w * toas), np.cos(w * toas)]) * scale[:, None],
+            phi=1e40))
+    if o["bayesephem"]:
+        sigs.append(_Signal("bayesephem", "static", bayesephem_basis(
+            toas, p.pos, be_type=o["be_type"]), phi=1.0))
+    labels = sorted(set(p.backend_flags.tolist()))
+    masks = {lab: p.backend_flags == lab for lab in labels}
+    white = _white(p, labels, o["white_vary"], o["noisedict"], o["gequad"])
+    if _has_ecorr(p, o["is_wideband"]):
+        U, owners = _ecorr_basis(toas, labels, masks)
+        sigs.append(_Signal("basis_ecorr", "ecorr", U,
+                            params=[white[2][lab] for lab in labels],
+                            owners=owners))
+    return sigs, labels, masks, white
+
+
+def _layout(sigs):
+    """``(ordered, slices, T)``: the signals in basis order (static,
+    Fourier share groups with the widest member donating, chromatic,
+    ECORR), each one's column slice, and the stacked basis."""
+    static = [s for s in sigs if s.group == "static"]
+    fourier = [s for s in sigs if s.group not in ("static", "chrom",
+                                                  "ecorr")]
+    rest = [s for s in sigs if s.group in ("chrom", "ecorr")]
+    blocks, slices, off = [], {}, 0
+    for s in static:
+        blocks.append(s.T)
+        slices[s.name] = slice(off, off + s.T.shape[1])
+        off += s.T.shape[1]
+    groups = {}
+    for s in fourier:
+        groups.setdefault(s.group, []).append(s)
+    for members in groups.values():
+        widths = [s.T.shape[1] for s in members]
+        blocks.append(members[int(np.argmax(widths))].T)
+        for s in members:
+            slices[s.name] = slice(off, off + s.T.shape[1])
+        off += max(widths)
+    for s in rest:
+        blocks.append(s.T)
+        slices[s.name] = slice(off, off + s.T.shape[1])
+        off += s.T.shape[1]
+    return static + fourier + rest, slices, np.hstack(blocks)
+
+
+def _refuse(o):
+    """What ``model_general`` refuses, with the JAX package's messages,
+    and the options the port does not take yet, naming their ROADMAP
+    item."""
+    if o["tm_var"] or o["tm_linear"] or o["tmparam_list"] is not None:
+        raise NotImplementedError(
+            "tm_var/tm_linear: the reference's committed model_general "
+            "never assigns a timing-model signal when tm_var=True "
+            "(model_definition.py:185-190, NameError at PTA assembly), so "
+            "there is no working behavior to match; the linear timing "
+            "model here is always marginalized exactly in the b-draw")
+    if o["use_dmdata"]:
+        raise NotImplementedError(
+            "use_dmdata requires wideband DM measurements "
+            "(WidebandTimingModel); the par/tim ingestion layer models "
+            "narrowband TOAs only")
+    if o["dm_type"] != "gp":
+        raise NotImplementedError(
+            f"dm_type={o['dm_type']!r}: only the Gaussian-process DM model "
+            "is implemented (the reference's other choices route through "
+            "additional enterprise options it never exercises)")
+    if o["red_psd"] == "tprocess_adapt":
+        raise NotImplementedError(
+            "red_psd='tprocess_adapt' (single adaptively-located alpha) is "
+            "not implemented; red_psd='tprocess' gives the full "
+            "per-frequency t-process with exact conjugate alpha draws")
+    if o["red_breakflat"] and o["red_breakflat_fq"] is None:
+        raise ValueError("red_breakflat=True requires red_breakflat_fq [Hz]")
+    orfs = set(o["orf"].split(","))
+    if len(orfs) > 1 and orfs - {"crn"}:
+        raise NotImplementedError(f"mixed common-process ORFs {orfs}")
+    grid = {"Tspan": o["Tspan"] is not None, "modes": o["modes"] is not None,
+            "wgts": o["wgts"] is not None, "logfreq": o["logfreq"],
+            "pshift": o["pshift"], "red_select": o["red_select"] is not None,
+            "select": o["select"] != "backend",
+            "tm_norm=False": not (o["tm_norm"] or o["tm_svd"]),
+            "orf_names": o["orf_names"] is not None,
+            "several common processes": "," in o["orf"]}
+    asked = [k for k, v in grid.items() if v]
+    if asked:
+        raise NotImplementedError(
+            f"{', '.join(asked)}: the frequency-grid and selection options "
+            f"of model_general are not in the port yet ({_GRID_ITEM})")
+    if o["common_psd"] not in ("spectrum",) + tuple(PSD_HYPERS):
+        raise NotImplementedError(f"common_psd='{o['common_psd']}'")
+    if o["red_var"]:
+        red_psd = o["red_psd"]
+        if red_psd in ("tprocess", "infinitepower"):
+            raise NotImplementedError(
+                f"red_psd={red_psd!r} is not in the port yet (ROADMAP A.8)")
+        if o["red_breakflat"] and red_psd != "powerlaw":
+            raise NotImplementedError(
+                "red_breakflat applies to red_psd='powerlaw'")
+        if red_psd != "spectrum" and (red_psd not in PSD_HYPERS
+                                      or PSD_HYPERS[red_psd][2:]):
+            raise NotImplementedError(f"red_psd='{red_psd}'")
+    for on, suffix, psd in ((o["dm_var"], "dm_gp", o["dm_psd"]),
+                            (o["dm_chrom"], "chrom_gp", o["dmchrom_psd"])):
+        if on and psd not in PSD_HYPERS:
+            raise NotImplementedError(
+                f"{suffix} psd='{psd}': chromatic GPs support the "
+                "powerlaw-family PSDs (their amplitude/index hypers "
+                "join the adaptive MH block; a free-spectrum chromatic "
+                "block has no conditional sampler)")
+    if o["orf"] != "crn":
+        _refuse_orf(o["orf"], o["common_psd"])
+
+
+#: model_arrays' options and their defaults (the array model of the
+#: repository's tests; :func:`model_general` passes its own)
+_DEFAULTS = dict(
+    tm_var=False, tm_linear=False, tmparam_list=None, tm_svd=False,
+    tm_norm=True, noisedict=None, white_vary=True, Tspan=None, modes=None,
+    wgts=None, logfreq=False, nmodes_log=10, common_psd="spectrum",
+    common_components=30, log10_A_common=None, gamma_common=None,
+    common_logmin=None, common_logmax=None, orf="crn", orf_names=None,
+    orf_ifreq=0, leg_lmax=5, upper_limit_common=None, upper_limit=False,
+    red_var=True, red_psd="spectrum", red_components=30,
+    upper_limit_red=None, red_select=None, red_breakflat=False,
+    red_breakflat_fq=None, bayesephem=False, be_type="setIII_1980",
+    is_wideband=False, use_dmdata=False, dm_var=False, dm_type="gp",
+    dm_psd="powerlaw", dm_components=30, upper_limit_dm=None,
+    dm_annual=False, dm_chrom=False, dmchrom_psd="powerlaw", dmchrom_idx=4,
+    gequad=False, coefficients=False, pshift=False, pseed=None,
+    select="backend", tm_marg=False, dense_like=False)
+
+
+def model_arrays(psrs, *, pad_pulsars=None, **opts) -> dict:
     """The compiled model's fields as numpy arrays, named as the JAX
     ``CompiledPTA`` names them (the input of
-    :func:`~..sampler.compiled.from_arrays`), for the model of the
-    module docstring."""
-    for what, psd in (("common_psd", common_psd), ("red_psd", red_psd)):
-        if psd not in PSDS:
-            raise NotImplementedError(f"{what}={psd!r} is not in the port "
-                                      f"yet (it takes {PSDS})")
-    orfs = orf.split(",")
-    if len(orfs) > 1:
-        if set(orfs) - {"crn"} and len(set(orfs)) > 1:
-            raise NotImplementedError(
-                f"mixed common-process ORFs {set(orfs)}")
-        raise NotImplementedError("several common processes are not in the "
-                                  "port yet")
-    corr = orf != "crn"
-    if corr:
-        _refuse_orf(orf, common_psd)
+    :func:`~..sampler.compiled.from_arrays`), for ``model_general``'s
+    options ``opts`` (defaults: :data:`_DEFAULTS`, which vary the white
+    noise and take free spectra), plus ``b_names``, the flat b columns'
+    names.  Unknown options raise ``TypeError``; what the port does not
+    take, ``NotImplementedError``."""
+    unknown = set(opts) - set(_DEFAULTS)
+    if unknown:
+        raise TypeError(
+            f"unknown model_general option(s): {sorted(unknown)}")
+    o = dict(_DEFAULTS, **opts)
+    _refuse(o)
     psrs = list(psrs)
     Tspan = get_tspan(psrs)
     P_real = len(psrs)
     P = pad_pulsars or P_real
     if P < P_real:
         raise ValueError("pad_pulsars smaller than the pulsar count")
-    nbins = int(common_components)
-    red_bins = int(red_components) if red_var else 0
-    gw_pl = common_psd == "powerlaw"
-    red_pl = red_var and red_psd == "powerlaw"
-    amp_red, amp_gw = _amp_priors(upper_limit, upper_limit_red,
-                                  upper_limit_common)
-
-    # ---- per-pulsar bases and the parameter list ---------------------------
-    # (name, size, prior kind, a, b)
-    gname = f"gw_{orf}"
-    if gw_pl:
-        params = [(f"{gname}_log10_A", None, amp_gw) + _GW_AMP_BOUNDS,
-                  (f"{gname}_gamma", None, UNIFORM) + _GAMMA_BOUNDS]
+    o["amp"] = _amp_priors(o["upper_limit"], o["upper_limit_red"],
+                           o["upper_limit_common"], o["upper_limit_dm"])
+    corr = o["orf"] != "crn"
+    gname = f"gw_{o['orf']}"
+    if o["common_psd"] == "spectrum":
+        lo = -10.0 if o["common_logmin"] is None else o["common_logmin"]
+        hi = -4.0 if o["common_logmax"] is None else o["common_logmax"]
+        common = ("free_spectrum", [_Par(f"{gname}_log10_rho",
+                                        o["common_components"], UNIFORM,
+                                        lo, hi)])
     else:
-        params = [(f"{gname}_log10_rho", nbins, UNIFORM) + _RHO_BOUNDS]
-    per = []
+        lo = -18.0 if o["common_logmin"] is None else o["common_logmin"]
+        hi = -11.0 if o["common_logmax"] is None else o["common_logmax"]
+        common = (o["common_psd"], _powerlaw_params(
+            gname, o["common_psd"], o["amp"][1], (lo, hi),
+            o["log10_A_common"], o["gamma_common"]))
+
+    models = []
     for p in psrs:
-        U = _timing_basis(p.Mmat, tm_svd)
-        Fg, fg = fourier_basis(p.toas / DAY, nbins, Tspan)
-        Fr, fr = (fourier_basis(p.toas / DAY, red_bins, Tspan) if red_var
-                  else (Fg[:, :0], fg[:0]))
-        if corr:
-            # a correlated common process keeps its own columns, ahead of
-            # the red process's
-            donor = np.hstack([Fg, Fr])
-        else:
-            # shared Fourier block: the widest member donates its basis
-            donor = Fg if Fg.shape[1] >= Fr.shape[1] else Fr
-        labels = sorted(set(p.backend_flags.tolist()))
-        masks = {lab: p.backend_flags == lab for lab in labels}
-        rname = f"{p.name}_red_noise"
-        if red_pl:
-            params.append((f"{rname}_log10_A", None, amp_red)
-                          + _RED_AMP_BOUNDS)
-            params.append((f"{rname}_gamma", None, UNIFORM) + _GAMMA_BOUNDS)
-        elif red_var:
-            params.append((f"{rname}_log10_rho", red_bins, UNIFORM)
-                          + _RHO_BOUNDS)
-        ecorr = _has_ecorr(p, is_wideband)
-        for lab in labels:
-            stem = f"{p.name}_{lab}" if lab else p.name
-            params.append((f"{stem}_efac", None, UNIFORM) + _EFAC_BOUNDS)
-            params.append((f"{stem}_log10_tnequad", None, UNIFORM)
-                          + _EQUAD_BOUNDS)
-            if ecorr:
-                params.append((f"{stem}_log10_ecorr", None, UNIFORM)
-                              + _ECORR_BOUNDS)
-        E, owners = (_ecorr_basis(p.toas, labels, masks) if ecorr
-                     else (np.zeros((p.ntoa, 0)), []))
-        per.append(dict(U=U, fg=fg, fr=fr, donor=donor, E=E, owners=owners,
-                        labels=labels, masks=masks, rname=rname,
-                        ecorr=ecorr))
-    params.sort(key=lambda t: t[0])
+        sigs, labels, masks, white = _pulsar_model(p, o, Tspan, common)
+        ordered, slices, T = _layout(sigs)
+        models.append(dict(p=p, sigs=ordered, slices=slices, T=T,
+                           labels=labels, masks=masks, white=white))
+
+    # ---- parameters: the sampled ones, by name, sorted ------------------
+    seen = {}
+    for m in models:
+        efac, equad, _, geq = m["white"]
+        every = [q for s in m["sigs"] for q in s.params] + [
+            efac[lab] for lab in m["labels"]] + [
+            equad[lab] for lab in m["labels"]] + [geq]
+        for q in every:
+            if isinstance(q, _Par):
+                seen.setdefault(q.name, q)
+    params = sorted(seen.values(), key=lambda q: q.name)
     names = []
-    for nm, size, _, _, _ in params:
-        names += ([f"{nm}_{k}" for k in range(size)] if size else [nm])
+    for q in params:
+        names += ([f"{q.name}_{k}" for k in range(q.size)] if q.size
+                  else [q.name])
     nx = len(names)
     pos = {nm: ii for ii, nm in enumerate(names)}
-
-    # constant pool in compile_pta's order: efac=1, equad=-40 (pads), then
-    # the floor reference 10^(2*-15) == PHI_FLOOR
     sentinel = nx
-    efac1, equad_off, floor_ref = nx + 1, nx + 2, nx + 3
-    const_pool = np.asarray([1.0, -40.0, -15.0], np.float32)
+    pool = []
 
-    ntms = [d["U"].shape[1] for d in per]
-    wf = [d["donor"].shape[1] for d in per]
-    wes = [d["E"].shape[1] for d in per]
-    widths = tuple(int(a + b + c) for a, b, c in zip(ntms, wf, wes))
+    def ref(q, elem=None):
+        """``xe`` index of a parameter (an element of a vector one), a
+        constant's value appended to the pool."""
+        if isinstance(q, _Fixed):
+            pool.append(float(q.value))
+            return nx + len(pool)
+        return pos[q.name if elem is None else f"{q.name}_{elem}"]
+
+    widths = tuple(int(m["T"].shape[1]) for m in models)
     Nmax = max(p.ntoa for p in psrs)
     Bmax = max(widths)
+    efac1, equad_off = ref(_Fixed("", 1.0)), ref(_Fixed("", -40.0))
 
     f32 = np.float32
     y = np.zeros((P, Nmax), f32)
@@ -232,153 +490,211 @@ def model_arrays(psrs, *, tm_svd=False, common_psd="spectrum",
     gequad_ix = np.full((P, Nmax), equad_off, np.int32)
     phi_base = np.ones((P, Bmax), f32)
     gp_mask = np.zeros((P, Bmax), f32)
-    K, Kr = nbins, red_bins
-    Kr1 = max(Kr, 1)
-    gcols = np.full((P, 2 * K), Bmax, np.int32)
-    grho = np.full((P, 2 * K), sentinel, np.int32)
-    ghyp = np.full((P, 2 if gw_pl else 0), sentinel, np.int32)
-    gf = np.ones((P, 2 * K), f32)
-    gdf = np.zeros((P, 2 * K), f32)
-    rcols = np.full((P, 2 * Kr), Bmax, np.int32)
-    rrho = np.full((P, 2 * Kr), sentinel, np.int32)
-    rhyp = np.full((P, 2 if red_pl else 0), sentinel, np.int32)
-    rf = np.ones((P, 2 * Kr), f32)
-    rdf = np.zeros((P, 2 * Kr), f32)
-    gw_sin = np.zeros((P, K), np.int32)
-    gw_cos = np.zeros((P, K), np.int32)
-    gw_f = np.ones((P, K), f32)
-    gw_df = np.zeros((P, K), f32)
-    gw_rho = np.full((P, K), floor_ref, np.int32)
-    gw_hyp = np.full((P, 2 if gw_pl else 1), sentinel, np.int32)
-    red_rho = np.full((P, Kr1), floor_ref if Kr else sentinel, np.int32)
-    red_rho_x = np.full((P, Kr1), nx, np.int32)
-    red_hyp = np.full((P, 2 if red_pl else 1), sentinel, np.int32)
-    red_sin = np.zeros((P, Kr1), np.int32)
-    red_cos = np.zeros((P, Kr1), np.int32)
-    red_f = np.ones((P, Kr1), f32)
-    red_df = np.zeros((P, Kr1), f32)
-    red_valid = np.zeros(P, f32)
-    We = max(wes)
-    ecols = np.full((P, We), Bmax, np.int32)
-    erho = np.full((P, We), sentinel, np.int32)
-    wrows, erows = [], []
-
-    for ii, (p, d) in enumerate(zip(psrs, per)):
-        n, ntm, nf, ne = p.ntoa, ntms[ii], wf[ii], wes[ii]
-        w = widths[ii]
+    for ii, m in enumerate(models):
+        p, n, w = m["p"], m["p"].ntoa, widths[ii]
+        efac, equad, _, geq = m["white"]
+        for s in m["sigs"]:
+            if s.group not in ("static", "ecorr"):
+                gp_mask[ii, m["slices"][s.name]] = 1.0
         y[ii, :n] = p.residuals
-        T[ii, :n, :w] = np.hstack([d["U"], d["donor"], d["E"]])
+        T[ii, :n, :w] = m["T"]
         toa_mask[ii, :n] = 1.0
         basis_mask[ii, :w] = 1.0
         psr_mask[ii] = 1.0
         sigma2[ii, :n] = p.toaerrs ** 2
-        wp, ep = [], []
-        for lab in d["labels"]:
-            where = np.where(d["masks"][lab])[0]
-            stem = f"{p.name}_{lab}" if lab else p.name
-            efac_ix[ii, where] = pos[f"{stem}_efac"]
-            equad_ix[ii, where] = pos[f"{stem}_log10_tnequad"]
-            wp += [pos[f"{stem}_efac"], pos[f"{stem}_log10_tnequad"]]
-            if d["ecorr"]:
-                ep.append(pos[f"{stem}_log10_ecorr"])
-        wrows.append(sorted(set(wp)))
-        erows.append(sorted(set(ep)))
-        phi_base[ii, :ntm] = np.clip(1e40, PHI_FLOOR, BIG_PHI)
-        # the red columns start after the common's under a correlated ORF
-        r0 = ntm + 2 * K if corr else ntm
-        phi_base[ii, ntm:ntm + 2 * K] = 0.0
-        phi_base[ii, r0:r0 + 2 * Kr] = 0.0
-        phi_base[ii, ntm + nf:ntm + nf + ne] = 0.0
-        gp_mask[ii, ntm:ntm + 2 * K] = 1.0
-        gp_mask[ii, r0:r0 + 2 * Kr] = 1.0
-        gc = np.arange(ntm, ntm + 2 * K)
-        gcols[ii] = gc
-        gf[ii] = d["fg"]
-        gdf[ii] = _bin_widths(d["fg"])
-        gw_sin[ii], gw_cos[ii] = gc[::2], gc[1::2]
-        gw_f[ii], gw_df[ii] = d["fg"][::2], _bin_widths(d["fg"])[::2]
-        if gw_pl:
-            ghyp[ii] = gw_hyp[ii] = [pos[f"{gname}_log10_A"],
-                                     pos[f"{gname}_gamma"]]
-        else:
-            grho[ii] = [pos[f"{gname}_log10_rho_{j // 2}"]
-                        for j in range(2 * K)]
-            gw_rho[ii] = [pos[f"{gname}_log10_rho_{k}"] for k in range(K)]
-        if red_var:
-            rn = d["rname"]
-            rc = np.arange(r0, r0 + 2 * Kr)
-            rcols[ii] = rc
-            rf[ii] = d["fr"]
-            rdf[ii] = _bin_widths(d["fr"])
-            red_valid[ii] = 1.0
-            red_sin[ii], red_cos[ii] = rc[::2], rc[1::2]
-            red_f[ii], red_df[ii] = d["fr"][::2], _bin_widths(d["fr"])[::2]
-            if red_pl:
-                rhyp[ii] = red_hyp[ii] = [pos[f"{rn}_log10_A"],
-                                          pos[f"{rn}_gamma"]]
-            else:
-                rrho[ii] = [pos[f"{rn}_log10_rho_{j // 2}"]
-                            for j in range(2 * Kr)]
-                red_rho[ii] = [pos[f"{rn}_log10_rho_{k}"] for k in range(Kr)]
-                red_rho_x[ii] = red_rho[ii]
-        if ne:
-            ecols[ii, :ne] = np.arange(ntm + nf, w)
-            erho[ii, :ne] = [pos[f"{p.name}_{lab}_log10_ecorr" if lab
-                                 else f"{p.name}_log10_ecorr"]
-                             for lab in d["owners"]]
+        for lab in m["labels"]:
+            where = np.where(m["masks"][lab])[0]
+            efac_ix[ii, where] = ref(efac[lab])
+            equad_ix[ii, where] = ref(equad[lab])
+        if geq is not None:
+            gequad_ix[ii, :n] = ref(geq)
+        for s in m["sigs"]:
+            sl = m["slices"][s.name]
+            phi_base[ii, sl] = (np.clip(s.phi, PHI_FLOOR, BIG_PHI)
+                                if s.group == "static" else 0.0)
 
-    def table(rows):
-        out = np.full((P, max(max(len(r) for r in rows), 1)), nx, np.int32)
+    # ---- GP components: Fourier signals, chromatic, ECORR ---------------
+    def of_group(m, pred):
+        return [s for s in m["sigs"] if pred(s.group)]
+
+    fourier = [of_group(m, lambda g: g not in ("static", "chrom", "ecorr"))
+               for m in models]
+    chrom = [of_group(m, lambda g: g == "chrom") for m in models]
+    specs = []
+    for c in range(len(fourier[0])):
+        rows = []
+        for m, sigs in zip(models, fourier):
+            s = sigs[c]
+            sl = m["slices"][s.name]
+            cols = np.arange(sl.start, sl.stop)
+            if s.psd == "free_spectrum":
+                hyp, rho = [], [ref(s.params[0], j // 2)
+                                for j in range(len(cols))]
+            else:
+                hyp, rho = [ref(q) for q in s.params], []
+            rows.append((cols, s.f, s.df, hyp, rho))
+        specs.append((fourier[0][c].psd, rows))
+    for c in range(len(chrom[0])):
+        rows = []
+        for m, sigs in zip(models, chrom):
+            s = sigs[c]
+            sl = m["slices"][s.name]
+            rows.append((np.arange(sl.start, sl.stop), s.f, s.df,
+                         [ref(q) for q in s.params], []))
+        specs.append((chrom[0][c].psd, rows))
+    ec_rows = []
+    for m in models:
+        ec = of_group(m, lambda g: g == "ecorr")
+        if ec:
+            s = ec[0]
+            sl = m["slices"][s.name]
+            by_lab = dict(zip(m["labels"], s.params))
+            ec_rows.append((np.arange(sl.start, sl.stop),
+                            [ref(by_lab[lab]) for lab in s.owners]))
+        else:
+            ec_rows.append((np.zeros(0, np.int64), []))
+    if any(len(r[0]) for r in ec_rows):
+        specs.append(("ecorr", [(cols, np.zeros(len(cols)),
+                                 np.zeros(len(cols)), [], refs)
+                                for cols, refs in ec_rows]))
+
+    def pad2(rows, fill, w=None):
+        w = w if w is not None else max((len(r) for r in rows), default=0)
+        out = np.full((P, w), fill)
         for ii, r in enumerate(rows):
             out[ii, :len(r)] = r
+        return out
+
+    i32 = np.int32
+    comps = []
+    for kind, rows in specs:
+        W = max(len(r[0]) for r in rows)
+        H = max((len(r[3]) for r in rows), default=0)
+        comps.append(dict(
+            kind=kind, cols=pad2([r[0] for r in rows], Bmax, W).astype(i32),
+            f=pad2([r[1] for r in rows], 1.0, W).astype(f32),
+            df=pad2([r[2] for r in rows], 0.0, W).astype(f32),
+            hyp_ix=pad2([r[3] for r in rows], sentinel, H).astype(i32),
+            rho_ix=pad2([r[4] for r in rows], sentinel, W).astype(i32)))
+
+    # ---- common / red conditional metadata -------------------------------
+    floor_ref = ref(_Fixed("", -15.0))
+    gsig = [next(s for s in f if "gw" in s.name) for f in fourier]
+    K = len(gsig[0].f) // 2
+    gw_kind = gsig[0].psd
+    gw_sin = np.zeros((P, K), i32)
+    gw_cos = np.zeros((P, K), i32)
+    gw_f = np.ones((P, K), f32)
+    gw_df = np.zeros((P, K), f32)
+    Hg = 0 if gw_kind == "free_spectrum" else len(gsig[0].params)
+    gw_hyp = np.full((P, max(Hg, 1)), sentinel, i32)
+    gw_rho = np.full((P, K), floor_ref, i32)
+    for ii, (m, s) in enumerate(zip(models, gsig)):
+        sl = m["slices"][s.name]
+        cols = np.arange(sl.start, sl.stop)
+        gw_sin[ii], gw_cos[ii] = cols[::2], cols[1::2]
+        gw_f[ii], gw_df[ii] = s.f[::2], s.df[::2]
+        if gw_kind == "free_spectrum":
+            gw_rho[ii] = [ref(s.params[0], k) for k in range(K)]
+        else:
+            gw_hyp[ii, :Hg] = [ref(q) for q in s.params]
+    rho_ix_x = (np.asarray([pos[f"{gname}_log10_rho_{k}"] for k in range(K)],
+                           i32) if gw_kind == "free_spectrum"
+                else np.zeros(0, i32))
+
+    rsig = [next((s for s in f if "red" in s.name), None) for f in fourier]
+    red_valid = np.zeros(P, f32)
+    red_kind = rsig[0].psd if rsig[0] is not None else ""
+    Kr = len(rsig[0].f) // 2 if red_kind else 0
+    Kr1 = max(Kr, 1)
+    Hr = (len(rsig[0].params) if red_kind not in ("", "free_spectrum")
+          else 0)
+    red_hyp = np.full((P, max(Hr, 1)), sentinel, i32)
+    red_rho = np.full((P, Kr1), floor_ref if Kr else sentinel, i32)
+    red_rho_x = np.full((P, Kr1), nx, i32)
+    red_sin = np.zeros((P, Kr1), i32)
+    red_cos = np.zeros((P, Kr1), i32)
+    red_f = np.ones((P, Kr1), f32)
+    red_df = np.zeros((P, Kr1), f32)
+    red_shares_gw = True
+    if red_kind:
+        overlaps = []
+        for ii, (m, s, g) in enumerate(zip(models, rsig, gsig)):
+            red_valid[ii] = 1.0
+            sl, gl = m["slices"][s.name], m["slices"][g.name]
+            overlaps.append(sl.start < gl.stop and gl.start < sl.stop)
+            cols = np.arange(sl.start, sl.stop)
+            red_sin[ii], red_cos[ii] = cols[::2], cols[1::2]
+            red_f[ii], red_df[ii] = s.f[::2], s.df[::2]
+            if red_kind == "free_spectrum":
+                red_rho[ii] = red_rho_x[ii] = [ref(s.params[0], k)
+                                               for k in range(Kr)]
+            else:
+                red_hyp[ii, :Hr] = [ref(q) for q in s.params]
+        red_shares_gw = any(overlaps)
+
+    We = max(len(r[0]) for r in ec_rows)
+    ecols = pad2([r[0] for r in ec_rows], Bmax, We).astype(i32)
+    erho = pad2([r[1] for r in ec_rows], sentinel, We).astype(i32)
+
+    # ---- per-pulsar white / ECORR parameter tables -----------------------
+    wrows, erows = [], []
+    for m in models:
+        efac, equad, ecorr, geq = m["white"]
+        white = [efac[lab] for lab in m["labels"]] + [
+            equad[lab] for lab in m["labels"]] + [geq]
+        wrows.append(sorted({pos[q.name] for q in white
+                             if isinstance(q, _Par)}))
+        ec = of_group(m, lambda g: g == "ecorr")
+        erows.append(sorted({pos[q.name] for s in ec for q in s.params
+                             if isinstance(q, _Par)}))
+
+    def table(rows):
+        out = pad2(rows, nx, max(max(len(r) for r in rows), 1)).astype(i32)
         return out, np.asarray([len(r) for r in rows] + [0] * (P - P_real),
-                               np.int32)
+                               i32)
 
     white_par_ix, white_nper = table(wrows)
     ecorr_par_ix, ecorr_nper = table(erows)
 
-    pkind = np.zeros(nx, np.int32)
+    # ---- priors ------------------------------------------------------------
+    pkind = np.zeros(nx, i32)
     pa = np.zeros(nx, f32)
     pb = np.ones(nx, f32)
     ct = 0
-    for _, size, kind, lo, hi in params:
-        n = size or 1
-        pkind[ct:ct + n] = kind
-        pa[ct:ct + n], pb[ct:ct + n] = lo, hi
+    for q in params:
+        n = q.size or 1
+        pkind[ct:ct + n] = q.kind
+        pa[ct:ct + n], pb[ct:ct + n] = q.lo, q.hi
         ct += n
     prop_scale = np.where(pkind == NORMAL, pb,
                           0.1 * np.abs(pb - pa)).astype(f32)
 
-    # the free spectra's variance bounds (compile_pta's defaults without
-    # one; the red falls back to the common's)
-    if gw_pl:
-        rho_lo, rho_hi = 1e-20, 1e-8
-    else:
-        rho_lo = 10.0 ** (2.0 * _RHO_BOUNDS[0])
-        rho_hi = 10.0 ** (2.0 * _RHO_BOUNDS[1])
-    if red_var and not red_pl:
-        red_lo = 10.0 ** (2.0 * _RHO_BOUNDS[0])
-        red_hi = 10.0 ** (2.0 * _RHO_BOUNDS[1])
-    else:
-        red_lo, red_hi = rho_lo, rho_hi
-    comps = [dict(kind="powerlaw" if gw_pl else "free_spectrum", cols=gcols,
-                  f=gf, df=gdf, hyp_ix=ghyp, rho_ix=grho)]
-    if red_var:
-        comps.append(dict(kind="powerlaw" if red_pl else "free_spectrum",
-                          cols=rcols, f=rf, df=rdf, hyp_ix=rhyp,
-                          rho_ix=rrho))
-    if We:
-        live = ecols < Bmax
-        comps.append(dict(kind="ecorr", cols=ecols,
-                          f=np.where(live, 0.0, 1.0).astype(f32),
-                          df=np.zeros((P, We), f32),
-                          hyp_ix=np.zeros((P, 0), np.int32), rho_ix=erho))
-    red_kind = ("powerlaw" if red_pl else "free_spectrum") if red_var else ""
+    def rho_bounds(frag):
+        """Variance bounds of the first free spectrum named ``frag``."""
+        q = next((q for q in params if "rho" in q.name and frag in q.name),
+                 None)
+        return None if q is None else (10.0 ** (2.0 * q.lo),
+                                       10.0 ** (2.0 * q.hi))
+
+    rho_lo, rho_hi = rho_bounds("gw") or (1e-20, 1e-8)
+    red_lo, red_hi = rho_bounds("red") or (rho_lo, rho_hi)
+
     orf_Ginv = None
     if corr:
         orf_Ginv = np.tile(np.eye(P), (K, 1, 1))
         orf_Ginv[:, :P_real, :P_real] = orf_ginv_stack(
-            orf, [p.pos for p in psrs], K, orf_ifreq=orf_ifreq)
+            o["orf"], [p.pos for p in psrs], K, orf_ifreq=o["orf_ifreq"])
+
+    b_names = []
+    for m in models:
+        named = {}
+        for s in m["sigs"]:
+            sl = m["slices"][s.name]
+            for j in range(sl.start, sl.stop):
+                named.setdefault(j, f"{m['p'].name}_{s.name}_{j - sl.start}")
+        b_names += [named[j] for j in sorted(named)]
+
     return dict(
         P=P, P_real=P_real, Nmax=Nmax, Bmax=Bmax, nx=nx, K=K, Kr=Kr,
         widths=widths, pulsars=tuple(p.name for p in psrs),
@@ -386,23 +702,20 @@ def model_arrays(psrs, *, tm_svd=False, common_psd="spectrum",
         cdtype=np.float64, y=y, T=T, toa_mask=toa_mask,
         basis_mask=basis_mask, psr_mask=psr_mask, sigma2=sigma2,
         efac_ix=efac_ix, equad_ix=equad_ix, gequad_ix=gequad_ix,
-        const_pool=const_pool, phi_base=phi_base, components=comps,
-        pkind=pkind, pa=pa, pb=pb, prop_scale=prop_scale,
+        const_pool=np.asarray(pool, f32), phi_base=phi_base,
+        components=comps, pkind=pkind, pa=pa, pb=pb, prop_scale=prop_scale,
         gw_sin_ix=gw_sin, gw_cos_ix=gw_cos, gw_f=gw_f, gw_df=gw_df,
-        gw_kind="powerlaw" if gw_pl else "free_spectrum",
-        gw_hyp_ix=gw_hyp, gw_rho_ix=gw_rho,
-        rho_ix_x=(np.zeros(0, np.int32) if gw_pl else np.asarray(
-            [pos[f"{gname}_log10_rho_{k}"] for k in range(K)], np.int32)),
-        red_valid=red_valid, red_kind=red_kind, red_hyp_ix=red_hyp,
-        red_rho_ix=red_rho, red_rho_ix_x=red_rho_x,
-        red_sin_ix=red_sin, red_cos_ix=red_cos,
-        ec_cols=ecols, ec_ix=erho,
+        gw_kind=gw_kind, gw_hyp_ix=gw_hyp, gw_rho_ix=gw_rho,
+        rho_ix_x=rho_ix_x, red_valid=red_valid, red_kind=red_kind,
+        red_hyp_ix=red_hyp, red_rho_ix=red_rho, red_rho_ix_x=red_rho_x,
+        red_sin_ix=red_sin, red_cos_ix=red_cos, ec_cols=ecols, ec_ix=erho,
         white_par_ix=white_par_ix, white_nper=white_nper,
         ecorr_par_ix=ecorr_par_ix, ecorr_nper=ecorr_nper,
         rhomin=rho_lo, rhomax=rho_hi, red_rhomin=red_lo, red_rhomax=red_hi,
-        orf_name=orf, orf_Ginv=orf_Ginv, gp_mask=gp_mask, red_f=red_f,
+        orf_name=o["orf"], orf_Ginv=orf_Ginv, gp_mask=gp_mask, red_f=red_f,
         red_df=red_df, orf_B=None, orf_par_ix=None,
-        red_shares_gw=not (corr and red_var), ke_eid=None, ke_par_ix=None)
+        red_shares_gw=red_shares_gw, ke_eid=None, ke_par_ix=None,
+        b_names=tuple(b_names))
 
 
 def _refuse_orf(orf, common_psd):
@@ -445,38 +758,49 @@ def build_crn_spectrum(psrs, nbins: int = 10, red_bins: int = 10,
 def model_general(psrs, tm_svd=False, white_vary=False,
                   common_psd="powerlaw", common_components=30,
                   red_var=True, red_psd="powerlaw", red_components=30,
-                  is_wideband=False, upper_limit=False, upper_limit_red=None,
-                  upper_limit_common=None, orf="crn", orf_ifreq=0,
-                  device=None):
-    """The compiled model of the JAX package's ``model_general`` with
-    these options (its defaults) followed by ``compile_pta``, on
-    ``device`` (``cuda`` unless the caller passes another).  The port
-    takes ``white_vary=True``, ``common_psd`` and ``red_psd`` of
-    ``"spectrum"`` or ``"powerlaw"``, and the upper-limit flags (LinearExp
-    amplitude priors); any other PSD, or fixed white noise, raises
-    ``NotImplementedError``.  ``orf`` takes ``"crn"`` and the fixed
-    positive-definite ORFs (``hd``, ``freq_hd`` with ``orf_ifreq``,
-    ``st``, ``gw_monopole``, ``gw_dipole``) under a common free spectrum.
-    README's Quick start, the standard PTA noise model (a free spectrum
-    with intrinsic powerlaw red noise) and ``bench.py``'s Hellings-Downs
-    array::
+                  device=None, **opts):
+    """The compiled model of the JAX package's ``model_general(psrs,
+    ...)`` followed by ``compile_pta``, on ``device`` (``cuda`` unless
+    the caller passes another), with the JAX function's options and
+    defaults (:data:`_DEFAULTS` lists the rest).
+
+    The port takes: varied white noise, or fixed white noise from
+    ``noisedict`` (``white_vary=False``; missing keys give EFAC 1 and
+    EQUAD/ECORR off), ``gequad``; a common free spectrum
+    (``common_logmin``/``common_logmax`` its log10_rho bounds) or a
+    powerlaw-family common process (``powerlaw``, ``turnover``,
+    ``turnover_knee``, ``broken_powerlaw``; ``log10_A_common`` /
+    ``gamma_common`` fix its hypers, ``common_logmin``/``_logmax`` bound
+    its amplitude); intrinsic red noise as a free spectrum or a powerlaw
+    (``red_breakflat`` with ``red_breakflat_fq``: flat above the break);
+    ``dm_var`` / ``dm_chrom`` chromatic GPs (``dm_psd``,
+    ``dmchrom_psd``, ``dmchrom_idx``, ``dm_components``); ``dm_annual``;
+    ``bayesephem`` / ``be_type``; the upper-limit flags (LinearExp
+    amplitude priors); ``orf="crn"`` and the fixed positive-definite
+    ORFs (``hd``, ``freq_hd`` with ``orf_ifreq``, ``st``,
+    ``gw_monopole``, ``gw_dipole``) under a common free spectrum;
+    ``coefficients``, ``dense_like`` and ``tm_marg`` are accepted and
+    dropped, as the JAX function drops them.  What the JAX function
+    refuses raises with its message; the t-process, ``infinitepower``
+    and the frequency-grid and selection options (``Tspan``, ``modes``,
+    ``logfreq``, ``wgts``, ``pshift``, ``red_select``, ``select``,
+    ``tm_norm=False``, several common processes) raise
+    ``NotImplementedError`` naming their ROADMAP item.  README's Quick
+    start, ``bench.py``'s Hellings-Downs array and the array with the
+    standard noise model::
 
         model_general([psr], red_var=False, white_vary=True,
                       common_psd="spectrum", common_components=30)
-        model_general([psr], white_vary=True, common_psd="spectrum",
-                      red_psd="powerlaw")
         model_general(psrs, tm_svd=True, white_vary=True,
                       common_psd="spectrum", common_components=10,
                       red_psd="spectrum", red_components=10, orf="hd")
+        model_general(psrs, tm_svd=True, noisedict=nd,
+                      common_psd="spectrum", common_components=10,
+                      red_components=10, dm_var=True, dm_components=10,
+                      dm_annual=True)
     """
-    if not white_vary:
-        raise NotImplementedError(
-            "fixed white noise (white_vary=False) is not in the port yet")
     return from_arrays(model_arrays(
-        psrs, tm_svd=tm_svd, common_psd=common_psd,
+        psrs, tm_svd=tm_svd, white_vary=white_vary, common_psd=common_psd,
         common_components=common_components, red_var=red_var,
-        red_psd=red_psd, red_components=red_components,
-        is_wideband=is_wideband, upper_limit=upper_limit,
-        upper_limit_red=upper_limit_red,
-        upper_limit_common=upper_limit_common, orf=orf,
-        orf_ifreq=orf_ifreq), device=device)
+        red_psd=red_psd, red_components=red_components, **opts),
+        device=device)

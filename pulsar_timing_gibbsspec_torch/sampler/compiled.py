@@ -1,14 +1,19 @@
 """The compiled PTA model as tensors on one device.
 
-Port of ``pulsar_timing_gibbsspec_tpu/sampler/compiled.py`` for the CRN
-model with basis ECORR, a free-spectrum or powerlaw common process and
-free-spectrum or powerlaw intrinsic red noise, and for a common free
-spectrum under a fixed correlated ORF (Hellings-Downs and the others of
-``models/orf.py``: the static inverse ORF stack ``orf_Ginv``, the
-common process on columns of its own): ragged per-pulsar shapes
-padded to ``(P, Nmax)`` / ``(P, Bmax)``, hyperparameter references
-compiled to integer gathers into ``xe = [x, 0-sentinel, constants]``,
-and ``phi(x)`` as a scatter-add of the per-component variances onto the
+Port of ``pulsar_timing_gibbsspec_tpu/sampler/compiled.py`` for the
+models of ``models/build.py``: basis ECORR; a free-spectrum or
+powerlaw-family common process (``powerlaw``, ``turnover``,
+``turnover_knee``, ``broken_powerlaw``); free-spectrum, powerlaw or
+flat-above-a-break (``powerlaw_breakflat``) intrinsic red noise;
+chromatic GPs of the powerlaw family on columns of their own; static
+marginalized columns (timing model, ``dm_annual``, BayesEphem) with a
+constant ``phi_base``; and a common free spectrum under a fixed
+correlated ORF (Hellings-Downs and the others of ``models/orf.py``: the
+static inverse ORF stack ``orf_Ginv``, the common process on columns of
+its own).  Ragged per-pulsar shapes are padded to ``(P, Nmax)`` /
+``(P, Bmax)``, every hyperparameter reference, sampled or constant, is
+compiled to an integer gather into ``xe = [x, 0-sentinel, constants]``,
+and ``phi(x)`` is a scatter-add of the per-component variances onto the
 basis columns.
 
 Every method broadcasts over leading batch dimensions of ``x`` / ``b``:
@@ -40,21 +45,92 @@ PHI_FLOOR = 1e-30
 _LN10 = math.log(10.0)
 _LN12PI2 = math.log(12.0 * math.pi ** 2)
 _LNFYR = math.log(1.0 / (365.25 * 86400.0))
-#: the PSDs the port evaluates from hyperparameters
-POWERLAW_KINDS = ("powerlaw",)
+#: the powerlaw-family PSDs the port evaluates from hyperparameters
+POWERLAW_KINDS = ("powerlaw", "turnover", "turnover_knee",
+                  "broken_powerlaw", "powerlaw_breakflat")
+
+# Each PSD is evaluated in log space (``f**-gamma`` overflows float32)
+# with every term rounded where the JAX package's ``_lnphi_*`` rounds it:
+# ``f``/``df`` in the storage dtype and their logs taken there, sums and
+# products of the hypers alone in the hypers' dtype (the dtype phi is
+# asked in), every term that meets a float64 constant (``ln 10``, ``ln
+# f_yr``, ``ln 12 pi^2``) in float64.
+
+_F64 = torch.float64
+
+
+def _softplus(z):
+    return torch.logaddexp(torch.zeros_like(z), z)
+
+
+def _lnhc_powerlaw(lnf, log10_A, gamma):
+    """``ln A + (3 - gamma)/2 ln(f / f_yr)``, the characteristic strain's
+    powerlaw part, float64."""
+    return (_LN10 * log10_A.to(_F64)
+            + (0.5 * (3.0 - gamma)).to(_F64) * (lnf.to(_F64) - _LNFYR))
+
+
+def _lnphi_from_hc(lnhc, lnf, df):
+    """``ln(hc^2 / (12 pi^2 f^3) df)`` from ``ln hc``."""
+    return (2.0 * lnhc - _LN12PI2 - (3.0 * lnf).to(_F64)
+            + torch.log(df).to(_F64))
 
 
 def _lnphi_powerlaw(f, df, log10_A, gamma):
-    """Log of the powerlaw prior variance per column, evaluated in log
-    space (``f**-gamma`` overflows float32) and summed in float64.  Each
-    term is rounded where the JAX package rounds it: ``f``/``df`` in the
-    storage dtype and their logs taken there, ``gamma - 3`` and ``gamma
-    log f`` in the hypers' dtype (the dtype phi is asked in), the
-    float64 constants' products in float64."""
-    f64 = torch.float64
-    return (2.0 * _LN10 * log10_A.to(f64) - _LN12PI2
-            + (gamma - 3.0).to(f64) * _LNFYR
-            - (gamma * torch.log(f)).to(f64) + torch.log(df).to(f64))
+    """Log of the powerlaw prior variance per column."""
+    return (2.0 * _LN10 * log10_A.to(_F64) - _LN12PI2
+            + (gamma - 3.0).to(_F64) * _LNFYR
+            - (gamma * torch.log(f)).to(_F64) + torch.log(df).to(_F64))
+
+
+def _lnphi_turnover(f, df, log10_A, gamma, lf0, kappa):
+    """Powerlaw with a low-frequency turnover at ``10^lf0`` (``beta =
+    1/2``)."""
+    lnf = torch.log(f)
+    lnhc = (_lnhc_powerlaw(lnf, log10_A, gamma)
+            - 0.5 * _softplus(kappa.to(_F64)
+                              * (_LN10 * lf0.to(_F64) - lnf.to(_F64))))
+    return _lnphi_from_hc(lnhc, lnf, df)
+
+
+def _lnphi_broken_powerlaw(f, df, log10_A, gamma, delta, log10_fb, kappa):
+    """Powerlaw of index ``gamma`` below ``10^log10_fb`` and ``delta``
+    above it, with a transition of width ``kappa``."""
+    lnf = torch.log(f)
+    lnhc = (_lnhc_powerlaw(lnf, log10_A, gamma)
+            + (0.5 * kappa * (gamma - delta)).to(_F64)
+            * _softplus((lnf.to(_F64) - _LN10 * log10_fb.to(_F64))
+                        / kappa.to(_F64)))
+    return _lnphi_from_hc(lnhc, lnf, df)
+
+
+def _lnphi_turnover_knee(f, df, log10_A, gamma, lfb, lfk, kappa, delta):
+    """Turnover at ``10^lfb`` and a high-frequency knee at ``10^lfk``."""
+    lnf = torch.log(f)
+    lnhc = (_lnhc_powerlaw(lnf, log10_A, gamma)
+            + _softplus(delta.to(_F64)
+                        * (lnf.to(_F64) - _LN10 * lfk.to(_F64)))
+            - 0.5 * _softplus(kappa.to(_F64)
+                              * (_LN10 * lfb.to(_F64) - lnf.to(_F64))))
+    return _lnphi_from_hc(lnhc, lnf, df)
+
+
+def _lnphi_powerlaw_breakflat(f, df, log10_A, gamma, log10_fb):
+    """Powerlaw held flat above the break ``10^log10_fb``."""
+    lnf = torch.minimum(torch.log(f).to(_F64), _LN10 * log10_fb.to(_F64))
+    return (2.0 * _LN10 * log10_A.to(_F64) - _LN12PI2
+            + (gamma - 3.0).to(_F64) * _LNFYR
+            - gamma.to(_F64) * lnf + torch.log(df).to(_F64))
+
+
+#: log-PSD of each powerlaw-family kind, taking ``(f, df, *hypers)``
+_LNPSD_FNS = {
+    "powerlaw": _lnphi_powerlaw,
+    "turnover": _lnphi_turnover,
+    "turnover_knee": _lnphi_turnover_knee,
+    "broken_powerlaw": _lnphi_broken_powerlaw,
+    "powerlaw_breakflat": _lnphi_powerlaw_breakflat,
+}
 
 
 @dataclasses.dataclass
@@ -97,8 +173,9 @@ class GPComponent:
     ``cols`` index the basis axis (pad ``Bmax``, dropped on scatter).  A
     free spectrum (ECORR) gathers each column's log10_rho (log10_ecorr)
     out of ``xe`` through ``rho_ix``, the column's variance being
-    ``10^(2 xe[rho_ix])``; a powerlaw gathers its ``(log10_A, gamma)``
-    through ``hyp_ix`` and evaluates at the column's ``f`` and ``df``."""
+    ``10^(2 xe[rho_ix])``; a powerlaw-family PSD gathers its hypers
+    (``log10_A``, ``gamma``, then its shape constants) through ``hyp_ix``
+    and evaluates at the column's ``f`` and ``df``."""
 
     kind: str
     cols: torch.Tensor       # (P, W) int64
@@ -110,7 +187,7 @@ class GPComponent:
 
 @dataclasses.dataclass
 class CompiledPTA:
-    """Static device model of a CRN free-spectrum PTA."""
+    """Static device model of a PTA."""
 
     P: int
     P_real: int
@@ -144,12 +221,12 @@ class CompiledPTA:
     gw_f: torch.Tensor         # (P, K) per-frequency (storage dtype)
     gw_df: torch.Tensor        # (P, K) bin widths
     gw_kind: str
-    gw_hyp_ix: torch.Tensor    # (P, H) -> xe (powerlaw hypers)
+    gw_hyp_ix: torch.Tensor    # (P, Hg) -> xe (powerlaw-family hypers)
     gw_rho_ix: torch.Tensor    # (P, K) -> xe
     rho_ix_x: torch.Tensor     # (K,) -> x
     red_valid: torch.Tensor    # (P,)
     red_kind: str
-    red_hyp_ix: torch.Tensor   # (P, H) -> xe (powerlaw hypers)
+    red_hyp_ix: torch.Tensor   # (P, Hr) -> xe (powerlaw-family hypers)
     red_rho_ix: torch.Tensor   # (P, Kr) -> xe
     red_rho_ix_x: torch.Tensor  # (P, Kr) -> x (pad nx: dropped)
     red_sin_ix: torch.Tensor   # (P, Kr)
@@ -160,7 +237,8 @@ class CompiledPTA:
     ec_ix: torch.Tensor        # (P, We) their log10_ecorr -> xe
     ecorr_par_ix: torch.Tensor  # (P, Ep) -> x (pad nx)
     ecorr_nper: torch.Tensor   # (P,)
-    gp_mask: torch.Tensor      # (P, Bmax) 1.0 on the Fourier-GP columns
+    gp_mask: torch.Tensor      # (P, Bmax) 1.0 on the Fourier and
+                               # chromatic GP columns
     rhomin: float
     rhomax: float
     red_rhomin: float
@@ -174,6 +252,9 @@ class CompiledPTA:
     widths: tuple = ()
     #: pulsar names in logical order (empty when the arrays carry none)
     pulsars: tuple = ()
+    #: the flat b columns' names where the model builder gives them
+    #: (empty: :meth:`b_param_names` derives them from the components)
+    b_names: tuple = ()
     #: ``idx.red`` on the device: the powerlaw hypers' positions in x
     red_ix: torch.Tensor = dataclasses.field(init=False)
 
@@ -185,13 +266,18 @@ class CompiledPTA:
 
     def b_param_names(self):
         """Names of the flat b columns, the JAX facade's
-        ``b_param_names``: per real pulsar, ``<pulsar>_<signal>_<j>`` for
-        its timing-model columns (``linear_timing_model``), then each
+        ``b_param_names``: those of the model builder (:attr:`b_names`)
+        where it gave them, else, for a model of timing-model, Fourier
+        and ECORR columns alone: per real pulsar,
+        ``<pulsar>_<signal>_<j>`` for its timing-model columns
+        (``linear_timing_model``), then each
         Fourier column named after the first signal holding it, in the
         model's signal order (the common process before intrinsic red),
         then the ECORR columns (``<pulsar>_basis_ecorr_<j>``).  A
         Fourier signal's name is its parameters' stem (``gw_crn``,
         ``<pulsar>_red_noise``)."""
+        if self.b_names:
+            return list(self.b_names)
         if len(self.pulsars) != self.P_real:
             raise ValueError("the model carries no pulsar names; build it "
                              "with build_crn_spectrum or pass 'pulsars' "
@@ -251,12 +337,15 @@ class CompiledPTA:
         """(..., P, Nmax) measurement covariance in the storage dtype."""
         return self._ndiag_from(self.xe(x).to(self.dtype))
 
-    def _powerlaw(self, xev, f, df, hyp_ix):
-        """Powerlaw variances ``(..., P, W)`` (float64) at ``f``/``df``
-        (P, W) with the hypers ``hyp_ix`` (P, 2) gathered out of
-        ``xev``."""
-        args = [xev[..., hyp_ix[:, h]][..., None] for h in range(2)]
-        return torch.exp(_lnphi_powerlaw(f, df, *args))
+    @staticmethod
+    def _psd(kind, xev, f, df, hyp_ix):
+        """Powerlaw-family variances ``(..., P, W)`` (float64) of PSD
+        ``kind`` at ``f``/``df`` (P, W), with its ``H`` hypers gathered
+        out of ``xev`` through ``hyp_ix`` (P, H): sampled ones from
+        ``x``, constant ones from the pool."""
+        args = [xev[..., hyp_ix[:, h]][..., None]
+                for h in range(hyp_ix.shape[1])]
+        return torch.exp(_LNPSD_FNS[kind](f, df, *args))
 
     def _phi_accum(self, x, base, comps, dtype=None):
         """Scatter-add the components' variances onto ``base`` (P, Bmax)
@@ -273,7 +362,7 @@ class CompiledPTA:
             if c.kind in ("free_spectrum", "ecorr"):
                 vals = torch.pow(10.0, 2.0 * xev[..., c.rho_ix])
             else:
-                vals = self._powerlaw(xev, c.f, c.df, c.hyp_ix)
+                vals = self._psd(c.kind, xev, c.f, c.df, c.hyp_ix)
             phi = phi.scatter_add(
                 -1, c.cols.expand(lead + c.cols.shape), vals.to(dtype))
         return phi[..., :B]
@@ -380,7 +469,8 @@ class CompiledPTA:
         xev = self.xe(x)
         if self.gw_kind == "free_spectrum":
             return torch.pow(10.0, 2.0 * xev[..., self.gw_rho_ix])
-        return self._powerlaw(xev, self.gw_f, self.gw_df, self.gw_hyp_ix)
+        return self._psd(self.gw_kind, xev, self.gw_f, self.gw_df,
+                         self.gw_hyp_ix)
 
     def gw_phi_at_red(self, x):
         """(..., P, Kr) common-process phi on the red frequency grid,
@@ -409,8 +499,8 @@ class CompiledPTA:
             out = floor.clone()
             out[..., :n] = vals[..., :n]
         else:
-            vals = self._powerlaw(xev, self.gw_f, self.gw_df,
-                                  self.red_hyp_ix)
+            vals = self._psd(self.red_kind, xev, self.gw_f, self.gw_df,
+                             self.red_hyp_ix)
             k = torch.arange(self.K, device=self.device)
             out = torch.where(k < self.Kr, vals, floor)
         return torch.where(self.red_valid[:, None] > 0, out, floor)
@@ -425,13 +515,13 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
     compiled model: ``fields`` maps the JAX ``CompiledPTA`` field names
     to numpy arrays / Python values (components as dicts with ``kind``,
     ``cols``, ``f``, ``df``, ``hyp_ix``, ``rho_ix``), plus the pulsar
-    names under ``pulsars`` where the arrays carry them.  Both sides then
-    compute on the same model.  The port covers the CRN model with basis
-    ECORR, a free-spectrum or powerlaw common process and free-spectrum
-    or powerlaw intrinsic red noise (or none), and a common free spectrum
-    under a fixed correlated ORF (``orf_Ginv``); sampled ORF weights
-    (``orf_B``), any other PSD or component kind, or kernel ECORR, raise
-    ``NotImplementedError``."""
+    names under ``pulsars`` and the flat b columns' names under
+    ``b_names`` where the arrays carry them.  Both sides then compute on
+    the same model.  The port covers the models of the module docstring,
+    with sampled or constant hypers (the constant ones in
+    ``const_pool``); sampled ORF weights (``orf_B``, ROADMAP A.11),
+    kernel ECORR (A.7), the t-process and ``infinitepower`` (A.8), or any
+    other PSD or component kind raise ``NotImplementedError``."""
     dev = resolve_device(device)
     orf_name = str(fields.get("orf_name", "crn"))
     if orf_name != "crn":
@@ -450,13 +540,16 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
                 "correlated ORF requires a homogeneous common mode count "
                 "across pulsars")
     if fields.get("ke_eid") is not None:
-        raise NotImplementedError("kernel ECORR is not in the port yet")
+        raise NotImplementedError("kernel ECORR is not in the port yet "
+                                  "(ROADMAP A.7)")
     if fields["gw_kind"] not in ("free_spectrum",) + POWERLAW_KINDS:
         raise NotImplementedError(
-            f"common PSD {fields['gw_kind']!r} is not in the port yet")
+            f"common PSD {fields['gw_kind']!r} is not in the port yet "
+            "(ROADMAP A.8)")
     if fields["red_kind"] not in ("free_spectrum", "") + POWERLAW_KINDS:
         raise NotImplementedError(
-            f"red PSD {fields['red_kind']!r} is not in the port yet")
+            f"red PSD {fields['red_kind']!r} is not in the port yet "
+            "(ROADMAP A.8)")
     dt, cdt = settings.dtype, settings.cdtype
 
     def t(v, dtype=dt):
@@ -472,7 +565,8 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
     for c in fields["components"]:
         if c["kind"] not in ("free_spectrum", "ecorr") + POWERLAW_KINDS:
             raise NotImplementedError(
-                f"GP component {c['kind']!r} is not in the port yet")
+                f"GP component {c['kind']!r} is not in the port yet "
+                "(ROADMAP A.8)")
         comps.append(GPComponent(
             c["kind"], t(c["cols"], torch.int64), t(c["rho_ix"], torch.int64),
             f=t(c["f"]), df=t(c["df"]), hyp_ix=t(c["hyp_ix"], torch.int64)))
@@ -509,4 +603,5 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
                                                    torch.float64)),
         widths=tuple(int(w) for w in fields["widths"]),
         pulsars=tuple(str(p) for p in fields.get("pulsars", ())),
+        b_names=tuple(fields.get("b_names", ())),
     )

@@ -15,7 +15,11 @@ steady sweeps (``_sweep_body``) in the JAX order
     draw of a single pulsar without red noise) -> rho <-> b scale moves
     -> Metropolised b-draw (``draw_b_mh``),
 
-with the near-exact ``draw_b_refresh`` in place of ``draw_b_mh`` on every
+each block present only where the model samples parameters in it (fixed
+white noise from a noise dictionary has no white block, constant ECORR
+variances no ECORR block: not in the warmup, the adaptation, the sweep,
+the graphs or ``adapt.npz``, as the JAX driver gates them), with the
+near-exact ``draw_b_refresh`` in place of ``draw_b_mh`` on every
 iteration ``t`` with ``t % exact_every == 0``.  Under a correlated ORF
 (Hellings-Downs) there are no scale moves, and the b-draw is the
 structured joint draw over all pulsars (``b_joint``: two-float factors
@@ -278,10 +282,11 @@ class _Records:
 
 class TorchGibbsDriver:
     """Blocked Gibbs over ``nchains`` independent chains of the model
-    ``cm`` (a compiled model on its device: a free-spectrum or powerlaw
-    common process, or a common free spectrum under a fixed correlated
-    ORF; basis ECORR and free-spectrum or powerlaw intrinsic red noise
-    optional).
+    ``cm`` (a compiled model on its device: a free-spectrum or
+    powerlaw-family common process, or a common free spectrum under a
+    fixed correlated ORF; sampled or fixed white noise and basis ECORR,
+    free-spectrum or powerlaw intrinsic red noise, chromatic GPs and
+    static marginalized columns optional).
 
     ``graphs`` (default: on when ``cm`` lives on a card) replays the
     steady sweep from CUDA graphs; ``graphs=False`` runs it eagerly, the

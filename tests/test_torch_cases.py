@@ -192,17 +192,18 @@ def close(a, b, rtol, atol=0.0):
 
 
 def run_both(tmp_path_factory, psrs, facade, *, nchains, warmup, niter,
-             white_adapt, red_adapt, **model_kw):
+             white_adapt, red_adapt, white_vary=True, **model_kw):
     """``(jax facade, jax chain, port facade, port chain, port outdir)``
-    of ``model_general(psrs, white_vary=True, **model_kw)`` sampled by
-    the ``facade`` of each package from one start (every chain there)."""
+    of ``model_general(psrs, white_vary=white_vary, **model_kw)`` sampled
+    by the ``facade`` of each package from one start (every chain
+    there)."""
     import pulsar_timing_gibbsspec_torch as ptt
     import pulsar_timing_gibbsspec_tpu.sampler.gibbs as jgibbs
     from pulsar_timing_gibbsspec_tpu.data.dataset import Pulsar
     from pulsar_timing_gibbsspec_tpu.models.factory import model_general
 
     jp = [Pulsar(**dataclasses.asdict(p)) for p in psrs]
-    pta = model_general(jp, white_vary=True, **model_kw)
+    pta = model_general(jp, white_vary=white_vary, **model_kw)
     x0 = pta.initial_sample(np.random.default_rng(0))
     opts = dict(nchains=nchains, seed=0, warmup_sweeps=warmup,
                 white_adapt_iters=white_adapt, red_adapt_iters=red_adapt)
@@ -210,7 +211,8 @@ def run_both(tmp_path_factory, psrs, facade, *, nchains, warmup, niter,
                                  chunk_size=niter - warmup - 1, **opts)
     jchain = jg.sample(x0, outdir=str(tmp_path_factory.mktemp("jax")),
                        niter=niter)
-    cm = ptt.model_general(psrs, white_vary=True, device="cpu", **model_kw)
+    cm = ptt.model_general(psrs, white_vary=white_vary, device="cpu",
+                           **model_kw)
     assert list(cm.param_names) == list(pta.param_names)
     tg = getattr(ptt, facade)(cm, device="cpu", **opts)
     out = tmp_path_factory.mktemp("torch")

@@ -67,8 +67,10 @@ def test_unsupported_models_are_refused():
     with pytest.raises(NotImplementedError):
         from_arrays(dict(fields, orf_name="bin_orf",
                          orf_B=np.zeros((7, 3, 3))), device="cpu")
-    with pytest.raises(NotImplementedError):
-        from_arrays(dict(fields, gw_kind="turnover"), device="cpu")
+    # kernel ECORR (the powerlaw-family common PSDs are in the port)
+    with pytest.raises(NotImplementedError, match="kernel ECORR"):
+        from_arrays(dict(fields, ke_eid=np.zeros((3, fields["Nmax"]),
+                                                 np.int32)), device="cpu")
     with pytest.raises(NotImplementedError):
         from_arrays(dict(fields, red_kind="tprocess"), device="cpu")
 
