@@ -3,11 +3,10 @@
 
 Usage: python3 chip_smoke.py [--seed S] [--outdir DIR] [--steady N]
 
-(``DIR``, default ``build/chip_smoke``, receives the checkpoint
-directories of phases 3b, 4, 6, 7, 8, 8c, 9, 9b, 10, 10c, 11, 11c, 12
-and 12c; ``N``, default 240,
-is the steady sweeps of the main paths of phases 4 and 7: a deeper run
-reads what checkpoints cost as the record grows.)
+(``DIR``, default ``build/chip_smoke``, receives phase 13's par/tim
+pair and the checkpoint directories of phases 3b-14d; ``N``, default
+240, is the steady sweeps of the main paths of phases 4, 7 and 13: a
+deeper run reads what checkpoints cost as the record grows.)
 
 Phases (any failure exits non-zero):
 
@@ -92,11 +91,11 @@ Phases (any failure exits non-zero):
    128-grid) and resumed equal to the whole run bitwise, both reading a
    DE period from chain rows;
 9. R2: the 45-pulsar array with powerlaw red noise (10 bins, Bmax 37,
-   90 powerlaw hypers) by ``PTABlockGibbs(nchains=64)``, depth cut to 10
-   warmup and 100 steady sweeps, the gates of 8 but the DE one (the
+   90 powerlaw hypers) by ``PTABlockGibbs(nchains=64)``, depth cut to 3
+   warmup and 24 steady sweeps, the gates of 8 but the DE one (the
    float64 narrow factor must run); 9b. R3: ``model_general([J1713+0747],
-   white_vary=True)`` (common and red powerlaw, 30 bins), 8 chains, 10
-   warmup and 100 steady sweeps, the gates of 9 without rho.
+   white_vary=True)`` (common and red powerlaw, 30 bins), 8 chains, 3
+   warmup and 24 steady sweeps, the gates of 9 without rho.
    Phase 2 also holds the float64 factor forms against their plain
    version on the marginalized likelihood's systems of R2 (2880 of order
    37) and R1 (8 of order 673), and the Gram's float32-product,
@@ -138,8 +137,8 @@ Phases (any failure exits non-zero):
    every narrow form run on the card and the graphed ones replayed as
    captured), and no white or ECORR block in the sweep; (11b) 17 steady
    sweeps from iteration 296, across the refresh at 304, graphed equal
-   to eager bitwise; (11c) 8 chains, 5 warmup and 64 steady sweeps, a
-   run split at row 38 and resumed equal to the whole run bitwise;
+   to eager bitwise; (11c) 8 chains, 3 warmup and 32 steady sweeps, a
+   run split at row 20 and resumed equal to the whole run bitwise;
 12. the single pulsar with the NANOGrav single-pulsar noise model:
    ``model_general([J1713+0747], white_vary=False, noisedict=nd,
    common_psd="turnover", gamma_common=13/3, common_components=30,
@@ -154,7 +153,48 @@ Phases (any failure exits non-zero):
    their shapes: the narrow factor (float32 and float64) at 2880 systems
    of order 59, the narrow Gram's three forms at B1 = 60, and the wide
    factor (float32 and float64) and the wide Gram's three forms at 8
-   systems of order 744 (B1 = 745).
+   systems of order 744 (B1 = 745);
+13. README's Quick start from par/tim with kernel ECORR: a NANOGrav-
+   style par/tim pair of J1713+0747 written into ``--outdir`` from the
+   snapshot's TOAs, uncertainties, frequencies and flags (F0, F1,
+   position, proper motion, parallax, 87 DMX windows, a JUMP, a DD
+   binary with M2/SINI: the snapshot's 105 timing columns), read by
+   ``load_pulsar(par, tim, inject=...)``; ``model_general([psr],
+   red_var=False, white_vary=True, common_psd="spectrum",
+   common_components=30, kernel_ecorr=True)`` (the 508 ECORR epochs in
+   N: Bmax = 165) by ``PulsarBlockGibbs(nchains=8,
+   ecorrsample="kernel")`` through 50 warmup sweeps, adaptation and 240
+   steady sweeps from the graphs (one body: white, ECORR, rho and the
+   exact b-draw, whose wide widening Gram runs at B1 = 166 every
+   sweep), checkpointed every 100, launch counts from 0: samples/s,
+   per-block ms, the sub-chain lengths, the Gram's runs; every record
+   finite, log10_rho and log10_ecorr medians inside their priors, the
+   final checkpoint verified, the Gram one launch in its graph and run
+   once per steady sweep, replayed as captured.  13a, before it: the
+   kernel-ECORR Gram (the widening kernel minus the Woodbury
+   correction) on the card equal to the CPU's at one float32 N; (13b)
+   17 graphed steady sweeps equal to eager ones bitwise; (13c) 8 chains,
+   a split-and-resumed run bitwise;
+14. the t-process array: ``model_general(psrs, tm_svd=True,
+   white_vary=True, common_psd="spectrum", common_components=10,
+   red_psd="tprocess", red_components=10)`` on the synthetic 45-pulsar
+   array (450 InvGamma alphas drawn by their conjugate grid draw, 90
+   powerlaw hypers) by ``PTABlockGibbs(nchains=64)`` through 50 warmup
+   sweeps, the adaptation and 340 steady sweeps (so the DE history reads
+   chain rows), the gates of 9 with the DE one, every alpha finite and
+   positive and moved; (14b) 17 steady sweeps from iteration 392,
+   across the refresh at 400, graphed equal to eager bitwise; (14c) 8
+   chains, split and resumed bitwise; (14d) ``red_psd="infinitepower"``
+   on the array, 8 chains, 3 warmup and 16 steady sweeps: every record
+   finite.  Phase 2 holds and times the wide widening Gram at phase
+   13's shape (8 x 166), and holds every narrow form at phase 14's
+   state (2880 x 37: the shapes phase 4 and R2 time, whose times its
+   rows carry).
+
+To keep the whole run inside its time limit, phases 9 and 9b run 3
+warmup and 24 steady sweeps, 14d 3 and 16, the resume checks 11c-14c 3
+and 32, and every resume and graphs-against-eager check adapts its
+white and ECORR blocks on a record of 250 steps.
 
 The kernels' JSON record and the card as ``nvidia-smi`` reports it are
 the two lines before the last; the last line is the JSON result.
@@ -219,9 +259,10 @@ SINGLE_BINS, SINGLE_CHAINS, WIDE_TIMING_SYSTEMS = 30, 8, 64
 RESUME_CHAINS, RESUME_WARMUP, RESUME_STEADY, RESUME_CHUNK = 8, 5, 64, 16
 #: the powerlaw paths: R1's steady sweeps (past iteration 384, where the
 #: DE history first reads chain rows, and 512, where it reads them anew);
-#: the depth of R2 and R3 (warmup, steady sweeps)
+#: the depth of R2 and R3 (warmup, steady sweeps; cut from 10 + 100 to
+#: keep the run inside its limit)
 R1_STEADY = 480
-R2_WARMUP, R2_STEADY, R3_WARMUP, R3_STEADY = 10, 100, 10, 100
+R2_WARMUP, R2_STEADY, R3_WARMUP, R3_STEADY = 3, 24, 3, 24
 #: R1's graphs-against-eager sweeps start here (crossing the DE period
 #: switch at 512); its resume check's steady sweeps, split row (after
 #: 384, off the 128-grid, on the chunk grid from iteration 6) and the
@@ -246,6 +287,88 @@ HD_FORMS = (("gram_accumulate", "f32_dot_f64_reduce"),)
 #: the DE history first reads chain rows)
 N11_BINS, N11_GRAPH_CHECK_AT = 10, 296
 N12_BINS, N12_STEADY = 30, 480
+#: the Quick start from par/tim with kernel ECORR (phase 13): the
+#: injection ``load_pulsar`` regenerates the residuals with, and the one
+#: kernel form its sweeps run (the exact b-draw's widening Gram, wide at
+#: B1 = 166)
+QS_INJECT = dict(log10_A=math.log10(2e-15), gamma=13.0 / 3.0, nmodes=30)
+KE_FORMS = (("gram_accumulate", "widen_f64_wide"),)
+#: the t-process array (phase 14): bins, steady sweeps (past 384, so the
+#: DE history reads chain rows), where its graphs-against-eager sweeps
+#: start (crossing the refresh at 400); the infinitepower array (14d):
+#: chains, warmup and steady sweeps
+TP_BINS, TP_STEADY, TP_GRAPH_CHECK_AT = 10, 340, 392
+IP_CHAINS, IP_WARMUP, IP_STEADY = 8, 3, 16
+#: warmup and steady sweeps of the resume checks 11c-14c (cut from 5 +
+#: 64 to keep the run inside its limit), and the white / ECORR
+#: adaptation record of every resume and graphs-against-eager check's
+#: sampler (the main paths' 1000: these checks compare two runs)
+SIDE_RESUME_WARMUP, SIDE_RESUME_STEADY, CHECK_ADAPT = 3, 32, 250
+
+
+def _sexagesimal(deg, hours):
+    """``[+-]dd:mm:ss.sss...`` of an angle in degrees (hours of 15 deg
+    with ``hours``)."""
+    v = abs(deg) / (15.0 if hours else 1.0)
+    d = int(v)
+    m = int((v - d) * 60.0)
+    sec = (v - d - m / 60.0) * 3600.0
+    sign = "-" if deg < 0 else ("" if hours else "+")
+    return f"{sign}{d:02d}:{m:02d}:{sec:011.8f}"
+
+
+def write_quickstart_partim(outdir, snapshot=SNAPSHOT):
+    """Write a NANOGrav-style par/tim pair of J1713+0747 into
+    ``outdir`` from the recorded snapshot's TOAs, uncertainties,
+    frequencies and ``-fe``/``-be``/``-f``/``-pta`` flags (720 TOAs, 4
+    backends).  The par fits the snapshot's own timing parameters: F0
+    and F1 (in tempo2's D exponents), the sexagesimal position, proper
+    motion, parallax, a DMX window per 60 days with TOAs (87), one
+    flag-form JUMP and a DD binary with M2/SINI, so ``design_matrix``
+    gives the snapshot's 105 columns.  Returns ``(par, tim)`` paths."""
+    import numpy as np
+
+    out = Path(outdir)
+    out.mkdir(parents=True, exist_ok=True)
+    with np.load(snapshot, allow_pickle=False) as z:
+        name = str(z["name"])
+        mjd = z["toas"] / 86400.0
+        errs, freqs, pos = z["toaerrs"], z["freqs"], z["pos"]
+        fe, be, f = z["flag_fe"], z["flag_be"], z["flag_f"]
+    ra = math.degrees(math.atan2(pos[1], pos[0])) % 360.0
+    dec = math.degrees(math.asin(pos[2]))
+    lines = [f"PSRJ           {name}",
+             f"RAJ            {_sexagesimal(ra, True)} 1 2e-07",
+             f"DECJ           {_sexagesimal(dec, False)} 1 4e-06",
+             "PMRA           4.9171 1 0.0023", "PMDEC          -3.9150 1 0.0047",
+             "PX             0.8471 1 0.0279",
+             "F0             218.81184379596750D0 1 1.2D-14",
+             "F1             -4.0836D-16 1 1.1D-21", "PEPOCH         53729",
+             "POSEPOCH       53729", "DM             15.9907", "BINARY DD",
+             "PB             67.8251309 1 1e-08", "T0             53761.0306",
+             "A1             32.34242 1 1e-07", "OM             176.196 1 0.002",
+             "ECC            7.49D-05 1 1D-08", "M2             0.290 1 0.011",
+             "SINI           0.951 1 0.002"]
+    edges = np.arange(mjd.min(), mjd.max() + 60.0, 60.0)
+    nwin = 0
+    for j in range(len(edges) - 1):
+        if not ((mjd >= edges[j]) & (mjd < edges[j + 1])).any():
+            continue
+        nwin += 1
+        lines += [f"DMX_{nwin:04d}   0.0 1 1e-6",
+                  f"DMXR1_{nwin:04d} {edges[j]:.6f}",
+                  f"DMXR2_{nwin:04d} {edges[j + 1] - 1e-6:.6f}"]
+    lines.append("JUMP -be GUPPI 0.0 1 1e-8")
+    par = out / f"{name}.par"
+    par.write_text("\n".join(lines) + "\n")
+    tim_lines = ["FORMAT 1", "MODE 1"]
+    for i in range(len(mjd)):
+        tim_lines.append(f"{name} {freqs[i]:.3f} {mjd[i]:.12f} "
+                         f"{errs[i] * 1e6:.6f} ao -fe {fe[i]} -be {be[i]} "
+                         f"-f {f[i]} -pta NANOGrav")
+    tim = out / f"{name}.tim"
+    tim.write_text("\n".join(tim_lines) + "\n")
+    return par, tim
 
 
 def card_line():
@@ -436,8 +559,8 @@ def parity_state(cm, C, gen):
     [0.8, 1.2], equad in [-8.5, -6.5], ecorr in [-8, -6.5], the common
     log10_rho at the
     injected power law (log10_A = log10(2e-15), gamma = 13/3) +-0.3 dex,
-    the red log10_rho in [-9, -8.5], powerlaw log10_A in [-14.5, -13.5]
-    and gamma in [3, 5]."""
+    the red log10_rho in [-9, -8.5], powerlaw log10_A in [-14.5, -13.5],
+    gamma in [3, 5] and t-process alphas in [0.5, 2]."""
     import torch
 
     from pulsar_timing_gibbsspec_torch.data.simulate import (YEAR,
@@ -460,6 +583,8 @@ def parity_state(cm, C, gen):
             x[:, j] = -14.5 + u[:, j]
         elif nm.endswith("_gamma"):
             x[:, j] = 3.0 + 2.0 * u[:, j]
+        elif "_alphas_" in nm:
+            x[:, j] = 0.5 + 1.5 * u[:, j]
         elif nm.startswith("gw_") and "_log10_rho_" in nm:
             k = int(nm.rsplit("_", 1)[1])
             phi = powerlaw_psd((k + 1) / Tspan, math.log10(2e-15),
@@ -485,7 +610,8 @@ def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
     row add exact zeros, and the kernel skips them); the bound over the
     whole grid, and that of a kernel reading a materialized ``TNa``, are
     printed beside it.  A width beyond the narrow form's runs the wide
-    form (``*_wide``).  ``forms`` names the forms to hold."""
+    form (``*_wide``).  ``forms`` names the forms to hold; ``timer=None``
+    holds them without timing (a shape an earlier row timed)."""
     import torch
 
     from pulsar_timing_gibbsspec_torch.config import settings
@@ -533,6 +659,15 @@ def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
         good = bool(torch.isfinite(Gk).all()) and err <= tol
         ok &= good
         del Gk, Gp
+        if timer is None:
+            recs[("gram_accumulate", form + suffix)] = dict(
+                max_abs_err=diff.max().item())
+            print(f"phase 2 gram_accumulate[{form}{suffix}] (B1 {B1}, {Bt} "
+                  "rows of N): max |kernel-plain| / Jacobi scale "
+                  f"{err:.3e} (tol {tol:.3e}) {'ok' if good else 'FAIL'}; "
+                  "not timed again (an earlier row has this shape)",
+                  flush=True)
+            continue
         (ms_k, ev_k), (ms_p, ev_p) = timer(run_k), timer(run_p)
         # one unsegmented torch.matmul (float64 forms: on float64 copies
         # of the operands, made outside the timing)
@@ -632,7 +767,7 @@ def chol_parity(cm, x, gen, timer):
     runs the wide form (``*_wide``), which is also held to the plain
     chain's backward errors ``|L L^T - A|`` and ``|Li L - I|`` (A the
     preconditioned matrix in float64): at most 8x the plain chain's plus
-    64 eps_f32 of the matrix scale."""
+    64 eps_f32 of the matrix scale.  ``timer=None`` skips the timing."""
     import torch
 
     from pulsar_timing_gibbsspec_torch.ops import kernels
@@ -691,6 +826,11 @@ def chol_parity(cm, x, gen, timer):
               f"{bp[0]:.3e}, {bp[1]:.3e}; tol {tol[0]:.3e}, {tol[1]:.3e} "
               f"{'ok' if good else 'FAIL'}", flush=True)
     del K64, R
+    if timer is None:
+        print(f"phase 2 chol_solve_sample[{form}] ({Sig.shape[0]} systems "
+              f"of order {n}): {'ok' if ok else 'FAIL'}; not timed again "
+              "(an earlier row has this shape)", flush=True)
+        return {("chol_solve_sample", form): dict(max_abs_err=mae)}, ok
 
     (ms_k, ev_k), (ms_p, ev_p), (lib, ev_lib) = (
         timer(run_k), timer(run_p),
@@ -786,7 +926,8 @@ def chol64_parity(cm, x, timer):
     1e-8 of the scale (the DM GP's low frequencies beside the timing
     model's DM columns: condition numbers to ~4e8 at order 59), and the
     kernel is held to that class, as the float32 forms are.  Timed
-    beside the plain chain and the library chain."""
+    beside the plain chain and the library chain (``timer=None``: not
+    timed)."""
     import torch
 
     from pulsar_timing_gibbsspec_torch.ops import kernels
@@ -820,6 +961,15 @@ def chol64_parity(cm, x, timer):
         ok &= bool(torch.isfinite(k).all()) and e <= tol
         mae = max(mae, e)
     del K, Pl, Lib
+    if timer is None:
+        print(f"phase 2 chol_solve_sample[{form}] ({Sig.shape[0]} systems "
+              f"of order {n}, the marginalized likelihood's): |kernel - "
+              "plain|, |library - plain| and tolerance by output "
+              + json.dumps({k: [float(f"{v:.3e}") for v in e]
+                            for k, e in errs.items()})
+              + f" {'ok' if ok else 'FAIL'}; not timed again (an earlier "
+              "row has this shape)", flush=True)
+        return {("chol_solve_sample", form): dict(max_abs_err=mae)}, ok
     (ms_k, ev_k), (ms_p, ev_p), (lib, ev_lib) = (
         timer(run_k), timer(run_p),
         timer(lambda: library_factor(Sig, d, z, 0.0)))
@@ -909,9 +1059,12 @@ def graphs_vs_eager(drv, x, b, it0, phase, label):
                                     "red_mh", "joint_breakdowns"))}
     same = all(torch.equal(e, r) for e, r in zip(out[False], out[True]))
     ok = same and bool(torch.isfinite(out[True][1]).all())
+    exact = sum(t % drv.exact_every == 0
+                for t in range(it0, it0 + GRAPH_CHECK_SWEEPS))
     print(f"phase {phase} graphs against eager, {label}, "
-          f"{GRAPH_CHECK_SWEEPS} steady sweeps from iteration {it0} (one "
-          f"refresh) at {drv.C} chains, graphs {sorted(drv.carry.graphs)}: "
+          f"{GRAPH_CHECK_SWEEPS} steady sweeps from iteration {it0} ({exact} "
+          f"of them refresh or exact b-draws) at {drv.C} chains, graphs "
+          f"{sorted(drv.carry.graphs)}: "
           f"bitwise {'equal' if same else 'DIFFERENT'} (max |eager - graph| "
           + json.dumps(diffs) + f"); {wall[False]:.3f} ms per sweep eager, "
           f"{wall[True]:.3f} graphed; capture {drv.carry.capture_seconds:.3f}"
@@ -929,7 +1082,8 @@ def graph_against_eager(cm, seed, outdir, facade="PTABlockGibbs",
     import pulsar_timing_gibbsspec_torch as ptt
 
     g = getattr(ptt, facade)(cm, nchains=nchains, device=cm.device,
-                             seed=seed, warmup_sweeps=2, graphs=False)
+                             seed=seed, warmup_sweeps=2, graphs=False,
+                             white_adapt_iters=CHECK_ADAPT)
     g.sample(g.initial_sample(torch.Generator(device=cm.device).manual_seed(
         seed + 1)), outdir=outdir, niter=4)
     drv = g.driver
@@ -940,7 +1094,7 @@ def graph_against_eager(cm, seed, outdir, facade="PTABlockGibbs",
 def resume_check(cm, seed, outdir, facade="PTABlockGibbs", phase="6",
                  warmup=RESUME_WARMUP, steady=RESUME_STEADY, split=None,
                  de_gate=False, **opts):
-    """Phase 6 (7c, 8c, 10c, 11c, 12c): at ``RESUME_CHAINS`` chains of
+    """Phase 6 (7c, 8c, 10c-14c): at ``RESUME_CHAINS`` chains of
     the ``facade`` (driver options ``opts``), a run whole and a run split
     at a chunk boundary (row ``split``, by default halfway) then resumed
     in a fresh sampler, both through the graphs, write bitwise equal
@@ -953,6 +1107,8 @@ def resume_check(cm, seed, outdir, facade="PTABlockGibbs", phase="6",
 
     niter = warmup + 1 + steady
     split = split or warmup + 1 + steady // 2
+
+    opts.setdefault("white_adapt_iters", CHECK_ADAPT)
 
     def gibbs():
         return getattr(ptt, facade)(cm, nchains=RESUME_CHAINS,
@@ -1474,45 +1630,216 @@ def hd_path(cm, seed, outdir, steady):
     return ok, counts[0], g
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--outdir", default="build/chip_smoke")
-    ap.add_argument("--steady", type=int, default=STEADY)
-    args = ap.parse_args(argv)
+def ke_woodbury_agreement(cm, cpu, seed):
+    """Phase 13a: the kernel-ECORR Gram (the widening kernel minus the
+    plain Woodbury correction, ``blocks.tnt_d_x``) on the card against
+    the same function on the CPU model ``cpu`` (the plain Gram), at a
+    seeded state of ``SINGLE_CHAINS`` chains and one float32 N (the
+    CPU's, copied to the card: the two devices' float32 ``pow`` may round
+    N apart by an ulp, which the cancellation of ``TNT - V^T w V``
+    amplifies): the difference at the Jacobi scale of the diagonal Gram
+    within 1e-10 (float64 sums in other orders), and every dummy epoch's
+    ``w`` at most 1e-60."""
+    import torch
 
+    from pulsar_timing_gibbsspec_torch.sampler import blocks
+
+    x = parity_state(cpu, SINGLE_CHAINS, torch.Generator().manual_seed(
+        seed + 3))
+    N0 = cpu.ndiag_fast(x)
+    out = {}
+    for m in (cm, cpu):
+        xm, N = x.to(m.device), N0.to(m.device)
+        TNT0, _ = blocks.tnt_d(m, N)
+        TNT, d = blocks.tnt_d_x(m, xm, N)
+        w = blocks.ke_weights(m, xm, N)[2]
+        out[m.device.type] = [t.cpu() for t in (TNT0, TNT, d, w)]
+    TNT0, TNTg, dg, w = out["cuda"]
+    _, TNTc, dc, _ = out["cpu"]
+    sc = torch.sqrt(torch.clamp(torch.diagonal(TNT0, dim1=-2, dim2=-1),
+                                min=1e-300))
+    err = ((TNTg - TNTc).abs() / (sc[..., :, None] * sc[..., None, :])).amax()
+    err_d = ((dg - dc).abs() / sc).amax()
+    live = cm.ke_U.sum(-1).cpu() > 0
+    w_dummy = float(w[:, ~live].abs().max()) if (~live).any() else 0.0
+    corr = ((TNT0 - TNTg).abs() / (sc[..., :, None] * sc[..., None, :])
+            ).amax()
+    ok = bool(err <= 1e-10 and err_d <= 1e-10 and w_dummy <= 1e-60
+              and torch.isfinite(TNTg).all())
+    print(f"phase 13a kernel-ECORR Gram (widening kernel minus the plain "
+          f"Woodbury correction) card vs CPU at {SINGLE_CHAINS} chains: max "
+          f"|TNT| difference / Jacobi scale {float(err):.3e}, |d| "
+          f"{float(err_d):.3e} (tol 1e-10); the correction itself up to "
+          f"{float(corr):.3e} of the scale; largest dummy-epoch w "
+          f"{w_dummy:.3e} (tol 1e-60) {'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def ke_path(cm, seed, outdir, steady):
+    """Phase 13: README's Quick start from par/tim, compiled with kernel
+    ECORR, by ``PulsarBlockGibbs(nchains=SINGLE_CHAINS,
+    ecorrsample="kernel")`` through warmup, adaptation and ``steady``
+    sweeps replayed from the graphs (one body: the exact b-draw every
+    sweep), checkpointed every ``SAVE_EVERY`` sweeps, with the launch
+    counts set to 0 just before it.  Gates: every record finite; every
+    common log10_rho and log10_ecorr median inside its prior; the final
+    checkpoint verified; the sweep ``white, ecorr, rho, b_exact``; the
+    wide widening Gram run on the card, one launch in the b_exact graph,
+    run once per steady sweep since the captures, replayed as captured
+    times replays and run as often as the eager launches plus replays.
+    Returns ``(ok, runs, sampler)``."""
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
-    try:
-        import pulsar_timing_gibbsspec_torch as ptt
-        from pulsar_timing_gibbsspec_torch.data import (
-            load_enterprise_snapshot, synthetic_array, synthetic_noisedict)
-        from pulsar_timing_gibbsspec_torch.ops import kernels
-        from pulsar_timing_gibbsspec_torch.ops.kernels import build
-        from pulsar_timing_gibbsspec_torch.runtime import integrity
-    except ImportError as e:
-        print(f"chip_smoke: the port is not importable here ({e}); run it "
-              "from the repository root", file=sys.stderr)
-        return 2
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+    from pulsar_timing_gibbsspec_torch.runtime import integrity
 
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(f"card: {card}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    C, niter = SINGLE_CHAINS, WARMUP + 1 + steady
+    kernels.reset_launches()
     t0 = time.perf_counter()
-    build.library(verbose=True)
-    print(f"phase 1 build: {time.perf_counter() - t0:.1f} s", flush=True)
-    usage = resource_usage(build.BUILD_DIR / "ptg_torch_kernels.so")
+    g = ptt.PulsarBlockGibbs(cm, nchains=C, device=cm.device, seed=seed,
+                             warmup_sweeps=WARMUP, ecorrsample="kernel")
+    x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
+        seed))
+    chain = g.sample(x0, outdir=outdir, niter=niter, save_every=SAVE_EVERY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    drv, graphs = g.driver, g.driver.carry
+    counts = launch_counts(graphs)
+    missing, unreplayed, unaccounted = count_faults(counts, KE_FORMS,
+                                                    KE_FORMS)
+    form = KE_FORMS[0]
+    since = counts[4][form]
+    per_sweep = (since == drv.steady_sweeps
+                 and graphs.launches.get("b_exact") == {form: 1})
+    sps = drv.steady_sweeps / drv.steady_seconds
+    rows = chain[WARMUP + 1:]
+    med = np.median(rows[:, :, cm.rho_ix_x.cpu().numpy()], axis=(0, 1))
+    ec = [int(j) for j in cm.idx.ecorr]
+    med_ec = np.median(rows[:, :, ec], axis=(0, 1))
+    pa, pb = cm.pa.cpu().numpy()[ec], cm.pb.cpu().numpy()[ec]
+    rep = integrity.verify(outdir)
+    blocks_ = drv.sweep_blocks(False)
+    print(f"phase 13 Quick start from par/tim with kernel ECORR "
+          f"({cm.pulsars[0]}, Bmax {cm.Bmax} (B1 {cm.Bmax + 1}), Nmax "
+          f"{cm.Nmax}, nx {cm.nx}, {cm.ke_par_ix.shape[1]} ECORR epochs in "
+          f"N): {niter} rows x {C} chains in {wall:.1f} s (warmup {WARMUP});"
+          f" sweep {blocks_}; white sub-chain {drv.aclength_white} steps, "
+          f"ECORR sub-chain {drv.aclength_ecorr} steps; steady "
+          f"{drv.steady_sweeps} sweeps in {drv.steady_seconds:.3f} s = "
+          f"{sps:.3f} sweeps/s = {sps * C:.1f} samples/s", flush=True)
+    print("phase 13 per-block ms per steady sweep (CUDA events): "
+          + json.dumps({k: round(v / drv.steady_sweeps, 4)
+                        for k, v in sorted(drv.timer.ms.items())})
+          + "; warmup and adaptation block ms in all (eager) " + json.dumps(
+              {k: round(v, 1) for k, v in sorted(drv.warmup_ms.items())}),
+          flush=True)
+    busy = sum(g.store.seconds.values())
+    print(f"phase 13 CUDA graphs: {len(graphs.graphs)} captured in "
+          f"{graphs.capture_seconds:.3f} s, pool "
+          f"{graphs.pool_bytes / 1e6:.1f} MB, launches per graph "
+          + json.dumps({k: {"/".join(f): n for f, n in v.items()}
+                        for k, v in graphs.launches.items() if v})
+          + f"; checkpoints every {SAVE_EVERY} sweeps: saves ran "
+          f"{busy:.3f} s on their thread, the loop waited "
+          f"{g.save_seconds:.3f} s; final manifest verified {rep['ok']} at "
+          f"{rep['rows']} rows", flush=True)
+    print("phase 13 log10_rho medians per bin: "
+          + json.dumps([round(float(v), 3) for v in med])
+          + "; log10_ecorr medians " + json.dumps(
+              [round(float(v), 3) for v in med_ec])
+          + f"; {form[0]}[{form[1]}] runs since the captures {since} for "
+          f"{drv.steady_sweeps} steady sweeps", flush=True)
+    print_counts(13, counts)
+    finite = bool(np.isfinite(chain).all() and np.isfinite(g.bchain).all())
+    inside = bool(((med > -10.0) & (med < -4.0)).all()
+                  and ((med_ec > pa) & (med_ec < pb)).all())
+    saved = rep["ok"] and rep["rows"] == niter and graphs.graphed
+    sweep = blocks_ == ["white", "ecorr", "rho", "b_exact"]
+    ok = (finite and inside and not missing and not unreplayed
+          and not unaccounted and saved and per_sweep and sweep)
+    if not ok:
+        print(f"chip_smoke: kernel-ECORR path failed (finite={finite}, "
+              f"medians inside the priors={inside}, never run={missing}, "
+              f"not replayed as captured={unreplayed}, runs other than "
+              f"eager launches plus replays={unaccounted}, verified "
+              f"checkpoint through the graphs={saved}, the wide widening "
+              f"Gram once per steady sweep={per_sweep}, sweep={blocks_})",
+              file=sys.stderr)
+    return ok, counts[0], g
+
+
+def tprocess_gates(cm, g, warmup):
+    """Phase 14's gates beyond the powerlaw path's: every recorded
+    t-process alpha finite and positive, and none left where it began
+    (the conjugate draw ran).  Prints the alphas' medians by bin."""
+    import numpy as np
+
+    cols = [j for j, nm in enumerate(cm.param_names) if "_alphas_" in nm]
+    a = g.chain[:, :, cols]
+    steady = a[warmup + 1:]
+    good = bool(np.isfinite(a).all() and (a > 0).all()
+                and (steady[-1] != steady[0]).any())
+    med = np.median(steady.reshape(-1, cm.P_real, len(cols) // cm.P_real),
+                    axis=0)
+    print(f"phase 14 t-process alphas ({len(cols)}): finite and positive "
+          f"{bool(np.isfinite(a).all() and (a > 0).all())}, medians by bin "
+          "(mean over pulsars) " + json.dumps(
+              [round(float(v), 3) for v in med.mean(0)])
+          + f", range of the medians [{med.min():.3g}, {med.max():.3g}] "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    return good
+
+
+def infinitepower_check(cm, seed, outdir):
+    """Phase 14d: ``red_psd="infinitepower"`` on the array by
+    ``PTABlockGibbs(nchains=IP_CHAINS)``, ``IP_WARMUP`` warmup and
+    ``IP_STEADY`` steady sweeps through the graphs: every record
+    finite."""
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+
+    t0 = time.perf_counter()
+    g = ptt.PTABlockGibbs(cm, nchains=IP_CHAINS, device=cm.device,
+                          seed=seed, warmup_sweeps=IP_WARMUP)
+    chain = g.sample(g.initial_sample(torch.Generator(
+        device=cm.device).manual_seed(seed)), outdir=outdir,
+        niter=IP_WARMUP + 1 + IP_STEADY)
+    ok = bool(np.isfinite(chain).all() and np.isfinite(g.bchain).all()
+              and g.driver.carry.graphed)
+    med = np.median(chain[IP_WARMUP + 1:, :, cm.rho_ix_x.cpu().numpy()],
+                    axis=(0, 1))
+    print(f"phase 14d infinitepower array (red {cm.red_kind}, "
+          f"{IP_CHAINS} chains, {IP_WARMUP} + {IP_STEADY} sweeps, sweep "
+          f"{g.driver.sweep_blocks(False)}): records finite {ok}; common "
+          "log10_rho medians " + json.dumps(
+              [round(float(v), 3) for v in med])
+          + f"; {time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}",
+          flush=True)
+    return ok
+
+
+def earlier_paths(args, psrs, gen, outdir):
+    """Phases 2-12: the kernel parity at the shapes of the paths of
+    earlier slices, then phases 3-12c.  Returns ``(rows, timed)``: the
+    ``kernels`` JSON rows of those shapes, with their launches from
+    their paths' runs, and the records of the 45-pulsar shapes (the
+    narrow forms at order 37, the float64 factor at 2880 x 37) keyed by
+    ``(kernel, form)``; or None when a phase failed."""
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.data import (
+        load_enterprise_snapshot, synthetic_noisedict)
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+    from pulsar_timing_gibbsspec_torch.runtime import integrity
 
     dev = torch.device(DEVICE)
     C = NCHAINS
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    psrs = synthetic_array(npsr=45, seed=args.seed)
     cm = ptt.build_crn_spectrum(psrs, nbins=10, red_bins=10, device=dev)
     print(f"model: P={cm.P} Nmax={cm.Nmax} Bmax={cm.Bmax} nx={cm.nx}, "
           f"{C} chains", flush=True)
@@ -1614,15 +1941,14 @@ def main(argv=None):
     if not (ok_g and ok_c and ok_g1 and ok_c1 and ok_f64 and ok_f64w
             and ok_hd and ok_n):
         print("chip_smoke: kernel parity failed", file=sys.stderr)
-        return 1
+        return None
     if not small_agreement(dev, args.seed):
         print("chip_smoke: small-input agreement failed", file=sys.stderr)
-        return 1
-    outdir = Path(args.outdir)
+        return None
     if not graph_against_eager(cm, args.seed, outdir / "graph_check"):
         print("chip_smoke: graph replay differs from the eager sweep",
               file=sys.stderr)
-        return 1
+        return None
 
     # ---- phase 4: the main path, launch counts from 0 ----------------------
     niter = WARMUP + 1 + args.steady
@@ -1700,15 +2026,15 @@ def main(argv=None):
               f"replayed as captured={unreplayed}, runs other than eager "
               f"launches plus replays={unaccounted}, verified checkpoint "
               f"through the graphs={saved})", file=sys.stderr)
-        return 1
+        return None
     if not profile_steady(drv, 16 * (niter // 16 + 1)):
         print("chip_smoke: the device trace disagrees with the kernels' "
               "device counters", file=sys.stderr)
-        return 1
+        return None
     if not resume_check(cm, args.seed, outdir / "resume"):
         print("chip_smoke: the resumed run differs from the whole one",
               file=sys.stderr)
-        return 1
+        return None
     del g, drv, graphs, chain
     torch.cuda.empty_cache()
 
@@ -1718,18 +2044,18 @@ def main(argv=None):
     ok7, runs1 = single_pulsar_path(cm1, args.seed, outdir / "single",
                                     args.steady, wide)
     if not ok7:
-        return 1
+        return None
     runs.update({k: runs1[k] for k in wide})
     if not graph_against_eager(cm1, args.seed, outdir / "single_graph_check",
                                "PulsarBlockGibbs", SINGLE_CHAINS, "7b"):
         print("chip_smoke: single-pulsar graph replay differs from the "
               "eager sweep", file=sys.stderr)
-        return 1
+        return None
     if not resume_check(cm1, args.seed, outdir / "single_resume",
                         "PulsarBlockGibbs", "7c"):
         print("chip_smoke: the resumed single-pulsar run differs from the "
               "whole one", file=sys.stderr)
-        return 1
+        return None
     torch.cuda.empty_cache()
 
     # ---- phases 8-9b: the powerlaw hyper block, launch counts from 0 -------
@@ -1739,7 +2065,7 @@ def main(argv=None):
                                    args.seed, outdir / "r1", wide64,
                                    WIDE_GRAPHED, de_gate=True)
     if not ok8:
-        return 1
+        return None
     runs[("chol_solve_sample", "f64_wide")] = runs8[
         ("chol_solve_sample", "f64_wide")]
     drv8 = g8.driver
@@ -1749,7 +2075,7 @@ def main(argv=None):
                            "switch at 512"):
         print("chip_smoke: R1 graph replay differs from the eager sweep",
               file=sys.stderr)
-        return 1
+        return None
     del g8, drv8
     torch.cuda.empty_cache()
     if not resume_check(cm_r1, args.seed, outdir / "r1_resume",
@@ -1758,26 +2084,26 @@ def main(argv=None):
                         red_adapt_iters=R1_RESUME_ADAPT):
         print("chip_smoke: the resumed R1 run differs from the whole one",
               file=sys.stderr)
-        return 1
+        return None
     narrow64 = narrow + [("chol_solve_sample", "f64")]
     ok9, runs9, _ = powerlaw_path("9", cm_r2, "PTABlockGibbs", C, R2_WARMUP,
                                   R2_STEADY, args.seed, outdir / "r2",
                                   narrow64, GRAPHED)
     if not ok9:
-        return 1
+        return None
     runs[("chol_solve_sample", "f64")] = runs9[("chol_solve_sample", "f64")]
     torch.cuda.empty_cache()
     ok9b, _, _ = powerlaw_path("9b", cm_r3, "PulsarBlockGibbs", SINGLE_CHAINS,
                                R3_WARMUP, R3_STEADY, args.seed, outdir / "r3",
                                wide64, WIDE_GRAPHED)
     if not ok9b:
-        return 1
+        return None
     torch.cuda.empty_cache()
 
     # ---- phases 10-10c: the Hellings-Downs array, launch counts from 0 ------
     ok10, runs10, g10 = hd_path(cm_hd, args.seed, outdir / "hd", args.steady)
     if not ok10:
-        return 1
+        return None
     drv10 = g10.driver
     if not graphs_vs_eager(drv10, torch.as_tensor(drv10.x_cur, device=dev),
                            drv10.b.to(dev), HD_GRAPH_CHECK_AT, "10b",
@@ -1785,7 +2111,7 @@ def main(argv=None):
                            "refresh at 304"):
         print("chip_smoke: Hellings-Downs graph replay differs from the "
               "eager sweep", file=sys.stderr)
-        return 1
+        return None
     del g10, drv10
     torch.cuda.empty_cache()
     if not resume_check(cm_hd, args.seed, outdir / "hd_resume",
@@ -1793,7 +2119,7 @@ def main(argv=None):
                         steady=HD_RESUME_STEADY):
         print("chip_smoke: the resumed Hellings-Downs run differs from the "
               "whole one", file=sys.stderr)
-        return 1
+        return None
     torch.cuda.empty_cache()
 
     # ---- phases 11-12c: the standard noise model, launch counts from 0 -----
@@ -1802,7 +2128,7 @@ def main(argv=None):
                                       outdir / "n11", narrow64, GRAPHED,
                                       no_white=True)
     if not ok11:
-        return 1
+        return None
     drv11 = g11.driver
     if not graphs_vs_eager(drv11, torch.as_tensor(drv11.x_cur, device=dev),
                            drv11.b.to(dev), N11_GRAPH_CHECK_AT, "11b",
@@ -1810,40 +2136,34 @@ def main(argv=None):
                            "refresh at 304"):
         print("chip_smoke: the standard noise model's graph replay differs "
               "from the eager sweep", file=sys.stderr)
-        return 1
+        return None
     del g11, drv11
     torch.cuda.empty_cache()
     if not resume_check(cm_n11, args.seed, outdir / "n11_resume",
-                        "PTABlockGibbs", "11c"):
+                        "PTABlockGibbs", "11c", warmup=SIDE_RESUME_WARMUP,
+                        steady=SIDE_RESUME_STEADY):
         print("chip_smoke: the resumed standard-noise array run differs "
               "from the whole one", file=sys.stderr)
-        return 1
+        return None
     ok12, runs12, _ = powerlaw_path("12", cm_n12, "PulsarBlockGibbs",
                                     SINGLE_CHAINS, WARMUP, N12_STEADY,
                                     args.seed, outdir / "n12", wide64,
                                     WIDE_GRAPHED, de_gate=True,
                                     no_white=True)
     if not ok12:
-        return 1
+        return None
     torch.cuda.empty_cache()
     if not resume_check(cm_n12, args.seed, outdir / "n12_resume",
-                        "PulsarBlockGibbs", "12c"):
+                        "PulsarBlockGibbs", "12c", warmup=SIDE_RESUME_WARMUP,
+                        steady=SIDE_RESUME_STEADY):
         print("chip_smoke: the resumed NANOGrav single-pulsar run differs "
               "from the whole one", file=sys.stderr)
-        return 1
+        return None
     noise_runs = {"11": runs11, "12": runs12}
     noise_models = {"11": cm_n11, "12": cm_n12}
-
-    print("phase 1 kernel resources (cuobjdump -res-usage: registers, "
-          "stack frame bytes, static shared memory bytes): " + (json.dumps(
-              {n: [r, st, sh] for n, r, st, sh in usage})
-              if usage else "not available"), flush=True)
-    for bt in (SINGLE_CHAINS, WIDE_TIMING_SYSTEMS):
-        print(f"phase 1 wide forms' launch configuration at {bt} systems "
-              "(ptg_wide_config; dynamic shared memory is not in "
-              "cuobjdump's static count): "
-              + json.dumps(wide_configs(build.library(), bt)), flush=True)
-    print(json.dumps({"kernels": [
+    timed = {k: r for k, r in {**records, **rec_f64}.items()
+             if not k[1].endswith("_wide")}
+    return [
         dict(name=f"{k}[{f}]", route="cuda", source=SOURCES[k][
             f.endswith("_wide")], replaces=REPLACES[k],
              launches=runs[(k, f)], **r)
@@ -1857,7 +2177,173 @@ def main(argv=None):
              source=SOURCES[k][f.endswith("_wide")], replaces=REPLACES[k],
              launches=noise_runs[nm][(k, f)], **r)
         for nm, recs in noise_records.items()
-        for (k, f), r in recs.items()]}))
+        for (k, f), r in recs.items()], timed
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--outdir", default="build/chip_smoke")
+    ap.add_argument("--steady", type=int, default=STEADY)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    try:
+        import pulsar_timing_gibbsspec_torch as ptt
+        from pulsar_timing_gibbsspec_torch.data import (load_pulsar,
+                                                         synthetic_array)
+        from pulsar_timing_gibbsspec_torch.ops.kernels import build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here ({e}); run it "
+              "from the repository root", file=sys.stderr)
+        return 2
+
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    build.library(verbose=True)
+    print(f"phase 1 build: {time.perf_counter() - t0:.1f} s", flush=True)
+    usage = resource_usage(build.BUILD_DIR / "ptg_torch_kernels.so")
+
+    dev = torch.device(DEVICE)
+    C = NCHAINS
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    psrs = synthetic_array(npsr=45, seed=args.seed)
+    outdir = Path(args.outdir)
+
+    # README's Quick start from par/tim with kernel ECORR (phase 13), the
+    # t-process array (phase 14) and the infinitepower array (14d)
+    par, tim = write_quickstart_partim(outdir / "partim")
+    qs = load_pulsar(par, tim, inject=QS_INJECT)
+    ke_opts = dict(red_var=False, white_vary=True, common_psd="spectrum",
+                   common_components=SINGLE_BINS, kernel_ecorr=True)
+    cm_ke = ptt.model_general([qs], device=dev, **ke_opts)
+    cm_ke_cpu = ptt.model_general([qs], device="cpu", **ke_opts)
+    print(f"phase 13 model from {par.name} / {tim.name}: {cm_ke.pulsars[0]} "
+          f"P={cm_ke.P} Nmax={cm_ke.Nmax} Bmax={cm_ke.Bmax} nx={cm_ke.nx}, "
+          f"{qs.Mmat.shape[1]} timing columns, backends {qs.backends()}, "
+          f"{cm_ke.ke_par_ix.shape[1]} ECORR epochs in N, "
+          f"{SINGLE_CHAINS} chains", flush=True)
+    tp_opts = dict(tm_svd=True, white_vary=True, common_psd="spectrum",
+                   common_components=TP_BINS, red_components=TP_BINS,
+                   device=dev)
+    cm_tp = ptt.model_general(psrs, red_psd="tprocess", **tp_opts)
+    cm_ip = ptt.model_general(psrs, red_psd="infinitepower", **tp_opts)
+    for nm, m in (("14", cm_tp), ("14d", cm_ip)):
+        print(f"phase {nm} model: P={m.P} Nmax={m.Nmax} Bmax={m.Bmax} "
+              f"nx={m.nx}, common {m.gw_kind} ({m.K}), red {m.red_kind} "
+              f"({m.Kr}), {len(m.idx.red)} powerlaw hypers", flush=True)
+    # phase 14's shapes are phase 4's (and R2's for the float64 factor):
+    # held here at the t-process state, timed in those rows
+    ke_records, ok_ke = gram_parity(
+        cm_ke, parity_state(cm_ke, SINGLE_CHAINS, gen), time_ms,
+        forms=("widen_f64",))
+    xt = parity_state(cm_tp, C, gen)
+    tp_records, ok_tp = gram_parity(cm_tp, xt, None)
+    for rec, good in (chol_parity(cm_tp, xt, gen, None),
+                      chol64_parity(cm_tp, xt, None)):
+        tp_records.update(rec)
+        ok_tp &= good
+    del xt
+    torch.cuda.empty_cache()
+    if not (ok_ke and ok_tp):
+        print("chip_smoke: kernel parity at phases 13-14's shapes failed",
+              file=sys.stderr)
+        return 1
+
+    earlier = earlier_paths(args, psrs, gen, outdir)
+    if earlier is None:
+        return 1
+    rows, timed = earlier
+    for key, rec in tp_records.items():
+        rec.update({m: v for m, v in timed[key].items()
+                    if m != "max_abs_err"})
+    torch.cuda.empty_cache()
+
+    # ---- phases 13-13c: the Quick start from par/tim, kernel ECORR ---------
+    if not ke_woodbury_agreement(cm_ke, cm_ke_cpu, args.seed):
+        print("chip_smoke: the kernel-ECORR Gram differs between the card "
+              "and the CPU", file=sys.stderr)
+        return 1
+    del cm_ke_cpu
+    ok13, runs13, g13 = ke_path(cm_ke, args.seed, outdir / "ke",
+                                args.steady)
+    if not ok13:
+        return 1
+    drv13 = g13.driver
+    if not graphs_vs_eager(drv13, torch.as_tensor(drv13.x_cur, device=dev),
+                           drv13.b.to(dev), WARMUP + 1 + args.steady, "13b",
+                           "PulsarBlockGibbs, kernel ECORR, the exact "
+                           "b-draw every sweep"):
+        print("chip_smoke: the kernel-ECORR graph replay differs from the "
+              "eager sweep", file=sys.stderr)
+        return 1
+    del g13, drv13
+    torch.cuda.empty_cache()
+    if not resume_check(cm_ke, args.seed, outdir / "ke_resume",
+                        "PulsarBlockGibbs", "13c", warmup=SIDE_RESUME_WARMUP,
+                        steady=SIDE_RESUME_STEADY, ecorrsample="kernel"):
+        print("chip_smoke: the resumed kernel-ECORR run differs from the "
+              "whole one", file=sys.stderr)
+        return 1
+    torch.cuda.empty_cache()
+
+    # ---- phases 14-14d: the t-process array, launch counts from 0 ----------
+    tp_forms = list(tp_records)
+    ok14, runs14, g14 = powerlaw_path(
+        "14", cm_tp, "PTABlockGibbs", C, WARMUP, TP_STEADY, args.seed,
+        outdir / "tp", tp_forms, GRAPHED, de_gate=True)
+    ok14 &= tprocess_gates(cm_tp, g14, WARMUP)
+    if not ok14:
+        print("chip_smoke: the t-process path failed", file=sys.stderr)
+        return 1
+    drv14 = g14.driver
+    if not graphs_vs_eager(drv14, torch.as_tensor(drv14.x_cur, device=dev),
+                           drv14.b.to(dev), TP_GRAPH_CHECK_AT, "14b",
+                           "PTABlockGibbs, t-process, across the refresh "
+                           "at 400"):
+        print("chip_smoke: the t-process graph replay differs from the "
+              "eager sweep", file=sys.stderr)
+        return 1
+    del g14, drv14
+    torch.cuda.empty_cache()
+    if not resume_check(cm_tp, args.seed, outdir / "tp_resume",
+                        "PTABlockGibbs", "14c", warmup=SIDE_RESUME_WARMUP,
+                        steady=SIDE_RESUME_STEADY):
+        print("chip_smoke: the resumed t-process run differs from the "
+              "whole one", file=sys.stderr)
+        return 1
+    if not infinitepower_check(cm_ip, args.seed, outdir / "ip"):
+        print("chip_smoke: the infinitepower array failed", file=sys.stderr)
+        return 1
+    rows += [
+        dict(name=f"{k}[{f}] (phase 13 path: kernel ECORR, B1 "
+             f"{cm_ke.Bmax + 1})", route="cuda", source=SOURCES[k][1],
+             replaces=REPLACES[k], launches=runs13[(k, f)], **r)
+        for (k, f), r in ke_records.items()] + [
+        dict(name=f"{k}[{f}] (phase 14 path: t-process, order "
+             f"{cm_tp.Bmax})", route="cuda",
+             source=SOURCES[k][f.endswith("_wide")], replaces=REPLACES[k],
+             launches=runs14[(k, f)], **r)
+        for (k, f), r in tp_records.items()]
+
+    print("phase 1 kernel resources (cuobjdump -res-usage: registers, "
+          "stack frame bytes, static shared memory bytes): " + (json.dumps(
+              {n: [r, st, sh] for n, r, st, sh in usage})
+              if usage else "not available"), flush=True)
+    for bt in (SINGLE_CHAINS, WIDE_TIMING_SYSTEMS):
+        print(f"phase 1 wide forms' launch configuration at {bt} systems "
+              "(ptg_wide_config; dynamic shared memory is not in "
+              "cuobjdump's static count): "
+              + json.dumps(wide_configs(build.library(), bt)), flush=True)
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,17 +1,23 @@
-"""Host-side pulsar record.
+"""Host-side pulsar record and its loaders.
 
-Copies of the ``Pulsar`` record, ``get_tspan``, ``from_enterprise`` and
+Copies of the ``Pulsar`` record, ``get_tspan``, the par/tim loaders
+(``load_pulsar``, ``load_directory``), ``from_enterprise`` and
 ``load_enterprise_snapshot`` of ``pulsar_timing_gibbsspec_tpu/data/
-dataset.py`` (the par/tim loaders are not part of the port yet).  A
-pulsar keeps its per-TOA flag arrays in ``flags``; the ``pta`` flag is a
-scalar label, which gates basis ECORR in the model builder.
+dataset.py``.  A pulsar keeps its flags in ``flags``; the ``pta`` flag
+is a scalar label, which gates basis ECORR in the model builder.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
+
+from .design import design_matrix
+from .partim import parse_par, parse_tim
+
+DAY = 86400.0
 
 
 @dataclasses.dataclass
@@ -42,6 +48,93 @@ def get_tspan(psrs) -> float:
     tmin = min(p.toas.min() for p in psrs)
     tmax = max(p.toas.max() for p in psrs)
     return float(tmax - tmin)
+
+
+def _backend_labels(tim) -> np.ndarray:
+    """Backend label per TOA: the ``-f`` flag if present (NANOGrav
+    convention), else ``-be``, else the site code."""
+    out = []
+    for fl, site in zip(tim.flags, tim.sites):
+        out.append(fl.get("f", fl.get("be", site)))
+    return np.asarray(out, dtype=object)
+
+
+def load_pulsar(par_path, tim_path, inject: dict | None = None) -> Pulsar:
+    """Load one pulsar from par/tim: TOAs in seconds (MJD * 86400),
+    uncertainties, frequencies, backend labels, the design matrix of the
+    par file's fitted parameters (:func:`~.design.design_matrix`) and
+    the unit vector to the pulsar (ecliptic coordinates rotated into the
+    equatorial frame).
+
+    Residuals are zero unless ``inject`` (keyword arguments of
+    :func:`~.simulate.inject_residuals`, with ``nmodes`` (30) and
+    ``Tspan`` (the TOAs' span) for its Fourier basis) regenerates them
+    with a known red-noise injection, e.g. ``dict(log10_A=np.log10(2e-15),
+    gamma=13/3, nmodes=30)``."""
+    par = parse_par(par_path)
+    tim = parse_tim(tim_path)
+    M = design_matrix(par, tim)
+
+    OBLIQUITY = np.deg2rad(23.439281)
+    if "ELONG" in par.values or "LAMBDA" in par.values:
+        lon = par.get("ELONG", par.get("LAMBDA"))
+        lat = par.get("ELAT", par.get("BETA", 0.0))
+        x = np.array([np.cos(lat) * np.cos(lon),
+                      np.cos(lat) * np.sin(lon),
+                      np.sin(lat)])
+        ce, se = np.cos(OBLIQUITY), np.sin(OBLIQUITY)
+        pos = np.array([x[0], ce * x[1] - se * x[2], se * x[1] + ce * x[2]])
+    elif "RAJ" in par.values or "DECJ" in par.values:
+        lon, lat = par.get("RAJ", 0.0), par.get("DECJ", 0.0)
+        pos = np.array([np.cos(lat) * np.cos(lon),
+                        np.cos(lat) * np.sin(lon),
+                        np.sin(lat)])
+    else:
+        pos = np.zeros(3)   # unknown; the ORFs refuse zero-norm positions
+
+    residuals = np.zeros_like(tim.mjds)
+    if inject is not None:
+        from .fourier import fourier_basis
+        from .simulate import inject_residuals
+
+        kw = dict(inject)
+        nmodes = kw.pop("nmodes", 30)
+        Tspan = kw.pop("Tspan", float(np.ptp(tim.mjds) * DAY))
+        if Tspan <= 0:
+            raise ValueError(
+                f"{par.name}: cannot inject a red-noise realization with "
+                f"Tspan={Tspan} (need >=2 distinct TOA epochs)")
+        F, f = fourier_basis(tim.mjds, nmodes, Tspan)
+        residuals, _ = inject_residuals(
+            par.name, F, f, Tspan, tim.errs, M, **kw)
+
+    return Pulsar(
+        name=par.name,
+        toas=tim.mjds * DAY,
+        toaerrs=tim.errs,
+        residuals=residuals,
+        freqs=tim.freqs,
+        backend_flags=_backend_labels(tim),
+        Mmat=M,
+        fitpars=list(par.fitted),
+        flags={"pta": tim.flags[0].get("pta", "") if tim.flags else ""},
+        pos=pos,
+    )
+
+
+def load_directory(dirpath, inject: dict | None = None, names=None) -> list:
+    """Load every ``<name>.par``/``<name>.tim`` pair under ``dirpath``
+    (sorted by file name; ``names`` keeps those stems only)."""
+    dirpath = Path(dirpath)
+    psrs = []
+    for parf in sorted(dirpath.glob("*.par")):
+        timf = parf.with_suffix(".tim")
+        if not timf.exists():
+            continue
+        if names is not None and parf.stem not in names:
+            continue
+        psrs.append(load_pulsar(parf, timf, inject=inject))
+    return psrs
 
 
 def from_enterprise(epsr) -> Pulsar:

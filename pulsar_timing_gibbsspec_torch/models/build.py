@@ -29,7 +29,15 @@ Fourier | chromatic | ECORR]``:
   ``(1400/nu)^dmchrom_idx``) has columns of its own and a powerlaw-
   family PSD whose ``log10_A``/``gamma`` join the powerlaw hyper block;
 - basis ECORR (a NANOGrav-flagged pulsar, unless ``is_wideband``): one
-  column per observing epoch (TOAs within 10 days) per backend.
+  column per observing epoch (TOAs within 10 days) per backend; under
+  ``kernel_ecorr`` those columns leave T and the epochs are compiled
+  into ``ke_eid`` / ``ke_par_ix`` for the in-N (Woodbury) ECORR of the
+  ``ecorrsample="kernel"`` sweep.
+
+Intrinsic red noise is a free spectrum, a powerlaw (flat above a break
+under ``red_breakflat``), the t-process (a powerlaw scaled per frequency
+by ``alphas ~ InvGamma(1, 1)``, prior kind 3) or ``infinitepower``
+(``BIG_PHI`` on its columns, no hypers).
 
 White noise is per-backend EFAC/EQUAD (and a global ``gequad``), with
 ECORR sampled under ``white_vary=True`` and otherwise fixed from a noise
@@ -54,7 +62,7 @@ from .orf import orf_ginv_stack, refuse_sampled_weights
 #: widest ECORR epoch (``EcorrBasisSignal``'s ``dt_days``)
 ECORR_DT_DAYS = 10.0
 #: prior kinds as the compiled ``pkind`` codes them
-UNIFORM, NORMAL, LINEAR_EXP = 0, 1, 2
+UNIFORM, NORMAL, LINEAR_EXP, INV_GAMMA = 0, 1, 2, 3
 #: the powerlaw family's hypers, in the order their PSDs take them
 PSD_HYPERS = {
     "powerlaw": ("log10_A", "gamma"),
@@ -246,6 +254,15 @@ def _pulsar_model(p, o, Tspan, common):
             psd = "free_spectrum"
             ps = [_Par(f"{rname}_log10_rho", o["red_components"], UNIFORM,
                       -10.0, -4.0)]
+        elif red_psd == "infinitepower":
+            psd, ps = "infinitepower", []
+        elif red_psd == "tprocess":
+            # per-frequency InvGamma(df/2, df/2) scale factors, df = 2
+            psd = "tprocess"
+            ps = _powerlaw_params(rname, "powerlaw", o["amp"][0],
+                                  (-20.0, -11.0)) + [
+                _Par(f"{rname}_alphas", o["red_components"], INV_GAMMA,
+                     1.0, 1.0)]
         else:
             psd = "powerlaw_breakflat" if o["red_breakflat"] else "powerlaw"
             ps = _powerlaw_params(rname, "powerlaw", o["amp"][0],
@@ -361,14 +378,11 @@ def _refuse(o):
         raise NotImplementedError(f"common_psd='{o['common_psd']}'")
     if o["red_var"]:
         red_psd = o["red_psd"]
-        if red_psd in ("tprocess", "infinitepower"):
-            raise NotImplementedError(
-                f"red_psd={red_psd!r} is not in the port yet (ROADMAP A.8)")
         if o["red_breakflat"] and red_psd != "powerlaw":
             raise NotImplementedError(
                 "red_breakflat applies to red_psd='powerlaw'")
-        if red_psd != "spectrum" and (red_psd not in PSD_HYPERS
-                                      or PSD_HYPERS[red_psd][2:]):
+        if red_psd not in ("spectrum", "tprocess", "infinitepower") and (
+                red_psd not in PSD_HYPERS or PSD_HYPERS[red_psd][2:]):
             raise NotImplementedError(f"red_psd='{red_psd}'")
     for on, suffix, psd in ((o["dm_var"], "dm_gp", o["dm_psd"]),
                             (o["dm_chrom"], "chrom_gp", o["dmchrom_psd"])):
@@ -401,13 +415,18 @@ _DEFAULTS = dict(
     select="backend", tm_marg=False, dense_like=False)
 
 
-def model_arrays(psrs, *, pad_pulsars=None, **opts) -> dict:
+def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
+                 **opts) -> dict:
     """The compiled model's fields as numpy arrays, named as the JAX
     ``CompiledPTA`` names them (the input of
     :func:`~..sampler.compiled.from_arrays`), for ``model_general``'s
     options ``opts`` (defaults: :data:`_DEFAULTS`, which vary the white
     noise and take free spectra), plus ``b_names``, the flat b columns'
-    names.  Unknown options raise ``TypeError``; what the port does not
+    names.  ``kernel_ecorr`` is ``compile_pta``'s option of that name:
+    the ECORR columns leave T and the epochs go into ``ke_eid`` (each
+    TOA's epoch, ``Emax`` outside every epoch and on pads) and
+    ``ke_par_ix`` (each epoch's log10_ecorr, the -40 constant on dummy
+    epochs).  Unknown options raise ``TypeError``; what the port does not
     take, ``NotImplementedError``."""
     unknown = set(opts) - set(_DEFAULTS)
     if unknown:
@@ -442,8 +461,16 @@ def model_arrays(psrs, *, pad_pulsars=None, **opts) -> dict:
     for p in psrs:
         sigs, labels, masks, white = _pulsar_model(p, o, Tspan, common)
         ordered, slices, T = _layout(sigs)
+        ec = [s for s in ordered if s.group == "ecorr"]
+        if kernel_ecorr and ec:
+            # the ECORR columns (the trailing block) live inside N
+            T = T[:, :slices[ec[0].name].start]
         models.append(dict(p=p, sigs=ordered, slices=slices, T=T,
-                           labels=labels, masks=masks, white=white))
+                           labels=labels, masks=masks, white=white, ec=ec))
+    if kernel_ecorr and not any(m["ec"] for m in models):
+        raise ValueError(
+            "ecorrsample='kernel' requested but the model has no ECORR "
+            "signal (build with white_vary=True on NANOGrav-flagged data)")
 
     # ---- parameters: the sampled ones, by name, sorted ------------------
     seen = {}
@@ -478,7 +505,7 @@ def model_arrays(psrs, *, pad_pulsars=None, **opts) -> dict:
     Bmax = max(widths)
     efac1, equad_off = ref(_Fixed("", 1.0)), ref(_Fixed("", -40.0))
 
-    f32 = np.float32
+    f32, i32 = np.float32, np.int32
     y = np.zeros((P, Nmax), f32)
     T = np.zeros((P, Nmax, Bmax), f32)
     toa_mask = np.zeros((P, Nmax), f32)
@@ -509,6 +536,8 @@ def model_arrays(psrs, *, pad_pulsars=None, **opts) -> dict:
         if geq is not None:
             gequad_ix[ii, :n] = ref(geq)
         for s in m["sigs"]:
+            if kernel_ecorr and s.group == "ecorr":
+                continue
             sl = m["slices"][s.name]
             phi_base[ii, sl] = (np.clip(s.phi, PHI_FLOOR, BIG_PHI)
                                 if s.group == "static" else 0.0)
@@ -530,6 +559,9 @@ def model_arrays(psrs, *, pad_pulsars=None, **opts) -> dict:
             if s.psd == "free_spectrum":
                 hyp, rho = [], [ref(s.params[0], j // 2)
                                 for j in range(len(cols))]
+            elif s.psd == "tprocess":
+                hyp = [ref(q) for q in s.params[:2]]
+                rho = [ref(s.params[2], j // 2) for j in range(len(cols))]
             else:
                 hyp, rho = [ref(q) for q in s.params], []
             rows.append((cols, s.f, s.df, hyp, rho))
@@ -544,7 +576,7 @@ def model_arrays(psrs, *, pad_pulsars=None, **opts) -> dict:
         specs.append((chrom[0][c].psd, rows))
     ec_rows = []
     for m in models:
-        ec = of_group(m, lambda g: g == "ecorr")
+        ec = [] if kernel_ecorr else m["ec"]
         if ec:
             s = ec[0]
             sl = m["slices"][s.name]
@@ -553,6 +585,21 @@ def model_arrays(psrs, *, pad_pulsars=None, **opts) -> dict:
                             [ref(by_lab[lab]) for lab in s.owners]))
         else:
             ec_rows.append((np.zeros(0, np.int64), []))
+    ke_eid = ke_par_ix = None
+    if kernel_ecorr:
+        Emax = max(m["ec"][0].T.shape[1] if m["ec"] else 0 for m in models)
+        ke_eid = np.full((P, Nmax), Emax, i32)
+        ke_par_ix = np.full((P, max(Emax, 1)), equad_off, i32)
+        for ii, m in enumerate(models):
+            if not m["ec"]:
+                continue
+            s = m["ec"][0]
+            by_lab = dict(zip(m["labels"], s.params))
+            U = s.T
+            ke_eid[ii, :U.shape[0]] = np.where(U.sum(axis=1) > 0,
+                                               U.argmax(axis=1), Emax)
+            for e, lab in enumerate(s.owners):
+                ke_par_ix[ii, e] = ref(by_lab[lab])
     if any(len(r[0]) for r in ec_rows):
         specs.append(("ecorr", [(cols, np.zeros(len(cols)),
                                  np.zeros(len(cols)), [], refs)
@@ -565,7 +612,6 @@ def model_arrays(psrs, *, pad_pulsars=None, **opts) -> dict:
             out[ii, :len(r)] = r
         return out
 
-    i32 = np.int32
     comps = []
     for kind, rows in specs:
         W = max(len(r[0]) for r in rows)
@@ -607,8 +653,8 @@ def model_arrays(psrs, *, pad_pulsars=None, **opts) -> dict:
     red_kind = rsig[0].psd if rsig[0] is not None else ""
     Kr = len(rsig[0].f) // 2 if red_kind else 0
     Kr1 = max(Kr, 1)
-    Hr = (len(rsig[0].params) if red_kind not in ("", "free_spectrum")
-          else 0)
+    Hr = (2 if red_kind == "tprocess" else len(rsig[0].params)
+          if red_kind not in ("", "free_spectrum") else 0)
     red_hyp = np.full((P, max(Hr, 1)), sentinel, i32)
     red_rho = np.full((P, Kr1), floor_ref if Kr else sentinel, i32)
     red_rho_x = np.full((P, Kr1), nx, i32)
@@ -629,6 +675,12 @@ def model_arrays(psrs, *, pad_pulsars=None, **opts) -> dict:
             if red_kind == "free_spectrum":
                 red_rho[ii] = red_rho_x[ii] = [ref(s.params[0], k)
                                                for k in range(Kr)]
+            elif red_kind == "tprocess":
+                # hypers (log10_A, gamma); the alphas ride red_rho and
+                # the conjugate draw writes back through red_rho_ix_x
+                red_hyp[ii, :2] = [ref(q) for q in s.params[:2]]
+                red_rho[ii] = red_rho_x[ii] = [ref(s.params[2], k)
+                                               for k in range(Kr)]
             else:
                 red_hyp[ii, :Hr] = [ref(q) for q in s.params]
         red_shares_gw = any(overlaps)
@@ -645,8 +697,7 @@ def model_arrays(psrs, *, pad_pulsars=None, **opts) -> dict:
             equad[lab] for lab in m["labels"]] + [geq]
         wrows.append(sorted({pos[q.name] for q in white
                              if isinstance(q, _Par)}))
-        ec = of_group(m, lambda g: g == "ecorr")
-        erows.append(sorted({pos[q.name] for s in ec for q in s.params
+        erows.append(sorted({pos[q.name] for s in m["ec"] for q in s.params
                              if isinstance(q, _Par)}))
 
     def table(rows):
@@ -667,7 +718,9 @@ def model_arrays(psrs, *, pad_pulsars=None, **opts) -> dict:
         pkind[ct:ct + n] = q.kind
         pa[ct:ct + n], pb[ct:ct + n] = q.lo, q.hi
         ct += n
-    prop_scale = np.where(pkind == NORMAL, pb,
+    # InvGamma alphas are never MH-proposed (conjugate draws); they keep
+    # a nonzero scale all the same
+    prop_scale = np.where((pkind == NORMAL) | (pkind == INV_GAMMA), pb,
                           0.1 * np.abs(pb - pa)).astype(f32)
 
     def rho_bounds(frag):
@@ -690,6 +743,8 @@ def model_arrays(psrs, *, pad_pulsars=None, **opts) -> dict:
     for m in models:
         named = {}
         for s in m["sigs"]:
+            if kernel_ecorr and s.group == "ecorr":
+                continue
             sl = m["slices"][s.name]
             for j in range(sl.start, sl.stop):
                 named.setdefault(j, f"{m['p'].name}_{s.name}_{j - sl.start}")
@@ -714,7 +769,7 @@ def model_arrays(psrs, *, pad_pulsars=None, **opts) -> dict:
         rhomin=rho_lo, rhomax=rho_hi, red_rhomin=red_lo, red_rhomax=red_hi,
         orf_name=o["orf"], orf_Ginv=orf_Ginv, gp_mask=gp_mask, red_f=red_f,
         red_df=red_df, orf_B=None, orf_par_ix=None,
-        red_shares_gw=red_shares_gw, ke_eid=None, ke_par_ix=None,
+        red_shares_gw=red_shares_gw, ke_eid=ke_eid, ke_par_ix=ke_par_ix,
         b_names=tuple(b_names))
 
 
@@ -758,7 +813,7 @@ def build_crn_spectrum(psrs, nbins: int = 10, red_bins: int = 10,
 def model_general(psrs, tm_svd=False, white_vary=False,
                   common_psd="powerlaw", common_components=30,
                   red_var=True, red_psd="powerlaw", red_components=30,
-                  device=None, **opts):
+                  kernel_ecorr=False, device=None, **opts):
     """The compiled model of the JAX package's ``model_general(psrs,
     ...)`` followed by ``compile_pta``, on ``device`` (``cuda`` unless
     the caller passes another), with the JAX function's options and
@@ -771,8 +826,10 @@ def model_general(psrs, tm_svd=False, white_vary=False,
     powerlaw-family common process (``powerlaw``, ``turnover``,
     ``turnover_knee``, ``broken_powerlaw``; ``log10_A_common`` /
     ``gamma_common`` fix its hypers, ``common_logmin``/``_logmax`` bound
-    its amplitude); intrinsic red noise as a free spectrum or a powerlaw
-    (``red_breakflat`` with ``red_breakflat_fq``: flat above the break);
+    its amplitude); intrinsic red noise as a free spectrum, a powerlaw
+    (``red_breakflat`` with ``red_breakflat_fq``: flat above the break),
+    the t-process (``red_psd="tprocess"``: per-frequency InvGamma(1, 1)
+    ``alphas`` scale the powerlaw) or ``infinitepower``;
     ``dm_var`` / ``dm_chrom`` chromatic GPs (``dm_psd``,
     ``dmchrom_psd``, ``dmchrom_idx``, ``dm_components``); ``dm_annual``;
     ``bayesephem`` / ``be_type``; the upper-limit flags (LinearExp
@@ -780,17 +837,21 @@ def model_general(psrs, tm_svd=False, white_vary=False,
     ORFs (``hd``, ``freq_hd`` with ``orf_ifreq``, ``st``,
     ``gw_monopole``, ``gw_dipole``) under a common free spectrum;
     ``coefficients``, ``dense_like`` and ``tm_marg`` are accepted and
-    dropped, as the JAX function drops them.  What the JAX function
-    refuses raises with its message; the t-process, ``infinitepower``
-    and the frequency-grid and selection options (``Tspan``, ``modes``,
+    dropped, as the JAX function drops them.  ``kernel_ecorr=True`` is
+    ``compile_pta``'s option: ECORR inside N (Woodbury) in place of its
+    basis columns, the model ``PulsarBlockGibbs`` / ``PTABlockGibbs(cm,
+    ecorrsample="kernel")`` sample; a model without ECORR is refused.
+    What the JAX function refuses raises with its message; the
+    frequency-grid and selection options (``Tspan``, ``modes``,
     ``logfreq``, ``wgts``, ``pshift``, ``red_select``, ``select``,
     ``tm_norm=False``, several common processes) raise
     ``NotImplementedError`` naming their ROADMAP item.  README's Quick
-    start, ``bench.py``'s Hellings-Downs array and the array with the
-    standard noise model::
+    start (with kernel ECORR), ``bench.py``'s Hellings-Downs array and
+    the array with the standard noise model::
 
         model_general([psr], red_var=False, white_vary=True,
-                      common_psd="spectrum", common_components=30)
+                      common_psd="spectrum", common_components=30,
+                      kernel_ecorr=True)
         model_general(psrs, tm_svd=True, white_vary=True,
                       common_psd="spectrum", common_components=10,
                       red_psd="spectrum", red_components=10, orf="hd")
@@ -802,5 +863,5 @@ def model_general(psrs, tm_svd=False, white_vary=False,
     return from_arrays(model_arrays(
         psrs, tm_svd=tm_svd, white_vary=white_vary, common_psd=common_psd,
         common_components=common_components, red_var=red_var,
-        red_psd=red_psd, red_components=red_components, **opts),
-        device=device)
+        red_psd=red_psd, red_components=red_components,
+        kernel_ecorr=kernel_ecorr, **opts), device=device)

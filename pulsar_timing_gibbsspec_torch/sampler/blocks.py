@@ -4,13 +4,15 @@ Port of the sweep's pieces of ``pulsar_timing_gibbsspec_tpu/sampler/
 jax_backend.py``: the segmented Grams and the b-draws (steady
 Metropolised draw, refresh, exact draw; under a correlated ORF the
 structured two-stage joint draw over all pulsars, with its dense
-reference), the white-noise and basis-ECORR blocks (relative
-likelihoods, adapted full-block MH, Laplace proposals), the hyper blocks
-(common-rho grid draw, its correlated-ORF form on the quadratic form of
-the common coefficients, or the single-pulsar inverse-CDF draw;
-per-pulsar free-spectrum red draw; rho <-> b scale moves; the powerlaw
-hyper MH block with its b-conditional and b-marginalized likelihoods)
-and the facade's sampling-flag check.  Every function takes the chains
+reference), the white-noise and ECORR blocks (relative likelihoods,
+adapted full-block MH, Laplace proposals; basis ECORR on its
+coefficients, kernel ECORR through the Woodbury form of the block N),
+the hyper blocks (common-rho grid draw, its correlated-ORF form on the
+quadratic form of the common coefficients, or the single-pulsar
+inverse-CDF draw; per-pulsar free-spectrum red draw; the t-process
+alpha draw; rho <-> b scale moves; the powerlaw hyper MH block with its
+b-conditional and b-marginalized likelihoods) and the facade's
+sampling-flag check.  Every function takes the chains
 as leading dimensions of ``x`` (``(C, nx)``), ``b`` (``(C, P, Bmax)``)
 and ``u = T b`` (``(C, P, Nmax)``); the kernels see ``C * P`` systems at
 once.
@@ -49,6 +51,10 @@ _LN10 = math.log(10.0)
 #: at or below this many common-process coordinates (2K P) the joint
 #: draw's Schur complement is factored flat, above it block by block
 SCHUR_DENSE_MAX = 128
+#: log10 bounds and size of the t-process alpha grid: the InvGamma(1, 1)
+#: prior holds nearly all its mass in [1e-4, 1e4] and the likelihood
+#: tail decays as alpha^-2 past tau / plaw
+TP_ALPHA_LOG10_MIN, TP_ALPHA_LOG10_MAX, TP_ALPHA_GRID = -4.0, 10.0, 1000
 
 
 # ===========================================================================
@@ -204,9 +210,79 @@ def tnt_d_seg32(cm, Nvec, seg_len=None):
                  False)
 
 
+# ---- kernel ECORR: N = D + U c U^T, disjoint epochs --------------------
+#
+# The Woodbury pieces are plain PyTorch, as the JAX package computes them
+# in XLA outside its Pallas kernels; the Gram under them is the widening
+# float64 kernel.  Epoch sums are products with the one-hot indicators
+# ``cm.ke_U`` (a fixed order of summation on every device, where an
+# atomic scatter-add would not be); TOAs outside every epoch and pads
+# have no row.
+
+def ke_segsum(cm, vals, columns=False):
+    """Sum ``vals`` (..., P, Nmax) per ECORR epoch -> (..., P, Emax), or
+    with ``columns`` ``vals`` (..., P, Nmax, k) -> (..., P, Emax, k), in
+    the compute dtype."""
+    v = vals.to(cm.cdtype)
+    if columns:
+        return torch.matmul(cm.ke_U, v)
+    return torch.matmul(cm.ke_U, v[..., None])[..., 0]
+
+
+def ke_weights(cm, x, Nvec):
+    """Per-epoch Woodbury pieces ``(c, s, w)``, each (..., P, Emax) in
+    the compute dtype: ``c_e = 10^(2 log10_ecorr)``, ``s_e = sum_(i in
+    e) 1/D_i``, ``w_e = c_e / (1 + c_e s_e)``, so that ``N^-1 = D^-1 -
+    w_e (D^-1 1_e)(D^-1 1_e)^T`` per block and ``log det N = sum log D +
+    sum log1p(c_e s_e)``.  A dummy epoch has ``c = 10^-80``, so ``w`` is
+    1e-80 (in float64 it does not underflow to 0) and its epoch holds no
+    TOA."""
+    cdt = cm.cdtype
+    c = torch.pow(10.0, 2.0 * cm.xe(x)[..., cm.ke_par_ix])
+    invN = cm.toa_mask.to(cdt) / Nvec.to(cdt)
+    s = ke_segsum(cm, invN)
+    w = c / (1.0 + c * s)
+    return c, s, w
+
+
+def tnt_d_ke(cm, Nvec, w):
+    """Kernel-ECORR :func:`tnt_d`: ``T^T N^-1 T`` and ``T^T N^-1 y`` of
+    the block N, the diagonal Gram minus the Woodbury correction ``V^T
+    diag(w) V`` with ``V_e = sum_(i in e) [T | y]_i / D_i`` (``Ta / D``
+    in the storage dtype, then the compute dtype, as the JAX package
+    forms it), ``d``'s correction riding the last column."""
+    cdt = cm.cdtype
+    TNT, d = tnt_d(cm, Nvec)
+    Ta = torch.cat([cm.T, cm.y[..., None]], dim=-1)
+    TNa = (Ta / Nvec.to(cm.dtype)[..., None]).to(cdt)
+    V = ke_segsum(cm, TNa, columns=True)                    # (..., P, E, B1)
+    corr = torch.matmul(V.transpose(-1, -2) * w.to(cdt)[..., None, :], V)
+    return (TNT - corr[..., :cm.Bmax, :cm.Bmax],
+            d - corr[..., :cm.Bmax, cm.Bmax])
+
+
 def tnt_d_x(cm, x, Nvec):
-    """``(TNT, d)`` for the current state (diagonal N)."""
-    return tnt_d(cm, Nvec)
+    """``(TNT, d)`` for the current state: diagonal N, or the
+    kernel-ECORR block N when the model compiles in that mode."""
+    if not cm.has_ke:
+        return tnt_d(cm, Nvec)
+    _, _, w = ke_weights(cm, x, Nvec)
+    return tnt_d_ke(cm, Nvec, w)
+
+
+def ke_ll_corr(cm, x, Nvec, z):
+    """(..., P) Woodbury correction to a diagonal Gaussian log-density,
+    ``-0.5 [sum_e log1p(c_e s_e) - sum_e w_e z_e^2]``, with ``z_e =
+    sum_(i in e) r_i / D_i`` given."""
+    c, s, w = ke_weights(cm, x, Nvec)
+    return -0.5 * (torch.log1p(c * s).sum(-1) - (w * z * z).sum(-1))
+
+
+def ke_rz(cm, Nvec, r):
+    """(..., P, Emax) per-epoch ``z_e = sum r_i / D_i`` (compute dtype)."""
+    cdt = cm.cdtype
+    invN = cm.toa_mask.to(cdt) / Nvec.to(cdt)
+    return ke_segsum(cm, r.to(cdt) * invN)
 
 
 def b_matvec(cm, b):
@@ -416,7 +492,9 @@ def _joint_perm_parts(cm, x):
     Gram blocks ``Agg`` (..., P, 2K, 2K)."""
     cdt = cm.cdtype
     B, P = cm.Bmax, cm.P
-    TNT, d = tnt_d_seg(cm, cm.ndiag_fast(x))
+    N = cm.ndiag_fast(x)
+    # kernel-ECORR models keep the widening Gram under their correction
+    TNT, d = tnt_d_x(cm, x, N) if cm.has_ke else tnt_d_seg(cm, N)
     pinv = 1.0 / cm.phi(x)
     cols, valid, ccl = cm.gw_cols_valid()
     gwm = torch.zeros((P, B), dtype=cdt, device=cm.device).scatter_reduce(
@@ -652,8 +730,44 @@ def white_ll_rel(cm, x0, r2):
 
 
 def white_block_ll(cm, x, r, r2):
-    """The white MH block's target (diagonal N)."""
+    """The white MH block's target: the diagonal relative form, or its
+    Woodbury form when the model compiles kernel ECORR."""
+    if cm.has_ke:
+        return white_ll_ke(cm, x, r, r2)
     return white_ll_rel(cm, x, r2)
+
+
+def white_ll_ke(cm, x0, r, r2):
+    """Kernel-ECORR white-block closure: the float32 relative diagonal
+    form plus the Woodbury correction at ``q`` (its ``x0`` constant
+    cancels in MH differences), ``r`` the block-fixed residual.  N is
+    ``ndiag_fast`` throughout, as in the exact b-draw's weights."""
+    base = white_ll_rel(cm, x0, r2)
+
+    def ll(q):
+        Nq = cm.ndiag_fast(q)
+        return base(q) + ke_ll_corr(cm, q, Nq, ke_rz(cm, Nq, r))
+
+    return ll
+
+
+def ecorr_ll_ke(cm, x0, r):
+    """Kernel-ECORR block closure (the ECORR amplitudes alone move): with
+    D fixed at ``x0``, ``s_e`` and ``z_e^2`` are formed once and each
+    step costs O(Emax) per pulsar.  Differentiable: the same closure is
+    the Laplace proposal's curvature target."""
+    cdt = cm.cdtype
+    invN = cm.toa_mask.to(cdt) / cm.ndiag_fast(x0).to(cdt)
+    s = ke_segsum(cm, invN)
+    z = ke_segsum(cm, r.to(cdt) * invN)
+    z2 = z * z
+
+    def ll(q):
+        c = torch.pow(10.0, 2.0 * cm.xe(q)[..., cm.ke_par_ix])
+        w = c / (1.0 + c * s)
+        return -0.5 * (torch.log1p(c * s).sum(-1) - (w * z2).sum(-1))
+
+    return ll
 
 
 def _ecorr_coeffs(cm, b):
@@ -700,8 +814,11 @@ def ecorr_ll_rel(cm, x0, b):
 
 
 def ecorr_block_ll(cm, x, b, r):
-    """The ECORR MH block's target (basis ECORR: the coefficients'
-    conditional; ``r`` is unused, as kernel ECORR is not in the port)."""
+    """The ECORR MH block's target: the basis coefficients' conditional
+    (``r`` unused), or the kernel-ECORR conditional on the residual
+    ``r = y - T b``."""
+    if cm.has_ke:
+        return ecorr_ll_ke(cm, x, r)
     return ecorr_ll_rel(cm, x, b)
 
 
@@ -1062,10 +1179,54 @@ def red_conditional_update(cm, x, b, gen):
         cm, x, b, _gumbel(gen, shape, cm.dtype, cm.device))
 
 
+def tprocess_alpha_update_core(cm, x, b, gumbel):
+    """Per-frequency draw of the t-process scale factors: the shared
+    Fourier columns carry ``phi = o + alpha plaw`` (``o`` the common
+    process aligned to the red grid), so under the InvGamma(1, 1) prior
+
+        p(alpha | b) ~ alpha^-2 e^(-1/alpha)
+                       (o + alpha plaw)^-1 exp(-tau / (o + alpha plaw)),
+
+    ``tau = (b_sin^2 + b_cos^2) / 2``, Gumbel-max sampled on the
+    log-uniform grid of ``TP_ALPHA_GRID`` points over ``[10^
+    TP_ALPHA_LOG10_MIN, 10^TP_ALPHA_LOG10_MAX]`` (the point mass carries
+    the grid's Jacobian alpha); the log variance is formed in log space.
+    As ``o -> 0`` it is the conjugate InvGamma(2, 1 + tau / plaw) draw.
+    ``gumbel`` (..., P, Kr, TP_ALPHA_GRID) in the storage dtype; the
+    first maximum wins."""
+    from .compiled import _lnphi_powerlaw
+
+    cdt = cm.cdtype
+    xev = cm.xe(x)
+    tau = cm.red_tau(b).to(cdt)
+    args = [xev[..., cm.red_hyp_ix[:, h]][..., None] for h in range(2)]
+    lnplaw = _lnphi_powerlaw(cm.red_f, cm.red_df, *args)
+    other = cm.gw_phi_at_red(x)
+    grid = torch.pow(10.0, torch.linspace(
+        TP_ALPHA_LOG10_MIN, TP_ALPHA_LOG10_MAX, TP_ALPHA_GRID, dtype=cdt,
+        device=cm.device))
+    lg = torch.log(grid)
+    lnvar = torch.logaddexp(torch.log(other)[..., None],
+                            lnplaw[..., None] + lg)
+    logpdf = (-lg - 1.0 / grid - lnvar
+              - tau[..., None] * torch.exp(-lnvar)).to(cm.dtype)
+    alpha = grid[torch.argmax(logpdf + gumbel, dim=-1)]
+    return _set_x(x, cm.red_rho_ix_x, alpha)
+
+
+def tprocess_alpha_update(cm, x, b, gen):
+    """:func:`tprocess_alpha_update_core` with its Gumbels from
+    ``gen``."""
+    shape = x.shape[:-1] + tuple(cm.red_rho_ix_x.shape) + (TP_ALPHA_GRID,)
+    return tprocess_alpha_update_core(
+        cm, x, b, _gumbel(gen, shape, cm.dtype, cm.device))
+
+
 def _rho_scale_applies(cm) -> bool:
-    """CRN free-spectrum common block with a sampled rho (diagonal N)."""
+    """CRN free-spectrum common block with a sampled rho and diagonal N
+    (the moves' residual update assumes it: not under kernel ECORR)."""
     return (cm.orf_name == "crn" and cm.gw_kind == "free_spectrum"
-            and bool(cm.K) and len(cm.rho_ix_x) > 0)
+            and bool(cm.K) and len(cm.rho_ix_x) > 0 and not cm.has_ke)
 
 
 def rho_scale_moves_core(cm, x, b, u, eps, logu):
@@ -1167,6 +1328,9 @@ def lnlike_fullmarg_fn(cm, x, TNT, d):
     N = cm.ndiag(x)
     phi = cm.phi(x)
     out = -0.5 * (cm.toa_mask * (torch.log(N) + cm.y ** 2 / N)).sum((-2, -1))
+    if cm.has_ke:
+        # the block N's log det and y^T N^-1 y (TNT, d from tnt_d_x)
+        out = out + ke_ll_corr(cm, x, N, ke_rz(cm, N, cm.y)).sum(-1)
     logdet_phi = torch.log(phi).sum(-1)
     Sigma = TNT + _batched_diag(1.0 / phi)
     L, _, dj, mean, _ = _factor_batch(Sigma, d, torch.zeros_like(d))

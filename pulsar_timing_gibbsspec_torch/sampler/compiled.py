@@ -1,10 +1,13 @@
 """The compiled PTA model as tensors on one device.
 
 Port of ``pulsar_timing_gibbsspec_tpu/sampler/compiled.py`` for the
-models of ``models/build.py``: basis ECORR; a free-spectrum or
+models of ``models/build.py``: basis ECORR, or kernel ECORR (the epoch
+blocks inside N: ``ke_eid``, ``ke_par_ix``); a free-spectrum or
 powerlaw-family common process (``powerlaw``, ``turnover``,
-``turnover_knee``, ``broken_powerlaw``); free-spectrum, powerlaw or
-flat-above-a-break (``powerlaw_breakflat``) intrinsic red noise;
+``turnover_knee``, ``broken_powerlaw``); free-spectrum, powerlaw,
+flat-above-a-break (``powerlaw_breakflat``), t-process (a powerlaw
+times per-frequency InvGamma alphas) or ``infinitepower`` (``BIG_PHI``)
+intrinsic red noise;
 chromatic GPs of the powerlaw family on columns of their own; static
 marginalized columns (timing model, ``dm_annual``, BayesEphem) with a
 constant ``phi_base``; and a common free spectrum under a fixed
@@ -175,7 +178,9 @@ class GPComponent:
     out of ``xe`` through ``rho_ix``, the column's variance being
     ``10^(2 xe[rho_ix])``; a powerlaw-family PSD gathers its hypers
     (``log10_A``, ``gamma``, then its shape constants) through ``hyp_ix``
-    and evaluates at the column's ``f`` and ``df``."""
+    and evaluates at the column's ``f`` and ``df``; the t-process is the
+    powerlaw of ``hyp_ix`` times the alpha ``rho_ix`` gathers; and
+    ``infinitepower`` is ``BIG_PHI`` on every column."""
 
     kind: str
     cols: torch.Tensor       # (P, W) int64
@@ -255,12 +260,31 @@ class CompiledPTA:
     #: the flat b columns' names where the model builder gives them
     #: (empty: :meth:`b_param_names` derives them from the components)
     b_names: tuple = ()
+    #: (P, Kr) red-grid frequencies and bin widths (storage dtype; the
+    #: t-process alpha draw evaluates the powerlaw there)
+    red_f: torch.Tensor = None
+    red_df: torch.Tensor = None
+    #: kernel ECORR (``ecorrsample="kernel"``): the epoch blocks live in
+    #: N, ``N = D + U c U^T`` with disjoint epoch indicators U, in place
+    #: of basis columns.  ``ke_eid`` (P, Nmax) is each TOA's epoch
+    #: (``Emax``: outside every epoch, and pads), ``ke_par_ix`` (P, Emax)
+    #: each epoch's log10_ecorr gather into ``xe`` (dummy epochs: the -40
+    #: constant), ``ke_U`` (P, Emax, Nmax) the indicators U^T in the
+    #: compute dtype, whose products are the epoch sums.  None when off
+    ke_eid: torch.Tensor = None
+    ke_par_ix: torch.Tensor = None
+    ke_U: torch.Tensor = None
     #: ``idx.red`` on the device: the powerlaw hypers' positions in x
     red_ix: torch.Tensor = dataclasses.field(init=False)
 
     def __post_init__(self):
         self.red_ix = torch.as_tensor(self.idx.red, dtype=torch.int64,
                                       device=self.device)
+
+    @property
+    def has_ke(self) -> bool:
+        """True when the model compiles ECORR into N (kernel ECORR)."""
+        return self.ke_eid is not None
 
     # ---- names ------------------------------------------------------------
 
@@ -361,6 +385,12 @@ class CompiledPTA:
         for c in comps:
             if c.kind in ("free_spectrum", "ecorr"):
                 vals = torch.pow(10.0, 2.0 * xev[..., c.rho_ix])
+            elif c.kind == "infinitepower":
+                vals = torch.full(lead + c.cols.shape, BIG_PHI, dtype=dtype,
+                                  device=self.device)
+            elif c.kind == "tprocess":
+                vals = (self._psd("powerlaw", xev, c.f, c.df, c.hyp_ix)
+                        * xev[..., c.rho_ix])
             else:
                 vals = self._psd(c.kind, xev, c.f, c.df, c.hyp_ix)
             phi = phi.scatter_add(
@@ -493,11 +523,21 @@ class CompiledPTA:
         if self.red_kind == "" or not self.red_shares_gw:
             return floor
         xev = self.xe(x)
-        if self.red_kind == "free_spectrum":
+        if self.red_kind == "infinitepower":
+            k = torch.arange(self.K, device=self.device)
+            out = torch.where(k < self.Kr, BIG_PHI, floor)
+        elif self.red_kind == "free_spectrum":
             vals = torch.pow(10.0, 2.0 * xev[..., self.red_rho_ix])
             n = min(self.K, self.red_rho_ix.shape[1])
             out = floor.clone()
             out[..., :n] = vals[..., :n]
+        elif self.red_kind == "tprocess":
+            vals = (self._psd("powerlaw", xev, self.red_f, self.red_df,
+                              self.red_hyp_ix[:, :2])
+                    * xev[..., self.red_rho_ix])
+            n = min(self.K, self.red_rho_ix.shape[1])
+            out = floor.clone()
+            out[..., :n] = torch.clamp(vals[..., :n], min=PHI_FLOOR)
         else:
             vals = self._psd(self.red_kind, xev, self.gw_f, self.gw_df,
                              self.red_hyp_ix)
@@ -519,9 +559,10 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
     ``b_names`` where the arrays carry them.  Both sides then compute on
     the same model.  The port covers the models of the module docstring,
     with sampled or constant hypers (the constant ones in
-    ``const_pool``); sampled ORF weights (``orf_B``, ROADMAP A.11),
-    kernel ECORR (A.7), the t-process and ``infinitepower`` (A.8), or any
-    other PSD or component kind raise ``NotImplementedError``."""
+    ``const_pool``), kernel ECORR (``ke_eid``, ``ke_par_ix``) and the
+    t-process's ``red_f`` / ``red_df``; sampled ORF weights (``orf_B``,
+    ROADMAP A.11) or any other PSD or component kind raise
+    ``NotImplementedError``."""
     dev = resolve_device(device)
     orf_name = str(fields.get("orf_name", "crn"))
     if orf_name != "crn":
@@ -539,14 +580,12 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
             raise NotImplementedError(
                 "correlated ORF requires a homogeneous common mode count "
                 "across pulsars")
-    if fields.get("ke_eid") is not None:
-        raise NotImplementedError("kernel ECORR is not in the port yet "
-                                  "(ROADMAP A.7)")
     if fields["gw_kind"] not in ("free_spectrum",) + POWERLAW_KINDS:
         raise NotImplementedError(
             f"common PSD {fields['gw_kind']!r} is not in the port yet "
             "(ROADMAP A.8)")
-    if fields["red_kind"] not in ("free_spectrum", "") + POWERLAW_KINDS:
+    if fields["red_kind"] not in ("free_spectrum", "", "tprocess",
+                                  "infinitepower") + POWERLAW_KINDS:
         raise NotImplementedError(
             f"red PSD {fields['red_kind']!r} is not in the port yet "
             "(ROADMAP A.8)")
@@ -563,7 +602,8 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
 
     comps = []
     for c in fields["components"]:
-        if c["kind"] not in ("free_spectrum", "ecorr") + POWERLAW_KINDS:
+        if c["kind"] not in ("free_spectrum", "ecorr", "tprocess",
+                             "infinitepower") + POWERLAW_KINDS:
             raise NotImplementedError(
                 f"GP component {c['kind']!r} is not in the port yet "
                 "(ROADMAP A.8)")
@@ -571,6 +611,18 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
             c["kind"], t(c["cols"], torch.int64), t(c["rho_ix"], torch.int64),
             f=t(c["f"]), df=t(c["df"]), hyp_ix=t(c["hyp_ix"], torch.int64)))
     names = tuple(fields["param_names"])
+    red_f = fields.get("red_f")
+    red_df = fields.get("red_df")
+    if red_f is None:
+        red_f = np.ones(np.shape(fields["red_rho_ix"]), np.float32)
+        red_df = np.zeros_like(red_f)
+    ke = {}
+    if fields.get("ke_eid") is not None:
+        eid = np.asarray(fields["ke_eid"])
+        E = np.shape(fields["ke_par_ix"])[1]
+        U = (eid[:, None, :] == np.arange(E)[None, :, None])
+        ke = dict(ke_eid=ix("ke_eid"), ke_par_ix=ix("ke_par_ix"),
+                  ke_U=t(U, cdt))
     return CompiledPTA(
         P=int(fields["P"]), P_real=int(fields["P_real"]),
         Nmax=int(fields["Nmax"]), Bmax=int(fields["Bmax"]),
@@ -604,4 +656,5 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
         widths=tuple(int(w) for w in fields["widths"]),
         pulsars=tuple(str(p) for p in fields.get("pulsars", ())),
         b_names=tuple(fields.get("b_names", ())),
+        red_f=t(red_f), red_df=t(red_df), **ke,
     )

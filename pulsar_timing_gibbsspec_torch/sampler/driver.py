@@ -10,10 +10,11 @@ the powerlaw hypers, an MH scan on the b-marginalized likelihood whose
 record gives the proposal covariance and seeds the DE history), then
 steady sweeps (``_sweep_body``) in the JAX order
 
-    white MH -> ECORR MH -> free-spectrum red conditional -> powerlaw
-    hyper MH (``red_mh``) -> common rho (grid draw, or the inverse-CDF
-    draw of a single pulsar without red noise) -> rho <-> b scale moves
-    -> Metropolised b-draw (``draw_b_mh``),
+    white MH -> ECORR MH -> free-spectrum red conditional (or the
+    t-process alpha draw, ``tprocess``) -> powerlaw hyper MH
+    (``red_mh``) -> common rho (grid draw, or the inverse-CDF draw of a
+    single pulsar without red noise) -> rho <-> b scale moves ->
+    Metropolised b-draw (``draw_b_mh``),
 
 each block present only where the model samples parameters in it (fixed
 white noise from a noise dictionary has no white block, constant ECORR
@@ -24,9 +25,14 @@ iteration ``t`` with ``t % exact_every == 0``.  Under a correlated ORF
 (Hellings-Downs) there are no scale moves, and the b-draw is the
 structured joint draw over all pulsars (``b_joint``: two-float factors
 when ``joint_mixed``), in float64 on every ``exact_every``-th iteration
-(``b_joint_exact``), in the warmup and in the initial draws.  State is carried as
-``(C, ...)`` tensors on the model's device and every block runs on all
-chains at once, so the kernels see ``C * P`` systems.
+(``b_joint_exact``), in the warmup and in the initial draws.  Under
+kernel ECORR (``cm.has_ke``: ECORR inside N) there are no scale moves,
+the ECORR block's target is the Woodbury conditional on the residual,
+and every sweep, warmup included, takes the exact float64 b-draw
+(``b_exact``): the Metropolised draws' accept density assumes diagonal
+N, so the steady sweep is one body (``exact_every`` is 1).  State is
+carried as ``(C, ...)`` tensors on the model's device and every block
+runs on all chains at once, so the kernels see ``C * P`` systems.
 
 **Random streams.**  One ``torch.Generator`` is re-seeded at the start
 of every sweep with :func:`stream_seed` of ``(seed, t)``, ``t`` the
@@ -284,9 +290,10 @@ class TorchGibbsDriver:
     """Blocked Gibbs over ``nchains`` independent chains of the model
     ``cm`` (a compiled model on its device: a free-spectrum or
     powerlaw-family common process, or a common free spectrum under a
-    fixed correlated ORF; sampled or fixed white noise and basis ECORR,
-    free-spectrum or powerlaw intrinsic red noise, chromatic GPs and
-    static marginalized columns optional).
+    fixed correlated ORF; sampled or fixed white noise and basis or
+    kernel ECORR, free-spectrum, powerlaw, t-process or infinitepower
+    intrinsic red noise, chromatic GPs and static marginalized columns
+    optional).
 
     ``graphs`` (default: on when ``cm`` lives on a card) replays the
     steady sweep from CUDA graphs; ``graphs=False`` runs it eagerly, the
@@ -336,8 +343,17 @@ class TorchGibbsDriver:
         self.warmup_white_steps = WARMUP_WHITE_STEPS
         self.white_steps_max = WHITE_STEPS_MAX
         self.do_white = len(cm.idx.white) > 0
-        self.do_ecorr = len(cm.idx.ecorr) > 0 and cm.ec_cols.shape[1] > 0
-        self.do_red_conditional = bool((cm.red_rho_ix_x < cm.nx).any())
+        self.do_ecorr = len(cm.idx.ecorr) > 0 and (cm.ec_cols.shape[1] > 0
+                                                   or cm.has_ke)
+        #: the t-process alphas' conjugate grid draw, in place of the
+        #: free-spectrum red conditional
+        self.do_tprocess = (cm.red_kind == "tprocess"
+                            and bool((cm.red_rho_ix_x < cm.nx).any()))
+        self.do_red_conditional = (not self.do_tprocess and bool(
+            (cm.red_rho_ix_x < cm.nx).any()))
+        if cm.has_ke:
+            # one steady body: the exact b-draw on every sweep
+            self.exact_every = 1
         self.do_rho = bool(cm.K and len(cm.rho_ix_x))
         self.do_scale = blocks._rho_scale_applies(cm)
         #: the correlated-ORF joint b-draw in place of b_mh / b_refresh
@@ -392,7 +408,8 @@ class TorchGibbsDriver:
                                         device=cm.device)
         self.b_mh_sweeps = 0
         #: the same for the steady refresh b-draws since this driver was
-        #: made (a diagnostic: not checkpointed)
+        #: made (a diagnostic: not checkpointed); under kernel ECORR the
+        #: sweeps count the exact draws, which accept every time
         self.b_refresh_accepts = torch.zeros_like(self.b_mh_accepts)
         self.b_refresh_sweeps = 0
         #: the same for the steady powerlaw block's accepted MH steps per
@@ -430,6 +447,7 @@ class TorchGibbsDriver:
 
     def _hyper_blocks(self):
         return ((["red"] if self.do_red_conditional else [])
+                + (["tprocess"] if self.do_tprocess else [])
                 + (["red_mh"] if self.do_red_mh else [])
                 + (["rho"] if self.do_rho else [])
                 + (["scale"] if self.do_scale else []))
@@ -441,6 +459,8 @@ class TorchGibbsDriver:
         return white + ecorr + self._hyper_blocks() + [self._b_block(exact)]
 
     def _b_block(self, exact):
+        if self.cm.has_ke and not self.do_joint:
+            return "b_exact"
         if self.do_joint:
             return "b_joint_exact" if exact else "b_joint"
         return "b_refresh" if exact else "b_mh"
@@ -461,12 +481,14 @@ class TorchGibbsDriver:
                 asqrt=self.asqrt_white)
         elif name == "ecorr":
             x, _ = blocks.parallel_cov_mh_scan(
-                cm, x, gen, blocks.ecorr_block_ll(cm, x, b, None),
+                cm, x, gen, blocks.ecorr_block_ll(cm, x, b, cm.y - u),
                 cm.ecorr_par_ix, cm.ecorr_nper, self.chol_ecorr,
                 self.aclength_ecorr, record=False, mode=self.mode_ecorr,
                 asqrt=self.asqrt_ecorr)
         elif name == "red":
             x = blocks.red_conditional_update(cm, x, b, gen)
+        elif name == "tprocess":
+            x = blocks.tprocess_alpha_update(cm, x, b, gen)
         elif name == "red_mh":
             x = blocks.red_mh_block(cm, x, b, gen, self._red_U_t,
                                     self._red_S_t, self.red_steps,
@@ -482,6 +504,9 @@ class TorchGibbsDriver:
         elif name == "b_refresh":
             b, u, acc = blocks.draw_b_refresh(cm, x, b, u, gen)
             self.b_refresh_accepts += acc.to(torch.float64)
+        elif name == "b_exact":
+            b = blocks.draw_b_fn(cm, x, gen, b)
+            u = blocks.b_matvec(cm, b)
         elif name in ("b_joint", "b_joint_exact"):
             # the stage-1 factor cache is made here: the blocks between
             # the red blocks and this one move rho alone, which it does
@@ -511,11 +536,21 @@ class TorchGibbsDriver:
         self.laplace_nonfinite += (~torch.isfinite(chol)).any(-1).any(
             -1).sum()
 
+    def _ecorr_curvature(self, x, b, r):
+        """The ECORR block's per-pulsar target for its Laplace factor:
+        the basis coefficients' conditional, or under kernel ECORR the
+        Woodbury conditional on the residual ``r`` at ``x``."""
+        cm = self.cm
+        if cm.has_ke:
+            return blocks.ecorr_ll_ke(cm, x, r)
+        return lambda q: blocks.lnlike_ecorr_per(cm, q, b)
+
     def _warmup_sweep(self, x, b, u):
         """Pre-adaptation sweep: Laplace random-walk white and ECORR
         sub-chains at the current state, the hyper blocks, the
         Metropolised refresh (under a correlated ORF the float64 joint
-        draw: warmup states break the two-float factor)."""
+        draw: warmup states break the two-float factor; under kernel
+        ECORR the exact draw)."""
         cm, tm = self.cm, self.timer
         if self.do_white:
             with tm("white"):
@@ -531,12 +566,13 @@ class TorchGibbsDriver:
                     self.warmup_white_steps, record=False)
         if self.do_ecorr:
             with tm("ecorr"):
+                r = cm.y - u
                 _, chol, _ = blocks.laplace_newton_chol(
-                    cm, x, lambda q: blocks.lnlike_ecorr_per(cm, q, b),
+                    cm, x, self._ecorr_curvature(x, b, r),
                     cm.ecorr_par_ix, cm.ecorr_nper, newton_iters=0)
                 self._count_nonfinite(chol)
                 x, _ = blocks.parallel_cov_mh_scan(
-                    cm, x, self.gen, blocks.ecorr_block_ll(cm, x, b, None),
+                    cm, x, self.gen, blocks.ecorr_block_ll(cm, x, b, r),
                     cm.ecorr_par_ix, cm.ecorr_nper, chol,
                     self.warmup_white_steps, record=False)
         for name in self._hyper_blocks():
@@ -553,7 +589,7 @@ class TorchGibbsDriver:
                     x, b, u = self.block(name, x, b, u)
         name = self._b_block(True)
         with tm(name):
-            if self.do_joint:
+            if self.do_joint or cm.has_ke:
                 x, b, u = self.block(name, x, b, u)
             else:
                 b, u, _ = blocks.draw_b_refresh(cm, x, b, u, self.gen)
@@ -665,8 +701,9 @@ class TorchGibbsDriver:
     def _first_sweep(self, x, b):
         """Adaptation of the white block, then of the ECORR block (each
         by :meth:`_adapt_block`), at one exact b; the red conditional
-        draw; the powerlaw block's adaptation (:meth:`_adapt_red`); the
-        rho draw and a fresh exact b.  Returns ``(x, b)``."""
+        draw or the t-process alpha draw; the powerlaw block's adaptation
+        (:meth:`_adapt_red`); the rho draw and a fresh exact b.  Returns
+        ``(x, b)``."""
         cm = self.cm
         b = blocks.draw_b_fn(cm, x, self.gen, b)
         if self.do_white:
@@ -677,12 +714,15 @@ class TorchGibbsDriver:
                 lambda x: blocks.white_block_ll(cm, x, r, r * r),
                 cm.white_par_ix, cm.white_nper)
         if self.do_ecorr:
+            r = cm.y - blocks.b_matvec(cm, b)
             x = self._adapt_block(
-                x, "ecorr", lambda q: blocks.lnlike_ecorr_per(cm, q, b),
-                lambda x: blocks.ecorr_block_ll(cm, x, b, None),
+                x, "ecorr", self._ecorr_curvature(x, b, r),
+                lambda x: blocks.ecorr_block_ll(cm, x, b, r),
                 cm.ecorr_par_ix, cm.ecorr_nper)
         if self.do_red_conditional:
             x = blocks.red_conditional_update(cm, x, b, self.gen)
+        if self.do_tprocess:
+            x = blocks.tprocess_alpha_update(cm, x, b, self.gen)
         if self.do_red_mh:
             x = self._adapt_red(x)
         if self.do_rho:

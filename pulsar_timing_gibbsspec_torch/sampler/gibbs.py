@@ -36,8 +36,10 @@ class _GibbsBase:
     ``redsample`` are the reference's block-kernel selectors: ``None``
     lets the model choose; an explicit value is checked against the
     model as the JAX package checks it (``blocks.
-    validate_sampling_flags``), and ``ecorrsample="kernel"`` (kernel
-    ECORR) is not in the port."""
+    validate_sampling_flags``).  ``ecorrsample="kernel"`` (kernel ECORR)
+    needs a model compiled with ``kernel_ecorr=True``, and such a model
+    refuses ``ecorrsample="mh"``: the facade takes a compiled model and
+    recompiles nothing."""
 
     def __init__(self, cm, nchains=1, device="cuda", seed=0,
                  hypersample=None, ecorrsample=None, redsample=None,
@@ -47,9 +49,16 @@ class _GibbsBase:
             raise ValueError(f"the model lives on {cm.device} but the "
                              f"sampler was asked to run on {dev}")
         validate_sampling_flags(cm, hypersample, ecorrsample, redsample)
-        if ecorrsample == "kernel":
-            raise NotImplementedError("kernel ECORR (ecorrsample='kernel') "
-                                      "is not in the port yet")
+        if ecorrsample == "kernel" and not cm.has_ke:
+            raise ValueError(
+                "ecorrsample='kernel' needs a model compiled with kernel "
+                "ECORR: build it with model_general(..., kernel_ecorr=True) "
+                "(this model carries basis ECORR columns)")
+        if ecorrsample == "mh" and cm.has_ke:
+            raise ValueError(
+                "ecorrsample='mh' samples basis ECORR, but this model was "
+                "compiled with kernel_ecorr=True (ECORR inside N): build it "
+                "without kernel_ecorr, or pass ecorrsample='kernel'")
         self.cm = cm
         self.driver = TorchGibbsDriver(cm, nchains=nchains, seed=seed,
                                        **driver_opts)
@@ -251,9 +260,11 @@ class _GibbsBase:
 
 class PulsarBlockGibbs(_GibbsBase):
     """Single-pulsar blocked Gibbs (the JAX package's
-    ``PulsarBlockGibbs``): white, basis-ECORR, powerlaw hyper MH (red
-    and/or common powerlaw), rho (inverse-CDF draw without intrinsic red
-    noise, else the grid draw) and b blocks."""
+    ``PulsarBlockGibbs``): white, ECORR (basis, or kernel ECORR on a
+    model compiled with ``kernel_ecorr=True``), red (free spectrum,
+    t-process alphas), powerlaw hyper MH (red and/or common powerlaw),
+    rho (inverse-CDF draw without intrinsic red noise, else the grid
+    draw) and b blocks."""
 
     def __init__(self, cm, nchains=1, device="cuda", seed=0, **driver_opts):
         if cm.P_real != 1:

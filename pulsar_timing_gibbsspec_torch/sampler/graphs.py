@@ -4,10 +4,11 @@ The port's counterpart of the JAX package's compiled chunk program
 (``jax_backend.py::_make_chunk``): after adaptation every shape of the
 steady sweep is fixed (the white and ECORR sub-chain lengths
 ``aclength_white`` and ``aclength_ecorr`` included), so each of its
-blocks (white, ecorr, red, red_mh, rho, scale, b_mh, b_refresh, or
-under a correlated ORF b_joint and b_joint_exact, as the model has them)
-is captured once as a CUDA graph and a sweep is a few graph
-launches in place of thousands of kernel launches from the host.
+blocks (white, ecorr, red or tprocess, red_mh, rho, scale, b_mh,
+b_refresh; under a correlated ORF b_joint and b_joint_exact; under
+kernel ECORR the one b_exact: as the model has them) is captured once as
+a CUDA graph and a sweep is a few graph launches in place of thousands
+of kernel launches from the host.
 
 - ``x``, ``b``, ``u = T b`` and the acceptance counters live in static
   buffers that every graph reads and writes in place; so do the powerlaw

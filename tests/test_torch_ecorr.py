@@ -103,9 +103,10 @@ def test_model_matches_compile_pta(name):
 
 def test_model_general_surface():
     """The port's ``model_general`` takes README's Quick-start options
-    and refuses what the port does not sample: the t-process, a split
-    red process, the log-spaced frequency grid, and a red PSD with shape
-    hypers (which the JAX package refuses too)."""
+    and refuses what the port does not sample: the single-alpha
+    t-process, a split red process, the log-spaced frequency grid, and a
+    red PSD with shape hypers (the first and last the JAX package
+    refuses too)."""
     from pulsar_timing_gibbsspec_torch import model_general
 
     p = nanograv_psr()
@@ -117,7 +118,7 @@ def test_model_general_surface():
                          common_psd="spectrum", common_components=4,
                          is_wideband=True, device="cpu")
     assert wide.ec_cols.shape[1] == 0 and len(wide.idx.ecorr) == 0
-    for kw in (dict(red_var=True, red_psd="tprocess"),
+    for kw in (dict(red_var=True, red_psd="tprocess_adapt"),
                dict(red_var=True, red_psd="powerlaw", red_select="band"),
                dict(logfreq=True),
                dict(red_var=True, red_psd="broken_powerlaw")):

@@ -67,12 +67,13 @@ def test_unsupported_models_are_refused():
     with pytest.raises(NotImplementedError):
         from_arrays(dict(fields, orf_name="bin_orf",
                          orf_B=np.zeros((7, 3, 3))), device="cpu")
-    # kernel ECORR (the powerlaw-family common PSDs are in the port)
-    with pytest.raises(NotImplementedError, match="kernel ECORR"):
-        from_arrays(dict(fields, ke_eid=np.zeros((3, fields["Nmax"]),
-                                                 np.int32)), device="cpu")
+    # a PSD or component kind the JAX package does not compile (kernel
+    # ECORR, the t-process and infinitepower are in the port)
     with pytest.raises(NotImplementedError):
-        from_arrays(dict(fields, red_kind="tprocess"), device="cpu")
+        from_arrays(dict(fields, red_kind="tprocess_adapt"), device="cpu")
+    with pytest.raises(NotImplementedError):
+        from_arrays(dict(fields, components=[dict(
+            fields["components"][0], kind="bogus")]), device="cpu")
 
 
 def test_entry_points_need_a_card_unless_told_cpu():

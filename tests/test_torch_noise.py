@@ -368,9 +368,7 @@ JAX_REFUSES = [dict(tm_var=True), dict(use_dmdata=True),
                dict(orf="zero_diag_hd", common_psd="spectrum"),
                dict(bayesephem=True, be_type="DE440"), dict(bogus_option=1)]
 #: options JAX takes and the port does not yet, and their ROADMAP item
-PORT_LACKS = [(dict(red_psd="tprocess"), "A.8"),
-              (dict(red_psd="infinitepower"), "A.8"),
-              (dict(red_select="band"), "A.17"), (dict(logfreq=True), "A.17"),
+PORT_LACKS = [(dict(red_select="band"), "A.17"), (dict(logfreq=True), "A.17"),
               (dict(pshift=True), "A.17"), (dict(wgts=np.ones(NB)), "A.17"),
               (dict(modes=np.arange(1, NB + 1) / 3e8), "A.17"),
               (dict(Tspan=3e8), "A.17"), (dict(select=None), "A.17"),

@@ -392,7 +392,7 @@ def test_sampling_flags_match_jax(which, flags):
 def test_facade_takes_the_flags():
     """The facades pass the flags through: ``redsample='conditional'``
     on a powerlaw red model raises, ``'mh'`` is honoured, kernel ECORR
-    is refused."""
+    is refused on a model compiled with basis ECORR."""
     from pulsar_timing_gibbsspec_torch import PulsarBlockGibbs
 
     cm = models("R1")[1]
@@ -401,7 +401,7 @@ def test_facade_takes_the_flags():
     g = PulsarBlockGibbs(cm, device="cpu", redsample="mh",
                          hypersample="conditional", ecorrsample="mh")
     assert g.driver.do_red_mh
-    with pytest.raises(NotImplementedError, match="kernel ECORR"):
+    with pytest.raises(ValueError, match="kernel_ecorr=True"):
         PulsarBlockGibbs(cm, device="cpu", ecorrsample="kernel")
 
 
