@@ -304,6 +304,22 @@ IP_CHAINS, IP_WARMUP, IP_STEADY = 8, 3, 16
 #: adaptation record of every resume and graphs-against-eager check's
 #: sampler (the main paths' 1000: these checks compare two runs)
 SIDE_RESUME_WARMUP, SIDE_RESUME_STEADY, CHECK_ADAPT = 3, 32, 250
+#: the frequency-grid options (phase 15): the linear and log-spaced bins
+#: of the grid, the pshift seed, the driver options, the steady sweeps;
+#: the band-split red noise (15b): warmup and steady sweeps
+P15_BINS, P15_LOG_BINS, P15_PSEED, P15_STEADY = 10, 10, 1, 120
+P15_OPTS = dict(white_steps_max=32, exact_every=8)
+P15B_WARMUP, P15B_STEADY = 3, 32
+
+
+#: the run's start on the host clock (set by :func:`main`)
+_RUN_START = time.perf_counter()
+
+
+def elapsed(label):
+    """Print the run's wall seconds so far, after ``label``."""
+    print(f"{label} done at {time.perf_counter() - _RUN_START:.1f} s of the "
+          "run", flush=True)
 
 
 def _sexagesimal(deg, hours):
@@ -533,7 +549,7 @@ def wide_configs(lib, batch):
 
 
 def time_ms(fn):
-    """``(device ms, event ms)`` of one ``fn()``, over 30 calls, or 5 for
+    """``(device ms, event ms)`` of one ``fn()``, over 10 calls, or 3 for
     a call slower than 20 ms (the plain versions at the wide order, whose
     traces hold thousands of kernels per call)."""
     import torch
@@ -542,7 +558,7 @@ def time_ms(fn):
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    reps = 30 if time.perf_counter() - t0 < 0.02 else 5
+    reps = 10 if time.perf_counter() - t0 < 0.02 else 3
     return device_ms(fn, reps), cuda_ms(fn, reps)
 
 
@@ -1083,6 +1099,7 @@ def graph_against_eager(cm, seed, outdir, facade="PTABlockGibbs",
 
     g = getattr(ptt, facade)(cm, nchains=nchains, device=cm.device,
                              seed=seed, warmup_sweeps=2, graphs=False,
+                             progress=False,
                              white_adapt_iters=CHECK_ADAPT)
     g.sample(g.initial_sample(torch.Generator(device=cm.device).manual_seed(
         seed + 1)), outdir=outdir, niter=4)
@@ -1113,6 +1130,7 @@ def resume_check(cm, seed, outdir, facade="PTABlockGibbs", phase="6",
     def gibbs():
         return getattr(ptt, facade)(cm, nchains=RESUME_CHAINS,
                                     device=cm.device, seed=seed,
+                                    progress=False,
                                     warmup_sweeps=warmup,
                                     chunk_size=RESUME_CHUNK, **opts)
 
@@ -1338,7 +1356,7 @@ def single_pulsar_path(cm, seed, outdir, steady, forms):
     kernels.reset_launches()
     t0 = time.perf_counter()
     g = ptt.PulsarBlockGibbs(cm, nchains=C, device=cm.device, seed=seed,
-                             warmup_sweeps=WARMUP)
+                             warmup_sweeps=WARMUP, progress=False)
     x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
         seed))
     chain = g.sample(x0, outdir=outdir, niter=niter, save_every=SAVE_EVERY)
@@ -1415,7 +1433,8 @@ def single_pulsar_path(cm, seed, outdir, steady, forms):
 
 
 def powerlaw_path(phase, cm, facade, C, warmup, steady, seed, outdir,
-                  forms, graphed, de_gate=False, no_white=False):
+                  forms, graphed, de_gate=False, no_white=False,
+                  backup=True, **opts):
     """Phases 8, 9, 9b, 11, 12: the ``facade`` on a model with the
     powerlaw hyper block, ``C`` chains through ``warmup`` sweeps, the
     adaptation and ``steady`` sweeps replayed from the graphs,
@@ -1427,7 +1446,8 @@ def powerlaw_path(phase, cm, facade, C, warmup, steady, seed, outdir,
     and each of ``graphed`` replayed as captured times replays; with
     ``de_gate``, a DE period read from chain rows; with ``no_white``
     (fixed white noise), no white or ECORR block in the steady sweep.
-    Returns ``(ok, runs, sampler)``."""
+    ``opts`` are driver options; ``backup=False`` keeps no ``.bak``
+    checkpoint.  Returns ``(ok, runs, sampler)``."""
     import numpy as np
     import torch
 
@@ -1439,10 +1459,11 @@ def powerlaw_path(phase, cm, facade, C, warmup, steady, seed, outdir,
     kernels.reset_launches()
     t0 = time.perf_counter()
     g = getattr(ptt, facade)(cm, nchains=C, device=cm.device, seed=seed,
-                             warmup_sweeps=warmup)
+                             warmup_sweeps=warmup, progress=False, **opts)
     x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
         seed))
-    chain = g.sample(x0, outdir=outdir, niter=niter, save_every=SAVE_EVERY)
+    chain = g.sample(x0, outdir=outdir, niter=niter, save_every=SAVE_EVERY,
+                     backup=backup)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     drv, graphs = g.driver, g.driver.carry
@@ -1553,7 +1574,7 @@ def hd_path(cm, seed, outdir, steady):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     g = ptt.PTABlockGibbs(cm, nchains=C, device=cm.device, seed=seed,
-                          warmup_sweeps=WARMUP)
+                          warmup_sweeps=WARMUP, progress=False)
     x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
         seed))
     chain = g.sample(x0, outdir=outdir, niter=niter, save_every=SAVE_EVERY)
@@ -1699,7 +1720,8 @@ def ke_path(cm, seed, outdir, steady):
     kernels.reset_launches()
     t0 = time.perf_counter()
     g = ptt.PulsarBlockGibbs(cm, nchains=C, device=cm.device, seed=seed,
-                             warmup_sweeps=WARMUP, ecorrsample="kernel")
+                             warmup_sweeps=WARMUP, ecorrsample="kernel",
+                             progress=False)
     x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
         seed))
     chain = g.sample(x0, outdir=outdir, niter=niter, save_every=SAVE_EVERY)
@@ -1804,7 +1826,7 @@ def infinitepower_check(cm, seed, outdir):
 
     t0 = time.perf_counter()
     g = ptt.PTABlockGibbs(cm, nchains=IP_CHAINS, device=cm.device,
-                          seed=seed, warmup_sweeps=IP_WARMUP)
+                          seed=seed, warmup_sweeps=IP_WARMUP, progress=False)
     chain = g.sample(g.initial_sample(torch.Generator(
         device=cm.device).manual_seed(seed)), outdir=outdir,
         niter=IP_WARMUP + 1 + IP_STEADY)
@@ -1820,6 +1842,144 @@ def infinitepower_check(cm, seed, outdir):
           + f"; {time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}",
           flush=True)
     return ok
+
+
+def grid_paths(args, psrs, gen, outdir):
+    """Phases 15-15d: ``model_general``'s frequency-grid and selection
+    options.  Phase 2 holds and times every kernel form at their shapes
+    first.  15: the 45-pulsar array with ``Tspan`` the array's span,
+    the log grid of ``logfreq=True, nmodes_log=10`` over 10 linear bins
+    given as ``modes`` (common and red free spectra with one bin per grid
+    frequency: the JAX ``compile_pta`` cannot compile a free spectrum
+    under ``logfreq`` itself) and ``pshift=True, pseed=1``, by
+    ``PTABlockGibbs(white_steps_max=32, exact_every=8)`` with no
+    ``.bak`` checkpoint (red noise is a free spectrum: a powerlaw's
+    variance at a hundredth of 1/Tspan leaves the log grid's lowest
+    columns, nearly polynomials over the span, unregularized beside the
+    timing model, and the b-systems are singular in float64 at gamma
+    3-5); gates: the powerlaw path's, the white sub-chain
+    at most 32, the refresh every 8th sweep, no ``.bak`` file; 15c
+    graphed = eager bitwise across a refresh; 15d split and resumed
+    bitwise.  15b: J1713+0747 with ``red_select="band"`` (two row-masked
+    powerlaw red GPs, 360 TOAs each) by ``PulsarBlockGibbs``; gates: the
+    powerlaw path's, and both bands' hypers move and stay inside their
+    priors.  Returns the ``kernels`` rows of their shapes, or None when
+    a phase failed."""
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.data import (get_tspan,
+                                                     load_enterprise_snapshot)
+    from pulsar_timing_gibbsspec_torch.models.build import log_grid
+
+    dev = torch.device(DEVICE)
+    tspan = get_tspan(psrs)
+    grid = log_grid(P15_BINS, P15_LOG_BINS, tspan)
+    cm15 = ptt.model_general(
+        psrs, tm_svd=True, white_vary=True, Tspan=tspan, modes=grid,
+        common_psd="spectrum", common_components=len(grid),
+        red_psd="spectrum", red_components=len(grid), pshift=True,
+        pseed=P15_PSEED, device=dev)
+    cm15b = ptt.model_general(
+        [load_enterprise_snapshot(SNAPSHOT)], white_vary=True,
+        common_psd="spectrum", common_components=SINGLE_BINS,
+        red_psd="powerlaw", red_components=SINGLE_BINS, red_select="band",
+        device=dev)
+    print(f"phase 15 model: P={cm15.P} Nmax={cm15.Nmax} Bmax={cm15.Bmax} "
+          f"nx={cm15.nx}, Tspan {tspan:.6g} s, {len(grid)} frequencies "
+          f"from {grid[0]:.4g} to {grid[-1]:.4g} Hz, common {cm15.gw_kind} "
+          f"({cm15.K}), red {cm15.red_kind} ({cm15.Kr}), "
+          f"{len(cm15.idx.red)} powerlaw hypers, pshift seed {P15_PSEED}",
+          flush=True)
+    band = [j for j in cm15b.idx.red if "_red_noise_" in cm15b.param_names[j]]
+    print(f"phase 15b model: {cm15b.pulsars[0]} Bmax={cm15b.Bmax} "
+          f"nx={cm15b.nx}, components {[c.kind for c in cm15b.components]},"
+          f" band hypers {[cm15b.param_names[j] for j in band]}", flush=True)
+    recs, ok = {}, True
+    for nm, m, nc in (("15", cm15, NCHAINS), ("15b", cm15b, SINGLE_CHAINS)):
+        xs = parity_state(m, nc, gen)
+        recs[nm], good = gram_parity(m, xs, time_ms)
+        # the float64 factor runs in the powerlaw adaptation alone: 15b
+        for rec, g2 in ((chol_parity(m, xs, gen, time_ms),)
+                        + ((chol64_parity(m, xs, time_ms),)
+                           if nm == "15b" else ())):
+            recs[nm].update(rec)
+            good &= g2
+        ok &= good
+        del xs
+    torch.cuda.empty_cache()
+    elapsed("phase 2 (phases 15-15b's kernel parity and timings)")
+    if not ok:
+        print("chip_smoke: kernel parity at phases 15-15b's shapes failed",
+              file=sys.stderr)
+        return None
+
+    # ---- phase 15: the log grid, pshift and the driver options ------------
+    out15 = outdir / "grid"
+    ok15, runs15, g15 = powerlaw_path(
+        "15", cm15, "PTABlockGibbs", NCHAINS, WARMUP, P15_STEADY, args.seed,
+        out15, list(recs["15"]), GRAPHED, backup=False, **P15_OPTS)
+    drv = g15.driver
+    baks = sorted(p.name for p in out15.iterdir() if ".bak" in p.name)
+    steady = range(drv._it_base(WARMUP + 1 + P15_STEADY),
+                   WARMUP + 1 + P15_STEADY)
+    cadence = drv.b_refresh_sweeps == sum(
+        t % P15_OPTS["exact_every"] == 0 for t in steady)
+    capped = drv.aclength_white <= P15_OPTS["white_steps_max"]
+    print(f"phase 15 options: white sub-chain {drv.aclength_white} steps "
+          f"(cap {drv.white_steps_max}), {drv.b_refresh_sweeps} refresh and "
+          f"{drv.b_mh_sweeps} b_mh sweeps (exact_every {drv.exact_every}), "
+          f".bak files {baks}", flush=True)
+    if not (ok15 and capped and cadence and not baks):
+        print(f"chip_smoke: phase 15 failed (path={ok15}, capped={capped}, "
+              f"refresh cadence={cadence}, .bak files={baks})",
+              file=sys.stderr)
+        return None
+    if not graphs_vs_eager(drv, torch.as_tensor(drv.x_cur, device=dev),
+                           drv.b.to(dev), WARMUP + 1 + P15_STEADY, "15c",
+                           "PTABlockGibbs, log grid and pshift, across a "
+                           "refresh"):
+        print("chip_smoke: phase 15's graph replay differs from the eager "
+              "sweep", file=sys.stderr)
+        return None
+    del g15, drv
+    torch.cuda.empty_cache()
+    if not resume_check(cm15, args.seed, outdir / "grid_resume",
+                        "PTABlockGibbs", "15d", warmup=SIDE_RESUME_WARMUP,
+                        steady=SIDE_RESUME_STEADY, **P15_OPTS):
+        print("chip_smoke: phase 15's resumed run differs from the whole "
+              "one", file=sys.stderr)
+        return None
+    elapsed("phases 15-15d")
+
+    # ---- phase 15b: red noise split by band --------------------------------
+    ok15b, runs15b, g15b = powerlaw_path(
+        "15b", cm15b, "PulsarBlockGibbs", SINGLE_CHAINS, P15B_WARMUP,
+        P15B_STEADY, args.seed, outdir / "band", list(recs["15b"]),
+        WIDE_GRAPHED)
+    hyp = g15b.chain[P15B_WARMUP + 1:][:, :, band]          # (S, C, 4)
+    pa = cm15b.pa.cpu().numpy()[band]
+    pb = cm15b.pb.cpu().numpy()[band]
+    moved = bool((np.ptp(hyp, axis=0) > 0).all())
+    inside = bool(((hyp > pa) & (hyp < pb)).all())
+    print(f"phase 15b band hypers: moved in every chain {moved}, every "
+          f"steady value inside its prior {inside}; medians "
+          + json.dumps({cm15b.param_names[j]: round(float(v), 3) for j, v in
+                        zip(band, np.median(hyp, axis=(0, 1)))}), flush=True)
+    del g15b
+    torch.cuda.empty_cache()
+    elapsed("phase 15b")
+    if not (ok15b and moved and inside):
+        print("chip_smoke: phase 15b failed", file=sys.stderr)
+        return None
+    what = {"15": (cm15, runs15, "log grid, pshift"),
+            "15b": (cm15b, runs15b, "red noise split by band")}
+    return [dict(name=f"{k}[{f}] (phase {nm} path: {what[nm][2]}, order "
+                 f"{what[nm][0].Bmax})", route="cuda",
+                 source=SOURCES[k][f.endswith("_wide")],
+                 replaces=REPLACES[k], launches=what[nm][1][(k, f)], **r)
+            for nm, rs in recs.items() for (k, f), r in rs.items()]
 
 
 def earlier_paths(args, psrs, gen, outdir):
@@ -1938,6 +2098,7 @@ def earlier_paths(args, psrs, gen, outdir):
         del xn
     del x, x1
     torch.cuda.empty_cache()
+    elapsed("phase 2 (earlier paths' kernel parity and timings)")
     if not (ok_g and ok_c and ok_g1 and ok_c1 and ok_f64 and ok_f64w
             and ok_hd and ok_n):
         print("chip_smoke: kernel parity failed", file=sys.stderr)
@@ -1949,13 +2110,14 @@ def earlier_paths(args, psrs, gen, outdir):
         print("chip_smoke: graph replay differs from the eager sweep",
               file=sys.stderr)
         return None
+    elapsed("phases 3-3b")
 
     # ---- phase 4: the main path, launch counts from 0 ----------------------
     niter = WARMUP + 1 + args.steady
     kernels.reset_launches()
     t0 = time.perf_counter()
     g = ptt.PTABlockGibbs(cm, nchains=C, device=dev, seed=args.seed,
-                          warmup_sweeps=WARMUP)
+                          warmup_sweeps=WARMUP, progress=False)
     x0 = g.initial_sample(torch.Generator(device=dev).manual_seed(
         args.seed))
     chain = g.sample(x0, outdir=outdir / "main", niter=niter,
@@ -2037,6 +2199,7 @@ def earlier_paths(args, psrs, gen, outdir):
         return None
     del g, drv, graphs, chain
     torch.cuda.empty_cache()
+    elapsed("phases 4-6")
 
     # ---- phase 7: the single-pulsar path, launch counts from 0 -------------
     wide = [k for k in records if k[1].endswith("_wide")
@@ -2057,6 +2220,7 @@ def earlier_paths(args, psrs, gen, outdir):
               "whole one", file=sys.stderr)
         return None
     torch.cuda.empty_cache()
+    elapsed("phases 7-7c")
 
     # ---- phases 8-9b: the powerlaw hyper block, launch counts from 0 -------
     wide64 = wide + [("chol_solve_sample", "f64_wide")]
@@ -2085,6 +2249,7 @@ def earlier_paths(args, psrs, gen, outdir):
         print("chip_smoke: the resumed R1 run differs from the whole one",
               file=sys.stderr)
         return None
+    elapsed("phases 8-8c")
     narrow64 = narrow + [("chol_solve_sample", "f64")]
     ok9, runs9, _ = powerlaw_path("9", cm_r2, "PTABlockGibbs", C, R2_WARMUP,
                                   R2_STEADY, args.seed, outdir / "r2",
@@ -2099,6 +2264,7 @@ def earlier_paths(args, psrs, gen, outdir):
     if not ok9b:
         return None
     torch.cuda.empty_cache()
+    elapsed("phases 9-9b")
 
     # ---- phases 10-10c: the Hellings-Downs array, launch counts from 0 ------
     ok10, runs10, g10 = hd_path(cm_hd, args.seed, outdir / "hd", args.steady)
@@ -2121,6 +2287,7 @@ def earlier_paths(args, psrs, gen, outdir):
               "whole one", file=sys.stderr)
         return None
     torch.cuda.empty_cache()
+    elapsed("phases 10-10c")
 
     # ---- phases 11-12c: the standard noise model, launch counts from 0 -----
     ok11, runs11, g11 = powerlaw_path("11", cm_n11, "PTABlockGibbs", C,
@@ -2145,6 +2312,7 @@ def earlier_paths(args, psrs, gen, outdir):
         print("chip_smoke: the resumed standard-noise array run differs "
               "from the whole one", file=sys.stderr)
         return None
+    elapsed("phases 11-11c")
     ok12, runs12, _ = powerlaw_path("12", cm_n12, "PulsarBlockGibbs",
                                     SINGLE_CHAINS, WARMUP, N12_STEADY,
                                     args.seed, outdir / "n12", wide64,
@@ -2159,6 +2327,7 @@ def earlier_paths(args, psrs, gen, outdir):
         print("chip_smoke: the resumed NANOGrav single-pulsar run differs "
               "from the whole one", file=sys.stderr)
         return None
+    elapsed("phases 12-12c")
     noise_runs = {"11": runs11, "12": runs12}
     noise_models = {"11": cm_n11, "12": cm_n12}
     timed = {k: r for k, r in {**records, **rec_f64}.items()
@@ -2208,6 +2377,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    global _RUN_START
+    _RUN_START = t0
     build.library(verbose=True)
     print(f"phase 1 build: {time.perf_counter() - t0:.1f} s", flush=True)
     usage = resource_usage(build.BUILD_DIR / "ptg_torch_kernels.so")
@@ -2257,6 +2428,7 @@ def main(argv=None):
         print("chip_smoke: kernel parity at phases 13-14's shapes failed",
               file=sys.stderr)
         return 1
+    elapsed("phase 2 (phases 13-14's kernel parity)")
 
     earlier = earlier_paths(args, psrs, gen, outdir)
     if earlier is None:
@@ -2294,6 +2466,7 @@ def main(argv=None):
               "whole one", file=sys.stderr)
         return 1
     torch.cuda.empty_cache()
+    elapsed("phases 13-13c")
 
     # ---- phases 14-14d: the t-process array, launch counts from 0 ----------
     tp_forms = list(tp_records)
@@ -2323,6 +2496,12 @@ def main(argv=None):
     if not infinitepower_check(cm_ip, args.seed, outdir / "ip"):
         print("chip_smoke: the infinitepower array failed", file=sys.stderr)
         return 1
+    elapsed("phases 14-14d")
+
+    # ---- phases 15-15d: the frequency-grid and selection options ----------
+    rows15 = grid_paths(args, psrs, gen, outdir)
+    if rows15 is None:
+        return 1
     rows += [
         dict(name=f"{k}[{f}] (phase 13 path: kernel ECORR, B1 "
              f"{cm_ke.Bmax + 1})", route="cuda", source=SOURCES[k][1],
@@ -2332,7 +2511,7 @@ def main(argv=None):
              f"{cm_tp.Bmax})", route="cuda",
              source=SOURCES[k][f.endswith("_wide")], replaces=REPLACES[k],
              launches=runs14[(k, f)], **r)
-        for (k, f), r in tp_records.items()]
+        for (k, f), r in tp_records.items()] + rows15
 
     print("phase 1 kernel resources (cuobjdump -res-usage: registers, "
           "stack frame bytes, static shared memory bytes): " + (json.dumps(

@@ -10,7 +10,8 @@ place), constant pool and index tables of ``compile_pta``, field by
 field.
 
 Per pulsar the basis is ``[timing model | dm_annual | bayesephem |
-Fourier | chromatic | ECORR]``:
+Fourier | chromatic and split red | ECORR]``, every Fourier GP on the
+grid of ``Tspan``, ``modes`` or ``logfreq``:
 
 - the timing model (SVD, or the column-normalized design matrix of
   ``tm_norm``'s default), the two ``nu^-2`` sin/cos columns of
@@ -37,7 +38,9 @@ Fourier | chromatic | ECORR]``:
 Intrinsic red noise is a free spectrum, a powerlaw (flat above a break
 under ``red_breakflat``), the t-process (a powerlaw scaled per frequency
 by ``alphas ~ InvGamma(1, 1)``, prior kind 3) or ``infinitepower``
-(``BIG_PHI`` on its columns, no hypers).
+(``BIG_PHI`` on its columns, no hypers); under ``red_select`` a
+powerlaw-family GP per radio band or backend, its rows outside the group
+zeroed, on columns of its own like a chromatic GP.
 
 White noise is per-backend EFAC/EQUAD (and a global ``gequad``), with
 ECORR sampled under ``white_vary=True`` and otherwise fixed from a noise
@@ -54,7 +57,7 @@ import dataclasses
 import numpy as np
 
 from ..data.dataset import get_tspan
-from ..data.fourier import DAY, fourier_basis
+from ..data.fourier import DAY, fourier_basis, pshift_phases, pshift_seed
 from ..sampler.compiled import BIG_PHI, PHI_FLOOR, from_arrays
 from .ephem import bayesephem_basis
 from .orf import orf_ginv_stack, refuse_sampled_weights
@@ -79,8 +82,34 @@ PSD_SHAPE_DEFAULTS = {
 }
 #: the year of ``dm_annual``'s sinusoid [s]
 YEAR = 365.25 * 86400.0
-#: the queue item of the frequency-grid and selection options
-_GRID_ITEM = "ROADMAP A.17"
+#: ``red_select`` band edges [MHz] (the JAX ``factory.py::_BANDS``): cut
+#: on radio frequency, below/above 1 GHz, and for ``band+`` an L/S split
+BANDS = {
+    "band": (("low", 0.0, 1000.0), ("high", 1000.0, np.inf)),
+    "band+": (("low", 0.0, 1000.0), ("mid", 1000.0, 2000.0),
+              ("high", 2000.0, np.inf)),
+}
+
+
+def log_grid(nmodes_lin, nmodes_log, Tspan):
+    """``logfreq``'s grid: ``nmodes_log`` log-spaced frequencies below
+    ``1/Tspan`` (from a hundredth of it) joined to the linear grid."""
+    flin = np.arange(1, nmodes_lin + 1) / Tspan
+    flog = np.logspace(np.log10(flin[0] / 100.0), np.log10(flin[0]),
+                       nmodes_log, endpoint=False)
+    return np.concatenate([flog, flin])
+
+
+def _selection(select, backend_flags):
+    """White-noise TOA groups: one per backend (``"backend"``) or one
+    for all TOAs (``None`` / ``"none"``, label ``""``); another value
+    raises ``KeyError``, as the JAX ``SELECTIONS`` table does."""
+    if select not in ("backend", None, "none"):
+        raise KeyError(select)
+    if select == "backend":
+        return {lab: backend_flags == lab
+                for lab in sorted(set(backend_flags.tolist()))}
+    return {"": np.ones(len(backend_flags), dtype=bool)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,7 +198,11 @@ def _has_ecorr(p, is_wideband):
     return "NANOGrav" in p.flags.get("pta", "") and not is_wideband
 
 
-def _timing_basis(M, tm_svd):
+def _timing_basis(M, tm_svd, tm_norm):
+    """The SVD of the column-normalized design matrix, the normalized
+    matrix (``tm_norm``) or the matrix itself."""
+    if not (tm_svd or tm_norm):
+        return M.copy()
     Mn = M / np.linalg.norm(M, axis=0)
     return np.linalg.svd(Mn, full_matrices=False)[0] if tm_svd else Mn
 
@@ -188,15 +221,26 @@ def _amp_priors(upper_limit, upper_limit_red, upper_limit_common,
         upper_limit_red, upper_limit_common, upper_limit_dm)) + (glob,)
 
 
-def _gp(name, group, toas, ncomp, Tspan, psd, params, chrom=None):
-    """A Fourier-basis GP signal; ``chrom = (radio_freqs, index)`` scales
-    its rows by ``(1400 / nu)^index``."""
-    F, f = fourier_basis(toas / DAY, ncomp, Tspan)
+def _gp(name, group, toas, ncomp, Tspan, psd, params, chrom=None,
+        modes=None, wgts=None, shift=None, row_mask=None):
+    """A Fourier-basis GP signal on the linear grid or on ``modes``;
+    ``chrom = (radio_freqs, index)`` scales its rows by ``(1400 /
+    nu)^index``, ``row_mask`` zeroes the rows outside it, ``shift`` (a
+    ``pshift`` seed) adds random phases, and ``wgts`` replaces the bin
+    widths by ``wgts^2``."""
+    phases = None
+    if shift is not None:
+        phases = pshift_phases(shift, ncomp if modes is None else len(modes))
+    F, f = fourier_basis(toas / DAY, ncomp, Tspan, modes=modes,
+                         pshift_phases=phases)
     if chrom is not None:
         scale = (1400.0 / np.asarray(chrom[0])) ** float(chrom[1])
         F = F * scale[:, None]
-    return _Signal(name, group, F, psd=psd, f=f, df=_bin_widths(f),
-                   params=params)
+    if row_mask is not None:
+        F = F * np.asarray(row_mask, dtype=float)[:, None]
+    df = (_bin_widths(f) if wgts is None
+          else np.repeat(np.asarray(wgts, dtype=np.float64) ** 2, 2))
+    return _Signal(name, group, F, psd=psd, f=f, df=df, params=params)
 
 
 def _powerlaw_params(stem, psd, amp_kind, amp_bounds, log10_A=None,
@@ -238,40 +282,63 @@ def _white(p, labels, white_vary, noisedict, gequad):
     return efac, equad, ecorr, geq
 
 
+def _red_params(o, rname):
+    """``(psd, params)`` of an intrinsic red-noise signal named
+    ``rname``."""
+    red_psd = o["red_psd"]
+    if red_psd == "spectrum":
+        return "free_spectrum", [_Par(f"{rname}_log10_rho",
+                                      o["red_components"], UNIFORM, -10.0,
+                                      -4.0)]
+    if red_psd == "infinitepower":
+        return "infinitepower", []
+    ps = _powerlaw_params(rname, "powerlaw", o["amp"][0], (-20.0, -11.0))
+    if red_psd == "tprocess":
+        # per-frequency InvGamma(df/2, df/2) scale factors, df = 2
+        return "tprocess", ps + [_Par(f"{rname}_alphas", o["red_components"],
+                                      INV_GAMMA, 1.0, 1.0)]
+    if o["red_breakflat"]:
+        return "powerlaw_breakflat", ps + [_Fixed(
+            f"{rname}_log10_fb", np.log10(o["red_breakflat_fq"]))]
+    return "powerlaw", ps
+
+
 def _pulsar_model(p, o, Tspan, common):
     """One pulsar's signals in ``model_general``'s order and its white
-    noise: ``(signals, labels, masks, (efac, equad, ecorr, gequad))``."""
+    noise: ``(signals, labels, masks, (efac, equad, ecorr, gequad))``.
+    The common process and unsplit red noise carry the pulsar's
+    ``pshift`` phases (they share columns, so their shifts agree); a
+    ``red_select`` group is a row-masked GP on columns of its own."""
     toas = p.toas
+    grid, wgts = o["grid"], o["wgts"]
+    shift = pshift_seed(o["pseed"], p.name) if o["pshift"] else None
     sigs = [_Signal("linear_timing_model", "static",
-                    _timing_basis(p.Mmat, o["tm_svd"]), phi=1e40)]
-    orf = o["orf"]
-    sigs.append(_gp(f"gw_{orf}", "fourier" if orf == "crn" else f"gw_{orf}",
-                    toas, o["common_components"], Tspan, *common))
+                    _timing_basis(p.Mmat, o["tm_svd"], o["tm_norm"]),
+                    phi=1e40)]
+    orf, gname = o["orf"], o["gname"]
+    sigs.append(_gp(gname, "fourier" if orf == "crn" else gname, toas,
+                    o["common_components"], Tspan, *common, modes=grid,
+                    wgts=wgts, shift=shift))
     if o["red_var"]:
-        rname = f"{p.name}_red_noise"
-        red_psd = o["red_psd"]
-        if red_psd == "spectrum":
-            psd = "free_spectrum"
-            ps = [_Par(f"{rname}_log10_rho", o["red_components"], UNIFORM,
-                      -10.0, -4.0)]
-        elif red_psd == "infinitepower":
-            psd, ps = "infinitepower", []
-        elif red_psd == "tprocess":
-            # per-frequency InvGamma(df/2, df/2) scale factors, df = 2
-            psd = "tprocess"
-            ps = _powerlaw_params(rname, "powerlaw", o["amp"][0],
-                                  (-20.0, -11.0)) + [
-                _Par(f"{rname}_alphas", o["red_components"], INV_GAMMA,
-                     1.0, 1.0)]
+        if o["red_select"] is None:
+            rname = f"{p.name}_red_noise"
+            sigs.append(_gp(rname, "fourier", toas, o["red_components"],
+                            Tspan, *_red_params(o, rname), modes=grid,
+                            wgts=wgts, shift=shift))
         else:
-            psd = "powerlaw_breakflat" if o["red_breakflat"] else "powerlaw"
-            ps = _powerlaw_params(rname, "powerlaw", o["amp"][0],
-                                  (-20.0, -11.0))
-            if o["red_breakflat"]:
-                ps.append(_Fixed(f"{rname}_log10_fb",
-                                np.log10(o["red_breakflat_fq"])))
-        sigs.append(_gp(rname, "fourier", toas, o["red_components"], Tspan,
-                        psd, ps))
+            if o["red_select"] in BANDS:
+                groups = {lab: (p.freqs > lo) & (p.freqs <= hi)
+                          for lab, lo, hi in BANDS[o["red_select"]]}
+            else:
+                groups = _selection("backend", p.backend_flags)
+            for lab in sorted(groups):
+                mask = np.asarray(groups[lab], dtype=bool)
+                if not mask.any():
+                    continue
+                rname = f"{p.name}_red_noise_{lab}"
+                sigs.append(_gp(rname, "chrom", toas, o["red_components"],
+                                Tspan, *_red_params(o, rname),
+                                modes=grid, wgts=wgts, row_mask=mask))
     for on, suffix, psd, index, amp in (
             (o["dm_var"], "dm_gp", o["dm_psd"], 2.0, o["amp"][2]),
             (o["dm_chrom"], "chrom_gp", o["dmchrom_psd"], o["dmchrom_idx"],
@@ -281,7 +348,7 @@ def _pulsar_model(p, o, Tspan, common):
             sigs.append(_gp(cname, "chrom", toas, o["dm_components"], Tspan,
                             psd, _powerlaw_params(cname, psd, amp,
                                                   (-20.0, -11.0)),
-                            chrom=(p.freqs, index)))
+                            chrom=(p.freqs, index), modes=grid))
     if o["dm_annual"]:
         w = 2.0 * np.pi / YEAR
         scale = (1400.0 / np.asarray(p.freqs)) ** 2
@@ -291,8 +358,8 @@ def _pulsar_model(p, o, Tspan, common):
     if o["bayesephem"]:
         sigs.append(_Signal("bayesephem", "static", bayesephem_basis(
             toas, p.pos, be_type=o["be_type"]), phi=1.0))
-    labels = sorted(set(p.backend_flags.tolist()))
-    masks = {lab: p.backend_flags == lab for lab in labels}
+    masks = _selection(o["select"], p.backend_flags)
+    labels = sorted(masks)
     white = _white(p, labels, o["white_vary"], o["noisedict"], o["gequad"])
     if _has_ecorr(p, o["is_wideband"]):
         U, owners = _ecorr_basis(toas, labels, masks)
@@ -332,9 +399,9 @@ def _layout(sigs):
 
 
 def _refuse(o):
-    """What ``model_general`` refuses, with the JAX package's messages,
-    and the options the port does not take yet, naming their ROADMAP
-    item."""
+    """What ``model_general`` and ``compile_pta`` refuse, with the JAX
+    package's messages, and several common processes, which the JAX
+    compiled model takes but does not sample."""
     if o["tm_var"] or o["tm_linear"] or o["tmparam_list"] is not None:
         raise NotImplementedError(
             "tm_var/tm_linear: the reference's committed model_general "
@@ -362,18 +429,13 @@ def _refuse(o):
     orfs = set(o["orf"].split(","))
     if len(orfs) > 1 and orfs - {"crn"}:
         raise NotImplementedError(f"mixed common-process ORFs {orfs}")
-    grid = {"Tspan": o["Tspan"] is not None, "modes": o["modes"] is not None,
-            "wgts": o["wgts"] is not None, "logfreq": o["logfreq"],
-            "pshift": o["pshift"], "red_select": o["red_select"] is not None,
-            "select": o["select"] != "backend",
-            "tm_norm=False": not (o["tm_norm"] or o["tm_svd"]),
-            "orf_names": o["orf_names"] is not None,
-            "several common processes": "," in o["orf"]}
-    asked = [k for k, v in grid.items() if v]
-    if asked:
+    if "," in o["orf"]:
         raise NotImplementedError(
-            f"{', '.join(asked)}: the frequency-grid and selection options "
-            f"of model_general are not in the port yet ({_GRID_ITEM})")
+            f"orf={o['orf']!r}: several common processes are not sampled. "
+            "The JAX package's compiled model builds them all but samples "
+            "only the first: its rho block, rho_ix_x and b-draw metadata "
+            "take the first 'gw' signal, so the others' log10_rho never "
+            "move. Model one common process")
     if o["common_psd"] not in ("spectrum",) + tuple(PSD_HYPERS):
         raise NotImplementedError(f"common_psd='{o['common_psd']}'")
     if o["red_var"]:
@@ -381,6 +443,12 @@ def _refuse(o):
         if o["red_breakflat"] and red_psd != "powerlaw":
             raise NotImplementedError(
                 "red_breakflat applies to red_psd='powerlaw'")
+        if o["red_select"] is not None and red_psd not in PSD_HYPERS:
+            raise NotImplementedError(
+                "red_select requires a powerlaw-family red_psd (split "
+                "free-spectrum blocks have no conditional sampler)")
+        if o["red_select"] not in (None, "backend") + tuple(BANDS):
+            raise NotImplementedError(f"red_select={o['red_select']!r}")
         if red_psd not in ("spectrum", "tprocess", "infinitepower") and (
                 red_psd not in PSD_HYPERS or PSD_HYPERS[red_psd][2:]):
             raise NotImplementedError(f"red_psd='{red_psd}'")
@@ -435,7 +503,9 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
     o = dict(_DEFAULTS, **opts)
     _refuse(o)
     psrs = list(psrs)
-    Tspan = get_tspan(psrs)
+    Tspan = get_tspan(psrs) if o["Tspan"] is None else o["Tspan"]
+    o["grid"] = (log_grid(o["common_components"], o["nmodes_log"], Tspan)
+                 if o["logfreq"] else o["modes"])
     P_real = len(psrs)
     P = pad_pulsars or P_real
     if P < P_real:
@@ -443,7 +513,7 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
     o["amp"] = _amp_priors(o["upper_limit"], o["upper_limit_red"],
                            o["upper_limit_common"], o["upper_limit_dm"])
     corr = o["orf"] != "crn"
-    gname = f"gw_{o['orf']}"
+    gname = o["gname"] = f"gw_{(o['orf_names'] or o['orf']).split(',')[0]}"
     if o["common_psd"] == "spectrum":
         lo = -10.0 if o["common_logmin"] is None else o["common_logmin"]
         hi = -4.0 if o["common_logmax"] is None else o["common_logmax"]
@@ -566,6 +636,10 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
                 hyp, rho = [ref(q) for q in s.params], []
             rows.append((cols, s.f, s.df, hyp, rho))
         specs.append((fourier[0][c].psd, rows))
+    if len({len(c) for c in chrom}) > 1:
+        raise ValueError("pulsars disagree on chromatic signal count; the "
+                         "compiled batch requires a homogeneous model "
+                         "(build with model_general)")
     for c in range(len(chrom[0])):
         rows = []
         for m, sigs in zip(models, chrom):
@@ -837,17 +911,24 @@ def model_general(psrs, tm_svd=False, white_vary=False,
     ORFs (``hd``, ``freq_hd`` with ``orf_ifreq``, ``st``,
     ``gw_monopole``, ``gw_dipole``) under a common free spectrum;
     ``coefficients``, ``dense_like`` and ``tm_marg`` are accepted and
-    dropped, as the JAX function drops them.  ``kernel_ecorr=True`` is
-    ``compile_pta``'s option: ECORR inside N (Woodbury) in place of its
-    basis columns, the model ``PulsarBlockGibbs`` / ``PTABlockGibbs(cm,
-    ecorrsample="kernel")`` sample; a model without ECORR is refused.
-    What the JAX function refuses raises with its message; the
-    frequency-grid and selection options (``Tspan``, ``modes``,
-    ``logfreq``, ``wgts``, ``pshift``, ``red_select``, ``select``,
-    ``tm_norm=False``, several common processes) raise
-    ``NotImplementedError`` naming their ROADMAP item.  README's Quick
-    start (with kernel ECORR), ``bench.py``'s Hellings-Downs array and
-    the array with the standard noise model::
+    dropped, as the JAX function drops them.  The frequency grid:
+    ``Tspan`` (default the array's span), ``modes`` (explicit
+    frequencies), ``logfreq`` with ``nmodes_log`` (:func:`log_grid`),
+    ``wgts`` (bin widths ``wgts^2``), ``pshift`` / ``pseed`` (per-pulsar
+    random phases on the common and red columns); the selections:
+    ``red_select`` (``"band"``, ``"band+"``, ``"backend"``: a row-masked
+    powerlaw red GP per group, on columns of their own), ``select``
+    (``"backend"``, or ``None`` / ``"none"`` for one white-noise group),
+    ``tm_norm`` and ``orf_names`` (one common process).
+    ``kernel_ecorr=True`` is ``compile_pta``'s option: ECORR inside N
+    (Woodbury) in place of its basis columns, the model
+    ``PulsarBlockGibbs`` / ``PTABlockGibbs(cm, ecorrsample="kernel")``
+    sample; a model without ECORR is refused.  What the JAX functions
+    refuse raises with their type and message; several common processes
+    (``orf`` with a comma) raise ``NotImplementedError``, since the JAX
+    compiled model builds them but samples only the first.  README's
+    Quick start (with kernel ECORR), ``bench.py``'s Hellings-Downs array
+    and the array with the standard noise model::
 
         model_general([psr], red_var=False, white_vary=True,
                       common_psd="spectrum", common_components=30,

@@ -25,14 +25,18 @@ from ..runtime import integrity
 
 class ChainStore:
     """Directory of: chain.npy, bchain.npy, pars_chain.txt,
-    pars_bchain.txt, adapt.npz, metrics.jsonl (+ manifest.json and one
-    rotating .bak generation)."""
+    pars_bchain.txt, adapt.npz, metrics.jsonl (+ manifest.json and, with
+    ``backup``, one rotating .bak generation; without it a torn save
+    leaves no set to roll back to, and resume still verifies the
+    manifest)."""
 
-    def __init__(self, outdir, param_names, b_param_names):
+    def __init__(self, outdir, param_names, b_param_names, backup=True):
         self.outdir = Path(outdir)
         self.outdir.mkdir(parents=True, exist_ok=True)
         self.param_names = list(param_names)
         self.b_param_names = list(b_param_names)
+        #: keep a rotating .bak of the previous verified checkpoint set
+        self.backup = bool(backup)
         #: host seconds of the saves so far, by step: "rotate" (verify
         #: the previous set, link it to .bak), "write" (chain, bchain,
         #: adapt.npz), "manifest" (hash the new set)
@@ -48,9 +52,10 @@ class ChainStore:
         combination is detectable.  ``extra`` is merged into
         ``manifest.json`` (the facade's ``layout`` section)."""
         t0 = time.perf_counter()
-        # rotate BEFORE touching the primaries: a kill anywhere in this
-        # save leaves the .bak holding the previous checkpoint
-        integrity.rotate_backup(self.outdir)
+        if self.backup:
+            # rotate BEFORE touching the primaries: a kill anywhere in
+            # this save leaves the .bak holding the previous checkpoint
+            integrity.rotate_backup(self.outdir)
         t1 = time.perf_counter()
         for nm, arr in (("chain.npy", chain), ("bchain.npy", bchain)):
             tmp = self.outdir / (nm + ".tmp.npy")

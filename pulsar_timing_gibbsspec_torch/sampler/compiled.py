@@ -170,6 +170,23 @@ class BlockIndex:
                    arr(white), arr(ecorr))
 
 
+#: the prior classes of the JAX package, by ``pkind`` code
+PRIOR_NAMES = ("Uniform", "Normal", "LinearExp", "InvGamma")
+
+
+@dataclasses.dataclass(frozen=True)
+class Param:
+    """A sampled parameter: ``size`` entries (None: a scalar), its
+    prior's class name and its two numbers (bounds; Normal's mean and
+    deviation; InvGamma's shape and rate)."""
+
+    name: str
+    size: int | None
+    prior: str
+    a: float
+    b: float
+
+
 @dataclasses.dataclass
 class GPComponent:
     """One Fourier-GP or basis-ECORR component, stacked over pulsars:
@@ -287,6 +304,40 @@ class CompiledPTA:
         return self.ke_eid is not None
 
     # ---- names ------------------------------------------------------------
+
+    def params(self):
+        """The sampled parameters in chain order (the JAX model's
+        ``params``): a vector parameter is the run of names ``<name>_0 ..
+        <name>_{n-1}`` under one prior, every other name a scalar
+        (``size`` None)."""
+        kind, a, b = (v.cpu().numpy() for v in (self.pkind, self.pa,
+                                                self.pb))
+        out, j = [], 0
+        while j < self.nx:
+            stem, _, k = self.param_names[j].rpartition("_")
+            n = 1
+            if k == "0":
+                while (j + n < self.nx
+                       and self.param_names[j + n] == f"{stem}_{n}"):
+                    n += 1
+            vec = k == "0"
+            out.append(Param(stem if vec else self.param_names[j],
+                             n if vec else None, PRIOR_NAMES[int(kind[j])],
+                             float(a[j]), float(b[j])))
+            j += n
+        return out
+
+    def map_params(self, xs):
+        """``{name: value}`` of one chain vector ``xs`` (nx,): a float per
+        scalar (and per vector of one entry), an array per vector."""
+        xs = np.asarray(xs.cpu() if torch.is_tensor(xs) else xs)
+        ret, ct = {}, 0
+        for q in self.params():
+            n = q.size or 1
+            ret[q.name] = (np.asarray(xs[ct:ct + n]) if n > 1
+                           else float(xs[ct]))
+            ct += n
+        return ret
 
     def b_param_names(self):
         """Names of the flat b columns, the JAX facade's

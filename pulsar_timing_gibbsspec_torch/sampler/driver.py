@@ -299,16 +299,32 @@ class TorchGibbsDriver:
     steady sweep from CUDA graphs; ``graphs=False`` runs it eagerly, the
     check of the graphs against the eager sweep.  ``joint_mixed`` (None:
     ``settings.joint_mixed``) selects the two-float factors of a
-    correlated ORF's steady joint b-draw; False keeps float64."""
+    correlated ORF's steady joint b-draw; False keeps float64.
+
+    The JAX driver's sweep options: ``exact_every`` (the near-exact
+    refresh b-draw on every ``exact_every``-th sweep; 1 under kernel
+    ECORR), ``white_steps_max`` (the cap on the ACT-sized white and
+    ECORR sub-chains), ``warmup_white_steps`` (their length in a warmup
+    sweep) and ``common_rho`` (True asserts that the model has a shared
+    free-spectrum common block, as ``PTABlockGibbs`` does; a model
+    without one raises ``ValueError``).  The first three change the
+    stream, so a checkpoint records them and a resume with other values
+    raises."""
 
     def __init__(self, cm, nchains=1, seed=0, warmup_sweeps=50,
                  white_adapt_iters=1000, red_adapt_iters=2000, red_steps=20,
                  record_every=1, chunk_size=100, graphs=None,
-                 joint_mixed=None):
+                 joint_mixed=None, exact_every=EXACT_EVERY,
+                 white_steps_max=WHITE_STEPS_MAX,
+                 warmup_white_steps=WARMUP_WHITE_STEPS, common_rho=False):
         self.cm = cm
         self.C = int(nchains)
         if self.C < 1:
             raise ValueError("nchains must be >= 1")
+        if common_rho and not (cm.K and len(cm.rho_ix_x)):
+            raise ValueError(
+                "common_rho=True but the model has no shared free-spectrum "
+                "gw block (build with common_psd='spectrum')")
         self.seed = int(seed)
         self.warmup_sweeps = int(warmup_sweeps)
         self.white_adapt_iters = int(white_adapt_iters)
@@ -339,9 +355,13 @@ class TorchGibbsDriver:
         self.graphs = on_card if graphs is None else bool(graphs)
         if self.graphs and not on_card:
             raise ValueError("CUDA graphs need a model on a cuda device")
-        self.exact_every = EXACT_EVERY
-        self.warmup_white_steps = WARMUP_WHITE_STEPS
-        self.white_steps_max = WHITE_STEPS_MAX
+        self.exact_every = int(exact_every)
+        self.warmup_white_steps = int(warmup_white_steps)
+        self.white_steps_max = int(white_steps_max)
+        if min(self.exact_every, self.warmup_white_steps,
+               self.white_steps_max) < 1:
+            raise ValueError("exact_every, warmup_white_steps and "
+                             "white_steps_max must be >= 1")
         self.do_white = len(cm.idx.white) > 0
         self.do_ecorr = len(cm.idx.ecorr) > 0 and (cm.ec_cols.shape[1] > 0
                                                    or cm.has_ke)
@@ -955,6 +975,13 @@ class TorchGibbsDriver:
 
     # ---- checkpointable state ----------------------------------------------
 
+    def stream_options(self):
+        """The sweep options that change the random stream, as the
+        checkpoint records them."""
+        return {"exact_every": self.exact_every,
+                "white_steps_max": self.white_steps_max,
+                "warmup_white_steps": self.warmup_white_steps}
+
     def adapt_state(self):
         """The state a resume needs, at the last writeback: the seed
         (streams are pure in it and the iteration), the carry, the
@@ -965,6 +992,7 @@ class TorchGibbsDriver:
                "b_pad": self.b.numpy().astype(np.float64),
                "it_cur": np.int64(self.it_cur),
                "record_every": np.int64(self.record_every),
+               **{k: np.int64(v) for k, v in self.stream_options().items()},
                "x_cur": np.asarray(
                    self.x_cur if self.x_cur is not None
                    else np.zeros((self.C, self.cm.nx))),
@@ -1009,6 +1037,13 @@ class TorchGibbsDriver:
                 f"resume checkpoint was written with record_every={got_k} "
                 f"but this sampler has record_every={self.record_every}; "
                 "they must match")
+        for key, val in self.stream_options().items():
+            got = int(state.pop(key, val))
+            if got != val:
+                raise RuntimeError(
+                    f"resume checkpoint was written with {key}={got} but "
+                    f"this sampler has {key}={val}; the resumed chain would "
+                    "not continue the saved one, so they must match")
         self.seed = int(state["seed"])
         b_pad = np.asarray(state["b_pad"], dtype=np.float64)
         want = (self.C, cm.P, cm.Bmax)

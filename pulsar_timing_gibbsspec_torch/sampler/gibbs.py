@@ -17,6 +17,7 @@ next chunk (one save at a time; the run ends when its last save has).
 
 from __future__ import annotations
 
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -43,7 +44,7 @@ class _GibbsBase:
 
     def __init__(self, cm, nchains=1, device="cuda", seed=0,
                  hypersample=None, ecorrsample=None, redsample=None,
-                 **driver_opts):
+                 progress=True, **driver_opts):
         dev = resolve_device(device)
         if cm.device != dev:
             raise ValueError(f"the model lives on {cm.device} but the "
@@ -60,6 +61,9 @@ class _GibbsBase:
                 "compiled with kernel_ecorr=True (ECORR inside N): build it "
                 "without kernel_ecorr, or pass ecorrsample='kernel'")
         self.cm = cm
+        #: print a progress line at each checkpoint (``\r``-rewritten on
+        #: a terminal, one line per checkpoint otherwise)
+        self.progress = progress
         self.driver = TorchGibbsDriver(cm, nchains=nchains, seed=seed,
                                        **driver_opts)
         self.chain = self.bchain = None
@@ -72,8 +76,17 @@ class _GibbsBase:
         self.store = None
 
     @property
+    def params(self):
+        """The sampled parameters (:meth:`.compiled.CompiledPTA.params`)."""
+        return self.cm.params()
+
+    @property
     def param_names(self):
         return list(self.cm.param_names)
+
+    def map_params(self, xs):
+        """``{name: value}`` of one chain vector."""
+        return self.cm.map_params(xs)
 
     @property
     def b_param_names(self):
@@ -110,13 +123,14 @@ class _GibbsBase:
     def _checkpoint_extra(self):
         """The manifest's ``layout`` section: the logical identity of
         the sampled process (facade, chains, pulsars, padded width,
-        thinning, stream rule and the device type its streams come
-        from)."""
+        thinning, the sweep options that change the stream, stream rule
+        and the device type its streams come from)."""
         drv = self.driver
         return {"layout": {"facade": type(self).__name__,
                            "backend": "torch",
                            "nchains": drv.C,
                            "record_every": drv.record_every,
+                           **drv.stream_options(),
                            "pulsars": [str(p) for p in self.cm.pulsars],
                            "pad_pulsars": int(self.cm.P),
                            "rng": RNG_RULE,
@@ -124,11 +138,12 @@ class _GibbsBase:
                 "shard_map": None}
 
     def sample(self, x0, outdir="./chains", niter=10000, resume=False,
-               save_every=100):
+               save_every=100, backup=True):
         """Run an ``niter``-sweep chain from ``x0`` ((nx,) or (C, nx)),
         checkpointing to ``outdir``; with ``resume=True``, continue the
-        verified checkpoint there.  Returns the chain rows (the chains
-        axis dropped at C = 1)."""
+        verified checkpoint there.  ``backup=False`` keeps no ``.bak``
+        generation (:class:`.chains.ChainStore`).  Returns the chain rows
+        (the chains axis dropped at C = 1)."""
         drv = self.driver
         if torch.is_tensor(x0):
             x0 = x0.cpu().numpy()
@@ -141,7 +156,7 @@ class _GibbsBase:
                 f"x0 has shape {xs.shape}; this model has {npar} parameters "
                 f"(see .param_names)" + (f" and {C} chains" if C > 1 else ""))
         store = self.store = ChainStore(outdir, self.param_names,
-                                        self.b_param_names)
+                                        self.b_param_names, backup=backup)
         cshape, bshape = drv.chain_shapes(niter)
         total_rows = cshape[0]
         rec_k = drv.record_every
@@ -186,6 +201,7 @@ class _GibbsBase:
         # save_every is in sweeps; yields count recorded rows
         save_rows = max(1, save_every // rec_k)
         ck_extra = self._checkpoint_extra()
+        is_tty = bool(getattr(sys.stdout, "isatty", lambda: False)())
         # one save at a time runs on a thread beside the sampling loop,
         # which meanwhile queues the next chunk and writes only later rows
         saver = ThreadPoolExecutor(max_workers=1)
@@ -232,6 +248,13 @@ class _GibbsBase:
                         "aclength_white": drv.aclength_white,
                         "aclength_ecorr": drv.aclength_ecorr})
                     last_saved = upto
+                    if self.progress:
+                        msg = (f"[torch] {upto}/{total_rows} rows "
+                               f"({rate:.1f} sweeps/s)")
+                        if is_tty:
+                            print("\r" + msg, end="", flush=True)
+                        else:
+                            print(msg, flush=True)
             settle()
         finally:
             try:
@@ -254,6 +277,8 @@ class _GibbsBase:
                     # best-effort flush
                     pass
             saver.shutdown()
+        if self.progress and is_tty:
+            print()
         self.chain, self.bchain = chain, bchain
         return chain
 
@@ -275,7 +300,12 @@ class PulsarBlockGibbs(_GibbsBase):
 
 
 class PTABlockGibbs(_GibbsBase):
-    """Multi-pulsar blocked Gibbs with a common free spectrum or
-    powerlaw, or a common free spectrum under a fixed correlated ORF
-    (Hellings-Downs: the joint b-draw over all pulsars; driver option
-    ``joint_mixed``)."""
+    """Multi-pulsar blocked Gibbs with a common free spectrum, under no
+    ORF or a fixed correlated one (Hellings-Downs: the joint b-draw over
+    all pulsars; driver option ``joint_mixed``).  As the JAX facade, it
+    passes ``common_rho=True``: a model without a shared free spectrum
+    raises ``ValueError``."""
+
+    def __init__(self, cm, nchains=1, device="cuda", seed=0, **driver_opts):
+        super().__init__(cm, nchains=nchains, device=device, seed=seed,
+                         common_rho=True, **driver_opts)

@@ -19,6 +19,16 @@ from pulsar_timing_gibbsspec_torch.data.simulate import (YEAR, powerlaw_psd,
 from pulsar_timing_gibbsspec_torch.sampler.compiled import from_arrays
 
 torch.set_num_threads(2)
+# One BLAS thread per process.  The suite runs in several worker
+# processes, and OpenBLAS's spinning threads (one per core in each worker)
+# then cost each other far more than they save on the small products and
+# factors of these tests: the port's tests took twice as long with them.
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:      # the card's machine runs the cuda-marked tests only
+    pass
+else:
+    threadpool_limits(1, user_api="blas")
 
 NBINS = 4
 

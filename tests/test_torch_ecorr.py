@@ -119,8 +119,8 @@ def test_model_general_surface():
                          is_wideband=True, device="cpu")
     assert wide.ec_cols.shape[1] == 0 and len(wide.idx.ecorr) == 0
     for kw in (dict(red_var=True, red_psd="tprocess_adapt"),
-               dict(red_var=True, red_psd="powerlaw", red_select="band"),
-               dict(logfreq=True),
+               dict(red_var=True, red_psd="spectrum", red_select="band"),
+               dict(orf="crn,crn"),
                dict(red_var=True, red_psd="broken_powerlaw")):
         opts = dict(red_var=False, white_vary=True, common_psd="spectrum")
         opts.update(kw)

@@ -27,8 +27,7 @@ Checked:
   scattering hypers in ``idx.red`` (accept sequence identical, final
   state to 1e-12);
 - what the JAX function refuses, the port refuses with its type and
-  message; what the port does not take yet raises
-  ``NotImplementedError`` naming its ROADMAP item;
+  message; several common processes raise ``NotImplementedError``;
 - ``validate_sampling_flags`` raises what the JAX function raises on
   these models.
 """
@@ -366,22 +365,25 @@ JAX_REFUSES = [dict(tm_var=True), dict(use_dmdata=True),
                dict(dm_chrom=True, dmchrom_psd="spectrum"),
                dict(orf="hd", common_psd="powerlaw"),
                dict(orf="zero_diag_hd", common_psd="spectrum"),
-               dict(bayesephem=True, be_type="DE440"), dict(bogus_option=1)]
-#: options JAX takes and the port does not yet, and their ROADMAP item
-PORT_LACKS = [(dict(red_select="band"), "A.17"), (dict(logfreq=True), "A.17"),
-              (dict(pshift=True), "A.17"), (dict(wgts=np.ones(NB)), "A.17"),
-              (dict(modes=np.arange(1, NB + 1) / 3e8), "A.17"),
-              (dict(Tspan=3e8), "A.17"), (dict(select=None), "A.17"),
-              (dict(tm_norm=False), "A.17"),
-              (dict(orf="crn,crn", orf_names="crn,crn2",
-                    common_psd="spectrum"), "A.17")]
+               dict(bayesephem=True, be_type="DE440"), dict(bogus_option=1),
+               dict(red_select="band"), dict(red_select="backend"),
+               dict(red_select="band", red_psd="spectrum"),
+               dict(red_select="bogus"), dict(select="bogus"),
+               dict(logfreq=True, common_psd="spectrum")]
+#: options JAX takes and the port refuses, and the port's reason
+PORT_LACKS = [(dict(orf="crn,crn", orf_names="crn,crn2",
+                    common_psd="spectrum"), "samples only the first"),
+              (dict(orf="crn,crn"), "samples only the first")]
 
 
 def test_refusals_match_jax():
     """What the JAX ``model_general`` + ``compile_pta`` refuses, the
-    port refuses with the same exception type and message; the options
-    the port lacks raise ``NotImplementedError`` naming their ROADMAP
-    item (the JAX ``model_general`` takes them)."""
+    port refuses with the same exception type and message (the band
+    and backend splits of red noise where the pulsars' groups differ, a
+    free spectrum on the log grid, an unknown selection); several common
+    processes, which the JAX function builds, raise
+    ``NotImplementedError`` saying that its compiled model samples only
+    the first."""
     from pulsar_timing_gibbsspec_tpu.sampler.compiled import compile_pta
 
     psrs = small_psrs()
@@ -396,9 +398,9 @@ def test_refusals_match_jax():
         except Exception as e:          # noqa: BLE001
             got = (type(e), str(e))
         assert want is not None and got == want, opts
-    for opts, item in PORT_LACKS:
-        jax_pta(psrs, **BINS, **opts)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    for opts, why in PORT_LACKS:
+        compile_pta(jax_pta(psrs, **BINS, **opts))
+        with pytest.raises(NotImplementedError, match=why):
             port_arrays(psrs, **BINS, **opts)
 
 
