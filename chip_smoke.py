@@ -16,20 +16,16 @@ Phases (any failure exits non-zero):
    its plain PyTorch version on the card, at the main path's shapes
    (64 chains x 45 pulsars, Bmax = 37, Nmax = 720), from a seeded state
    near the stationary region; each is timed (device time from
-   ``torch.profiler``, mean of 30 calls, and CUDA events around each
-   call, median of 30; 5 calls for a call slower than 20 ms) beside its
+   ``torch.profiler``, mean of 10 calls, and CUDA events around each
+   call, median of 10; 3 calls for a call slower than 20 ms) beside its
    plain version, the PyTorch library
    equivalent and the least time the card could take (bytes over the HBM
-   rate, operations over the peak rate of their type); the Gram also
-   beside the path that materialized ``TNa = Ta / N`` before
-   ``torch.matmul``, with the peak device memory of one call of each.
+   rate, operations over the peak rate of their type).
    The wide forms likewise at the single-pulsar path's shape (README's
    Quick-start model of the J1713+0747 snapshot, 30 bins, 8 chains:
    Bmax = 673, Nmax = 720), the wide factor also held to the plain
-   chain's backward error, and both wide forms timed at 64 systems
-   too (the 45-pulsar path's batch, where the card is full); the wide
-   forms' kernel launches per call are counted from the device trace,
-   and their launch configuration (the factor's cluster size, the
+   chain's backward error; the wide
+   forms' launch configuration (the factor's cluster size, the
    Gram's output tile, threads, dynamic shared memory) is printed
    beside the ``cuobjdump`` resources;
 3. small-input agreement: the steady b-draw on a 3-pulsar model, with
@@ -39,7 +35,7 @@ Phases (any failure exits non-zero):
    them a refresh) from one state replayed from the CUDA graphs equal
    the eager sweeps bitwise in x, b and the b_mh acceptance counts;
 4. main path: the synthetic 45-pulsar CRN free-spectrum array from
-   ``--seed`` sampled by ``PTABlockGibbs(nchains=64)`` through 50
+   ``--seed`` sampled by ``PTABlockGibbs(nchains=64)`` through 20
    warmup sweeps, adaptation and 240 steady sweeps replayed from the
    CUDA graphs, checkpointed every 100 sweeps into ``--outdir``; every
    record finite, every common log10_rho median inside the prior (-10,
@@ -62,7 +58,7 @@ Phases (any failure exits non-zero):
    the graphs: ``chain.npy`` and ``bchain.npy`` bitwise equal;
 7. the single-pulsar main path: README's Quick-start model of
    ``tests/data/enterprise_J1713+0747.npz`` (basis ECORR, the inverse-CDF
-   rho draw) sampled by ``PulsarBlockGibbs(nchains=8)`` through 50
+   rho draw) sampled by ``PulsarBlockGibbs(nchains=8)`` through 20
    warmup sweeps, adaptation and 240 steady sweeps replayed from the
    CUDA graphs, checkpointed every 100 sweeps, with the launch counts set
    to 0 just before it: samples/s, per-block ms, the white and ECORR
@@ -76,9 +72,9 @@ Phases (any failure exits non-zero):
    sweep, ``model_general([J1713+0747], white_vary=True,
    common_psd="spectrum", red_psd="powerlaw")`` (30 bins each; white,
    ECORR, the red powerlaw MH with its DE history, rho by the grid draw,
-   scale moves, b) by ``PulsarBlockGibbs(nchains=8)`` through 50 warmup
+   scale moves, b) by ``PulsarBlockGibbs(nchains=8)`` through 20 warmup
    sweeps, the adaptation (2000 MH steps on the b-marginalized
-   likelihood, the float64 wide factor) and 480 steady sweeps from the
+   likelihood, the float64 wide factor) and 500 steady sweeps from the
    graphs, checkpointed every 100, launch counts from 0: samples/s,
    per-block ms, the adaptation's seconds and float64 factor runs,
    red_mh acceptance per chain, the DE periods read from chain rows (at
@@ -107,12 +103,12 @@ Phases (any failure exits non-zero):
    common_psd="spectrum", common_components=10, red_psd="spectrum",
    red_components=10, orf="hd")`` on the synthetic 45-pulsar array (the
    common process on columns of its own: Bmax = 57), by
-   ``PTABlockGibbs(nchains=32)`` through 50 warmup sweeps (the float64
-   joint b-draw), adaptation and 240 steady sweeps from the CUDA graphs
+   ``PTABlockGibbs(nchains=32)`` through 5 warmup sweeps (the float64
+   joint b-draw), adaptation and 96 steady sweeps from the CUDA graphs
    (the two-float joint draw ``b_joint``, float64 ``b_joint_exact`` on
    every 16th), checkpointed every 100, launch counts from 0:
    samples/s, per-block ms, the warmup's ms, capture seconds and pool MB,
-   the two-float breakdowns, the Gram form's runs on the card; every
+   the draws that kept their b by stage, the Gram form's runs; every
    record finite, every common log10_rho median inside (-10, -4), the
    final checkpoint verified, the Gram form run on the card and replayed
    as captured; (10b) 17 steady sweeps from iteration 296, across the
@@ -127,7 +123,7 @@ Phases (any failure exits non-zero):
    seeded from ``--seed`` (``data.synthetic_noisedict``): fixed EFAC and
    EQUAD, a DM powerlaw GP on columns of its own, the annual DM sinusoid
    marginalized (Bmax = 17 + 20 + 20 + 2 = 59, the narrow forms), by
-   ``PTABlockGibbs(nchains=64)`` through 50 warmup sweeps, the
+   ``PTABlockGibbs(nchains=64)`` through 20 warmup sweeps, the
    adaptation (the float64 narrow factor) and 240 steady sweeps from the
    graphs, checkpointed every 100, launch counts from 0: samples/s,
    per-block ms, the adaptation's seconds, red_mh acceptance, capture
@@ -145,7 +141,7 @@ Phases (any failure exits non-zero):
    red_psd="powerlaw", dm_var=True, dm_components=30, bayesephem=True)``
    (fixed EFAC/EQUAD, fixed ECORR on 508 columns, the 11 BayesEphem
    columns: Bmax = 744, the wide forms at an order they had not run at)
-   by ``PulsarBlockGibbs(nchains=8)`` through 50 warmup sweeps, the
+   by ``PulsarBlockGibbs(nchains=8)`` through 20 warmup sweeps, the
    adaptation (the float64 wide factor) and 480 steady sweeps, so the DE
    history reads chain rows; the gates of 8 but the rho one, and no
    white or ECORR block; (12c) a split-and-resumed run bitwise as 7c.
@@ -163,7 +159,7 @@ Phases (any failure exits non-zero):
    red_var=False, white_vary=True, common_psd="spectrum",
    common_components=30, kernel_ecorr=True)`` (the 508 ECORR epochs in
    N: Bmax = 165) by ``PulsarBlockGibbs(nchains=8,
-   ecorrsample="kernel")`` through 50 warmup sweeps, adaptation and 240
+   ecorrsample="kernel")`` through 20 warmup sweeps, adaptation and 240
    steady sweeps from the graphs (one body: white, ECORR, rho and the
    exact b-draw, whose wide widening Gram runs at B1 = 166 every
    sweep), checkpointed every 100, launch counts from 0: samples/s,
@@ -179,8 +175,8 @@ Phases (any failure exits non-zero):
    white_vary=True, common_psd="spectrum", common_components=10,
    red_psd="tprocess", red_components=10)`` on the synthetic 45-pulsar
    array (450 InvGamma alphas drawn by their conjugate grid draw, 90
-   powerlaw hypers) by ``PTABlockGibbs(nchains=64)`` through 50 warmup
-   sweeps, the adaptation and 340 steady sweeps (so the DE history reads
+   powerlaw hypers) by ``PTABlockGibbs(nchains=64)`` through 20 warmup
+   sweeps, the adaptation and 370 steady sweeps (so the DE history reads
    chain rows), the gates of 9 with the DE one, every alpha finite and
    positive and moved; (14b) 17 steady sweeps from iteration 392,
    across the refresh at 400, graphed equal to eager bitwise; (14c) 8
@@ -190,11 +186,30 @@ Phases (any failure exits non-zero):
    13's shape (8 x 166), and holds every narrow form at phase 14's
    state (2880 x 37: the shapes phase 4 and R2 time, whose times its
    rows carry).
+15. the frequency-grid and selection options (:func:`grid_paths`);
+16. the sampled-ORF array: phase 10's model with ``orf="bin_orf"`` (7
+   correlation weights, ``G(theta) = I + sum_j theta_j B_j``, their MH
+   block ``orf_mh`` after rho) by ``PTABlockGibbs(nchains=32)`` through
+   20 warmup sweeps, adaptation and 240 steady sweeps from the graphs,
+   checkpointed every 100, launch counts from 0: phase 10's gates and
+   prints, with ``orf_mh``'s ms and acceptance; G(theta) positive
+   definite in every recorded row (host ``eigvalsh``), every weight
+   moved in every chain and inside (-1, 1); (16b) 17 steady sweeps
+   across the refresh at 304 graphed equal to eager bitwise; (16c) 8
+   chains, split and resumed bitwise; (16d) phase 10's model at 32
+   chains under ``PTGIBBS_HD_KERNEL=pulsar`` and ``=freq`` (the
+   pulsar-wise and frequency-block b-draws), 3 warmup and 24 steady
+   sweeps each: every record finite, rho medians inside (-10, -4), one
+   steady sweep graphed equal to eager bitwise, the Gram form run on
+   the card.  Phase 2 holds the Gram form at phase 16's state.
 
-To keep the whole run inside its time limit, phases 9 and 9b run 3
-warmup and 24 steady sweeps, 14d 3 and 16, the resume checks 11c-14c 3
-and 32, and every resume and graphs-against-eager check adapts its
-white and ECORR blocks on a record of 250 steps.
+To keep the whole run inside its time limit, every main path runs 20
+warmup sweeps, phases 9 and 9b 3 warmup and 24 steady sweeps, 10 5 and
+96 (phase 16 drives the same joint draw at 20 and 240), 14d 3 and 16,
+the resume checks 11c-14c 3 and 32,
+and every resume and graphs-against-eager check adapts its white and
+ECORR blocks on a record of 250 steps; phase 2 times each kernel form
+once, at its path's shape, beside its plain version and library call.
 
 The kernels' JSON record and the card as ``nvidia-smi`` reports it are
 the two lines before the last; the last line is the JSON result.
@@ -227,8 +242,10 @@ SOURCES = {"chol_solve_sample": (f"{_CSRC}/chol_solve_sample.cu",
                                f"{_CSRC}/gram_accumulate_wide.cu")}
 #: the device the run drives
 DEVICE = "cuda"
-#: the main path: chains, warmup sweeps, steady sweeps after adaptation
-NCHAINS, WARMUP, STEADY = 64, 50, 240
+#: the main path: chains, warmup sweeps (every main path's: warmup
+#: sweeps run eagerly, the run's dearest sweeps), steady sweeps after
+#: adaptation
+NCHAINS, WARMUP, STEADY = 64, 20, 240
 #: steady sweeps traced on the device alone, and with the host as well
 PROFILE_SWEEPS, PROFILE_HOST_SWEEPS = 6, 2
 #: sweeps between checkpoints of the main path
@@ -254,14 +271,14 @@ GRAPH_CHECK_SWEEPS = 17
 #: the single-pulsar path: the snapshot, its frequency bins, its chains;
 #: the systems the wide forms are also timed at
 SNAPSHOT = "tests/data/enterprise_J1713+0747.npz"
-SINGLE_BINS, SINGLE_CHAINS, WIDE_TIMING_SYSTEMS = 30, 8, 64
+SINGLE_BINS, SINGLE_CHAINS, WIDE_CONFIG_SYSTEMS = 30, 8, 64
 #: the resume phase: chains, warmup and steady sweeps, chunk length
 RESUME_CHAINS, RESUME_WARMUP, RESUME_STEADY, RESUME_CHUNK = 8, 5, 64, 16
 #: the powerlaw paths: R1's steady sweeps (past iteration 384, where the
 #: DE history first reads chain rows, and 512, where it reads them anew);
 #: the depth of R2 and R3 (warmup, steady sweeps; cut from 10 + 100 to
 #: keep the run inside its limit)
-R1_STEADY = 480
+R1_STEADY = 500
 R2_WARMUP, R2_STEADY, R3_WARMUP, R3_STEADY = 3, 24, 3, 24
 #: R1's graphs-against-eager sweeps start here (crossing the DE period
 #: switch at 512); its resume check's steady sweeps, split row (after
@@ -276,6 +293,9 @@ F64_FORMS = (("chol_solve_sample", "f64"), ("chol_solve_sample", "f64_wide"))
 #: runs (every b-draw's Gram), where its graphs-against-eager sweeps
 #: start (crossing the refresh at 304)
 HD_CHAINS, HD_BINS, HD_GRAPH_CHECK_AT = 32, 10, 296
+#: phase 10's warmup and steady sweeps (short: phase 16 drives the same
+#: joint draw at the main paths' depth)
+HD_WARMUP, HD_STEADY = 5, 96
 #: its resume check's warmup and steady sweeps (split at row 20, after the
 #: refresh at 16, before the one at 32)
 HD_RESUME_WARMUP, HD_RESUME_STEADY = 3, 32
@@ -297,7 +317,7 @@ KE_FORMS = (("gram_accumulate", "widen_f64_wide"),)
 #: DE history reads chain rows), where its graphs-against-eager sweeps
 #: start (crossing the refresh at 400); the infinitepower array (14d):
 #: chains, warmup and steady sweeps
-TP_BINS, TP_STEADY, TP_GRAPH_CHECK_AT = 10, 340, 392
+TP_BINS, TP_STEADY, TP_GRAPH_CHECK_AT = 10, 370, 392
 IP_CHAINS, IP_WARMUP, IP_STEADY = 8, 3, 16
 #: warmup and steady sweeps of the resume checks 11c-14c (cut from 5 +
 #: 64 to keep the run inside its limit), and the white / ECORR
@@ -310,6 +330,12 @@ SIDE_RESUME_WARMUP, SIDE_RESUME_STEADY, CHECK_ADAPT = 3, 32, 250
 P15_BINS, P15_LOG_BINS, P15_PSEED, P15_STEADY = 10, 10, 1, 120
 P15_OPTS = dict(white_steps_max=32, exact_every=8)
 P15B_WARMUP, P15B_STEADY = 3, 32
+#: the sampled-ORF array (phase 16): the ORF with sampled weights, where
+#: its graphs-against-eager sweeps start (across the refresh at 304); the
+#: alternative correlated-ORF b-draws (16d): the choices of
+#: ``PTGIBBS_HD_KERNEL``, warmup and steady sweeps
+ORF_SAMPLED, ORF_GRAPH_CHECK_AT = "bin_orf", 296
+HD_ALT_KERNELS, HD_ALT_WARMUP, HD_ALT_STEADY = ("pulsar", "freq"), 3, 24
 
 
 #: the run's start on the host clock (set by :func:`main`)
@@ -510,22 +536,6 @@ def device_ms(fn, reps=30, warm=3):
     return ms
 
 
-def trace_launches(fn, reps=5):
-    """Kernel launches per ``fn()`` in ``torch.profiler``'s trace over
-    ``reps`` calls: ``(kernels in the device trace, launch calls in the
-    host trace)``, copies and memsets left out; taken once more when the
-    device trace holds fewer kernels than were launched."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(2):
-        _, kern, host = _trace(fn, reps)
-        if kern >= host:
-            break
-    return kern / reps, host / reps
-
-
 def wide_configs(lib, batch):
     """The wide forms' launch configuration at ``batch`` systems as their
     launchers use it (``ptg_wide_config``): cluster size, output tile,
@@ -618,9 +628,7 @@ def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
     either side (Cauchy-Schwarz bounds every partial sum's products by
     the Jacobi scale).  Beside the kernel: the plain version, one
     unsegmented ``torch.matmul`` on a ``TNa`` made outside the timing (the
-    library call), and the path the sampler took before the kernel formed
-    ``TNa`` itself (``TNa`` materialized, then ``torch.matmul``), with the
-    peak device memory of one fused call against that path's.  The bound
+    library call).  The bound
     counts the fused kernel's bytes (Ta, N and G) and the operations of
     the rows this run's data needs (rows past a pulsar's last nonzero Ta
     row add exact zeros, and the kernel skips them); the bound over the
@@ -691,17 +699,6 @@ def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
         B = Ta.reshape(P, nseg * m, B1).to(odt)
         lib, ev_lib = timer(lambda: torch.matmul(A, B))
         del A, B
-
-        def materialized():
-            A = ref.gram_operand(Ta, N).reshape(C, P, nseg * m, B1)
-            B = Ta.reshape(P, nseg * m, B1)
-            return torch.matmul(A.transpose(-1, -2).to(odt), B.to(odt))
-
-        ms_mat, ev_mat = timer(materialized)
-        peak_k, peak_mat = peak_mb(run_k), peak_mb(materialized)
-        per_call = ("; kernel launches per call (device trace, host "
-                    "launch calls) %g, %g" % trace_launches(run_k)
-                    if suffix else "")
         obytes = 4 if odt == torch.float32 else 8
         gbytes = Bt * B1 * B1 * obytes
         nbytes = (Ta.numel() + N.numel()) * 4 + gbytes
@@ -719,30 +716,12 @@ def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
               f"Jacobi scale {err:.3e} (tol {tol:.3e}) "
               f"{'ok' if good else 'FAIL'}; device ms (event ms): kernel "
               f"{ms_k:.4f} ({ev_k:.4f}), plain {ms_p:.4f} ({ev_p:.4f}), "
-              f"torch.matmul {lib:.4f} ({ev_lib:.4f}), TNa materialized + "
-              f"torch.matmul {ms_mat:.4f} ({ev_mat:.4f}); bound {bms:.4f} "
+              f"torch.matmul {lib:.4f} ({ev_lib:.4f}); bound {bms:.4f} "
               f"ms ({bby}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP "
               f"on the rows the data needs; {dense_bms:.4f} ms over the "
               f"whole grid), with a materialized TNa {old_bms:.4f} ms "
-              f"({old_bby}); peak device "
-              f"memory of one call {peak_k:.1f} MB fused, {peak_mat:.1f} MB "
-              f"materialized{per_call}", flush=True)
+              f"({old_bby})", flush=True)
     return recs, ok
-
-
-def peak_mb(fn):
-    """Megabytes of device memory one call of ``fn`` allocates at its
-    peak, above what was allocated before it."""
-    import torch
-
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    out = fn()
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
-    del out
-    return peak / 1e6
 
 
 def _backward(L, Li, A):
@@ -855,76 +834,15 @@ def chol_parity(cm, x, gen, timer):
     nbytes = Bt * (3 * n * n + 5 * n) * 4
     flops = Bt * (2.0 * n ** 3 / 3.0 + 6.0 * n * n)
     bms, bby = bound_ms(nbytes, flops, "f32")
-    per_call = ("; kernel launches per call (device trace, host launch "
-                "calls) %g, %g" % trace_launches(run_k) if wide else "")
     print(f"phase 2 chol_solve_sample[{form}] ({Bt} systems of order {n}): "
           f"{'ok' if ok else 'FAIL'}; max "
           f"|kernel-plain| {mae:.3e}; device ms (event ms): kernel "
           f"{ms_k:.4f} ({ev_k:.4f}), plain {ms_p:.4f} ({ev_p:.4f}), "
           f"cholesky+solve_triangular chain {lib:.4f} ({ev_lib:.4f}); bound "
-          f"{bms:.4f} ms ({bby}){per_call}", flush=True)
+          f"{bms:.4f} ms ({bby})", flush=True)
     return {("chol_solve_sample", form): dict(
         max_abs_err=mae, ms=ms_k, plain_ms=ms_p, bound_ms=bms,
         bound_by=bby, library_ms=lib)}, ok
-
-
-def wide_at_scale(cm, x, timer):
-    """Phase 2, the wide forms at ``WIDE_TIMING_SYSTEMS`` systems (the
-    single-pulsar state repeated over chains): device and event ms of
-    each against its bound and its library call (printed only; the JSON
-    record holds the main path's shape)."""
-    import torch
-
-    from pulsar_timing_gibbsspec_torch.config import settings
-    from pulsar_timing_gibbsspec_torch.ops import kernels
-    from pulsar_timing_gibbsspec_torch.sampler import blocks
-
-    ref = kernels.reference
-    xs = x.repeat(-(-WIDE_TIMING_SYSTEMS // x.shape[0]), 1)[
-        :WIDE_TIMING_SYSTEMS]
-    Ta, N = blocks._gram_operands(cm, cm.ndiag_fast(xs),
-                                  settings.gram_seg_len)
-    N = N.reshape(-1, N.shape[-1]).contiguous()
-    P, nseg, m, B1 = Ta.shape
-    Bt = N.shape[0]
-    TNa = ref.gram_operand(Ta, N).reshape(Bt // P, P, nseg * m, B1)
-    for form, odt, widen in (("f32", torch.float32, False),
-                             ("f32_dot_f64_reduce", torch.float64, False),
-                             ("widen_f64", torch.float64, True)):
-        ms_k, ev_k = timer(lambda: kernels.gram_accumulate(
-            Ta, N, out_dtype=odt, widen=widen))
-        A = TNa.transpose(-1, -2).to(odt)
-        B = Ta.reshape(P, nseg * m, B1).to(odt)
-        lib, ev_lib = timer(lambda: torch.matmul(A, B))
-        del A, B
-        obytes = 4 if odt == torch.float32 else 8
-        bms, bby = bound_ms((Ta.numel() + N.numel()) * 4
-                            + Bt * B1 * B1 * obytes,
-                            2.0 * Bt * N.shape[1] * B1 * B1,
-                            "f64" if widen else "f32")
-        print(f"phase 2 gram_accumulate[{form}_wide] at {Bt} rows of N: "
-              f"device ms (event ms) kernel {ms_k:.4f} ({ev_k:.4f}), "
-              f"torch.matmul {lib:.4f} ({ev_lib:.4f}); bound {bms:.4f} ms "
-              f"({bby})", flush=True)
-    del TNa
-    TNT, d = blocks.tnt_d_seg32(cm, cm.ndiag_fast(xs))
-    n = cm.Bmax
-    phi32 = cm.phi(xs, dtype=torch.float32)
-    eye = torch.eye(n, dtype=torch.float32, device=cm.device)
-    Sig = (TNT + (1.0 / phi32)[..., :, None] * eye).reshape(-1, n, n)
-    d = d.reshape(-1, n).contiguous()
-    z = torch.ones_like(d)
-    ridge = blocks._PROP_RIDGE
-    ms_k, ev_k = timer(lambda: kernels.chol_solve_sample(Sig, d, z,
-                                                         ridge=ridge))
-    lib, ev_lib = timer(lambda: library_factor(Sig, d, z, ridge))
-    Bt = Sig.shape[0]
-    bms, bby = bound_ms(Bt * (3 * n * n + 5 * n) * 4,
-                        Bt * (2.0 * n ** 3 / 3.0 + 6.0 * n * n), "f32")
-    print(f"phase 2 chol_solve_sample[f32_wide] at {Bt} systems of order "
-          f"{n}: device ms (event ms) kernel {ms_k:.4f} ({ev_k:.4f}), "
-          f"cholesky+solve_triangular {lib:.4f} ({ev_lib:.4f}); bound "
-          f"{bms:.4f} ms ({bby})", flush=True)
 
 
 def chol64_parity(cm, x, timer):
@@ -1045,17 +963,18 @@ def small_agreement(dev, seed):
     return ok
 
 
-def graphs_vs_eager(drv, x, b, it0, phase, label):
-    """``GRAPH_CHECK_SWEEPS`` steady sweeps of the adapted driver ``drv``
-    from ``(x, b)`` at iteration ``it0``, eagerly and from the CUDA
-    graphs: x, b, the b_mh, refresh and powerlaw-block acceptance counts
+def graphs_vs_eager(drv, x, b, it0, phase, label,
+                    sweeps=GRAPH_CHECK_SWEEPS):
+    """``sweeps`` steady sweeps of the adapted driver ``drv`` from ``(x,
+    b)`` at iteration ``it0``, eagerly and from the CUDA graphs: x, b,
+    the b_mh, refresh, powerlaw-block and ORF-weight acceptance counts
     and the joint draw's breakdown count must be bitwise equal (every
     draw comes from the per-sweep stream, and no atomic add of the sweep
     meets one real slot twice)."""
     import torch
 
     counters = (drv.b_mh_accepts, drv.b_refresh_accepts, drv.red_mh_accepts,
-                drv.b_joint_breakdowns)
+                drv.orf_mh_accepts, drv.b_joint_breakdowns)
     out, wall = {}, {}
     for graphs in (False, True):
         drv.graphs = graphs
@@ -1064,21 +983,20 @@ def graphs_vs_eager(drv, x, b, it0, phase, label):
         drv.begin_steady(x.clone(), b.clone())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        drv.steady_chunk(it0, GRAPH_CHECK_SWEEPS)
+        drv.steady_chunk(it0, sweeps)
         torch.cuda.synchronize()
-        wall[graphs] = 1e3 * (time.perf_counter() - t0) / GRAPH_CHECK_SWEEPS
+        wall[graphs] = 1e3 * (time.perf_counter() - t0) / sweeps
         out[graphs] = (drv.carry.x.clone(), drv.carry.b.clone(),
                        *(c.clone() for c in counters))
     diffs = {what: (e - r).abs().max().item()
              for e, r, what in zip(out[False], out[True],
                                    ("x", "b", "accepts", "refresh",
-                                    "red_mh", "joint_breakdowns"))}
+                                    "red_mh", "orf_mh", "joint_breakdowns"))}
     same = all(torch.equal(e, r) for e, r in zip(out[False], out[True]))
     ok = same and bool(torch.isfinite(out[True][1]).all())
-    exact = sum(t % drv.exact_every == 0
-                for t in range(it0, it0 + GRAPH_CHECK_SWEEPS))
+    exact = sum(t % drv.exact_every == 0 for t in range(it0, it0 + sweeps))
     print(f"phase {phase} graphs against eager, {label}, "
-          f"{GRAPH_CHECK_SWEEPS} steady sweeps from iteration {it0} ({exact} "
+          f"{sweeps} steady sweeps from iteration {it0} ({exact} "
           f"of them refresh or exact b-draws) at {drv.C} chains, graphs "
           f"{sorted(drv.carry.graphs)}: "
           f"bitwise {'equal' if same else 'DIFFERENT'} (max |eager - graph| "
@@ -1553,15 +1471,17 @@ def by_hyper(cm, cols, med):
             for k, v in groups.items()}
 
 
-def hd_path(cm, seed, outdir, steady):
-    """Phase 10: ``PTABlockGibbs`` on the Hellings-Downs model through
-    warmup, adaptation and ``steady`` sweeps replayed from the graphs,
-    checkpointed every ``SAVE_EVERY`` sweeps, with the launch counts set
-    to 0 just before it.  Gates: every record finite, every common
-    log10_rho median inside (-10, -4), the final checkpoint verified,
-    the Gram form of ``HD_FORMS`` run on the card, replayed as captured
-    times replays and run as often as the eager launches plus replays.
-    Returns ``(ok, runs, sampler)``."""
+def hd_path(cm, seed, outdir, steady, warmup=WARMUP, phase="10"):
+    """Phase 10 (16): ``PTABlockGibbs`` on the Hellings-Downs model (with
+    sampled ORF weights) through ``warmup`` sweeps, adaptation and
+    ``steady`` sweeps replayed from the graphs, checkpointed every
+    ``SAVE_EVERY`` sweeps, with the launch counts set to 0 just before
+    it.  Gates: every record finite, every common log10_rho median inside
+    (-10, -4), the final checkpoint verified, the Gram form of
+    ``HD_FORMS`` run on the card, replayed as captured times replays and
+    run as often as the eager launches plus replays; with sampled
+    weights, those of :func:`orf_gates`.  Returns ``(ok, runs,
+    sampler)``."""
     import numpy as np
     import torch
 
@@ -1569,12 +1489,12 @@ def hd_path(cm, seed, outdir, steady):
     from pulsar_timing_gibbsspec_torch.ops import kernels
     from pulsar_timing_gibbsspec_torch.runtime import integrity
 
-    C, niter = HD_CHAINS, WARMUP + 1 + steady
+    C, niter = HD_CHAINS, warmup + 1 + steady
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     g = ptt.PTABlockGibbs(cm, nchains=C, device=cm.device, seed=seed,
-                          warmup_sweeps=WARMUP, progress=False)
+                          warmup_sweeps=warmup, progress=False)
     x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
         seed))
     chain = g.sample(x0, outdir=outdir, niter=niter, save_every=SAVE_EVERY)
@@ -1585,22 +1505,24 @@ def hd_path(cm, seed, outdir, steady):
     missing, unreplayed, unaccounted = count_faults(counts, HD_FORMS,
                                                     HD_FORMS)
     sps = drv.steady_sweeps / drv.steady_seconds
-    rho = chain[WARMUP + 1:, :, cm.rho_ix_x.cpu().numpy()]
+    rho = chain[warmup + 1:, :, cm.rho_ix_x.cpu().numpy()]
     med = np.median(rho.reshape(-1, rho.shape[-1]), axis=0)
-    red = chain[WARMUP + 1:, :, cm.idx.red_rho]
+    red = chain[warmup + 1:, :, cm.idx.red_rho]
     rep = integrity.verify(outdir)
     total = drv.b_joint_breakdowns.tolist()
-    breakdowns = {"warmup and adaptation (float64)": drv.warmup_breakdowns[1],
+    breakdowns = {**{f"{k} (float64)": v
+                     for k, v in drv.kept_by_stage.items()},
                   "steady two-float": total[0] - drv.warmup_breakdowns[0],
                   "steady float64": total[1] - drv.warmup_breakdowns[1]}
-    print(f"phase 10 Hellings-Downs array ({cm.orf_name}, P {cm.P_real}, "
-          f"Bmax {cm.Bmax}, Nmax {cm.Nmax}, nx {cm.nx}, K {cm.K}, "
-          f"joint_mixed {drv.joint_mixed}): {niter} rows x {C} chains in "
-          f"{wall:.1f} s (warmup {WARMUP}); white sub-chain "
+    print(f"phase {phase} Hellings-Downs array ({cm.orf_name}, P "
+          f"{cm.P_real}, Bmax {cm.Bmax}, Nmax {cm.Nmax}, nx {cm.nx}, K "
+          f"{cm.K}, joint_mixed {drv.joint_mixed}, b-draw {drv.hd_kernel}): "
+          f"{niter} rows x {C} chains in "
+          f"{wall:.1f} s (warmup {warmup}); white sub-chain "
           f"{drv.aclength_white} steps; steady {drv.steady_sweeps} sweeps "
           f"in {drv.steady_seconds:.3f} s = {sps:.3f} sweeps/s = "
           f"{sps * C:.1f} samples/s", flush=True)
-    print("phase 10 per-block ms per steady sweep (CUDA events): "
+    print(f"phase {phase} per-block ms per steady sweep (CUDA events): "
           + json.dumps({k: round(v / drv.steady_sweeps, 4)
                         for k, v in sorted(drv.timer.ms.items())})
           + "; per sweep of its own: b_joint "
@@ -1609,11 +1531,11 @@ def hd_path(cm, seed, outdir, steady):
           f"{drv.timer.ms['b_joint_exact'] / max(drv.b_refresh_sweeps, 1):.4f}"
           f" ({drv.b_mh_sweeps} and {drv.b_refresh_sweeps} sweeps)",
           flush=True)
-    print(f"phase 10 warmup and adaptation block ms in all (CUDA events, "
-          f"eager; {WARMUP} sweeps): " + json.dumps(
+    print(f"phase {phase} warmup and adaptation block ms in all (CUDA "
+          f"events, eager; {warmup} sweeps): " + json.dumps(
               {k: round(v, 1) for k, v in sorted(drv.warmup_ms.items())})
           + f"; {sum(drv.warmup_ms.values()):.1f} ms in all", flush=True)
-    print(f"phase 10 CUDA graphs: {len(graphs.graphs)} captured in "
+    print(f"phase {phase} CUDA graphs: {len(graphs.graphs)} captured in "
           f"{graphs.capture_seconds:.3f} s (with the warm-up pass), pool "
           f"{graphs.pool_bytes / 1e6:.1f} MB; by graph, capture s "
           + json.dumps({k: round(v, 3) for k, v in graphs.capture_by.items()})
@@ -1622,33 +1544,214 @@ def hd_path(cm, seed, outdir, steady):
           + f"; peak device memory {torch.cuda.max_memory_allocated() / 1e6:.1f}"
           " MB", flush=True)
     busy = sum(g.store.seconds.values())
-    print(f"phase 10 checkpoints every {SAVE_EVERY} sweeps: saves ran "
+    print(f"phase {phase} checkpoints every {SAVE_EVERY} sweeps: saves ran "
           f"{busy:.3f} s on their thread, the loop waited "
           f"{g.save_seconds:.3f} s; final manifest verified {rep['ok']} at "
           f"{rep['rows']} rows; joint draws that kept their b (not "
-          f"finite) {json.dumps(breakdowns)} of {C} chains x "
-          f"{WARMUP + 3}, {drv.b_mh_sweeps}, {drv.b_refresh_sweeps} draws; "
+          f"finite) {json.dumps(breakdowns)} of {C} chains x 1, "
+          f"{warmup}, 2, {drv.b_mh_sweeps}, {drv.b_refresh_sweeps} draws; "
           "gram_accumulate[f32_dot_f64_reduce] "
           f"runs on the card {counts[0][HD_FORMS[0]]}", flush=True)
-    print("phase 10 common log10_rho medians per bin: "
+    print(f"phase {phase} common log10_rho medians per bin: "
           + json.dumps([round(float(v), 3) for v in med])
           + "; red log10_rho medians, mean over pulsars per bin "
           + json.dumps([round(float(v), 3) for v in np.median(
               red.reshape(-1, red.shape[-1]), axis=0).reshape(
                   cm.P_real, -1).mean(0)]), flush=True)
-    print_counts(10, counts)
+    print_counts(phase, counts)
     finite = bool(np.isfinite(chain).all() and np.isfinite(g.bchain).all())
     inside = bool(((med > -10.0) & (med < -4.0)).all())
     saved = rep["ok"] and rep["rows"] == niter and graphs.graphed
     ok = (finite and inside and not missing and not unreplayed
           and not unaccounted and saved)
+    if cm.orf_B is not None:
+        ok &= orf_gates(cm, g, warmup, phase)
     if not ok:
-        print(f"chip_smoke: Hellings-Downs path failed (finite={finite}, "
+        print(f"chip_smoke: Hellings-Downs path {phase} failed (finite="
+              f"{finite}, "
               f"medians inside the prior={inside}, never run={missing}, "
               f"not replayed as captured={unreplayed}, runs other than "
               f"eager launches plus replays={unaccounted}, verified "
               f"checkpoint through the graphs={saved})", file=sys.stderr)
     return ok, counts[0], g
+
+
+def orf_gates(cm, g, warmup, phase):
+    """Phase 16's gates beyond phase 10's, printed with the ORF weights'
+    MH ms and acceptance: G(theta) positive definite in every recorded
+    row (host ``eigvalsh``), every weight moved in every chain over the
+    steady rows, and every recorded weight inside (-1, 1)."""
+    import numpy as np
+
+    drv = g.driver
+    th = g.chain[:, :, cm.orf_par_ix.cpu().numpy()]        # (rows, C, J)
+    B = cm.orf_B.cpu().numpy()
+    G = np.eye(cm.P) + np.einsum("rcj,jpq->rcpq", th, B)
+    wmin = np.linalg.eigvalsh(G).min(-1)
+    steady = th[warmup + 1:]
+    pd = bool((wmin > 0).all())
+    moved = bool((np.ptp(steady, axis=0) > 0).all())
+    inside = bool((np.abs(th) < 1.0).all())
+    acc = (drv.orf_mh_accepts / max(drv.orf_mh_sweeps * drv.red_steps, 1)
+           ).cpu().numpy()
+    names = [cm.param_names[j] for j in cm.orf_par_ix.tolist()]
+    print(f"phase {phase} ORF weights ({len(names)}): orf_mh "
+          f"{drv.timer.ms['orf_mh'] / max(drv.steady_sweeps, 1):.4f} ms per "
+          f"steady sweep ({drv.red_steps} steps), acceptance per step mean "
+          f"{acc.mean():.4f}, over chains {acc.min():.4f}-{acc.max():.4f}; "
+          f"least eigenvalue of G over {wmin.size} recorded rows "
+          f"{wmin.min():.4f} (positive definite {pd}); moved in every "
+          f"chain {moved}, inside (-1, 1) {inside}; medians "
+          + json.dumps({nm: round(float(v), 3) for nm, v in zip(
+              names, np.median(steady.reshape(-1, len(names)), axis=0))}),
+          flush=True)
+    return pd and moved and inside
+
+
+def alt_draw_path(cm, kern, seed, outdir):
+    """Phase 16d: the Hellings-Downs model by ``PTABlockGibbs(nchains=
+    HD_CHAINS)`` under ``PTGIBBS_HD_KERNEL=kern`` (read when the sampler
+    is built), ``HD_ALT_WARMUP`` warmup and ``HD_ALT_STEADY`` steady
+    sweeps from the graphs (the white block adapted on a record of
+    ``CHECK_ADAPT`` steps), launch counts from 0; gates: every record
+    finite, the common log10_rho medians inside (-10, -4), the Gram form
+    run on the card and replayed as captured, and one steady sweep from
+    the final state graphed equal to eager bitwise.  Returns ``(ok,
+    runs)``."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+
+    C, niter = HD_CHAINS, HD_ALT_WARMUP + 1 + HD_ALT_STEADY
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    before = os.environ.get("PTGIBBS_HD_KERNEL")
+    os.environ["PTGIBBS_HD_KERNEL"] = kern
+    try:
+        g = ptt.PTABlockGibbs(cm, nchains=C, device=cm.device, seed=seed,
+                              warmup_sweeps=HD_ALT_WARMUP, progress=False,
+                              white_adapt_iters=CHECK_ADAPT)
+    finally:
+        if before is None:
+            del os.environ["PTGIBBS_HD_KERNEL"]
+        else:
+            os.environ["PTGIBBS_HD_KERNEL"] = before
+    drv = g.driver
+    chain = g.sample(g.initial_sample(torch.Generator(
+        device=cm.device).manual_seed(seed)), outdir=outdir, niter=niter)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(drv.carry)
+    missing, unreplayed, unaccounted = count_faults(counts, HD_FORMS,
+                                                    HD_FORMS)
+    sps = drv.steady_sweeps / drv.steady_seconds
+    rho = chain[HD_ALT_WARMUP + 1:, :, cm.rho_ix_x.cpu().numpy()]
+    med = np.median(rho.reshape(-1, rho.shape[-1]), axis=0)
+    total = drv.b_joint_breakdowns.tolist()
+    print(f"phase 16d PTGIBBS_HD_KERNEL={kern} (b-draw {drv.hd_kernel}): "
+          f"{niter} rows x {C} chains in {wall:.1f} s (warmup "
+          f"{HD_ALT_WARMUP}); steady {drv.steady_sweeps} sweeps in "
+          f"{drv.steady_seconds:.3f} s = {sps:.3f} sweeps/s = "
+          f"{sps * C:.1f} samples/s; per-block ms per steady sweep "
+          + json.dumps({k: round(v / drv.steady_sweeps, 4)
+                        for k, v in sorted(drv.timer.ms.items())})
+          + "; warmup and adaptation block ms in all " + json.dumps(
+              {k: round(v, 1) for k, v in sorted(drv.warmup_ms.items())})
+          + f"; capture {drv.carry.capture_seconds:.3f} s, pool "
+          f"{drv.carry.pool_bytes / 1e6:.1f} MB; draws that kept (some of) "
+          f"their b {json.dumps(drv.kept_by_stage)}, steady two-float "
+          f"{total[0] - drv.warmup_breakdowns[0]}, float64 "
+          f"{total[1] - drv.warmup_breakdowns[1]}; common log10_rho medians "
+          + json.dumps([round(float(v), 3) for v in med]), flush=True)
+    print_counts("16d", counts)
+    finite = bool(np.isfinite(chain).all() and np.isfinite(g.bchain).all())
+    inside = bool(((med > -10.0) & (med < -4.0)).all())
+    ok = (finite and inside and not missing and not unreplayed
+          and not unaccounted and drv.hd_kernel == kern)
+    ok &= graphs_vs_eager(drv, torch.as_tensor(drv.x_cur, device=cm.device),
+                          drv.b.to(cm.device), niter, "16d",
+                          f"PTGIBBS_HD_KERNEL={kern}", sweeps=1)
+    if not ok:
+        print(f"chip_smoke: phase 16d ({kern}) failed (finite={finite}, "
+              f"medians inside the prior={inside}, never run={missing}, "
+              f"not replayed as captured={unreplayed}, runs other than "
+              f"eager launches plus replays={unaccounted})", file=sys.stderr)
+    return ok, counts[0]
+
+
+def orf_paths(args, psrs, gen, outdir, hd_rec):
+    """Phases 16-16d: the sampled ORF weights and the alternative
+    correlated-ORF b-draws.  Phase 2 first holds the Gram form at phase
+    16's state (the shape of the Hellings-Downs row, ``hd_rec``, which
+    times it).  Returns the ``kernels`` rows of the new paths, or None
+    when a phase failed."""
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+
+    dev = torch.device(DEVICE)
+    opts = dict(tm_svd=True, white_vary=True, common_psd="spectrum",
+                common_components=HD_BINS, red_psd="spectrum",
+                red_components=HD_BINS, device=dev)
+    cm16 = ptt.model_general(psrs, orf=ORF_SAMPLED, **opts)
+    cm_hd = ptt.model_general(psrs, orf="hd", **opts)
+    print(f"phase 16 model: P={cm16.P} Nmax={cm16.Nmax} Bmax={cm16.Bmax} "
+          f"nx={cm16.nx}, orf {cm16.orf_name} with {len(cm16.idx.orf)} "
+          f"sampled weights, K {cm16.K}, {HD_CHAINS} chains", flush=True)
+    rec16, ok = gram_parity(cm16, parity_state(cm16, HD_CHAINS, gen), None,
+                            forms=("f32_dot_f64_reduce",))
+    torch.cuda.empty_cache()
+    if not ok:
+        print("chip_smoke: kernel parity at phase 16's state failed",
+              file=sys.stderr)
+        return None
+    ok16, runs16, g16 = hd_path(cm16, args.seed, outdir / "orf", args.steady,
+                                phase="16")
+    if not ok16:
+        return None
+    drv16 = g16.driver
+    if not graphs_vs_eager(drv16, torch.as_tensor(drv16.x_cur, device=dev),
+                           drv16.b.to(dev), ORF_GRAPH_CHECK_AT, "16b",
+                           "PTABlockGibbs, sampled ORF weights, across the "
+                           "refresh at 304"):
+        print("chip_smoke: the sampled-ORF graph replay differs from the "
+              "eager sweep", file=sys.stderr)
+        return None
+    del g16, drv16
+    torch.cuda.empty_cache()
+    if not resume_check(cm16, args.seed, outdir / "orf_resume",
+                        "PTABlockGibbs", "16c", warmup=HD_RESUME_WARMUP,
+                        steady=HD_RESUME_STEADY):
+        print("chip_smoke: the resumed sampled-ORF run differs from the "
+              "whole one", file=sys.stderr)
+        return None
+    torch.cuda.empty_cache()
+    elapsed("phases 16-16c")
+    runs = {"16": runs16}
+    for kern in HD_ALT_KERNELS:
+        ok_d, runs[kern] = alt_draw_path(cm_hd, kern, args.seed,
+                                         outdir / f"hd_{kern}")
+        torch.cuda.empty_cache()
+        if not ok_d:
+            return None
+    elapsed("phase 16d")
+    what = {"16": f"sampled ORF weights ({ORF_SAMPLED})",
+            "pulsar": "PTGIBBS_HD_KERNEL=pulsar", "freq":
+            "PTGIBBS_HD_KERNEL=freq"}
+    key = HD_FORMS[0]
+    k, f = key
+    return [dict(name=f"{k}[{f}] (phase {'16' if nm == '16' else '16d'} "
+                 f"path: {what[nm]}, B1 {cm16.Bmax + 1})", route="cuda",
+                 source=SOURCES[k][0], replaces=REPLACES[k],
+                 launches=runs[nm][key],
+                 **{**hd_rec[key], "max_abs_err": (
+                     rec16[key]["max_abs_err"] if nm == "16"
+                     else hd_rec[key]["max_abs_err"])})
+            for nm in ("16",) + HD_ALT_KERNELS]
 
 
 def ke_woodbury_agreement(cm, cpu, seed):
@@ -1984,11 +2087,12 @@ def grid_paths(args, psrs, gen, outdir):
 
 def earlier_paths(args, psrs, gen, outdir):
     """Phases 2-12: the kernel parity at the shapes of the paths of
-    earlier slices, then phases 3-12c.  Returns ``(rows, timed)``: the
-    ``kernels`` JSON rows of those shapes, with their launches from
-    their paths' runs, and the records of the 45-pulsar shapes (the
-    narrow forms at order 37, the float64 factor at 2880 x 37) keyed by
-    ``(kernel, form)``; or None when a phase failed."""
+    earlier slices, then phases 3-12c.  Returns ``(rows, timed, hd)``:
+    the ``kernels`` JSON rows of those shapes, with their launches from
+    their paths' runs, the records of the 45-pulsar shapes (the narrow
+    forms at order 37, the float64 factor at 2880 x 37) and the
+    Hellings-Downs path's Gram record, keyed by ``(kernel, form)``; or
+    None when a phase failed."""
     import numpy as np
     import torch
 
@@ -2070,7 +2174,6 @@ def earlier_paths(args, psrs, gen, outdir):
     rec_c1, ok_c1 = chol_parity(cm1, x1, gen, time_ms)
     records.update(rec_g1)
     records.update(rec_c1)
-    wide_at_scale(cm1, x1, time_ms)
     rec_f64, ok_f64 = chol64_parity(cm_r2, parity_state(cm_r2, C, gen),
                                     time_ms)
     records.update(rec_f64)
@@ -2267,7 +2370,8 @@ def earlier_paths(args, psrs, gen, outdir):
     elapsed("phases 9-9b")
 
     # ---- phases 10-10c: the Hellings-Downs array, launch counts from 0 ------
-    ok10, runs10, g10 = hd_path(cm_hd, args.seed, outdir / "hd", args.steady)
+    ok10, runs10, g10 = hd_path(cm_hd, args.seed, outdir / "hd", HD_STEADY,
+                                warmup=HD_WARMUP)
     if not ok10:
         return None
     drv10 = g10.driver
@@ -2346,7 +2450,7 @@ def earlier_paths(args, psrs, gen, outdir):
              source=SOURCES[k][f.endswith("_wide")], replaces=REPLACES[k],
              launches=noise_runs[nm][(k, f)], **r)
         for nm, recs in noise_records.items()
-        for (k, f), r in recs.items()], timed
+        for (k, f), r in recs.items()], timed, hd_records
 
 
 def main(argv=None):
@@ -2433,7 +2537,7 @@ def main(argv=None):
     earlier = earlier_paths(args, psrs, gen, outdir)
     if earlier is None:
         return 1
-    rows, timed = earlier
+    rows, timed, hd_rec = earlier
     for key, rec in tp_records.items():
         rec.update({m: v for m, v in timed[key].items()
                     if m != "max_abs_err"})
@@ -2502,6 +2606,11 @@ def main(argv=None):
     rows15 = grid_paths(args, psrs, gen, outdir)
     if rows15 is None:
         return 1
+
+    # ---- phases 16-16d: sampled ORF weights, the alternative HD draws ------
+    rows16 = orf_paths(args, psrs, gen, outdir, hd_rec)
+    if rows16 is None:
+        return 1
     rows += [
         dict(name=f"{k}[{f}] (phase 13 path: kernel ECORR, B1 "
              f"{cm_ke.Bmax + 1})", route="cuda", source=SOURCES[k][1],
@@ -2511,13 +2620,13 @@ def main(argv=None):
              f"{cm_tp.Bmax})", route="cuda",
              source=SOURCES[k][f.endswith("_wide")], replaces=REPLACES[k],
              launches=runs14[(k, f)], **r)
-        for (k, f), r in tp_records.items()] + rows15
+        for (k, f), r in tp_records.items()] + rows15 + rows16
 
     print("phase 1 kernel resources (cuobjdump -res-usage: registers, "
           "stack frame bytes, static shared memory bytes): " + (json.dumps(
               {n: [r, st, sh] for n, r, st, sh in usage})
               if usage else "not available"), flush=True)
-    for bt in (SINGLE_CHAINS, WIDE_TIMING_SYSTEMS):
+    for bt in (SINGLE_CHAINS, WIDE_CONFIG_SYSTEMS):
         print(f"phase 1 wide forms' launch configuration at {bt} systems "
               "(ptg_wide_config; dynamic shared memory is not in "
               "cuobjdump's static count): "

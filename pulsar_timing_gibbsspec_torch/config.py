@@ -14,6 +14,7 @@ for matrix products and cuDNN before any work reaches a card.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -43,6 +44,22 @@ class Settings:
 
 
 settings = Settings()
+
+#: the correlated-ORF b-draws ``PTGIBBS_HD_KERNEL`` chooses between: the
+#: structured joint draw, the pulsar-wise sweep, the frequency-block sweep
+HD_KERNELS = ("joint", "pulsar", "freq")
+
+
+def hd_kernel_choice() -> str:
+    """The correlated-ORF b-draw ``PTGIBBS_HD_KERNEL`` names (``joint``
+    when unset), checked as the JAX package checks it; read when a
+    driver is built, so one process can run all three."""
+    choice = os.environ.get("PTGIBBS_HD_KERNEL", "joint")
+    if choice not in HD_KERNELS:
+        raise ValueError(
+            f"PTGIBBS_HD_KERNEL={choice!r}: the correlated-ORF "
+            "kernel must be 'joint' (production), 'pulsar' or 'freq'")
+    return choice
 
 
 def resolve_device(device=None) -> torch.device:

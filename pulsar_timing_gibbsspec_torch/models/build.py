@@ -60,7 +60,7 @@ from ..data.dataset import get_tspan
 from ..data.fourier import DAY, fourier_basis, pshift_phases, pshift_seed
 from ..sampler.compiled import BIG_PHI, PHI_FLOOR, from_arrays
 from .ephem import bayesephem_basis
-from .orf import orf_ginv_stack, refuse_sampled_weights
+from .orf import BIN_ORF_EDGES, orf_ginv_stack, orf_param_basis
 
 #: widest ECORR epoch (``EcorrBasisSignal``'s ``dt_days``)
 ECORR_DT_DAYS = 10.0
@@ -122,6 +122,26 @@ class _Par:
     kind: int
     lo: float
     hi: float
+    #: where an initial sample starts it (None: a prior draw)
+    init: float | None = None
+
+
+def _orf_weights(orf, gname, leg_lmax):
+    """The sampled weights of ``orf`` (``model_general``'s
+    ``<gname>_orfw_bin_<j>`` / ``_orfw_leg_<l>``): ``Uniform(-1, 1)``,
+    starting at 0 (``G = I``: a prior draw is non-positive-definite with
+    high probability, and the MH block cannot leave a non-PD start); none
+    for a fixed ORF.  A ``zero_diag_`` variant carries its full
+    counterpart's weights."""
+    base = orf[len("zero_diag_"):] if orf.startswith("zero_diag_") else orf
+    if base == "bin_orf":
+        labels = [f"bin_{j}" for j in range(len(BIN_ORF_EDGES) - 1)]
+    elif base == "legendre_orf":
+        labels = [f"leg_{l}" for l in range(leg_lmax + 1)]
+    else:
+        return []
+    return [_Par(f"{gname}_orfw_{lab}", None, UNIFORM, -1.0, 1.0, init=0.0)
+            for lab in labels]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -527,6 +547,7 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
             gname, o["common_psd"], o["amp"][1], (lo, hi),
             o["log10_A_common"], o["gamma_common"]))
 
+    orf_pars = _orf_weights(o["orf"], gname, o["leg_lmax"])
     models = []
     for p in psrs:
         sigs, labels, masks, white = _pulsar_model(p, o, Tspan, common)
@@ -543,7 +564,7 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
             "signal (build with white_vary=True on NANOGrav-flagged data)")
 
     # ---- parameters: the sampled ones, by name, sorted ------------------
-    seen = {}
+    seen = {q.name: q for q in orf_pars}
     for m in models:
         efac, equad, _, geq = m["white"]
         every = [q for s in m["sigs"] for q in s.params] + [
@@ -786,11 +807,14 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
     pkind = np.zeros(nx, i32)
     pa = np.zeros(nx, f32)
     pb = np.ones(nx, f32)
+    pinit = np.full(nx, np.nan)
     ct = 0
     for q in params:
         n = q.size or 1
         pkind[ct:ct + n] = q.kind
         pa[ct:ct + n], pb[ct:ct + n] = q.lo, q.hi
+        if q.init is not None:
+            pinit[ct:ct + n] = q.init
         ct += n
     # InvGamma alphas are never MH-proposed (conjugate draws); they keep
     # a nonzero scale all the same
@@ -807,8 +831,16 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
     rho_lo, rho_hi = rho_bounds("gw") or (1e-20, 1e-8)
     red_lo, red_hi = rho_bounds("red") or (rho_lo, rho_hi)
 
-    orf_Ginv = None
-    if corr:
+    orf_Ginv = orf_B = orf_par_ix = None
+    if orf_pars:
+        # G(theta) = I + sum_j theta_j B_j, zero-padded so that pad
+        # pulsars stay at the identity; theta gathered out of x
+        B_real, _ = orf_param_basis(o["orf"], [p.pos for p in psrs],
+                                    leg_lmax=o["leg_lmax"])
+        orf_B = np.zeros((len(orf_pars), P, P))
+        orf_B[:, :P_real, :P_real] = B_real
+        orf_par_ix = np.asarray([pos[q.name] for q in orf_pars], i32)
+    elif corr:
         orf_Ginv = np.tile(np.eye(P), (K, 1, 1))
         orf_Ginv[:, :P_real, :P_real] = orf_ginv_stack(
             o["orf"], [p.pos for p in psrs], K, orf_ifreq=o["orf_ifreq"])
@@ -842,14 +874,15 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
         ecorr_par_ix=ecorr_par_ix, ecorr_nper=ecorr_nper,
         rhomin=rho_lo, rhomax=rho_hi, red_rhomin=red_lo, red_rhomax=red_hi,
         orf_name=o["orf"], orf_Ginv=orf_Ginv, gp_mask=gp_mask, red_f=red_f,
-        red_df=red_df, orf_B=None, orf_par_ix=None,
+        red_df=red_df, orf_B=orf_B, orf_par_ix=orf_par_ix,
+        pinit=pinit if np.isfinite(pinit).any() else None,
         red_shares_gw=red_shares_gw, ke_eid=ke_eid, ke_par_ix=ke_par_ix,
         b_names=tuple(b_names))
 
 
 def _refuse_orf(orf, common_psd):
     """What ``compile_pta`` refuses of a correlated ORF, with its
-    messages, and the sampled-weight ORFs the port does not take yet."""
+    messages."""
     if orf.startswith("zero_diag_"):
         raise NotImplementedError(
             f"orf='{orf}' builds (fixed-amplitude detection-"
@@ -863,7 +896,6 @@ def _refuse_orf(orf, common_psd):
             "correlated ORF is implemented for a varied common free "
             "spectrum (common_psd='spectrum'); the powerlaw-family "
             "HD marginalized-likelihood MH block is not implemented")
-    refuse_sampled_weights(orf)
 
 
 def crn_spectrum_arrays(psrs, nbins: int = 10, red_bins: int = 10,
@@ -907,9 +939,13 @@ def model_general(psrs, tm_svd=False, white_vary=False,
     ``dm_var`` / ``dm_chrom`` chromatic GPs (``dm_psd``,
     ``dmchrom_psd``, ``dmchrom_idx``, ``dm_components``); ``dm_annual``;
     ``bayesephem`` / ``be_type``; the upper-limit flags (LinearExp
-    amplitude priors); ``orf="crn"`` and the fixed positive-definite
+    amplitude priors); ``orf="crn"``, the fixed positive-definite
     ORFs (``hd``, ``freq_hd`` with ``orf_ifreq``, ``st``,
-    ``gw_monopole``, ``gw_dipole``) under a common free spectrum;
+    ``gw_monopole``, ``gw_dipole``) and the ORFs with sampled
+    correlation weights (``bin_orf``: 7 angular-separation bins;
+    ``legendre_orf``: ``leg_lmax + 1`` Legendre coefficients; each a
+    ``Uniform(-1, 1)`` ``<gw>_orfw_*`` parameter that an initial sample
+    starts at 0, ``G = I``) under a common free spectrum;
     ``coefficients``, ``dense_like`` and ``tm_marg`` are accepted and
     dropped, as the JAX function drops them.  The frequency grid:
     ``Tspan`` (default the array's span), ``modes`` (explicit

@@ -9,19 +9,23 @@ frequency bin ``orf_ifreq``, Hellings-Downs from it upward).  Only the
 positive-definite ones can serve as a Gibbs prior (hd, freq_hd, st,
 gw_monopole, gw_dipole): :func:`orf_ginv_stack` refuses the others.
 
-The ORFs with sampled correlation weights (``bin_orf``,
-``legendre_orf``) are not in the port yet (ROADMAP A.11): asking for
-their matrix raises ``NotImplementedError``.
+The ORFs with sampled correlation weights, ``bin_orf`` (one weight per
+angular-separation bin of :data:`BIN_ORF_EDGES`) and ``legendre_orf``
+(Legendre coefficients up to ``leg_lmax``), have ``G(theta) = I +
+sum_j theta_j B_j`` with the basis of :func:`orf_param_basis`; they have
+no fixed matrix, so :func:`orf_matrix` raises ``NotImplementedError``
+for them.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-#: ORFs whose shape is sampled, and where the port stands on them
+#: ORFs whose shape is sampled: they have no fixed matrix
 PARAMETERIZED_ORFS = ("param_hd", "param_multiple", "bin_orf", "legendre_orf",
                       "zero_diag_bin_orf", "zero_diag_legendre_orf")
-_SAMPLED_WEIGHTS = ("bin_orf", "legendre_orf")
+#: angular-separation bin edges [deg] of ``bin_orf`` (7 bins)
+BIN_ORF_EDGES = (0.0, 30.0, 50.0, 80.0, 100.0, 120.0, 150.0, 180.0)
 
 
 def _same(pos_a, pos_b):
@@ -76,21 +80,9 @@ ORFS = {"crn": crn, "hd": hd, "dipole": dipole, "monopole": monopole,
         "gw_monopole": gw_monopole, "gw_dipole": gw_dipole, "st": st}
 
 
-def refuse_sampled_weights(name: str):
-    """Raise for an ORF whose correlation weights are sampled."""
-    base = name[len("zero_diag_"):] if name.startswith("zero_diag_") else name
-    if base in _SAMPLED_WEIGHTS:
-        raise NotImplementedError(
-            f"orf='{name}' samples its correlation weights (G(theta) = I + "
-            "sum_j theta_j B_j and its MH block); that is not in the port "
-            "yet (ROADMAP A.11): the port samples the fixed ORFs hd, "
-            "freq_hd, st, gw_monopole and gw_dipole")
-
-
 def orf_matrix(name: str, positions) -> np.ndarray:
     """(P, P) correlation matrix over pulsars for the named ORF;
     ``zero_diag_<orf>`` zeroes the diagonal (not positive definite)."""
-    refuse_sampled_weights(name)
     zero_diag = False
     if name.startswith("zero_diag_"):
         zero_diag = True
@@ -126,6 +118,40 @@ def orf_matrix_per_freq(name: str, positions, K: int,
         return np.stack([high if k >= orf_ifreq else low for k in range(K)])
     G = orf_matrix(name, positions)
     return np.broadcast_to(G, (K,) + G.shape).copy()
+
+
+def orf_param_basis(name: str, positions, leg_lmax: int = 5):
+    """``(B, labels)``: the (J, P, P) basis of a sampled-weight ORF,
+    ``G(theta) = I + sum_j theta_j B_j``, zero on the diagonal (the
+    process variance is rho_k's).  ``bin_orf``: ``B_j`` is 1 on the
+    pairs whose separation lies in bin ``j`` of :data:`BIN_ORF_EDGES`
+    (the first bin closed at 0); ``legendre_orf``: ``B_l = P_l(cos
+    zeta)`` off the diagonal, ``l = 0..leg_lmax``.  A ``zero_diag_``
+    variant has its full counterpart's basis."""
+    if name.startswith("zero_diag_"):
+        name = name[len("zero_diag_"):]
+    P = len(positions)
+    cosz = np.eye(P)
+    for a in range(P):
+        for b in range(a + 1, P):
+            cosz[a, b] = cosz[b, a] = float(
+                np.clip(np.dot(positions[a], positions[b]), -1.0, 1.0))
+    off = 1.0 - np.eye(P)
+    if name == "bin_orf":
+        zeta = np.degrees(np.arccos(np.clip(cosz, -1.0, 1.0)))
+        Bs, labels = [], []
+        for j in range(len(BIN_ORF_EDGES) - 1):
+            lo, hi = BIN_ORF_EDGES[j], BIN_ORF_EDGES[j + 1]
+            mask = ((zeta > lo) if j else (zeta >= lo)) & (zeta <= hi)
+            Bs.append(mask.astype(float) * off)
+            labels.append(f"bin_{j}")
+        return np.stack(Bs), labels
+    if name == "legendre_orf":
+        from scipy.special import eval_legendre
+
+        Bs = [eval_legendre(l, cosz) * off for l in range(leg_lmax + 1)]
+        return np.stack(Bs), [f"leg_{l}" for l in range(leg_lmax + 1)]
+    raise NotImplementedError(f"parameterized orf '{name}'")
 
 
 def orf_ginv_stack(name: str, positions, K: int,

@@ -4,16 +4,18 @@ Port of the sweep's pieces of ``pulsar_timing_gibbsspec_tpu/sampler/
 jax_backend.py``: the segmented Grams and the b-draws (steady
 Metropolised draw, refresh, exact draw; under a correlated ORF the
 structured two-stage joint draw over all pulsars, with its dense
-reference), the white-noise and ECORR blocks (relative likelihoods,
-adapted full-block MH, Laplace proposals; basis ECORR on its
-coefficients, kernel ECORR through the Woodbury form of the block N),
+reference, and the pulsar-wise and frequency-block sweeps of
+``PTGIBBS_HD_KERNEL``), the white-noise and ECORR blocks (relative
+likelihoods, adapted full-block MH, Laplace proposals; basis ECORR on
+its coefficients, kernel ECORR through the Woodbury form of the block
+N),
 the hyper blocks (common-rho grid draw, its correlated-ORF form on the
 quadratic form of the common coefficients, or the single-pulsar
 inverse-CDF draw; per-pulsar free-spectrum red draw; the t-process
 alpha draw; rho <-> b scale moves; the powerlaw hyper MH block with its
-b-conditional and b-marginalized likelihoods) and the facade's
-sampling-flag check.  Every function takes the chains
-as leading dimensions of ``x`` (``(C, nx)``), ``b`` (``(C, P, Bmax)``)
+b-conditional and b-marginalized likelihoods; the sampled ORF weights'
+b-conditional likelihood) and the facade's sampling-flag check.  Every
+function takes the chains as leading dimensions of ``x`` (``(C, nx)``), ``b`` (``(C, P, Bmax)``)
 and ``u = T b`` (``(C, P, Nmax)``); the kernels see ``C * P`` systems at
 once.
 
@@ -34,7 +36,8 @@ import torch
 
 from ..config import settings
 from ..ops import kernels
-from ..ops.linalg import (_batched_diag, _mm_t, _mv, _t, block_grid_cholinv,
+from ..ops.linalg import (_batched_diag, _mm, _mm_t, _mv, _t,
+                          block_grid_cholinv,
                           block_grid_solve_lower, block_grid_solve_upper,
                           block_grid_to_dense, blocked_chol_inv,
                           mvn_conditional_draw, tf_chol_factor, tf_mm)
@@ -51,6 +54,10 @@ _LN10 = math.log(10.0)
 #: at or below this many common-process coordinates (2K P) the joint
 #: draw's Schur complement is factored flat, above it block by block
 SCHUR_DENSE_MAX = 128
+#: at or below this many coefficients (P Bmax) a correlated ORF's b-draw
+#: is the structured joint draw whatever ``PTGIBBS_HD_KERNEL`` asks: the
+#: pulsar-wise and frequency-block sweeps apply past it
+HD_DENSE_MAX = 64
 #: log10 bounds and size of the t-process alpha grid: the InvGamma(1, 1)
 #: prior holds nearly all its mass in [1e-4, 1e4] and the likelihood
 #: tail decays as alpha^-2 past tau / plaw
@@ -514,11 +521,12 @@ def _joint_perm_parts(cm, x):
 def _joint_gw_prior(cm, x, valid):
     """The common prior blocks ``G^-1 / rho_k`` per group (..., 2K, P, P),
     identity on invalid slots, and the ``rho`` (..., 2K) and ``G^-1_pp``
-    (2K, P) the Schur diagonal needs: ``(Dg, rho2, Gpp)``."""
+    ((..., )2K, P; per chain under sampled weights) the Schur diagonal
+    needs: ``(Dg, rho2, Gpp)``."""
     cdt = cm.cdtype
     rho = torch.pow(10.0, 2.0 * x.to(cdt)[..., cm.rho_ix_x])
     Ginv = cm.orf_ginv_k(x)
-    Gfull = torch.cat([Ginv, Ginv], dim=0)
+    Gfull = torch.cat([Ginv, Ginv], dim=-3)
     rho2 = torch.cat([rho, rho], dim=-1)
     vg = valid.transpose(0, 1)
     eyeP = torch.eye(cm.P, dtype=cdt, device=cm.device)
@@ -631,7 +639,7 @@ def draw_b_joint_structured_core(cm, x, z, b=None, exact=False,
     # ---- stage 2: the Schur complement on the common coordinates --------
     Dg, rho2, Gpp = _joint_gw_prior(cm, x, f.valid)
     diag_g = (torch.diagonal(f.Agg, dim1=-2, dim2=-1)
-              + torch.where(f.valid > 0, Gpp.transpose(0, 1)
+              + torch.where(f.valid > 0, Gpp.transpose(-1, -2)
                             / rho2[..., None, :], 1.0))
     dj_g = 1.0 / torch.sqrt(diag_g)                           # (..., P, 2K)
     Bhat = (f.Tg.transpose(-1, -2) * dj_g[..., :, :, None]
@@ -689,6 +697,251 @@ def draw_b_joint_structured(cm, x, gen, b=None, exact=False, factors=None,
     z = _normal(gen, x.shape[:-1] + (_joint_dim(cm),), cm.cdtype, cm.device)
     return draw_b_joint_structured_core(cm, x, z, b, exact=exact,
                                         factors=factors, mixed=mixed)
+
+
+# ===========================================================================
+# the alternative correlated-ORF b-draws (``PTGIBBS_HD_KERNEL``)
+# ===========================================================================
+#
+# Two Gibbs sweeps over the same joint conditional as the structured
+# draw, kept for arrays of many pulsars: each step is an exact
+# conditional, so the sweep leaves the joint law invariant but mixes the
+# cross-pulsar correlations over sweeps.  Each carries ``b`` in (pad
+# pulsars keep theirs bitwise), takes its update order as a per-chain
+# permutation tensor, and factors in float64 (``blocked_chol_inv``) when
+# ``exact`` and two-float (``tf_chol_factor``) otherwise.  A step whose
+# draw is not finite leaves its coefficients as they were.  Returns
+# ``(b', ok)``, ``ok`` (...,) the chains none of whose updates was
+# skipped.
+
+def _hd_setup(cm, x):
+    """``(TNT, d, pinv, rho, Ginv)`` of the alternative draws: the
+    segmented Gram (float32 segments, float64 reduce; kernel-ECORR
+    models the widening Gram under their correction), 1/phi (..., P, B),
+    rho (..., K) and the inverse ORF stack."""
+    N = cm.ndiag_fast(x)
+    TNT, d = tnt_d_x(cm, x, N) if cm.has_ke else tnt_d_seg(cm, N)
+    pinv = 1.0 / cm.phi(x)
+    rho = torch.pow(10.0, 2.0 * x.to(cm.cdtype)[..., cm.rho_ix_x])
+    return TNT, d, pinv, rho, cm.orf_ginv_k(x)
+
+
+def _rows_at(a, p, dim):
+    """``a`` indexed at the per-chain position ``p`` (...,) along
+    ``dim`` (counted from the end), ``a``'s leading dims the chains'."""
+    nd = a.dim()
+    dim = nd + dim if dim < 0 else dim
+    idx = p.reshape(p.shape + (1,) * (nd - p.dim()))
+    shape = list(a.shape)
+    shape[dim] = 1
+    return torch.gather(a, dim, idx.expand(shape)).squeeze(dim)
+
+
+def _set_rows_at(a, p, dim, vals):
+    """``a`` with its slice at ``p`` (...,) along ``dim`` set to
+    ``vals``."""
+    nd = a.dim()
+    dim = nd + dim if dim < 0 else dim
+    idx = p.reshape(p.shape + (1,) * (nd - p.dim()))
+    shape = list(a.shape)
+    shape[dim] = 1
+    return a.scatter(dim, idx.expand(shape), vals.unsqueeze(dim))
+
+
+def draw_b_hd_sequential_core(cm, x, b, z, perm, exact=False):
+    """The pulsar-wise Gibbs sweep (``jax_backend.py::
+    draw_b_hd_sequential``): pulsar ``p``'s coefficients given the
+    others' are its own system with the common prior precision
+    ``(G^-1)_pp / rho_k`` on its common columns and the mean shifted by
+    ``-sum_{q != p} (G^-1)_pq a_q / rho_k``.  Every pulsar's precision
+    depends on ``x`` alone, so the P factors are one batch before the
+    sweep, and each step is ``base_p - Corr_p cross_p`` with the (Bmax,
+    2K) slice ``Corr_p`` of the conditional covariance.  ``z`` (..., P,
+    Bmax) float64 normals; ``perm`` (..., P) the pulsar order per
+    chain."""
+    cdt = cm.cdtype
+    B, P, K = cm.Bmax, cm.P, cm.K
+    lead = x.shape[:-1]
+    TNT, d, pinv, rho, Ginv = _hd_setup(cm, x)
+    Ginv = Ginv.expand(lead + (K, P, P))
+    live = cm.psr_mask.to(cdt)
+    gsin, gcos = cm.gw_sin_ix, cm.gw_cos_ix
+    # the common columns carry the conditional prior precision
+    prior_prec = (torch.diagonal(Ginv, dim1=-2, dim2=-1).transpose(-1, -2)
+                  / rho[..., None, :])                          # (..., P, K)
+    pin = _scatter_drop(_scatter_drop(pinv, gsin, prior_prec), gcos,
+                        prior_prec)
+    Sigma = TNT + pin[..., :, None] * torch.eye(B, dtype=cdt,
+                                                 device=cm.device)
+    dj = 1.0 / torch.sqrt(torch.diagonal(Sigma, dim1=-2, dim2=-1))
+    A = Sigma * dj[..., :, None] * dj[..., None, :]
+    _, Li = blocked_chol_inv(A) if exact else tf_chol_factor(A)
+    base = dj * _mv(_t(Li), _mv(Li, dj * d) + z)
+    _, valid, ccl = cm.gw_cols_valid()
+    djc = _gather_last(dj, ccl) * valid                         # (..., P, 2K)
+    Lic = torch.gather(Li, -1, ccl[:, None, :].expand(
+        Li.shape[:-1] + ccl.shape[-1:])) * djc[..., None, :]   # (..., P, B, 2K)
+    LiT = _t(Li)
+    Corr = dj[..., :, None] * (_mm(LiT, Lic) if exact else tf_mm(LiT, Lic))
+    a = torch.stack([_gather_last(b, gsin), _gather_last(b, gcos)],
+                    dim=-1) * live[:, None, None]               # (..., P, K, 2)
+    gcl = torch.clamp(torch.stack([gsin, gcos], -1), max=B - 1)  # (P, K, 2)
+    ok_all = torch.ones(lead, dtype=torch.bool, device=cm.device)
+    for s in range(P):
+        p = perm[..., s]
+        g_row = _rows_at(Ginv, p, -2)                           # (..., K, P)
+        gpp = _rows_at(g_row, p, -1)                            # (..., K)
+        a_p = _rows_at(a, p, -3)                                # (..., K, 2)
+        cross = (torch.einsum("...kq,...qkf->...kf", g_row, a)
+                 - gpp[..., :, None] * a_p) / rho[..., :, None]
+        cvec = torch.cat([cross[..., 0], cross[..., 1]], dim=-1)
+        bp = _rows_at(base, p, -2) - _mv(_rows_at(Corr, p, -3), cvec)
+        ok = torch.isfinite(bp).all(-1)
+        live_p = live[p] > 0
+        ok_all = ok_all & (ok | ~live_p)
+        bnew = torch.where((live_p & ok)[..., None], bp, _rows_at(b, p, -2))
+        b = _set_rows_at(b, p, -2, bnew)
+        cols_p = gcl[p]                                         # (..., K, 2)
+        a_new = torch.gather(bnew, -1, cols_p.reshape(lead + (2 * K,)))
+        a = _set_rows_at(a, p, -3, a_new.reshape(lead + (K, 2))
+                         * live[p][..., None, None])
+    return b, ok_all
+
+
+def draw_b_hd_sequential(cm, x, gen, b, exact=False):
+    """:func:`draw_b_hd_sequential_core` with its normals and its pulsar
+    order (the argsort of uniform keys: no host sync, capture-safe)
+    drawn from ``gen``."""
+    lead = x.shape[:-1]
+    z = _normal(gen, lead + (cm.P, cm.Bmax), cm.cdtype, cm.device)
+    keys = torch.rand(lead + (cm.P,), generator=gen, dtype=torch.float64,
+                      device=cm.device)
+    return draw_b_hd_sequential_core(cm, x, b, z, torch.argsort(keys, -1),
+                                     exact)
+
+
+def _freq_groups(cm):
+    """Coordinate groups per pulsar of the frequency-block sweep's joint
+    step: common sin and cos, and intrinsic red sin and cos at the same
+    frequency index where the red noise has columns of its own (the two
+    are near-collinear; a block split between them mixes badly)."""
+    Kr = int(cm.red_sin_ix.shape[1])
+    return 4 if (Kr > 0 and not cm.red_shares_gw) else 2
+
+
+def draw_b_hd_freqblock_core(cm, x, b, z1, z2, perm, exact=False):
+    """The two-block frequency sweep (``jax_backend.py::
+    draw_b_hd_freqblock``): (1) every pulsar's non-common coefficients
+    given the common ones, one batched draw of the full system with the
+    common rows turned into identity; (2) frequency by frequency, in the
+    per-chain order ``perm`` (..., K), the joint draw across pulsars of
+    that frequency's common sin/cos (and red sin/cos, see
+    :func:`_freq_groups`) given every other coefficient: an (m P, m P)
+    system whose common diagonal blocks carry ``G_k^-1 / rho_k``.
+    ``z1`` (..., P, Bmax) and ``z2`` (..., K, m P) float64 normals."""
+    factor = blocked_chol_inv if exact else tf_chol_factor
+    cdt = cm.cdtype
+    B, P, K = cm.Bmax, cm.P, cm.K
+    lead = x.shape[:-1]
+    dev = cm.device
+    TNT, d, pinv, rho, Ginv = _hd_setup(cm, x)
+    Ginv = Ginv.expand(lead + (K, P, P))
+    _, valid, ccl = cm.gw_cols_valid()
+    gwm = torch.zeros((P, B), dtype=cdt, device=dev).scatter_reduce(
+        1, ccl, valid, reduce="amax")
+    nm = 1.0 - gwm
+    eyeB = torch.eye(B, dtype=cdt, device=dev)
+
+    # ---- block 1: non-common | common ------------------------------------
+    Sigma = TNT + (pinv * nm)[..., :, None] * eyeB
+    Sn = Sigma * nm[:, :, None] * nm[:, None, :] + gwm[:, :, None] * eyeB
+    rhs = nm * (d - _mv(TNT, b * gwm))
+    dj = 1.0 / torch.sqrt(torch.diagonal(Sn, dim1=-2, dim2=-1))
+    A = Sn * dj[..., :, None] * dj[..., None, :]
+    _, Li = factor(A)
+    bn = dj * _mv(_t(Li), _mv(Li, dj * rhs) + z1)
+    # pad pulsars keep their b: their decoupled identity system draws
+    # noise
+    live = (cm.psr_mask > 0)[:, None]
+    ok1 = torch.isfinite(bn).all(-1, keepdim=True)
+    b = torch.where((gwm > 0) | ~ok1 | ~live, b, bn)
+    ok_all = (ok1 | ~live).all(-1).all(-1)
+
+    # ---- block 2: per-frequency joint draws across pulsars ---------------
+    m = _freq_groups(cm)
+    Kr = int(cm.red_sin_ix.shape[1])
+    eyeP = torch.eye(P, dtype=cdt, device=dev)
+    gsin = cm.gw_sin_ix.expand(lead + (P, K))
+    gcos = cm.gw_cos_ix.expand(lead + (P, K))
+    rsin = cm.red_sin_ix.expand(lead + (P, Kr))
+    rcos = cm.red_cos_ix.expand(lead + (P, Kr))
+    livep = cm.psr_mask > 0
+    for s in range(K):
+        k = perm[..., s]
+        kP = k[..., None].expand(lead + (P,))
+        gcols = [_rows_at(gsin, kP, -1), _rows_at(gcos, kP, -1)]
+        vals = [((c >= 0) & (c < B)).to(cdt) for c in gcols]
+        if m == 4:
+            kr = torch.clamp(kP, max=Kr - 1)
+            in_r = (kP < Kr).to(cdt)
+            for rarr in (rsin, rcos):
+                c = _rows_at(rarr, kr, -1)
+                gcols.append(c)
+                vals.append(((c >= 0) & (c < B)).to(cdt) * in_r)
+        c4 = torch.clamp(torch.stack(gcols, -1), 0, B - 1)      # (..., P, m)
+        v4 = torch.stack(vals, -1)
+        Tr = torch.gather(TNT, -2, c4[..., None].expand(
+            lead + (P, m, B))) * v4[..., None]                  # (..., P, m, B)
+        T4 = torch.gather(Tr, -1, c4[..., None, :].expand(
+            lead + (P, m, m))) * v4[..., None, :]               # (..., P, m, m)
+        Dg = _rows_at(Ginv, k, -3) / _rows_at(rho, k, -1)[..., None, None]
+        rows = []
+        for i in range(m):
+            row = []
+            for j in range(m):
+                blk = torch.diag_embed(T4[..., i, j])
+                if i == j:
+                    vi = v4[..., i]
+                    if i < 2:
+                        blk = (blk + Dg * vi[..., :, None] * vi[..., None, :]
+                               + (1.0 - vi)[..., None, :] * eyeP)
+                    else:
+                        pri = torch.gather(pinv, -1, c4[..., i:i + 1])[..., 0]
+                        blk = blk + torch.diag_embed(
+                            torch.where(vi > 0, pri, 1.0))
+                row.append(blk)
+            rows.append(torch.cat(row, dim=-1))
+        Q = torch.cat(rows, dim=-2)                             # (..., mP, mP)
+        a4 = torch.gather(b, -1, c4) * v4
+        r = (torch.gather(d, -1, c4) * v4 - _mv(Tr, b) + _mv(T4, a4))
+        r = r.transpose(-1, -2).reshape(lead + (m * P,))        # group-major
+        qj = 1.0 / torch.sqrt(torch.diagonal(Q, dim1=-2, dim2=-1))
+        _, Lq = factor(Q * qj[..., :, None] * qj[..., None, :])
+        zk = _rows_at(z2, k, -2)
+        anew = (qj * _mv(_t(Lq), _mv(Lq, qj * r) + zk)).reshape(
+            lead + (m, P))
+        okk = torch.isfinite(anew).all(-1).all(-1)
+        ok_all = ok_all & okk
+        for i in range(m):
+            ci = c4[..., i]
+            old = torch.gather(b, -1, ci[..., None])[..., 0]
+            new = torch.where((v4[..., i] > 0) & okk[..., None] & livep,
+                              anew[..., i, :], old)
+            b = b.scatter(-1, ci[..., None], new[..., None])
+    return b, ok_all
+
+
+def draw_b_hd_freqblock(cm, x, gen, b, exact=False):
+    """:func:`draw_b_hd_freqblock_core` with its normals and its
+    frequency order (argsort of uniform keys) drawn from ``gen``."""
+    lead = x.shape[:-1]
+    m = _freq_groups(cm)
+    z1 = _normal(gen, lead + (cm.P, cm.Bmax), cm.cdtype, cm.device)
+    z2 = _normal(gen, lead + (cm.K, m * cm.P), cm.cdtype, cm.device)
+    keys = torch.rand(lead + (cm.K,), generator=gen, dtype=torch.float64,
+                      device=cm.device)
+    return draw_b_hd_freqblock_core(cm, x, b, z1, z2,
+                                    torch.argsort(keys, -1), exact)
 
 
 # ===========================================================================
@@ -822,13 +1075,16 @@ def ecorr_block_ll(cm, x, b, r):
     return ecorr_ll_rel(cm, x, b)
 
 
-def _mh_step(cm, lnlike, ind):
+def _mh_step(cm, lnlike, ind, accepts=None):
     """One single-site Metropolis step with the scale-mixture proposal,
     jump sd tied to the coordinate's prior width; returns
     ``step(carry, noise)`` with ``noise = (scale, jpos, eps, logu)``
-    (jpos indexes ``ind``)."""
-    ind = torch.as_tensor(np.asarray(ind), dtype=torch.int64,
-                          device=cm.device)
+    (jpos indexes ``ind``, host indices or a device tensor: under a CUDA
+    graph's capture, the latter).  ``accepts`` (...,) float64, when
+    given, gains each chain's accepted steps in place."""
+    if not torch.is_tensor(ind):
+        ind = torch.as_tensor(np.asarray(ind), dtype=torch.int64,
+                              device=cm.device)
     prop = cm.prop_scale.to(cm.cdtype)
 
     def step(carry, noise):
@@ -846,16 +1102,19 @@ def _mh_step(cm, lnlike, ind):
         x = torch.where(acc[..., None], q, x)
         ll0 = torch.where(acc, ll1, ll0)
         lp0 = torch.where(acc, lp1, lp0)
+        if accepts is not None:
+            accepts.add_(acc.to(accepts.dtype))
         return (x, ll0, lp0), x[..., ind]
 
     return step
 
 
-def mh_scan_core(cm, x, lnlike, ind, scale, jpos, eps, logu):
+def mh_scan_core(cm, x, lnlike, ind, scale, jpos, eps, logu, accepts=None):
     """Fixed-length single-site MH sub-chain over coordinates ``ind``;
     the noise arrays lead with the step axis.  Returns ``(x', rec)``,
-    ``rec`` (steps, ..., len(ind))."""
-    step = _mh_step(cm, lnlike, ind)
+    ``rec`` (steps, ..., len(ind)); ``accepts`` (...,), when given,
+    gains each chain's accepted steps in place."""
+    step = _mh_step(cm, lnlike, ind, accepts)
     carry = (x, lnlike(x), cm.lnprior(x))
     rec = []
     for s in range(scale.shape[0]):
@@ -864,7 +1123,7 @@ def mh_scan_core(cm, x, lnlike, ind, scale, jpos, eps, logu):
     return carry[0], torch.stack(rec)
 
 
-def mh_scan(cm, x, gen, lnlike, ind, nsteps):
+def mh_scan(cm, x, gen, lnlike, ind, nsteps, accepts=None):
     """:func:`mh_scan_core` with its noise drawn from ``gen``."""
     cdt, dev = cm.cdtype, cm.device
     shape = (nsteps,) + x.shape[:-1]
@@ -872,7 +1131,43 @@ def mh_scan(cm, x, gen, lnlike, ind, nsteps):
     jpos = torch.randint(0, len(ind), shape, generator=gen, device=dev)
     eps = _normal(gen, shape, cdt, dev)
     logu = torch.log(_uniform(gen, shape, cdt, dev))
-    return mh_scan_core(cm, x, lnlike, ind, scale, jpos, eps, logu)
+    return mh_scan_core(cm, x, lnlike, ind, scale, jpos, eps, logu,
+                        accepts)
+
+
+def lnlike_orf_fn(cm, b):
+    """The b-conditional likelihood of sampled ORF weights: per
+    (frequency, phase) group the common coefficients are jointly ``N(0,
+    rho_k G(theta))``, so up to theta-free constants
+
+        ln L(theta) = -K ln det G - 1/2 sum_{k, phase} a_k^T G^-1 a_k / rho_k
+
+    (two phases: K, not K/2, log-determinants).  Returns ``q ->`` (...,)
+    for states ``q`` (..., nx).  G is factored by ``cholesky_ex``, as the
+    JAX function factors it by the library's Cholesky; a
+    non-positive-definite G (a nonzero ``info``, whose partial factor is
+    finite) makes the log-likelihood NaN without the host reading
+    ``info``, so the MH step's finite guard rejects such a proposal and a
+    chain never leaves the positive-definite region it starts in."""
+    cdt = cm.cdtype
+    live = cm.psr_mask.to(cdt)
+    A = torch.stack([_gather_last(b, cm.gw_sin_ix),
+                     _gather_last(b, cm.gw_cos_ix)], dim=-1) \
+        * live[:, None, None]                                   # (..., P, K, 2)
+    A = A.reshape(A.shape[:-2] + (-1,))                          # (..., P, 2K)
+
+    def lnlike(q):
+        L, info = torch.linalg.cholesky_ex(cm.orf_G(q))
+        logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+        logdet = torch.where(info == 0, logdet, math.nan)
+        rho = torch.pow(10.0, 2.0 * q.to(cdt)[..., cm.rho_ix_x])   # (..., K)
+        w = torch.linalg.solve_triangular(
+            L, A.expand(L.shape[:-2] + A.shape[-2:]), upper=False)
+        w = w.reshape(w.shape[:-1] + (cm.K, 2))
+        quad = (w * w / rho[..., None, :, None]).sum((-3, -2, -1))
+        return -cm.K * logdet - 0.5 * quad
+
+    return lnlike
 
 
 def parallel_cov_mh_scan_core(cm, x, ll_per_fn, par_ix, nper, chol,
@@ -1080,12 +1375,15 @@ def _rho_hd_logpdf(cm, x, b, grid):
     ``taut_k = 1/2 sum_phase a_k^T G_k^-1 a_k`` of the common
     coefficients ``a_k`` (P,) (``sum_p tau_pk`` at G = I)."""
     Ginv = cm.orf_ginv_k(x)
+    # a fixed stack is shared by every chain; sampled weights give one
+    # per chain
+    eq = ("...pk,kpq,...qk->...k" if Ginv.dim() == 3
+          else "...pk,...kpq,...qk->...k")
     live = cm.psr_mask.to(cm.cdtype)
     taut = 0.0
     for ix in (cm.gw_sin_ix, cm.gw_cos_ix):
         a = _gather_last(b, ix) * live[:, None]                # (..., P, K)
-        taut = taut + 0.5 * torch.einsum("...pk,kpq,...qk->...k", a, Ginv,
-                                         a)
+        taut = taut + 0.5 * torch.einsum(eq, a, Ginv, a)
     return (-cm.P_real * torch.log(grid)
             - (taut[..., None] / grid).to(cm.dtype))
 

@@ -10,10 +10,12 @@ times per-frequency InvGamma alphas) or ``infinitepower`` (``BIG_PHI``)
 intrinsic red noise;
 chromatic GPs of the powerlaw family on columns of their own; static
 marginalized columns (timing model, ``dm_annual``, BayesEphem) with a
-constant ``phi_base``; and a common free spectrum under a fixed
-correlated ORF (Hellings-Downs and the others of ``models/orf.py``: the
-static inverse ORF stack ``orf_Ginv``, the common process on columns of
-its own).  Ragged per-pulsar shapes are padded to ``(P, Nmax)`` /
+constant ``phi_base``; and a common free spectrum under a correlated
+ORF on columns of its own: a fixed one (Hellings-Downs and the others
+of ``models/orf.py``: the static inverse ORF stack ``orf_Ginv``) or one
+with sampled correlation weights (``bin_orf``, ``legendre_orf``: ``G =
+I + sum_j theta_j B_j`` from ``orf_B`` and the weights ``x[orf_par_ix]``,
+rebuilt per chain state).  Ragged per-pulsar shapes are padded to ``(P, Nmax)`` /
 ``(P, Bmax)``, every hyperparameter reference, sampled or constant, is
 compiled to an integer gather into ``xe = [x, 0-sentinel, constants]``,
 and ``phi(x)`` is a scatter-add of the per-component variances onto the
@@ -147,10 +149,11 @@ class BlockIndex:
     red_rho: np.ndarray      # per-pulsar free-spectrum entries
     white: np.ndarray        # efac / equad entries
     ecorr: np.ndarray        # ecorr entries
+    orf: np.ndarray          # sampled ORF weights ("_orfw_" fragment)
 
     @classmethod
     def build(cls, param_names) -> "BlockIndex":
-        rho, red, red_rho, white, ecorr = [], [], [], [], []
+        rho, red, red_rho, white, ecorr, orf = [], [], [], [], [], []
         for ii, nm in enumerate(param_names):
             if "rho" in nm and "gw" in nm:
                 rho.append(ii)
@@ -162,12 +165,14 @@ class BlockIndex:
                 white.append(ii)
             if "ecorr" in nm:
                 ecorr.append(ii)
+            if "_orfw_" in nm:
+                orf.append(ii)
 
         def arr(v):
             return np.asarray(v, dtype=np.int64)
 
         return cls(list(param_names), arr(rho), arr(red), arr(red_rho),
-                   arr(white), arr(ecorr))
+                   arr(white), arr(ecorr), arr(orf))
 
 
 #: the prior classes of the JAX package, by ``pkind`` code
@@ -267,9 +272,19 @@ class CompiledPTA:
     red_rhomax: float
     red_shares_gw: bool = True
     orf_name: str = "crn"
-    #: (K, P, P) float64 per-frequency inverse ORF stack of a correlated
-    #: common process (identity on pad pulsars); None for CRN
+    #: (K, P, P) float64 per-frequency inverse ORF stack of a fixed
+    #: correlated common process (identity on pad pulsars); None for CRN
+    #: and for sampled weights
     orf_Ginv: torch.Tensor = None
+    #: sampled ORF weights: the (J, P, P) float64 basis of ``G(theta) =
+    #: I + sum_j theta_j B_j`` (zero on pad pulsars) and the weights'
+    #: positions in x (J,); None for a fixed ORF
+    orf_B: torch.Tensor = None
+    orf_par_ix: torch.Tensor = None
+    #: (nx,) float64 start of each coordinate in an initial sample, NaN
+    #: where it is a prior draw (the sampled ORF weights start at 0);
+    #: None when every coordinate is drawn
+    pinit: torch.Tensor = None
     #: true basis width per real pulsar
     widths: tuple = ()
     #: pulsar names in logical order (empty when the arrays carry none)
@@ -291,11 +306,16 @@ class CompiledPTA:
     ke_eid: torch.Tensor = None
     ke_par_ix: torch.Tensor = None
     ke_U: torch.Tensor = None
-    #: ``idx.red`` on the device: the powerlaw hypers' positions in x
+    #: ``idx.red`` and ``idx.orf`` on the device: the powerlaw hypers'
+    #: and the sampled ORF weights' positions in x (a block that runs in
+    #: a CUDA graph copies nothing from the host)
     red_ix: torch.Tensor = dataclasses.field(init=False)
+    orf_ix: torch.Tensor = dataclasses.field(init=False)
 
     def __post_init__(self):
         self.red_ix = torch.as_tensor(self.idx.red, dtype=torch.int64,
+                                      device=self.device)
+        self.orf_ix = torch.as_tensor(self.idx.orf, dtype=torch.int64,
                                       device=self.device)
 
     @property
@@ -309,13 +329,16 @@ class CompiledPTA:
         """The sampled parameters in chain order (the JAX model's
         ``params``): a vector parameter is the run of names ``<name>_0 ..
         <name>_{n-1}`` under one prior, every other name a scalar
-        (``size`` None)."""
+        (``size`` None); the sampled ORF weights (``<gw>_orfw_bin_<j>``,
+        ``..._leg_<l>``) are scalars."""
         kind, a, b = (v.cpu().numpy() for v in (self.pkind, self.pa,
                                                 self.pb))
         out, j = [], 0
         while j < self.nx:
             stem, _, k = self.param_names[j].rpartition("_")
             n = 1
+            if "_orfw_" in stem:
+                k = None
             if k == "0":
                 while (j + n < self.nx
                        and self.param_names[j + n] == f"{stem}_{n}"):
@@ -509,10 +532,29 @@ class CompiledPTA:
 
     # ---- correlated common process -----------------------------------------
 
+    def orf_G(self, x):
+        """(..., P, P) ORF correlation matrix of sampled weights at the
+        states ``x`` (..., nx), compute dtype."""
+        th = x.to(self.cdtype)[..., self.orf_par_ix]
+        eye = torch.eye(self.P, dtype=self.cdtype, device=self.device)
+        return eye + torch.einsum("...j,jpq->...pq", th,
+                                  self.orf_B.to(self.cdtype))
+
     def orf_ginv_k(self, x=None):
-        """(K, P, P) inverse ORF stack in the compute dtype: the static
-        stack of a fixed ORF (``x`` is unused)."""
-        return self.orf_Ginv.to(self.cdtype)
+        """Inverse ORF stack in the compute dtype: the static (K, P, P)
+        stack of a fixed ORF (``x`` is unused), which broadcasts over
+        chains; for sampled weights ``G(x)^-1`` per state, (..., K, P,
+        P), from the blocked Cholesky inverse (``(L L^T)^-1 = L^-T
+        L^-1``; the sampler keeps the weights where G is positive
+        definite)."""
+        if self.orf_B is None:
+            return self.orf_Ginv.to(self.cdtype)
+        from ..ops.linalg import blocked_chol_inv
+
+        _, Li = blocked_chol_inv(self.orf_G(x))
+        Gi = Li.transpose(-1, -2) @ Li
+        return Gi[..., None, :, :].expand(
+            Gi.shape[:-2] + (max(self.K, 1), self.P, self.P))
 
     def gw_cols_valid(self):
         """``(cols, valid, ccl)`` of the common process's columns in
@@ -611,17 +653,26 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
     the same model.  The port covers the models of the module docstring,
     with sampled or constant hypers (the constant ones in
     ``const_pool``), kernel ECORR (``ke_eid``, ``ke_par_ix``) and the
-    t-process's ``red_f`` / ``red_df``; sampled ORF weights (``orf_B``,
-    ROADMAP A.11) or any other PSD or component kind raise
+    t-process's ``red_f`` / ``red_df``, sampled ORF weights (``orf_B``,
+    ``orf_par_ix``) and the coordinates' start values ``pinit`` (NaN:
+    drawn) where the arrays carry them; a correlated ORF whose common
+    process shares columns with intrinsic red noise (``compile_pta``
+    refuses it) or any other PSD or component kind raises
     ``NotImplementedError``."""
     dev = resolve_device(device)
     orf_name = str(fields.get("orf_name", "crn"))
+    sampled = fields.get("orf_B") is not None
     if orf_name != "crn":
-        if fields.get("orf_B") is not None:
+        if fields["red_kind"] and bool(fields.get("red_shares_gw", True)):
             raise NotImplementedError(
-                f"orf='{orf_name}' samples its correlation weights; that is "
-                "not in the port yet (ROADMAP A.11)")
-        if fields.get("orf_Ginv") is None:
+                "correlated ORF with intrinsic red noise sharing the "
+                "common process's basis columns is not implemented (build "
+                "with model_general, which gives correlated processes "
+                "their own columns)")
+        if sampled and fields.get("orf_par_ix") is None:
+            raise ValueError(f"orf='{orf_name}' needs the positions of its "
+                             "sampled weights 'orf_par_ix'")
+        if not sampled and fields.get("orf_Ginv") is None:
             raise ValueError(f"orf='{orf_name}' needs its inverse ORF "
                              "stack 'orf_Ginv'")
         gcols = np.concatenate([np.asarray(fields["gw_sin_ix"]),
@@ -702,8 +753,13 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
         red_rhomax=float(fields["red_rhomax"]),
         red_shares_gw=bool(fields.get("red_shares_gw", True)),
         orf_name=orf_name,
-        orf_Ginv=(None if orf_name == "crn" else t(fields["orf_Ginv"],
-                                                   torch.float64)),
+        orf_Ginv=(None if orf_name == "crn" or sampled
+                  else t(fields["orf_Ginv"], torch.float64)),
+        orf_B=t(fields["orf_B"], torch.float64) if sampled else None,
+        orf_par_ix=(t(fields["orf_par_ix"], torch.int64) if sampled
+                    else None),
+        pinit=(None if fields.get("pinit") is None
+               else t(fields["pinit"], torch.float64)),
         widths=tuple(int(w) for w in fields["widths"]),
         pulsars=tuple(str(p) for p in fields.get("pulsars", ())),
         b_names=tuple(fields.get("b_names", ())),

@@ -13,8 +13,8 @@ steady sweeps (``_sweep_body``) in the JAX order
     white MH -> ECORR MH -> free-spectrum red conditional (or the
     t-process alpha draw, ``tprocess``) -> powerlaw hyper MH
     (``red_mh``) -> common rho (grid draw, or the inverse-CDF draw of a
-    single pulsar without red noise) -> rho <-> b scale moves ->
-    Metropolised b-draw (``draw_b_mh``),
+    single pulsar without red noise) -> rho <-> b scale moves -> sampled
+    ORF weights' MH (``orf_mh``) -> Metropolised b-draw (``draw_b_mh``),
 
 each block present only where the model samples parameters in it (fixed
 white noise from a noise dictionary has no white block, constant ECORR
@@ -25,7 +25,14 @@ iteration ``t`` with ``t % exact_every == 0``.  Under a correlated ORF
 (Hellings-Downs) there are no scale moves, and the b-draw is the
 structured joint draw over all pulsars (``b_joint``: two-float factors
 when ``joint_mixed``), in float64 on every ``exact_every``-th iteration
-(``b_joint_exact``), in the warmup and in the initial draws.  Under
+(``b_joint_exact``), in the warmup and in the initial draws; past
+``blocks.HD_DENSE_MAX`` coefficients ``PTGIBBS_HD_KERNEL=pulsar`` or
+``freq`` (read when the driver is built) puts the pulsar-wise or the
+frequency-block sweep in its place, two-float in ``b_joint`` and float64
+elsewhere.  Sampled ORF weights (``bin_orf``, ``legendre_orf``) get a
+single-site MH block of ``red_steps`` steps on their b-conditional
+likelihood (``orf_mh``, warmup included); a start whose weights give a
+non-positive-definite G raises ``ValueError``.  Under
 kernel ECORR (``cm.has_ke``: ECORR inside N) there are no scale moves,
 the ECORR block's target is the Woodbury conditional on the residual,
 and every sweep, warmup included, takes the exact float64 b-draw
@@ -74,7 +81,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import settings
+from ..config import hd_kernel_choice, settings
 from ..ops.acf import integrated_act_columns
 from . import blocks
 from .blocks import EXACT_EVERY
@@ -309,7 +316,7 @@ class TorchGibbsDriver:
     free-spectrum common block, as ``PTABlockGibbs`` does; a model
     without one raises ``ValueError``).  The first three change the
     stream, so a checkpoint records them and a resume with other values
-    raises."""
+    raises; so does a correlated ORF's b-draw (:attr:`hd_kernel`)."""
 
     def __init__(self, cm, nchains=1, seed=0, warmup_sweeps=50,
                  white_adapt_iters=1000, red_adapt_iters=2000, red_steps=20,
@@ -380,6 +387,16 @@ class TorchGibbsDriver:
         self.do_joint = cm.orf_name != "crn"
         self.joint_mixed = (settings.joint_mixed if joint_mixed is None
                             else bool(joint_mixed))
+        #: the correlated-ORF b-draw that runs: "joint" (the structured
+        #: draw), "pulsar" or "freq" (``PTGIBBS_HD_KERNEL``, past
+        #: ``blocks.HD_DENSE_MAX`` coefficients); None without one
+        choice = hd_kernel_choice()
+        self.hd_kernel = None
+        if self.do_joint:
+            self.hd_kernel = (choice if cm.P * cm.Bmax > blocks.HD_DENSE_MAX
+                              else "joint")
+        #: the sampled ORF weights' MH block
+        self.do_orf_mh = cm.orf_B is not None and len(cm.idx.orf) > 0
         self.gen = torch.Generator(device=cm.device)
         self.timer = BlockTimer(cm.device)
         #: block milliseconds of the warmup and adaptation (``timer.ms``
@@ -437,13 +454,19 @@ class TorchGibbsDriver:
         self.red_mh_accepts = torch.zeros(self.C, dtype=torch.float64,
                                           device=cm.device)
         self.red_mh_sweeps = 0
-        #: chains whose joint b-draw was not finite and kept their b,
-        #: summed over draws on the device: [two-float b_joint, float64
-        #: b_joint_exact] (not checkpointed), and their host copy at the
-        #: end of the warmup and adaptation
+        #: the same for the steady ORF-weight MH block
+        self.orf_mh_accepts = torch.zeros_like(self.red_mh_accepts)
+        self.orf_mh_sweeps = 0
+        #: chains whose correlated-ORF b-draw was not finite and kept
+        #: their b (or, under the pulsar-wise and frequency-block draws,
+        #: some of it), summed over draws on the device: [two-float
+        #: b_joint, float64 draws] (not checkpointed); their host copy at
+        #: the end of the warmup and adaptation, and the float64 ones by
+        #: stage: the initial draw, the warmup, the adaptation
         self.b_joint_breakdowns = torch.zeros(2, dtype=torch.int64,
                                               device=cm.device)
         self.warmup_breakdowns = [0, 0]
+        self.kept_by_stage = {}
         self._acc_cur = np.zeros((self.C, cm.P))
         self._b_mh_sweeps_cur = 0
         #: (chain, pulsar) Laplace factors of the warmup and adaptation
@@ -470,7 +493,8 @@ class TorchGibbsDriver:
                 + (["tprocess"] if self.do_tprocess else [])
                 + (["red_mh"] if self.do_red_mh else [])
                 + (["rho"] if self.do_rho else [])
-                + (["scale"] if self.do_scale else []))
+                + (["scale"] if self.do_scale else [])
+                + (["orf_mh"] if self.do_orf_mh else []))
 
     def sweep_blocks(self, exact):
         """Names of a steady sweep's blocks in the JAX order."""
@@ -488,7 +512,8 @@ class TorchGibbsDriver:
     def block(self, name, x, b, u):
         """One steady block on ``(x, b, u)``; returns the new triple.
         ``b_mh`` (``b_refresh``) adds its accept mask to
-        :attr:`b_mh_accepts` (:attr:`b_refresh_accepts`) in place, and
+        :attr:`b_mh_accepts` (:attr:`b_refresh_accepts`) in place,
+        ``orf_mh`` its accepted steps to :attr:`orf_mh_accepts`, and
         ``b_joint`` / ``b_joint_exact`` the chains that kept their b to
         :attr:`b_joint_breakdowns`."""
         cm, gen = self.cm, self.gen
@@ -518,6 +543,10 @@ class TorchGibbsDriver:
             x = blocks.rho_update(cm, x, b, gen)
         elif name == "scale":
             x, b, u = blocks.rho_scale_moves(cm, x, b, u, gen)
+        elif name == "orf_mh":
+            x, _ = blocks.mh_scan(cm, x, gen, blocks.lnlike_orf_fn(cm, b),
+                                  cm.orf_ix, self.red_steps,
+                                  accepts=self.orf_mh_accepts)
         elif name == "b_mh":
             b, u, acc = blocks.draw_b_mh(cm, x, b, u, gen)
             self.b_mh_accepts += acc.to(torch.float64)
@@ -528,18 +557,56 @@ class TorchGibbsDriver:
             b = blocks.draw_b_fn(cm, x, gen, b)
             u = blocks.b_matvec(cm, b)
         elif name in ("b_joint", "b_joint_exact"):
-            # the stage-1 factor cache is made here: the blocks between
-            # the red blocks and this one move rho alone, which it does
-            # not read
-            b, ok = blocks.draw_b_joint_structured(
-                cm, x, gen, b, exact=name == "b_joint_exact",
-                mixed=self.joint_mixed)
-            self.b_joint_breakdowns[int(name == "b_joint_exact")] += (
-                ~ok).sum()
+            b = self._draw_corr(x, b, exact=name == "b_joint_exact")
             u = blocks.b_matvec(cm, b)
         else:
             raise ValueError(f"unknown block {name!r}")
         return x, b, u
+
+    def _draw_corr(self, x, b, exact):
+        """The correlated-ORF b-draw of :attr:`hd_kernel` from ``b``
+        (zeros when None), float64 when ``exact``; the chains that kept
+        (some of) their b are added to :attr:`b_joint_breakdowns`."""
+        cm = self.cm
+        if self.hd_kernel == "joint":
+            # the stage-1 factor cache is made here: the blocks between
+            # the red blocks and this one move rho (and the ORF weights)
+            # alone, which it does not read
+            b, ok = blocks.draw_b_joint_structured(
+                cm, x, self.gen, b, exact=exact, mixed=self.joint_mixed)
+        else:
+            if b is None:
+                b = torch.zeros(x.shape[:-1] + (cm.P, cm.Bmax),
+                                dtype=cm.cdtype, device=cm.device)
+            draw = (blocks.draw_b_hd_sequential if self.hd_kernel == "pulsar"
+                    else blocks.draw_b_hd_freqblock)
+            b, ok = draw(cm, x, self.gen, b, exact=exact)
+        self.b_joint_breakdowns[int(exact)] += (~ok).sum()
+        return b
+
+    def _exact_b(self, x, b=None):
+        """The exact b | everything of the initial draw and the
+        adaptation: under a correlated ORF the float64 draw of
+        :attr:`hd_kernel` (:meth:`_draw_corr`), else ``draw_b_fn``."""
+        if self.do_joint:
+            return self._draw_corr(x, b, exact=True)
+        return blocks.draw_b_fn(self.cm, x, self.gen, b)
+
+    def _check_orf_start(self, x):
+        """Raise ``ValueError`` when a chain's sampled ORF weights give a
+        non-positive-definite G (the MH block cannot leave such a
+        start)."""
+        cm = self.cm
+        th = x.cpu().numpy()[:, cm.orf_par_ix.cpu().numpy()]
+        G = (np.eye(cm.P)[None]
+             + np.einsum("cj,jpq->cpq", th, cm.orf_B.cpu().numpy()))
+        wmin = np.linalg.eigvalsh(G).min(axis=(-2, -1))
+        if (wmin <= 1e-10).any():
+            raise ValueError(
+                "initial ORF weights give a non-positive-definite "
+                f"correlation matrix (min eigenvalue {wmin.min():.2e}); "
+                "start the *_orfw_* parameters at 0 (G = identity) — "
+                "x0[idx.orf] = 0")
 
     def _set_adapt(self, **state):
         """Set adaptation arrays (``chol_white``, ``mode_white``,
@@ -605,6 +672,11 @@ class TorchGibbsDriver:
                         cm, x, self.gen,
                         lambda q: blocks.lnlike_hyper_fn(cm, q, b, dyn),
                         cm.idx.red, self.red_steps)
+                elif name == "orf_mh":
+                    # the steady acceptance counts the steady sweeps
+                    x, _ = blocks.mh_scan(
+                        cm, x, self.gen, blocks.lnlike_orf_fn(cm, b),
+                        cm.orf_ix, self.red_steps)
                 else:
                     x, b, u = self.block(name, x, b, u)
         name = self._b_block(True)
@@ -725,7 +797,7 @@ class TorchGibbsDriver:
         (:meth:`_adapt_red`); the rho draw and a fresh exact b.  Returns
         ``(x, b)``."""
         cm = self.cm
-        b = blocks.draw_b_fn(cm, x, self.gen, b)
+        b = self._exact_b(x, b)
         if self.do_white:
             r2 = blocks.residual_sq(cm, b)
             r = cm.y - blocks.b_matvec(cm, b)
@@ -747,7 +819,7 @@ class TorchGibbsDriver:
             x = self._adapt_red(x)
         if self.do_rho:
             x = blocks.rho_update(cm, x, b, self.gen)
-        return x, blocks.draw_b_fn(cm, x, self.gen, b)
+        return x, self._exact_b(x, b)
 
     # ---- steady loop -------------------------------------------------------
 
@@ -785,6 +857,7 @@ class TorchGibbsDriver:
             else:
                 self.b_mh_sweeps += 1
         self.red_mh_sweeps += n if self.do_red_mh else 0
+        self.orf_mh_sweeps += n if self.do_orf_mh else 0
         self.steady_sweeps += n
 
     # ---- row layout (``jax_backend.py`` facade protocol) --------------------
@@ -857,8 +930,9 @@ class TorchGibbsDriver:
         written)``."""
         cm, k = self.cm, self.record_every
         self._reseed(INIT_STREAM)
-        b = blocks.draw_b_fn(cm, x, self.gen)
+        b = self._exact_b(x)
         u = blocks.b_matvec(cm, b)
+        kept = [int(self.b_joint_breakdowns[1])]
         W = min(self.warmup_sweeps, max(0, niter - 1))
         first = 0           # rows [first, wr] get the post-warmup state
         if W > 0:
@@ -888,12 +962,16 @@ class TorchGibbsDriver:
         chain[first:wr + 1] = x_h[0]
         bchain[first:wr + 1] = b_h[0]
         self.timer.flush()
+        kept.append(int(self.b_joint_breakdowns[1]))
         self._reseed(W)
         x, b = self._first_sweep(x, b)
         self.timer.flush()
         self.warmup_ms = dict(self.timer.ms)
         self.timer.ms.clear()
         self.warmup_breakdowns = self.b_joint_breakdowns.tolist()
+        kept.append(self.warmup_breakdowns[1])
+        self.kept_by_stage = dict(zip(("init", "warmup", "adaptation"),
+                                      np.diff([0] + kept).tolist()))
         return x, b, W + 1, wr + 1
 
     def _writeback(self, rec, chain, bchain):
@@ -926,6 +1004,8 @@ class TorchGibbsDriver:
         if niter < 1:
             raise ValueError("niter must be >= 1")
         x = self._x_in(x)
+        if cm.orf_B is not None:
+            self._check_orf_start(x)
         self._chain = chain
         if start == 0:
             x, b, ii, rowc = self._start(x, chain, bchain, niter)
@@ -1000,6 +1080,8 @@ class TorchGibbsDriver:
                "b_mh_sweeps": np.int64(self._b_mh_sweeps_cur),
                "rng_device": np.str_(self.gen.device.type),
                **self._adapt_host}
+        if self.hd_kernel is not None:
+            out["hd_kernel"] = np.str_(self.hd_kernel)
         for key in ("aclength_white", "aclength_ecorr", "cov_red",
                     "red_hist"):
             if getattr(self, key) is not None:
@@ -1037,6 +1119,14 @@ class TorchGibbsDriver:
                 f"resume checkpoint was written with record_every={got_k} "
                 f"but this sampler has record_every={self.record_every}; "
                 "they must match")
+        if self.hd_kernel is not None:
+            got_kern = str(state.pop("hd_kernel", "joint"))
+            if got_kern != self.hd_kernel:
+                raise RuntimeError(
+                    f"resume checkpoint was drawn with the correlated-ORF "
+                    f"b-draw {got_kern!r} (PTGIBBS_HD_KERNEL) but this "
+                    f"sampler runs {self.hd_kernel!r}; the resumed chain "
+                    "would not continue the saved one, so they must match")
         for key, val in self.stream_options().items():
             got = int(state.pop(key, val))
             if got != val:

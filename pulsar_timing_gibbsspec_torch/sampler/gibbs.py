@@ -97,7 +97,8 @@ class _GibbsBase:
         (``generator``: a torch.Generator on any device), each coordinate
         from its prior: uniform on ``[a, b]``, normal ``(a, b)``,
         LinearExp (``log10`` of a uniform on ``[10^a, 10^b]``) or
-        InvGamma (shape ``a``, rate ``b``)."""
+        InvGamma (shape ``a``, rate ``b``); a coordinate the model pins
+        (``cm.pinit``: the sampled ORF weights, at 0) starts there."""
         cm = self.cm
         gdev = generator.device if generator is not None else cm.device
         shape = (self.driver.C, cm.nx)
@@ -118,19 +119,24 @@ class _GibbsBase:
         out = by_kind[0]
         for kind in (1, 2, 3):
             out = torch.where(cm.pkind == kind, by_kind[kind], out)
+        if cm.pinit is not None:
+            out = torch.where(torch.isnan(cm.pinit), out, cm.pinit)
         return out
 
     def _checkpoint_extra(self):
         """The manifest's ``layout`` section: the logical identity of
         the sampled process (facade, chains, pulsars, padded width,
-        thinning, the sweep options that change the stream, stream rule
-        and the device type its streams come from)."""
+        thinning, the sweep options that change the stream, a correlated
+        ORF's b-draw, stream rule and the device type its streams come
+        from)."""
         drv = self.driver
         return {"layout": {"facade": type(self).__name__,
                            "backend": "torch",
                            "nchains": drv.C,
                            "record_every": drv.record_every,
                            **drv.stream_options(),
+                           **({"hd_kernel": drv.hd_kernel}
+                              if drv.hd_kernel is not None else {}),
                            "pulsars": [str(p) for p in self.cm.pulsars],
                            "pad_pulsars": int(self.cm.P),
                            "rng": RNG_RULE,
@@ -301,10 +307,19 @@ class PulsarBlockGibbs(_GibbsBase):
 
 class PTABlockGibbs(_GibbsBase):
     """Multi-pulsar blocked Gibbs with a common free spectrum, under no
-    ORF or a fixed correlated one (Hellings-Downs: the joint b-draw over
-    all pulsars; driver option ``joint_mixed``).  As the JAX facade, it
-    passes ``common_rho=True``: a model without a shared free spectrum
-    raises ``ValueError``."""
+    ORF, a fixed correlated one (Hellings-Downs and the others of
+    ``models/orf.py``: the joint b-draw over all pulsars; driver option
+    ``joint_mixed``) or one with sampled correlation weights
+    (``bin_orf``, ``legendre_orf``: their MH block ``orf_mh`` after the
+    rho draw; ``initial_sample`` starts them at 0, G = I, and a start
+    whose weights give a non-positive-definite G raises ``ValueError``).
+    Past ``blocks.HD_DENSE_MAX`` coefficients the environment variable
+    ``PTGIBBS_HD_KERNEL`` (read when the sampler is built) chooses the
+    correlated-ORF b-draw: ``joint`` (the default), ``pulsar`` (the
+    pulsar-wise sweep) or ``freq`` (the frequency-block sweep); a
+    checkpoint records the choice, and a resume under another raises.
+    As the JAX facade, it passes ``common_rho=True``: a model without a
+    shared free spectrum raises ``ValueError``."""
 
     def __init__(self, cm, nchains=1, device="cuda", seed=0, **driver_opts):
         super().__init__(cm, nchains=nchains, device=device, seed=seed,

@@ -4,8 +4,8 @@ The port's counterpart of the JAX package's compiled chunk program
 (``jax_backend.py::_make_chunk``): after adaptation every shape of the
 steady sweep is fixed (the white and ECORR sub-chain lengths
 ``aclength_white`` and ``aclength_ecorr`` included), so each of its
-blocks (white, ecorr, red or tprocess, red_mh, rho, scale, b_mh,
-b_refresh; under a correlated ORF b_joint and b_joint_exact; under
+blocks (white, ecorr, red or tprocess, red_mh, rho, scale, orf_mh,
+b_mh, b_refresh; under a correlated ORF b_joint and b_joint_exact; under
 kernel ECORR the one b_exact: as the model has them) is captured once as
 a CUDA graph and a sweep is a few graph launches in place of thousands
 of kernel launches from the host.
@@ -70,7 +70,8 @@ class SteadyGraphs:
         torch.cuda.synchronize(cm.device)
         t0 = time.perf_counter()
         counters = (drv.b_mh_accepts, drv.b_refresh_accepts,
-                    drv.red_mh_accepts, drv.b_joint_breakdowns)
+                    drv.red_mh_accepts, drv.orf_mh_accepts,
+                    drv.b_joint_breakdowns)
         acc0 = [c.clone() for c in counters]
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):

@@ -179,21 +179,19 @@ def test_orf_ginv_stack_matches_jax(orf):
 
 
 @pytest.mark.parametrize("orf,extra", [
-    ("bin_orf", {}), ("legendre_orf", {}), ("zero_diag_hd", {}),
-    ("hd", dict(common_psd="powerlaw")), ("hd,crn", {})])
+    ("zero_diag_bin_orf", {}), ("zero_diag_legendre_orf", {}),
+    ("zero_diag_hd", {}), ("hd", dict(common_psd="powerlaw")),
+    ("hd,crn", {})])
 def test_refusals(orf, extra):
-    """The sampled-weight ORFs raise naming their ROADMAP item; what
-    ``compile_pta`` refuses (a zero-diagonal ORF, a powerlaw common
-    process under HD, mixed ORFs) the port refuses with its message."""
+    """What ``compile_pta`` refuses (the zero-diagonal ORFs, sampled
+    weights or fixed, a powerlaw common process under HD, mixed ORFs)
+    the port refuses with its message."""
     from pulsar_timing_gibbsspec_torch import model_general
     from pulsar_timing_gibbsspec_tpu.sampler.compiled import compile_pta
 
     kw = {**HD, "orf": orf, **extra}
     with pytest.raises(NotImplementedError) as port:
         model_general(small_psrs(), device="cpu", **kw)
-    if orf in ("bin_orf", "legendre_orf"):
-        assert "ROADMAP A.11" in str(port.value)
-        return
     with pytest.raises(NotImplementedError) as ref:
         compile_pta(jax_model("hd", **{k: v for k, v in kw.items()
                                        if k != "white_vary"}))

@@ -63,8 +63,10 @@ def test_from_arrays_carries_the_jax_model():
 
 def test_unsupported_models_are_refused():
     fields = jax_fields(jax_compiled(small_psrs()))
-    # a correlated ORF with sampled weights (fixed ORFs are in the port)
-    with pytest.raises(NotImplementedError):
+    # a correlated ORF whose common process shares its columns with the
+    # intrinsic red noise (compile_pta refuses it; correlated ORFs, fixed
+    # or with sampled weights, are in the port on columns of their own)
+    with pytest.raises(NotImplementedError, match="sharing the common"):
         from_arrays(dict(fields, orf_name="bin_orf",
                          orf_B=np.zeros((7, 3, 3))), device="cpu")
     # a PSD or component kind the JAX package does not compile (kernel
