@@ -31,9 +31,10 @@ Phases (any failure exits non-zero):
 3. small-input agreement: the steady b-draw on a 3-pulsar model, with
    the same state and noise on the card and on the CPU;
 3b. graphs against eager: on the 45-pulsar model at 64 chains, after a
-   short eager run has adapted the sampler, 17 steady sweeps (one of
-   them a refresh) from one state replayed from the CUDA graphs equal
-   the eager sweeps bitwise in x, b and the b_mh acceptance counts;
+   short eager run has adapted the sampler, 9 steady sweeps from
+   iteration 8 (16 a refresh) from one state replayed from the CUDA
+   graphs equal the eager sweeps bitwise in x, b and the b_mh
+   acceptance counts;
 4. main path: the synthetic 45-pulsar CRN free-spectrum array from
    ``--seed`` sampled by ``PTABlockGibbs(nchains=64)`` through 20
    warmup sweeps, adaptation and 240 steady sweeps replayed from the
@@ -53,9 +54,8 @@ Phases (any failure exits non-zero):
    and the graphs' replayed launches; and host launches (graph and
    kernel) per block, and the device's busy time inside each block, from
    a second window traced on the host as well;
-6. resume: the same model at 8 chains, 5 warmup and 64 steady sweeps,
-   run whole and split at a chunk boundary then resumed, both through
-   the graphs: ``chain.npy`` and ``bchain.npy`` bitwise equal;
+6. (merged into 17 since the supervised run resumes the main path
+   through the graphs at 64 chains, bitwise);
 7. the single-pulsar main path: README's Quick-start model of
    ``tests/data/enterprise_J1713+0747.npz`` (basis ECORR, the inverse-CDF
    rho draw) sampled by ``PulsarBlockGibbs(nchains=8)`` through 20
@@ -66,8 +66,12 @@ Phases (any failure exits non-zero):
    record finite, every log10_rho median inside (-10, -4), the final
    checkpoint verified, every wide kernel form run on the card and each
    graphed one replayed as often as captured times replays; then (7b)
-   17 graph-replayed steady sweeps bitwise equal to eager ones and (7c)
-   a split-and-resumed run bitwise equal to a whole one, as in 3b and 6;
+   9 graph-replayed steady sweeps bitwise equal to eager ones and (7c)
+   at 8 chains, 5 warmup and 64 steady sweeps, a run whole and checkpointed
+   at a chunk boundary, that checkpoint (the ``.bak`` generation,
+   restored by ``integrity.rollback``) resumed in a fresh sampler, both
+   through the graphs: ``chain.npy`` and ``bchain.npy`` bitwise equal
+   (every "c" check below is this one);
 8. the powerlaw hyper block, R1: the reference's complete single-pulsar
    sweep, ``model_general([J1713+0747], white_vary=True,
    common_psd="spectrum", red_psd="powerlaw")`` (30 bins each; white,
@@ -81,7 +85,7 @@ Phases (any failure exits non-zero):
    least one); every record finite, rho medians inside (-10, -4), every
    powerlaw hyper's median inside its prior, the final checkpoint
    verified, every wide form (``f64_wide`` too) run on the card and the
-   graphed ones replayed as captured; (8b) 17 steady sweeps from
+   graphed ones replayed as captured; (8b) 9 steady sweeps from
    iteration 504, across the DE period switch at 512, graphed equal to
    eager bitwise; (8c) a run split at row 390 (after 384, off the
    128-grid) and resumed equal to the whole run bitwise, both reading a
@@ -111,7 +115,7 @@ Phases (any failure exits non-zero):
    the draws that kept their b by stage, the Gram form's runs; every
    record finite, every common log10_rho median inside (-10, -4), the
    final checkpoint verified, the Gram form run on the card and replayed
-   as captured; (10b) 17 steady sweeps from iteration 296, across the
+   as captured; (10b) 9 steady sweeps from iteration 296, across the
    refresh at 304, graphed equal to eager bitwise; (10c) 8 chains, 3
    warmup and 32 steady sweeps, a run split at row 20 and resumed equal
    to the whole run bitwise;
@@ -169,7 +173,7 @@ Phases (any failure exits non-zero):
    once per steady sweep, replayed as captured.  13a, before it: the
    kernel-ECORR Gram (the widening kernel minus the Woodbury
    correction) on the card equal to the CPU's at one float32 N; (13b)
-   17 graphed steady sweeps equal to eager ones bitwise; (13c) 8 chains,
+   9 graphed steady sweeps equal to eager ones bitwise; (13c) 8 chains,
    a split-and-resumed run bitwise;
 14. the t-process array: ``model_general(psrs, tm_svd=True,
    white_vary=True, common_psd="spectrum", common_components=10,
@@ -178,7 +182,7 @@ Phases (any failure exits non-zero):
    powerlaw hypers) by ``PTABlockGibbs(nchains=64)`` through 20 warmup
    sweeps, the adaptation and 370 steady sweeps (so the DE history reads
    chain rows), the gates of 9 with the DE one, every alpha finite and
-   positive and moved; (14b) 17 steady sweeps from iteration 392,
+   positive and moved; (14b) 9 steady sweeps from iteration 392,
    across the refresh at 400, graphed equal to eager bitwise; (14c) 8
    chains, split and resumed bitwise; (14d) ``red_psd="infinitepower"``
    on the array, 8 chains, 3 warmup and 16 steady sweeps: every record
@@ -194,7 +198,7 @@ Phases (any failure exits non-zero):
    checkpointed every 100, launch counts from 0: phase 10's gates and
    prints, with ``orf_mh``'s ms and acceptance; G(theta) positive
    definite in every recorded row (host ``eigvalsh``), every weight
-   moved in every chain and inside (-1, 1); (16b) 17 steady sweeps
+   moved in every chain and inside (-1, 1); (16b) 9 steady sweeps
    across the refresh at 304 graphed equal to eager bitwise; (16c) 8
    chains, split and resumed bitwise; (16d) phase 10's model at 32
    chains under ``PTGIBBS_HD_KERNEL=pulsar`` and ``=freq`` (the
@@ -202,14 +206,38 @@ Phases (any failure exits non-zero):
    sweeps each: every record finite, rho medians inside (-10, -4), one
    steady sweep graphed equal to eager bitwise, the Gram form run on
    the card.  Phase 2 holds the Gram form at phase 16's state.
+17. the resilient runtime on the main path: phase 4's model, seed, 64
+   chains and sweeps under ``runtime.run_supervised`` (backoff sleeps
+   injected, a ``DispatchWatchdog`` with a 3 s floor, checkpoints at
+   every chunk), launch counts from 0, one fault of each class at rows
+   of the steady part: the device error at the ``dispatch.chunk`` seam
+   of row 121 (the ``device`` class), a stall at that seam of row 221
+   past the watchdog's deadline (``stall``; the abandoned worker wakes
+   while a later attempt samples), ``chain.npy`` truncated after the
+   save at 121 (rolled back to ``.bak`` when the next attempt resumes),
+   a NaN'd row 150 (a ``divergence``, then a rewind) and a drain request
+   at row 221 (``preempted``), then a second incarnation after
+   ``preemption.reset()`` on the same sampler.  Gates: the final chain
+   and bchain bitwise phase 4's, the reports' classes, retries and
+   statuses and the telemetry counters exactly the expected ones, the
+   final checkpoint and its ``.bak`` verified, the narrow factor's and
+   Gram's device counters risen.  Prints each incarnation's wall, the
+   recovery cost over phase 4's wall, ``chunk_health``'s last values and
+   phase 4's sweeps/s with the sentinels on; (17b) phase 4's model at 64
+   chains, 3 + 24 sweeps, with ``record_precision="f32"`` and ``"bf16"``:
+   final carries bitwise equal, the bf16 rows the bfloat16 rounding of
+   the f32 rows to 1 ulp (in more than 0.9999 of entries), every f32 b
+   row a float32 value.
 
 To keep the whole run inside its time limit, every main path runs 20
 warmup sweeps, phases 9 and 9b 3 warmup and 24 steady sweeps, 10 5 and
 96 (phase 16 drives the same joint draw at 20 and 240), 14d 3 and 16,
-the resume checks 11c-14c 3 and 32,
-and every resume and graphs-against-eager check adapts its white and
-ECORR blocks on a record of 250 steps; phase 2 times each kernel form
-once, at its path's shape, beside its plain version and library call.
+the resume checks 11c-14c 3 and 32 (each resumes the whole run's own
+checkpoint: no second run to the split), the graphs-against-eager
+checks 9 sweeps, and every resume and graphs-against-eager check adapts
+its white and ECORR blocks on a record of 250 steps; phase 2 times each
+kernel form once, at its path's shape, beside its plain version and
+library call.  Every phase prints the run's seconds when it is done.
 
 The kernels' JSON record and the card as ``nvidia-smi`` reports it are
 the two lines before the last; the last line is the JSON result.
@@ -222,6 +250,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -265,9 +294,9 @@ GRAPHED = (("chol_solve_sample", "f32"), ("gram_accumulate", "f32"),
 WIDE_GRAPHED = (("chol_solve_sample", "f32_wide"),
                 ("gram_accumulate", "f32_wide"),
                 ("gram_accumulate", "f32_dot_f64_reduce_wide"))
-#: steady sweeps of the graphs-against-eager phase, from iteration 5
-#: (so iteration 16 is its one refresh)
-GRAPH_CHECK_SWEEPS = 17
+#: steady sweeps of the graphs-against-eager checks, and where phases 3b
+#: and 7b start them (so iteration 16 is their one refresh)
+GRAPH_CHECK_SWEEPS, GRAPH_CHECK_FROM = 9, 8
 #: the single-pulsar path: the snapshot, its frequency bins, its chains;
 #: the systems the wide forms are also timed at
 SNAPSHOT = "tests/data/enterprise_J1713+0747.npz"
@@ -336,6 +365,15 @@ P15B_WARMUP, P15B_STEADY = 3, 32
 #: ``PTGIBBS_HD_KERNEL``, warmup and steady sweeps
 ORF_SAMPLED, ORF_GRAPH_CHECK_AT = "bin_orf", 296
 HD_ALT_KERNELS, HD_ALT_WARMUP, HD_ALT_STEADY = ("pulsar", "freq"), 3, 24
+#: the supervised run (phase 17): the watchdog's k, floor and soft
+#: fraction (its deadline is k guarded waits, at least the floor), the
+#: seconds the stall outlasts k chunk walls (the most its deadline can
+#: be, so the abandoned worker wakes while a later attempt samples), the
+#: NaN'd row's offset into the second steady chunk
+SUP_WD_K, SUP_WD_FLOOR_S, SUP_WD_SOFT, SUP_STALL_EXTRA_S = 2.0, 3.0, 0.8, 5.0
+SUP_NAN_OFFSET = 29
+#: the record-precision pair (17b): warmup and steady sweeps
+REC_WARMUP, REC_STEADY = 3, 24
 
 
 #: the run's start on the host clock (set by :func:`main`)
@@ -1010,7 +1048,7 @@ def graph_against_eager(cm, seed, outdir, facade="PTABlockGibbs",
                         nchains=NCHAINS, phase="3b"):
     """Phase 3b (7b): adapt an ``nchains`` sampler (the ``facade``) with
     a short eager run, then :func:`graphs_vs_eager` from its final state
-    at iteration 5."""
+    at iteration ``GRAPH_CHECK_FROM``."""
     import torch
 
     import pulsar_timing_gibbsspec_torch as ptt
@@ -1023,22 +1061,28 @@ def graph_against_eager(cm, seed, outdir, facade="PTABlockGibbs",
         seed + 1)), outdir=outdir, niter=4)
     drv = g.driver
     return graphs_vs_eager(drv, torch.as_tensor(drv.x_cur, device=cm.device),
-                           drv.b.to(cm.device), 5, phase, facade)
+                           drv.b.to(cm.device), GRAPH_CHECK_FROM, phase,
+                           facade)
 
 
-def resume_check(cm, seed, outdir, facade="PTABlockGibbs", phase="6",
+def resume_check(cm, seed, outdir, facade="PTABlockGibbs", phase="7c",
                  warmup=RESUME_WARMUP, steady=RESUME_STEADY, split=None,
                  de_gate=False, **opts):
-    """Phase 6 (7c, 8c, 10c-14c): at ``RESUME_CHAINS`` chains of
-    the ``facade`` (driver options ``opts``), a run whole and a run split
-    at a chunk boundary (row ``split``, by default halfway) then resumed
-    in a fresh sampler, both through the graphs, write bitwise equal
+    """Phases 7c, 8c, 10c-16c: at ``RESUME_CHAINS`` chains of the
+    ``facade`` (driver options ``opts``), a run whole, checkpointed at row
+    ``split`` (a chunk boundary, by default halfway) and at its end; the
+    checkpoint at ``split`` (its ``.bak`` generation, restored in a copy
+    of the directory by ``integrity.rollback``) resumed in a fresh
+    sampler; both through the graphs, they write bitwise equal
     ``chain.npy`` and ``bchain.npy``; with ``de_gate``, both runs must
     read a DE period from chain rows."""
+    import shutil
+
     import numpy as np
     import torch
 
     import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.runtime import integrity
 
     niter = warmup + 1 + steady
     split = split or warmup + 1 + steady // 2
@@ -1059,16 +1103,21 @@ def resume_check(cm, seed, outdir, facade="PTABlockGibbs", phase="6",
     out = Path(outdir)
     t0 = time.perf_counter()
     whole = gibbs()
-    whole.sample(x0(whole), outdir=out / "whole", niter=niter)
-    g = gibbs()
-    g.sample(x0(g), outdir=out / "split", niter=split)
+    # saves at ``split`` and at the end alone: the .bak is the split set
+    whole.sample(x0(whole), outdir=out / "whole", niter=niter,
+                 save_every=split)
+    shutil.rmtree(out / "split", ignore_errors=True)
+    shutil.copytree(out / "whole", out / "split")
+    restored = (integrity.rollback(out / "split")
+                and integrity.verify(out / "split")["rows"] == split)
     g = gibbs()
     g.sample(x0(g), outdir=out / "split", niter=niter, resume=True)
     same = {nm: bool(np.array_equal(np.load(out / "whole" / nm),
                                     np.load(out / "split" / nm)))
             for nm in ("chain.npy", "bchain.npy")}
     finite = bool(np.isfinite(np.load(out / "whole" / "bchain.npy")).all())
-    ok = all(same.values()) and finite and g.driver.carry.graphed
+    ok = (all(same.values()) and finite and restored
+          and g.driver.carry.graphed)
     de = ""
     if g.driver.do_red_mh:
         periods = (whole.driver.de_chain_periods, g.driver.de_chain_periods)
@@ -1076,8 +1125,9 @@ def resume_check(cm, seed, outdir, facade="PTABlockGibbs", phase="6",
         de = (f"; DE periods read from chain rows: whole {periods[0]}, "
               f"resumed {periods[1]}")
     print(f"phase {phase} resume, {facade}, at {RESUME_CHAINS} chains, "
-          f"{warmup} warmup + {steady} steady sweeps split at row {split} "
-          f"(chunks of {RESUME_CHUNK}), through the graphs: bitwise equal "
+          f"{warmup} warmup + {steady} steady sweeps, the checkpoint at row "
+          f"{split} (chunks of {RESUME_CHUNK}) restored {restored} and "
+          "resumed, through the graphs: bitwise equal "
           + json.dumps(same) + f"{de}; {time.perf_counter() - t0:.1f} s "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     return ok
@@ -2085,6 +2135,183 @@ def grid_paths(args, psrs, gen, outdir):
             for nm, rs in recs.items() for (k, f), r in rs.items()]
 
 
+def supervised_path(cm, seed, outdir, niter, ref, ref_wall, sps):
+    """Phase 17: phase 4's run (``ref``: its chain and bchain, ``ref_wall``
+    its seconds, ``sps`` its steady sweeps per second) under
+    ``run_supervised`` with one fault of each class (module docstring).
+    Returns ``(ok, runs)``: the gates, and the kernel runs counted on the
+    card from 0."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+    from pulsar_timing_gibbsspec_torch.runtime import (
+        DispatchWatchdog, faults, integrity, preemption, run_supervised,
+        telemetry)
+
+    out = Path(outdir)
+    shutil.rmtree(out, ignore_errors=True)
+    r1 = WARMUP + 1 + SAVE_EVERY          # the second steady chunk's start
+    r2 = r1 + SAVE_EVERY                  # the third's
+    chunk_s = SAVE_EVERY / sps
+    woke = []
+
+    def on_event(stage, info):
+        if stage == "dump":       # before the stalled worker is detached
+            box = wd._inbox
+
+            def watch():          # when the abandoned worker ends its seam
+                if box["done"].wait(300.0):
+                    woke.append(time.time())
+
+            threading.Thread(target=watch, daemon=True).start()
+
+    wd = DispatchWatchdog(k=SUP_WD_K, floor_s=SUP_WD_FLOOR_S,
+                          first_floor_s=120.0, soft_frac=SUP_WD_SOFT,
+                          on_event=on_event)
+    stall_s = SUP_WD_K * chunk_s + SUP_STALL_EXTRA_S
+    faults.clear()
+    telemetry.reset()
+    preemption.reset()
+    faults.inject("xla_error", point="dispatch.chunk", at_row=r1)
+    faults.inject("stall", point="dispatch.chunk", at_row=r2,
+                  seconds=stall_s)
+    faults.inject("truncate_file", point="chainstore.post_save",
+                  at_row=r1, path="chain.npy")
+    faults.inject("nan_rows", at_row=r1 + SUP_NAN_OFFSET)
+    faults.inject("sigterm_at_seam", point="sample.loop", at_row=r2,
+                  seconds=120.0)
+    kernels.reset_launches()
+    delays = []
+    g = ptt.PTABlockGibbs(cm, nchains=NCHAINS, device=cm.device, seed=seed,
+                          warmup_sweeps=WARMUP, progress=False, watchdog=wd)
+    x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
+        seed))
+    walls = []
+    reps = []
+    started = time.time()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        chain, rep = run_supervised(g, x0, out, niter, save_every=1,
+                                    sleep=delays.append)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        reps.append(rep)
+        preemption.reset()       # the next incarnation
+    faults.clear()
+    runs = kernels.device_launches()
+    counters = telemetry.snapshot()
+    with open(out / "metrics.jsonl") as fh:
+        events = [json.loads(ln) for ln in fh]
+    kinds = [(e["event"], e.get("row", e.get("rows")))
+             for e in events if "event" in e]
+    # attempt boundaries on the wall clock: each failure ends an attempt
+    ends = [e["ts"] for e in events if e.get("event") in (
+        "supervised_failure", "supervised_preempted")]
+    want_counters = {"corrupt_checkpoints": 1, "preempt_drains": 1,
+                     "preempt_requests": 1, "retries": 2, "rollbacks": 1,
+                     "sentinel_trips": 1, "stall_retries": 1,
+                     "watchdog_dumps": 1, "watchdog_soft": 1,
+                     "watchdog_stalls": 1}
+    got = [(r.status, r.attempts, r.retries, r.stall_retries, r.refolds,
+            r.degradations, [f["kind"] for f in r.failures]) for r in reps]
+    want = [("preempted", 4, 2, 1, 0, 0, ["device", "stall", "divergence"]),
+            ("completed", 1, 0, 0, 0, 0, [])]
+    bak = integrity.read_manifest(out, integrity.MANIFEST_BAK)
+    verified = (integrity.verify(out)["ok"]
+                and integrity.verify(out)["rows"] == niter
+                and integrity.verify(out, bak, suffix=".bak")["ok"])
+    same = {"chain": bool(np.array_equal(chain, ref[0])),
+            "bchain": bool(np.array_equal(g.bchain, ref[1]))}
+    forms = [("chol_solve_sample", "f32"), ("gram_accumulate", "f32"),
+             ("gram_accumulate", "f32_dot_f64_reduce")]
+    rose = {f"{k}[{f}]": runs[(k, f)] for k, f in forms}
+    # the attempt the abandoned worker woke in (1-based; the stall ends 2)
+    woke_in = (1 + sum(t < woke[0] for t in ends)) if woke else None
+    print(f"phase 17 supervised run, {NCHAINS} chains x {niter} rows, "
+          f"checkpoints every chunk, watchdog k {SUP_WD_K} floor "
+          f"{SUP_WD_FLOOR_S} s (deadline {wd.deadline(SAVE_EVERY):.2f} s at "
+          f"the end), stall {stall_s:.2f} s: incarnations "
+          + json.dumps([round(w, 3) for w in walls]) + " s, recovery cost "
+          f"{sum(walls) - ref_wall:.3f} s over phase 4's {ref_wall:.3f} s; "
+          "reports " + json.dumps(got) + "; backoff delays "
+          + json.dumps([round(d, 4) for d in delays]), flush=True)
+    print("phase 17 telemetry " + json.dumps(counters) + "; events "
+          + json.dumps(kinds), flush=True)
+    print(f"phase 17 watchdog EMA {wd.ema:.5f} s per sweep of the host's "
+          "guarded wait (the chunk's queueing takes the rest of its wall), "
+          "chunk wait EMA "
+          f"{telemetry.get_gauge('chunk_wait_ema_ms', float('nan')):.1f} ms "
+          f"against {chunk_s * 1e3:.1f} ms of sampling per chunk",
+          flush=True)
+    print(f"phase 17 the abandoned worker ended its seam in attempt "
+          f"{woke_in} (the stall ended attempt 2), "
+          f"{woke[0] - ends[1] if woke else float('nan'):.1f} s after the "
+          "stall; the first incarnation's attempts took " + json.dumps(
+              [round(b - a, 3) for a, b in zip([started] + ends, ends)])
+          + " s (ended by the device error, the stall, the divergence, the "
+          "drain); chunk_health last "
+          + json.dumps(g.driver.health_last) + f"; phase 4's sweeps/s with "
+          f"the sentinels on {sps:.3f}", flush=True)
+    print(f"phase 17 bitwise equal to phase 4 {json.dumps(same)}; final "
+          f"checkpoint and .bak verified {verified}; kernel runs counted on "
+          "the card " + json.dumps(rose), flush=True)
+    ok = (all(same.values()) and verified and got == want
+          and counters == want_counters and woke_in in (3, 4)
+          and all(n > 0 for n in rose.values()))
+    if not ok:
+        print(f"chip_smoke: phase 17 failed (bitwise={same}, verified="
+              f"{verified}, reports={got}, counters={counters}, worker "
+              f"woke in attempt {woke_in}, runs={rose})", file=sys.stderr)
+    del g
+    torch.cuda.empty_cache()
+    return ok, runs
+
+
+def record_precision_pair(cm, seed, outdir):
+    """Phase 17b: phase 4's model at 64 chains, ``REC_WARMUP`` +
+    ``REC_STEADY`` sweeps, with float32 and bfloat16 records; returns the
+    gates."""
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+
+    niter = REC_WARMUP + 1 + REC_STEADY
+    res = {}
+    for rp in ("f32", "bf16"):
+        g = ptt.PTABlockGibbs(cm, nchains=NCHAINS, device=cm.device,
+                              seed=seed, warmup_sweeps=REC_WARMUP,
+                              white_adapt_iters=CHECK_ADAPT,
+                              record_precision=rp, progress=False)
+        x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
+            seed))
+        g.sample(x0, outdir=Path(outdir) / rp, niter=niter)
+        res[rp] = (g.chain, g.bchain, g.driver.x_cur.copy(),
+                   g.driver.b.clone())
+        del g
+    (c32, b32, x32, bb32), (c16, b16, x16, bb16) = res["f32"], res["bf16"]
+    carries = bool(np.array_equal(x32, x16) and torch.equal(bb32, bb16))
+    close = {}
+    for nm, a32, a16 in (("chain", c32, c16), ("bchain", b32, b16)):
+        ref = torch.as_tensor(a32, dtype=torch.float32).to(
+            torch.bfloat16).double().numpy()
+        close[nm] = float(np.isclose(a16, ref, rtol=2.0 ** -7,
+                                     atol=1e-30).mean())
+    rows = [r for r in range(niter) if r != REC_WARMUP]
+    f32_rows = bool(np.array_equal(b32[rows], b32[rows].astype(np.float32)))
+    ok = carries and min(close.values()) > 0.9999 and f32_rows
+    print(f"phase 17b record precision, {NCHAINS} chains, {REC_WARMUP} + "
+          f"{REC_STEADY} sweeps: final carries bitwise equal {carries}; "
+          "bf16 rows within 1 ulp of the bf16 rounding of the f32 rows "
+          + json.dumps(close) + f"; every f32 b row a float32 value "
+          f"{f32_rows} {'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
 def earlier_paths(args, psrs, gen, outdir):
     """Phases 2-12: the kernel parity at the shapes of the paths of
     earlier slices, then phases 3-12c.  Returns ``(rows, timed, hd)``:
@@ -2296,13 +2523,23 @@ def earlier_paths(args, psrs, gen, outdir):
         print("chip_smoke: the device trace disagrees with the kernels' "
               "device counters", file=sys.stderr)
         return None
-    if not resume_check(cm, args.seed, outdir / "resume"):
-        print("chip_smoke: the resumed run differs from the whole one",
+    ref = (chain, g.bchain)
+    del g, drv, graphs
+    torch.cuda.empty_cache()
+    elapsed("phases 4-5")
+
+    # ---- phases 17-17b: the resilient runtime on the main path ------------
+    ok17, runs17 = supervised_path(cm, args.seed, outdir / "supervised",
+                                   niter, ref, wall, sps)
+    if not ok17:
+        return None
+    del ref, chain
+    if not record_precision_pair(cm, args.seed, outdir / "records"):
+        print("chip_smoke: the record-precision pair failed",
               file=sys.stderr)
         return None
-    del g, drv, graphs, chain
     torch.cuda.empty_cache()
-    elapsed("phases 4-6")
+    elapsed("phases 17-17b")
 
     # ---- phase 7: the single-pulsar path, launch counts from 0 -------------
     wide = [k for k in records if k[1].endswith("_wide")
@@ -2441,6 +2678,11 @@ def earlier_paths(args, psrs, gen, outdir):
             f.endswith("_wide")], replaces=REPLACES[k],
              launches=runs[(k, f)], **r)
         for (k, f), r in records.items()] + [
+        dict(name=f"{k}[{f}] (phase 17 path: supervised run with faults, "
+             f"order {cm.Bmax})", route="cuda", source=SOURCES[k][0],
+             replaces=REPLACES[k], launches=runs17[(k, f)], **r)
+        for (k, f), r in records.items()
+        if (k, f) in narrow and runs17[(k, f)]] + [
         dict(name=f"{k}[{f}] (Hellings-Downs path, B1 {cm_hd.Bmax + 1})",
              route="cuda", source=SOURCES[k][0], replaces=REPLACES[k],
              launches=runs10[(k, f)], **r)

@@ -4,7 +4,8 @@ The subset of ``pulsar_timing_gibbsspec_tpu/config.py`` the port's
 sweeps read: float32 storage of the large arrays (basis, residuals,
 per-TOA noise), float64 compute of the sampler state, reductions and
 exact factorizations, the TOA-segment lengths of the segmented Gram, the
-rho grid size and the correlated-ORF joint draw's mixed precision.
+rho grid size, the correlated-ORF joint draw's mixed precision and the
+record precision (``PTGIBBS_RECORD``).
 
 Float32 products are full IEEE float32 everywhere in the port (the JAX
 package's ``precision="highest"``): :func:`resolve_device` turns TF32 off
@@ -60,6 +61,25 @@ def hd_kernel_choice() -> str:
             f"PTGIBBS_HD_KERNEL={choice!r}: the correlated-ORF "
             "kernel must be 'joint' (production), 'pulsar' or 'freq'")
     return choice
+
+
+#: the record precisions: the dtype the recorded rows (x and b) are
+#: rounded to before they leave the card
+RECORD_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def record_dtype(choice=None) -> torch.dtype:
+    """The dtype of the recorded rows: ``choice`` (``"f32"`` or
+    ``"bf16"``), or when None the environment variable
+    ``PTGIBBS_RECORD`` (``"f32"`` when unset), as the JAX package's
+    ``settings.record_precision`` reads it; read when a driver is built.
+    Rounds the record only: the carry, ``adapt.npz`` and resume stay
+    exact."""
+    rp = choice or os.environ.get("PTGIBBS_RECORD", "f32")
+    if rp not in RECORD_DTYPES:
+        raise ValueError(f"record_precision must be 'f32' or 'bf16', "
+                         f"got {rp!r}")
+    return RECORD_DTYPES[rp]
 
 
 def resolve_device(device=None) -> torch.device:

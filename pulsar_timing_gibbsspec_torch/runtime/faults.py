@@ -1,0 +1,163 @@
+"""Deterministic fault injection for the port's chaos tests.
+
+The port's copy of the part of ``pulsar_timing_gibbsspec_tpu/runtime/
+faults.py`` that a single supervised run reaches.  Production code calls
+the seam hooks (:func:`fire`, :func:`mutate_rows`); with nothing armed
+they are one list check.  Tests arm faults with :func:`inject` and the
+hooks then raise or corrupt deterministically at the requested row.
+
+Seams (``fire``):
+
+- ``"chainstore.between_replaces"``: in ``ChainStore.save``, after
+  ``chain.npy`` was replaced and before ``bchain.npy`` (the torn
+  checkpoint window); ``row`` is the checkpoint's row count.
+- ``"chainstore.post_save"``: after the whole set, ``manifest.json``
+  included, is on disk (the file-damage kinds act here).
+- ``"sample.loop"``: in the facade's loop, after the new rows passed the
+  sentinels; ``row`` is the rows done so far.
+- ``"dispatch.chunk"``: in the driver's chunk loop, under the dispatch
+  watchdog, once the chunk starting at iteration ``row`` is queued and
+  before the host waits for the chunk before it.
+
+Kinds:
+
+- ``"crash"``: raise :class:`InjectedCrash` (a kill at that statement).
+- ``"xla_error"``: raise :class:`InjectedDeviceError`, the stand-in for
+  a CUDA runtime error; the supervisor puts it in the ``device`` class,
+  as it does a real one.  The JAX package's name is kept so that both
+  chaos suites read alike.
+- ``"nan_rows"``: overwrite the recorded chain/bchain row ``at_row``
+  with NaN through :func:`mutate_rows` (a diverged chunk's output).
+- ``"truncate_file"``: cut the target file (``path``, default
+  ``chain.npy``) to half its size at a seam with ``outdir``.
+- ``"corrupt_file"``: overwrite a few bytes in the middle of it.
+- ``"sigterm_at_seam"``: request a preemption drain at the seam (the
+  signal handler calls the same ``preemption.request_drain``);
+  ``seconds`` is the drain deadline (the default when 0).
+- ``"stall"``: sleep ``seconds`` at the seam (a hung device, as the host
+  sees it); at ``"dispatch.chunk"`` the watchdog's deadline runs.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from dataclasses import dataclass
+
+import numpy as np
+
+
+class InjectedCrash(RuntimeError):
+    """A simulated hard kill (e.g. between checkpoint replaces)."""
+
+
+class InjectedDeviceError(RuntimeError):
+    """The stand-in for a CUDA runtime error (``torch.AcceleratorError``,
+    a cuBLAS or cuSOLVER failure): ``classify_failure`` puts it in the
+    ``device`` class."""
+
+
+@dataclass
+class _Fault:
+    kind: str
+    point: str | None = None    # required seam, None = any seam
+    at_row: int | None = None   # fire once row >= at_row
+    times: int = 1              # firings before the fault disarms
+    backend: str | None = None  # fire for this backend name only
+    path: str | None = None     # target file of the file-damage kinds
+    seconds: float = 0.0        # stall sleep / drain deadline
+    fired: int = 0
+
+
+_armed: list[_Fault] = []
+_lock = threading.Lock()
+
+
+def inject(kind, point=None, at_row=None, times=1, backend=None, path=None,
+           seconds=0.0):
+    """Arm a fault; returns its handle (removed by :func:`clear`)."""
+    f = _Fault(kind=kind, point=point, at_row=at_row, times=times,
+               backend=backend, path=path, seconds=seconds)
+    with _lock:
+        _armed.append(f)
+    return f
+
+
+def clear() -> None:
+    """Disarm every fault."""
+    with _lock:
+        _armed.clear()
+
+
+def _take(point, row, backend, kinds):
+    """The armed faults of ``kinds`` matching (point, row, backend), each
+    consuming one firing; a row-triggered fault fires at the first seam
+    whose row reaches ``at_row``."""
+    hits = []
+    with _lock:
+        for f in _armed:
+            if f.kind not in kinds or f.fired >= f.times:
+                continue
+            if f.point is not None and f.point != point:
+                continue
+            if f.at_row is not None and (row is None or row < f.at_row):
+                continue
+            if (f.backend is not None and backend is not None
+                    and f.backend != backend):
+                continue
+            f.fired += 1
+            hits.append(f)
+    return hits
+
+
+def fire(point, row=None, backend=None, outdir=None):
+    """Seam hook: damage files, stall, request a drain or raise, as the
+    armed faults say.  One truthiness check when nothing is armed."""
+    if not _armed:
+        return
+    for f in _take(point, row, backend, ("truncate_file", "corrupt_file")):
+        if outdir is not None:
+            _damage(os.path.join(str(outdir), f.path or "chain.npy"), f.kind)
+    for f in _take(point, row, backend, ("stall",)):
+        time.sleep(f.seconds)
+    for f in _take(point, row, backend, ("sigterm_at_seam",)):
+        from . import preemption
+
+        preemption.request_drain(reason=f"sigterm_at_seam:{point}",
+                                 deadline_s=f.seconds or None)
+    for f in _take(point, row, backend, ("crash", "xla_error")):
+        if f.kind == "crash":
+            raise InjectedCrash(f"injected crash at {point} (row {row})")
+        raise InjectedDeviceError(
+            f"CUDA error: injected device failure at {point} (row {row})")
+
+
+def _damage(path, kind):
+    if not os.path.exists(path):
+        return
+    size = os.path.getsize(path)
+    with open(path, "r+b") as fh:
+        if kind == "truncate_file":
+            fh.truncate(max(size // 2, 1))
+        else:                   # corrupt_file: bytes past the header
+            fh.seek(max(size // 2, 0))
+            fh.write(b"\xde\xad\xbe\xef")
+
+
+def mutate_rows(chain, bchain, lo, hi, backend=None):
+    """NaN-poison recorded row ``at_row`` in ``[lo, hi)`` for the armed
+    ``nan_rows`` faults (a diverged chunk landing in the host record)."""
+    if not _armed:
+        return
+    with _lock:
+        hits = [f for f in _armed
+                if f.kind == "nan_rows" and f.fired < f.times
+                and f.at_row is not None and lo <= f.at_row < hi
+                and (f.backend is None or backend is None
+                     or f.backend == backend)]
+        for f in hits:
+            f.fired += 1
+    for f in hits:
+        chain[f.at_row] = np.nan
+        bchain[f.at_row] = np.nan

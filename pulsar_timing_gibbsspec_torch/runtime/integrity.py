@@ -30,6 +30,8 @@ from pathlib import Path
 
 import numpy as np
 
+from . import telemetry
+
 SCHEMA_VERSION = 1
 MANIFEST = "manifest.json"
 MANIFEST_BAK = "manifest.bak.json"
@@ -157,6 +159,7 @@ def rollback(outdir) -> bool:
 
     The backup set is verified against ``manifest.bak.json`` first;
     returns False (primary untouched) when there is no verified backup.
+    A restore counts ``rollbacks`` (:mod:`.telemetry`).
     """
     outdir = Path(outdir)
     bman = read_manifest(outdir, MANIFEST_BAK)
@@ -169,4 +172,5 @@ def rollback(outdir) -> bool:
     tmp = outdir / (MANIFEST + ".restore.tmp")
     shutil.copy2(outdir / MANIFEST_BAK, tmp)
     os.replace(tmp, outdir / MANIFEST)
+    telemetry.incr("rollbacks")
     return True

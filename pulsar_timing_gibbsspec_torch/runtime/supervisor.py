@@ -1,0 +1,262 @@
+"""Supervised sampling: the retry loop and the failure classes.
+
+The port's copy of ``pulsar_timing_gibbsspec_tpu/runtime/supervisor.py``
+(``run_supervised``, ``classify_failure``, ``backoff_delay``,
+``SupervisorReport``; its circuit breaker and admission control belong
+to the serving tier, which the port does not have).  ``run_supervised``
+drives ``gibbs.sample(resume=True)`` to the end through transient
+failures: each attempt resumes from the last verified checkpoint (the
+facade's flush bounds the loss to under ``save_every`` sweeps), retries
+are spaced by capped exponential backoff with deterministic jitter, and
+each failure class gets its own response:
+
+- ``device``      CUDA runtime errors, out of memory, the injected device
+                  error: retry.  The JAX package degrades a one-chain run
+                  to its NumPy oracle after ``degrade_after`` in a row;
+                  the port has no oracle, so it keeps retrying on the
+                  card, never moving the run to the CPU, until the budget
+                  ends (a sticky CUDA error, which poisons the context,
+                  ends there too).
+- ``corruption``  a checkpoint that failed verification past repair:
+                  roll back to ``.bak``, then retry.
+- ``divergence``  a NaN or stuck chain caught by the sentinels: rewind
+                  (the bad rows never reached the checkpoint) and replay;
+                  the same divergence again on the replay refolds the
+                  checkpoint's seed.
+- ``crash``       injected kills, OS errors: plain retry.
+- ``stall``       a wait the watchdog abandoned: its own retry budget
+                  (``stall_max_retries``) and backoff.
+- ``preempted``   a drain after SIGTERM: not a failure; the report says
+                  ``status="preempted"`` and the call returns.
+- ``user``        bugs and contract violations (shape errors, "no CUDA
+                  device is available"): raised at once.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from dataclasses import asdict, dataclass, field
+from pathlib import Path
+
+import numpy as np
+
+from . import faults, integrity, preemption, sentinels, telemetry
+from .watchdog import DispatchStall
+
+#: RuntimeError text of a fault in the caller's setup, not in the card:
+#: a retry cannot fix it
+_USER_MARKERS = ("no cuda device", "cuda is not available",
+                 "torch not compiled with cuda", "found no nvidia driver",
+                 "expected all tensors to be on the same device")
+#: RuntimeError text of a device or runtime failure (the JAX package's
+#: markers, then the CUDA stack's)
+_DEVICE_MARKERS = ("xla", "device", "tpu", "out of memory",
+                   "resource exhausted", "internal error", "cuda",
+                   "cublas", "cusolver", "cudnn", "nccl",
+                   "illegal memory access", "launch failure")
+#: exception types that are device failures by name (torch's own, and
+#: the JAX runtime's, which a mixed process may raise)
+_DEVICE_TYPES = ("OutOfMemoryError", "AcceleratorError", "InternalError")
+
+
+def classify_failure(exc) -> str:
+    """Map an exception from ``sample()`` to a failure class: ``device |
+    corruption | divergence | crash | stall | preempted | user |
+    unknown``."""
+    if isinstance(exc, preemption.Preempted):
+        return "preempted"
+    if isinstance(exc, DispatchStall):
+        return "stall"
+    if isinstance(exc, faults.InjectedCrash):
+        return "crash"
+    if isinstance(exc, integrity.CheckpointError):
+        return "corruption"
+    if isinstance(exc, FloatingPointError):    # ChainDivergence too
+        return "divergence"
+    if isinstance(exc, faults.InjectedDeviceError):
+        return "device"
+    name = type(exc).__name__
+    low = str(exc).lower()
+    if "xlaruntimeerror" in name.lower() or name in _DEVICE_TYPES:
+        return "device"
+    if "transfer" in low and ("guard" in low or "disallow" in low):
+        return "user"
+    if isinstance(exc, (ValueError, TypeError, KeyError, IndexError,
+                        AttributeError, NotImplementedError,
+                        AssertionError)):
+        return "user"
+    if isinstance(exc, OSError):
+        return "crash"
+    if isinstance(exc, RuntimeError):
+        if any(t in low for t in _USER_MARKERS):
+            return "user"
+        if any(t in low for t in _DEVICE_MARKERS):
+            return "device"
+        return "user"        # resume-contract violations et al.
+    return "unknown"
+
+
+def backoff_delay(retry, base=0.5, cap=30.0, jitter=0.25, seed=0) -> float:
+    """Capped exponential backoff with deterministic jitter: ``retry`` is
+    1-based, and the jitter is a pure function of ``(seed, retry)``."""
+    d = min(float(cap), float(base) * (2.0 ** (retry - 1)))
+    u = np.random.default_rng([int(seed), int(retry)]).uniform(-jitter,
+                                                               jitter)
+    return max(0.0, d * (1.0 + float(u)))
+
+
+@dataclass
+class SupervisorReport:
+    """Outcome counters of one supervised run (also in ``metrics.jsonl``
+    and the telemetry counters)."""
+
+    attempts: int = 0
+    retries: int = 0
+    rollbacks: int = 0
+    refolds: int = 0
+    degradations: int = 0
+    #: stall-class retries, budgeted apart from ``retries``
+    stall_retries: int = 0
+    #: "completed" | "preempted" (a resumable outcome, not a failure)
+    status: str = "completed"
+    backend: str = ""
+    failures: list = field(default_factory=list)
+
+    def as_dict(self):
+        return asdict(self)
+
+
+def _log_event(outdir, record):
+    """Append to the run's ``metrics.jsonl`` (the chain store's file)."""
+    p = Path(outdir)
+    p.mkdir(parents=True, exist_ok=True)
+    rec = {"ts": round(time.time(), 3), **record}
+    with open(p / "metrics.jsonl", "a") as fh:
+        fh.write(json.dumps(rec) + "\n")
+
+
+def _degraded(gibbs):
+    """The sampler to continue on after repeated device failures, or None
+    to keep retrying this one.  The JAX package returns its NumPy oracle
+    for a one-chain run; the port has no oracle yet, so it returns None
+    for every run: a supervised run stays on its card."""
+    return None
+
+
+def run_supervised(gibbs, x0, outdir, niter, save_every=100, resume=True,
+                   max_retries=8, degrade_after=3, backoff_base=0.5,
+                   backoff_cap=30.0, jitter=0.25, backoff_seed=0,
+                   sleep=time.sleep, allow_degrade=True,
+                   stall_max_retries=3, stall_backoff_base=None,
+                   **sample_kwargs):
+    """Drive ``gibbs.sample`` (a port facade) to ``niter`` under the retry
+    policy above.  Returns ``(chain, report)``.
+
+    ``sleep`` is injectable (tests capture the backoff schedule);
+    ``resume`` applies to the first attempt (every retry resumes).  A
+    ``preempted`` outcome returns at once with ``report.status ==
+    "preempted"``: exit with ``preemption.EXIT_PREEMPTED`` so that the
+    scheduler requeues.  Stalls retry under ``stall_max_retries`` (backoff
+    base ``stall_backoff_base``, default ``backoff_base``) without using
+    the general budget."""
+    rep = SupervisorReport(backend=gibbs.backend_name)
+    consecutive_device = 0
+    last_div_sig = None
+    while True:
+        rep.attempts += 1
+        try:
+            chain = gibbs.sample(x0, outdir=outdir, niter=niter,
+                                 resume=resume or rep.attempts > 1,
+                                 save_every=save_every, **sample_kwargs)
+            rep.backend = gibbs.backend_name
+            _log_event(outdir, {"event": "supervised_run_complete",
+                                **rep.as_dict()})
+            return chain, rep
+        except KeyboardInterrupt:
+            raise                # the facade's flush already ran
+        except Exception as exc:
+            kind = classify_failure(exc)
+            if kind == "preempted":
+                rep.status = "preempted"
+                rep.backend = gibbs.backend_name
+                _log_event(outdir, {
+                    "event": "supervised_preempted",
+                    "rows": getattr(exc, "rows", None),
+                    "verified": getattr(exc, "verified", None),
+                    "drain": preemption.drain_info(), **rep.as_dict()})
+                return getattr(gibbs, "chain", None), rep
+            fail = {"attempt": rep.attempts, "kind": kind,
+                    "error": f"{type(exc).__name__}: {exc}"[:300]}
+            rep.failures.append(fail)
+            _log_event(outdir, {"event": "supervised_failure", **fail})
+            if kind == "user":
+                raise
+            if kind == "stall":
+                if rep.stall_retries >= stall_max_retries:
+                    _log_event(outdir, {"event": "supervised_giving_up",
+                                        "reason": "stall budget",
+                                        **rep.as_dict()})
+                    raise
+                rep.stall_retries += 1
+                telemetry.incr("stall_retries")
+                delay = backoff_delay(
+                    rep.stall_retries,
+                    backoff_base if stall_backoff_base is None
+                    else stall_backoff_base,
+                    backoff_cap, jitter, seed=backoff_seed)
+                _log_event(outdir, {"event": "supervised_retry",
+                                    "next_attempt": rep.attempts + 1,
+                                    "kind": kind,
+                                    "stall_retry": rep.stall_retries,
+                                    "backoff_s": round(delay, 3)})
+                sleep(delay)
+                continue
+            if rep.retries >= max_retries:
+                _log_event(outdir, {"event": "supervised_giving_up",
+                                    **rep.as_dict()})
+                raise
+            rep.retries += 1
+            telemetry.incr("retries")
+            if kind == "corruption":
+                # load_resume already tried the .bak: one more explicit
+                # attempt, then give up
+                if integrity.rollback(outdir):
+                    rep.rollbacks += 1
+                    _log_event(outdir, {"event": "checkpoint_rollback",
+                                        "attempt": rep.attempts})
+                else:
+                    raise
+            if kind == "divergence":
+                sig = f"{type(exc).__name__}:{exc}"
+                if sig == last_div_sig:
+                    # the deterministic replay reproduced it: re-draw the
+                    # stretch under a refolded seed
+                    if sentinels.refold_checkpoint_key(
+                            outdir, salt=rep.attempts):
+                        rep.refolds += 1
+                        _log_event(outdir, {"event": "prng_refold",
+                                            "attempt": rep.attempts})
+                last_div_sig = sig
+            else:
+                last_div_sig = None
+            consecutive_device = (consecutive_device + 1
+                                  if kind == "device" else 0)
+            if allow_degrade and consecutive_device >= degrade_after:
+                down = _degraded(gibbs)
+                if down is not None:
+                    gibbs = down
+                    rep.degradations += 1
+                    rep.backend = gibbs.backend_name
+                    telemetry.incr("degradations")
+                    consecutive_device = 0
+                    _log_event(outdir, {"event": "backend_degraded",
+                                        "to": gibbs.backend_name,
+                                        "attempt": rep.attempts})
+            delay = backoff_delay(rep.retries, backoff_base, backoff_cap,
+                                  jitter, seed=backoff_seed)
+            _log_event(outdir, {"event": "supervised_retry",
+                                "next_attempt": rep.attempts + 1,
+                                "kind": kind,
+                                "backoff_s": round(delay, 3)})
+            sleep(delay)

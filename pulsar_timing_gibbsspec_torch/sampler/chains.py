@@ -1,12 +1,16 @@
 """Chain persistence: periodic checkpoints, resume, adaptation state.
 
 The port's copy of ``pulsar_timing_gibbsspec_tpu/sampler/chains.py::
-ChainStore``, without its fault seams, quarantine check and HDF5 export.
-Each save rotates the previous verified checkpoint to a ``.bak``
-generation, writes ``chain.npy`` / ``bchain.npy`` / ``adapt.npz`` through
-tmp files and ``os.replace``, and writes ``manifest.json``
+ChainStore``, without its quarantine check (a serving-tier state).  Each
+save rotates the previous verified checkpoint to a ``.bak`` generation,
+writes ``chain.npy`` / ``bchain.npy`` / ``adapt.npz`` through tmp files
+and ``os.replace``, and writes ``manifest.json``
 (:mod:`..runtime.integrity`) LAST; resume verifies the set against it,
 rolls back to ``.bak`` on a mismatch, and only then trusts the files.
+The fault seams ``chainstore.between_replaces`` and
+``chainstore.post_save`` (:mod:`..runtime.faults`) let the chaos tests
+tear or damage a checkpoint at a given row; ``export_hdf5`` writes the
+JAX package's ``chain.h5``.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..runtime import integrity
+from ..runtime import faults, integrity, telemetry
 
 
 class ChainStore:
@@ -61,6 +65,9 @@ class ChainStore:
             tmp = self.outdir / (nm + ".tmp.npy")
             np.save(tmp, arr[:upto])
             os.replace(tmp, self.outdir / nm)
+            if nm == "chain.npy":
+                faults.fire("chainstore.between_replaces", row=upto,
+                            outdir=self.outdir)
         if adapt_state is not None:
             tmp = self.outdir / "adapt.npz.tmp.npz"
             np.savez(tmp, iter=np.int64(upto), **adapt_state)
@@ -69,6 +76,7 @@ class ChainStore:
         integrity.write_manifest(self.outdir, rows=upto, extra=extra)
         self.seconds.update(rotate=t1 - t0, write=t2 - t1,
                             manifest=time.perf_counter() - t2)
+        faults.fire("chainstore.post_save", row=upto, outdir=self.outdir)
 
     def log_metrics(self, record: dict):
         """Append one JSON line to ``metrics.jsonl`` (iteration progress,
@@ -77,6 +85,37 @@ class ChainStore:
                   **{k: v for k, v in record.items() if v is not None}}
         with open(self.outdir / "metrics.jsonl", "a") as fh:
             fh.write(json.dumps(record) + "\n")
+
+    def export_hdf5(self, chain, bchain, upto, extra_attrs=None):
+        """Write ``chain.h5``, the JAX package's HDF5 container: datasets
+        ``chain`` and ``bchain`` (rows ``[0, upto)``), ``params`` and
+        ``b_params`` (variable-length strings), the attribute ``niter``
+        and ``extra_attrs``.  Imports ``h5py`` here and raises
+        ``RuntimeError`` when it is missing."""
+        try:
+            import h5py
+        except ImportError as exc:
+            raise RuntimeError(
+                "HDF5 export requires h5py (chain.npy/bchain.npy remain "
+                "the canonical outputs)") from exc
+
+        tmp = self.outdir / "chain.h5.tmp"
+        try:
+            with h5py.File(tmp, "w") as fh:
+                fh.create_dataset("chain", data=np.asarray(chain[:upto]))
+                fh.create_dataset("bchain", data=np.asarray(bchain[:upto]))
+                st = h5py.string_dtype()
+                fh.create_dataset("params", data=np.asarray(
+                    self.param_names, dtype=st))
+                fh.create_dataset("b_params", data=np.asarray(
+                    self.b_param_names, dtype=st))
+                fh.attrs["niter"] = int(upto)
+                for k, v in (extra_attrs or {}).items():
+                    fh.attrs[k] = v
+            os.replace(tmp, self.outdir / "chain.h5")
+        finally:
+            # a failed export leaves no tmp for a later one to promote
+            tmp.unlink(missing_ok=True)
 
     def load_resume(self):
         """Return ``(chain, bchain, start_row, adapt_state)``, or None if
@@ -94,6 +133,7 @@ class ChainStore:
             rep = integrity.verify(self.outdir, man)
             if not rep["ok"]:
                 bad = ", ".join(rep["bad"])
+                telemetry.incr("corrupt_checkpoints")
                 self.log_metrics({"event": "checkpoint_corrupt",
                                   "files": rep["bad"]})
                 if not integrity.rollback(self.outdir):
@@ -125,6 +165,7 @@ class ChainStore:
             self.log_metrics({"event": "torn_checkpoint", "file": torn,
                               "chain_rows": int(len(chain)),
                               "bchain_rows": int(len(bchain))})
+            telemetry.incr("torn_checkpoints")
         upto = min(len(chain), len(bchain))
         if man is not None and not man.get("corrupt"):
             upto = min(upto, int(man.get("rows", upto)))

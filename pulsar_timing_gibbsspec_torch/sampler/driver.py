@@ -70,6 +70,23 @@ records are copied (pinned host buffers, a copy stream) and written
 back.  :meth:`TorchGibbsDriver.run` is a generator over recorded row
 counts that fills caller-owned ``chain``/``bchain`` arrays in the JAX
 row layout (``record_every`` thinning, chains axis dropped at C = 1).
+
+**Records.**  Recorded rows, x and b alike, are rounded to the record
+dtype on the card (``record_precision``: ``"f32"``, the default, or
+``"bf16"``; ``PTGIBBS_RECORD``), as the JAX chunk records them; the
+post-warmup row, the carry and ``adapt.npz`` stay exact, so the sampled
+process does not depend on it (but for the DE history, which reads the
+recorded rows).
+
+**Resilience** (the JAX driver's, ``runtime``): per chunk, the
+sentinels' :func:`..runtime.sentinels.chunk_health` runs on the chunk's
+device records and reaches the host with them (``sentinels=True``);
+the ``dispatch.chunk`` fault seam fires once a chunk is queued, and with
+a ``watchdog`` the seam and the host's wait for the previous chunk run
+under its deadline (the chunks are queued on this thread only); once a
+preemption drain is requested no chunk is queued, and the chunk in
+flight is written back, or dropped when landing it would blow the
+deadline.
 """
 
 from __future__ import annotations
@@ -81,8 +98,11 @@ import time
 import numpy as np
 import torch
 
-from ..config import hd_kernel_choice, settings
+from ..config import hd_kernel_choice, record_dtype, settings
 from ..ops.acf import integrated_act_columns
+from ..runtime import faults, preemption, telemetry
+from ..runtime.sentinels import ChainDivergence, SentinelMonitor, chunk_health
+from ..runtime.watchdog import DispatchWatchdog
 from . import blocks
 from .blocks import EXACT_EVERY
 from .graphs import SteadyGraphs
@@ -111,6 +131,17 @@ def stream_seed(seed, t):
     """64-bit generator seed of iteration ``t``'s stream:
     ``splitmix64(splitmix64(seed) ^ t)`` on 64-bit words."""
     return _splitmix64(_splitmix64(int(seed) & _MASK64) ^ (int(t) & _MASK64))
+
+
+#: the reserved stream index a refolded seed is drawn from (no sweep
+#: uses it: sweeps are ``t >= 0``, the initial draw ``INIT_STREAM``)
+REFOLD_STREAM = -2
+
+
+def refold_seed(seed, salt):
+    """The seed a divergence refold gives a checkpoint:
+    ``stream_seed(stream_seed(seed, REFOLD_STREAM), salt)``."""
+    return stream_seed(stream_seed(seed, REFOLD_STREAM), salt)
 
 
 #: the stream rule, as the checkpoint's layout section records it
@@ -152,6 +183,10 @@ class BlockTimer:
             t0 = time.perf_counter()
             yield
             self.ms[name] += 1e3 * (time.perf_counter() - t0)
+
+    def discard(self):
+        """Drop the blocks still pending (those of a failed run)."""
+        self._pending.clear()
 
     def flush(self, upto=None):
         """Add the pending blocks' times, the first ``upto - (recorded -
@@ -238,26 +273,31 @@ class _Carry:
 
 
 class _Records:
-    """Record rows of one steady chunk on the device, its end-of-chunk
-    carry, and (on a card) pinned host twins filled by a copy stream."""
+    """Record rows of one steady chunk on the device (in the record dtype),
+    its end-of-chunk carry and health reductions, and (on a card) pinned
+    host twins filled by a copy stream."""
 
     def __init__(self, drv, rows):
         cm, C = drv.cm, drv.C
         dev = cm.device
         f64 = torch.float64
         self.dev = dict(
-            xs=torch.empty((rows, C, cm.nx), dtype=torch.float32,
+            xs=torch.empty((rows, C, cm.nx), dtype=drv.rdtype, device=dev),
+            bs=torch.empty((rows, C, drv.nb_total), dtype=drv.rdtype,
                            device=dev),
-            bs=torch.empty((rows, C, drv.nb_total), dtype=f64, device=dev),
             x_end=torch.empty((C, cm.nx), dtype=f64, device=dev),
             b_end=torch.empty((C, cm.P, cm.Bmax), dtype=f64, device=dev),
-            acc=torch.empty((C, cm.P), dtype=f64, device=dev))
+            acc=torch.empty((C, cm.P), dtype=f64, device=dev),
+            finite=torch.empty(C, dtype=torch.bool, device=dev),
+            move_frac=torch.empty(C, dtype=torch.float32, device=dev),
+            rho_ok=torch.empty(C, dtype=torch.bool, device=dev))
         self.cuda = dev.type == "cuda"
         if self.cuda:
             self.host = {k: torch.empty(v.shape, dtype=v.dtype,
                                         pin_memory=True)
                          for k, v in self.dev.items()}
             self.copied = torch.cuda.Event()
+            self._streamed = False
         else:
             self.host = self.dev
         #: what the writeback needs: first row, rows, iteration after the
@@ -269,28 +309,49 @@ class _Records:
         if self.cuda:
             torch.cuda.current_stream().wait_event(self.copied)
 
-    def end(self, carry, acc, copy_stream):
+    def end(self, carry, acc, copy_stream, health_args):
+        """Queue the carry's copy and the chunk's health reductions (on
+        the current stream, after its sweeps), then the copy to the
+        host."""
         d = self.dev
+        m = self.meta[1]
         d["x_end"].copy_(carry.x)
         d["b_end"].copy_(carry.b)
         d["acc"].copy_(acc)
+        if health_args is not None:
+            for k, v in chunk_health(d["xs"][:m], d["bs"][:m],
+                                     *health_args).items():
+                d[k].copy_(v)
         if self.cuda:
+            if not self._streamed:
+                # freed with a copy in flight (a failed run), the buffers
+                # wait for the copy stream before their memory is reused
+                for v in d.values():
+                    v.record_stream(copy_stream)
+                self._streamed = True
             copy_stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(copy_stream):
                 for k, v in self.host.items():
-                    n = self.meta[1] if k in ("xs", "bs") else None
+                    n = m if k in ("xs", "bs") else None
                     v[:n].copy_(d[k][:n], non_blocking=True)
                 self.copied.record(copy_stream)
 
+    def ready(self):
+        """True once the copy to the host is done (no wait)."""
+        return not self.cuda or self.copied.query()
+
     def read(self):
-        """Host numpy copies of the chunk's rows and carry (waits for
-        the copy)."""
+        """Host numpy copies of the chunk's rows (float64), carry and
+        health (waits for the copy)."""
         if self.cuda:
             self.copied.synchronize()
         m = self.meta[1]
-        h = {k: v.numpy() for k, v in self.host.items()}
-        return (h["xs"][:m].astype(np.float64), h["bs"][:m].copy(),
-                h["x_end"].copy(), h["b_end"].copy(), h["acc"].copy())
+        h = {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+             for k, v in self.host.items()}
+        health = {k: h[k].copy() for k in ("finite", "move_frac", "rho_ok")}
+        return (h["xs"][:m].astype(np.float64),
+                h["bs"][:m].astype(np.float64), h["x_end"].copy(),
+                h["b_end"].copy(), h["acc"].copy(), health)
 
 
 class TorchGibbsDriver:
@@ -316,14 +377,22 @@ class TorchGibbsDriver:
     free-spectrum common block, as ``PTABlockGibbs`` does; a model
     without one raises ``ValueError``).  The first three change the
     stream, so a checkpoint records them and a resume with other values
-    raises; so does a correlated ORF's b-draw (:attr:`hd_kernel`)."""
+    raises; so does a correlated ORF's b-draw (:attr:`hd_kernel`).
+
+    And its run-time options: ``record_precision`` (``"f32"`` or
+    ``"bf16"``, None: ``PTGIBBS_RECORD``), ``sentinels`` (the per-chunk
+    health reductions and their :class:`..runtime.sentinels.
+    SentinelMonitor`) and ``watchdog`` (True: a default
+    :class:`..runtime.watchdog.DispatchWatchdog`; an instance is used as
+    it is; None or False: no guard)."""
 
     def __init__(self, cm, nchains=1, seed=0, warmup_sweeps=50,
                  white_adapt_iters=1000, red_adapt_iters=2000, red_steps=20,
                  record_every=1, chunk_size=100, graphs=None,
                  joint_mixed=None, exact_every=EXACT_EVERY,
                  white_steps_max=WHITE_STEPS_MAX,
-                 warmup_white_steps=WARMUP_WHITE_STEPS, common_rho=False):
+                 warmup_white_steps=WARMUP_WHITE_STEPS, common_rho=False,
+                 record_precision=None, sentinels=True, watchdog=None):
         self.cm = cm
         self.C = int(nchains)
         if self.C < 1:
@@ -358,6 +427,21 @@ class TorchGibbsDriver:
                 f"chunk_size={self.chunk_size} exceeds the DE history "
                 f"delay margin ({DE_DELAY - DE_Q}); use chunk_size <= "
                 f"{DE_DELAY - DE_Q} for models with a red hyper MH block")
+        #: dtype of the recorded rows (x and b)
+        self.rdtype = record_dtype(record_precision)
+        if watchdog is True:
+            self.watchdog = DispatchWatchdog()
+        elif isinstance(watchdog, DispatchWatchdog):
+            self.watchdog = watchdog
+        elif watchdog in (None, False):
+            self.watchdog = None
+        else:
+            raise ValueError(
+                "watchdog must be True/False/None or a DispatchWatchdog "
+                f"instance, got {watchdog!r}")
+        #: the per-chunk health monitor, and its last summary
+        self.sentinel = SentinelMonitor() if sentinels else None
+        self.health_last = None
         on_card = cm.device.type == "cuda"
         self.graphs = on_card if graphs is None else bool(graphs)
         if self.graphs and not on_card:
@@ -912,15 +996,37 @@ class TorchGibbsDriver:
 
     @staticmethod
     def _check_finite(arr, it0, what):
-        """Raise on a non-finite row of a host record."""
+        """Raise :class:`..runtime.sentinels.ChainDivergence` (a
+        ``FloatingPointError``) naming the first non-finite row of a host
+        record."""
         bad = ~np.isfinite(arr)
         if bad.any():
-            first = int(np.argwhere(bad.any(
+            row = it0 + int(np.argwhere(bad.any(
                 axis=tuple(range(1, arr.ndim))))[0][0])
-            raise FloatingPointError(
-                f"non-finite {what} written at row {it0 + first}: the "
+            raise ChainDivergence(
+                f"non-finite {what} written at row {row}: the "
                 "sweep produced NaN/inf; chain files up to the previous "
-                "checkpoint are valid")
+                "checkpoint are valid", row=row, what="nonfinite")
+
+    def _health_args(self):
+        """``(rho_ix, lo, hi)`` of :func:`..runtime.sentinels.
+        chunk_health`: the common rho coordinates and their prior bounds
+        in x units (``x = 0.5 log10 rho``), all None without them; None
+        with the sentinels off."""
+        if self.sentinel is None:
+            return None
+        cm = self.cm
+        if not len(cm.rho_ix_x):
+            return None, None, None
+        return (cm.rho_ix_x, 0.5 * float(np.log10(cm.rhomin)),
+                0.5 * float(np.log10(cm.rhomax)))
+
+    def _observe_health(self, health, it_end):
+        """Fold a chunk's host health reductions into the monitor."""
+        if self.sentinel is None:
+            return
+        self.sentinel.observe(health, it_end)
+        self.health_last = self.sentinel.last
 
     # ---- run ---------------------------------------------------------------
 
@@ -939,15 +1045,22 @@ class TorchGibbsDriver:
             xs, bs = [], []
             for t in range(W):
                 if t % k == 0:
-                    xs.append(x.to(torch.float32))
-                    bs.append(b[:, self._b_pi_t, self._b_ci_t])
+                    xs.append(x.to(self.rdtype))
+                    bs.append(b[:, self._b_pi_t, self._b_ci_t].to(
+                        self.rdtype))
                 self._reseed(t)
                 x, b, u = self._warmup_sweep(x, b, u)
-            xs_h = self._squeeze(torch.stack(xs).cpu().numpy().astype(
-                np.float64))
-            bs_h = self._squeeze(torch.stack(bs).cpu().numpy())
+            xs_t, bs_t = torch.stack(xs), torch.stack(bs)
+            health_args = self._health_args()
+            health = (None if health_args is None else
+                      chunk_health(xs_t, bs_t, *health_args))
+            xs_h, bs_h = (self._squeeze(t.float().cpu().numpy().astype(
+                np.float64)) for t in (xs_t, bs_t))
             self._check_finite(xs_h, 0, "warmup state")
             self._check_finite(bs_h, 0, "warmup b coefficients")
+            if health is not None:
+                self._observe_health(
+                    {k: v.cpu().numpy() for k, v in health.items()}, W)
             first = wr = self._rows_of(W)
             chain[:wr] = xs_h
             bchain[:wr] = bs_h
@@ -976,11 +1089,14 @@ class TorchGibbsDriver:
 
     def _writeback(self, rec, chain, bchain):
         row, m, it_end, bmh_end, mark = rec.meta
-        xs, bs, x_end, b_end, acc = rec.read()
+        xs, bs, x_end, b_end, acc, health = rec.read()
         xs, bs = self._squeeze(xs), self._squeeze(bs)
         self._check_finite(xs, row, "chain state")
         self._check_finite(bs, row, "b coefficients")
         self._check_finite(b_end[None], row + m, "b carry")
+        # before the state advances: a stuck-chain raise leaves the
+        # checkpointable state at the previous writeback
+        self._observe_health(health, it_end)
         chain[row:row + m] = xs
         bchain[row:row + m] = bs
         self.x_cur = x_end
@@ -1007,7 +1123,12 @@ class TorchGibbsDriver:
         if cm.orf_B is not None:
             self._check_orf_start(x)
         self._chain = chain
+        if self.sentinel is not None:
+            # a retry must not inherit the failed attempt's streaks
+            self.sentinel.reset_run()
         if start == 0:
+            self.b_mh_accepts.zero_()
+            self.b_mh_sweeps = 0
             x, b, ii, rowc = self._start(x, chain, bchain, niter)
             self.x_cur = x.cpu().numpy()
             self.b = b.cpu()
@@ -1031,10 +1152,18 @@ class TorchGibbsDriver:
         if cm.device.type == "cuda" and self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(cm.device)
         recs = [_Records(self, cs // k), _Records(self, cs // k)]
+        health_args = self._health_args()
         pending = None
+        # the wall of landing a chunk (the host's wait for it), smoothed:
+        # the drain's estimate of what writing back the chunk in flight
+        # costs, and the watchdog's observation
+        wait_ema = None
         t0 = time.perf_counter()
         j = 0
         while ii < niter:
+            if preemption.drain_requested():
+                # queue nothing more; the chunk in flight is decided below
+                break
             n = min(cs - (ii - it_base) % cs, niter - ii)
             off = (it_base - ii) % k
             m = max(0, -(-(n - off) // k))
@@ -1043,15 +1172,47 @@ class TorchGibbsDriver:
             self.steady_chunk(ii, n, rec, it_base)
             rec.meta = (rowc, m, ii + n, self.b_mh_sweeps,
                         self.timer.recorded)
-            rec.end(self.carry, self.b_mh_accepts, self._copy_stream)
+            rec.end(self.carry, self.b_mh_accepts, self._copy_stream,
+                    health_args)
+            tw = time.monotonic()
+            self._guarded(lambda it0=ii: faults.fire("dispatch.chunk",
+                                                     row=it0),
+                          f"chunk@{ii}", pending)
             if pending is not None:
+                dt = time.monotonic() - tw
+                wait_ema = dt if wait_ema is None else (
+                    0.3 * dt + 0.7 * wait_ema)
+                telemetry.gauge("chunk_wait_ms", dt * 1e3)
+                telemetry.gauge("chunk_wait_ema_ms", wait_ema * 1e3)
+                if self.watchdog is not None:
+                    self.watchdog.observe(dt, n=cs)
                 yield self._writeback(pending, chain, bchain)
             pending = rec
             ii += n
             rowc += m
             j += 1
-        yield self._writeback(pending, chain, bchain)
+        if pending is not None:
+            if preemption.should_abandon(wait_ema or 0.0):
+                # landing it would blow the grace window: drop it (its
+                # sweeps replay bitwise on resume)
+                telemetry.incr("drain_abandoned_chunks")
+            else:
+                self._guarded(None, f"writeback@{pending.meta[0]}", pending)
+                yield self._writeback(pending, chain, bchain)
         self.steady_seconds += time.perf_counter() - t0
+
+    def _guarded(self, seam, what, pending):
+        """Run ``seam`` (host code) and wait for ``pending``'s records to
+        reach the host, under the watchdog when there is one.  Nothing
+        here queues work on the card, so an abandoned worker that wakes
+        late cannot touch the retry's state."""
+        wd = self.watchdog
+        if wd is None:
+            if seam is not None:
+                seam()
+            return
+        wd.call(seam or (lambda: None), what=what, n=self.chunk_size,
+                done=None if pending is None else pending.ready)
 
     # ---- checkpointable state ----------------------------------------------
 
@@ -1090,9 +1251,18 @@ class TorchGibbsDriver:
 
     def load_adapt_state(self, state):
         """Take the state of :meth:`adapt_state` back: a resumed
-        :meth:`run` continues from its carry at iteration ``it_cur``."""
+        :meth:`run` continues from its carry at iteration ``it_cur``.
+
+        Whatever the driver keeps of an earlier run goes: the steady carry
+        and the graphs captured against it, the timer's pending blocks and
+        the DE buffer's period (a run's record buffers are its own), so a
+        retry on this driver replays what a fresh driver resumed from the
+        same checkpoint does."""
         state = dict(state)
         cm = self.cm
+        self.carry = None
+        self.timer.discard()
+        self._de_key = None
         missing = [k for k in ("seed", "b_pad", "it_cur", "x_cur")
                    if k not in state]
         if missing:

@@ -5,14 +5,23 @@ and ``PTABlockGibbs(cm, ...)`` (an array) run the sweep of :mod:`.driver`
 on the compiled model ``cm``; they share :class:`_GibbsBase`, as the JAX
 package's facades do.  ``.sample(x0, outdir, niter, resume=False,
 save_every=100)`` is the JAX facade's (``pulsar_timing_gibbsspec_tpu/
-sampler/gibbs.py::_GibbsBase.sample``) without its fault, sentinel,
-drain and HDF5 branches: it writes
-``chain.npy`` / ``bchain.npy`` (rows of the JAX layout), ``pars_chain.txt``
-/ ``pars_bchain.txt``, ``adapt.npz`` and ``manifest.json`` every
+sampler/gibbs.py::_GibbsBase.sample``): it writes ``chain.npy`` /
+``bchain.npy`` (rows of the JAX layout), ``pars_chain.txt`` /
+``pars_bchain.txt``, ``adapt.npz`` and ``manifest.json`` every
 ``save_every`` sweeps (rounded up to whole chunks) through
 :class:`.chains.ChainStore`, and ``resume=True`` continues a verified
 checkpoint bitwise.  A save runs on a thread while the driver samples the
 next chunk (one save at a time; the run ends when its last save has).
+
+The JAX facade's resilience branches come with it (:mod:`..runtime`):
+new rows pass the ``nan_rows`` fault hook and the sentinels' host check
+before they can be saved (a divergence leaves nothing to flush), the
+``sample.loop`` seam fires after them, a preemption drain breaks the
+loop, flushes, verifies the checkpoint (rolling back to ``.bak`` if it
+was torn) and raises :class:`..runtime.preemption.Preempted`, and
+``hdf5=True`` writes ``chain.h5`` at the end.  A failure between
+checkpoints waits for the save in flight, then flushes every checked
+row.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..runtime import integrity
+from ..runtime import faults, integrity, preemption, sentinels
 from .blocks import validate_sampling_flags
 from .chains import ChainStore
 from .driver import RNG_RULE, TorchGibbsDriver
@@ -41,6 +50,9 @@ class _GibbsBase:
     needs a model compiled with ``kernel_ecorr=True``, and such a model
     refuses ``ecorrsample="mh"``: the facade takes a compiled model and
     recompiles nothing."""
+
+    #: the backend name the supervisor reports and the metrics carry
+    backend_name = "torch"
 
     def __init__(self, cm, nchains=1, device="cuda", seed=0,
                  hypersample=None, ecorrsample=None, redsample=None,
@@ -144,12 +156,15 @@ class _GibbsBase:
                 "shard_map": None}
 
     def sample(self, x0, outdir="./chains", niter=10000, resume=False,
-               save_every=100, backup=True):
+               save_every=100, backup=True, hdf5=False):
         """Run an ``niter``-sweep chain from ``x0`` ((nx,) or (C, nx)),
         checkpointing to ``outdir``; with ``resume=True``, continue the
         verified checkpoint there.  ``backup=False`` keeps no ``.bak``
-        generation (:class:`.chains.ChainStore`).  Returns the chain rows
-        (the chains axis dropped at C = 1)."""
+        generation (:class:`.chains.ChainStore`); ``hdf5=True`` also
+        writes ``chain.h5`` at the end.  Returns the chain rows (the
+        chains axis dropped at C = 1).  A preemption drain raises
+        :class:`..runtime.preemption.Preempted` once the checkpoint is
+        verified."""
         drv = self.driver
         if torch.is_tensor(x0):
             x0 = x0.cpu().numpy()
@@ -212,7 +227,10 @@ class _GibbsBase:
         # which meanwhile queues the next chunk and writes only later rows
         saver = ThreadPoolExecutor(max_workers=1)
         inflight = None
-        no_flush = False
+        # no_flush: a save is in flight (a crash inside it must not be
+        # saved again); diverged: rows past the last checkpoint are known
+        # bad, and the driver's state already moved past them
+        no_flush = diverged = drained = False
 
         def settle():
             """Wait for the save in flight; its error propagates."""
@@ -228,7 +246,7 @@ class _GibbsBase:
             nonlocal inflight, no_flush
             settle()
             ts = time.perf_counter()
-            no_flush = True              # a crash inside save: don't re-save
+            no_flush = True
             inflight = saver.submit(store.save, chain, bchain, upto,
                                     adapt_state=drv.adapt_state(),
                                     extra=ck_extra)
@@ -236,7 +254,27 @@ class _GibbsBase:
 
         try:
             for upto in drv.run(x, chain, bchain, start, niter):
+                faults.mutate_rows(chain, bchain, upto_done, upto,
+                                   backend=self.backend_name)
+                try:
+                    sentinels.check_rows(chain, bchain, upto_done, upto)
+                except sentinels.ChainDivergence as exc:
+                    diverged = True
+                    store.log_metrics({"event": "divergence",
+                                       "row": exc.row, "what": exc.what,
+                                       "backend": self.backend_name})
+                    raise
                 upto_done = upto
+                faults.fire("sample.loop", row=upto,
+                            backend=self.backend_name)
+                # a drain request on the final row falls through: the
+                # run is complete and its save below commits it
+                if preemption.drain_requested() and upto < total_rows:
+                    drained = True
+                    store.log_metrics({"event": "drain_requested",
+                                       "row": int(upto),
+                                       **preemption.drain_info()})
+                    break
                 if upto - last_saved >= save_rows or upto >= total_rows:
                     save(upto)
                     if upto >= total_rows:
@@ -250,7 +288,8 @@ class _GibbsBase:
                         "elapsed_s": round(el, 3),
                         "sweeps_per_s": round(rate, 3),
                         "record_every": rec_k if rec_k > 1 else None,
-                        "backend": "torch", "nchains": C,
+                        "backend": self.backend_name, "nchains": C,
+                        "sentinel": drv.health_last,
                         "aclength_white": drv.aclength_white,
                         "aclength_ecorr": drv.aclength_ecorr})
                     last_saved = upto
@@ -269,23 +308,52 @@ class _GibbsBase:
                 # the exception in flight is the one to raise; record this
                 store.log_metrics({"event": "save_failed",
                                    "error": repr(exc)})
-            if upto_done > last_saved and not no_flush:
-                # bounded-loss flush: an interrupt or a failure between
-                # checkpoints still persists every verified row
+            if upto_done > last_saved and not (no_flush or diverged):
+                # bounded-loss flush: an interrupt, a failure between
+                # checkpoints or a drain still persists every checked row
                 try:
                     save(upto_done)
                     settle()
                     store.log_metrics({"event": "final_flush",
                                        "rows": int(upto_done),
-                                       "backend": "torch"})
+                                       "backend": self.backend_name})
                 except Exception:
                     # never mask the original exception with a failed
                     # best-effort flush
                     pass
             saver.shutdown()
+        # the driver also stops queueing chunks on a drain request; its
+        # loop then just ends, so an incomplete run with the flag up is
+        # a drain, not a completion
+        drained = drained or (preemption.drain_requested()
+                              and upto_done < total_rows)
+        self.chain, self.bchain = chain, bchain
+        if drained:
+            # the flush is best effort: hand the supervisor a verified
+            # checkpoint or say so, rolling back to .bak if it was torn
+            rep = integrity.verify(outdir)
+            rolled = False
+            if not rep["ok"]:
+                rolled = integrity.rollback(outdir)
+                rep = integrity.verify(outdir)
+            lat = preemption.mark_drained()
+            store.log_metrics({"event": "preempted_drain",
+                               "rows": int(rep["rows"]),
+                               "verified": bool(rep["ok"]),
+                               "rolled_back": rolled,
+                               "latency_s": round(lat, 3),
+                               **preemption.drain_info()})
+            raise preemption.Preempted(
+                f"{outdir}: drained to a "
+                f"{'verified' if rep['ok'] else 'UNVERIFIED'} checkpoint "
+                f"({rep['rows']} rows) after "
+                f"{preemption.drain_info().get('reason', 'preemption')}",
+                rows=rep["rows"], verified=rep["ok"], rolled_back=rolled)
         if self.progress and is_tty:
             print()
-        self.chain, self.bchain = chain, bchain
+        if hdf5:
+            store.export_hdf5(chain, bchain, total_rows,
+                              extra_attrs={"backend": self.backend_name})
         return chain
 
 

@@ -9,6 +9,15 @@ flat b layout ``_b_flat`` are equal, exactly.  Within the port: a
 ``record_every = 1`` run at the recorded iterations (streams are pure in
 the iteration, so thinning changes the record, never the process), and
 ``record_every`` must divide ``chunk_size``.
+
+The record precision, as the JAX package's: with ``"f32"`` (the default)
+every recorded b row is ``np.float32`` of the b carry at its iteration,
+as every x row is of the x carry (the post-warmup row is exact); with
+``"bf16"`` the carries are bitwise the f32 run's, the rows agree with the
+bfloat16 rounding of the f32 rows to
+``tests/test_jax_backend.py::test_record_precision_bf16``'s class, a
+resume within a bf16 run is bitwise, ``PTGIBBS_RECORD`` sets the default
+and ``"f16"`` raises ``ValueError``.
 """
 
 import numpy as np
@@ -119,3 +128,84 @@ def test_record_every_must_divide_the_chunk():
         TorchGibbsDriver(cm, record_every=3, chunk_size=8)
     with pytest.raises(ValueError, match="cuda"):
         TorchGibbsDriver(cm, graphs=True)
+
+
+def _rec_gibbs(cm, **kw):
+    from pulsar_timing_gibbsspec_torch import PTABlockGibbs
+
+    return PTABlockGibbs(cm, nchains=2, device="cpu", seed=9,
+                         warmup_sweeps=3, white_adapt_iters=120, chunk_size=4,
+                         progress=False, **kw)
+
+
+@pytest.fixture(scope="module")
+def rec_model():
+    from pulsar_timing_gibbsspec_torch import build_crn_spectrum
+
+    cm = build_crn_spectrum(small_psrs(), 4, 4, device="cpu")
+    x0 = _rec_gibbs(cm).initial_sample(torch.Generator().manual_seed(6))
+    return cm, x0
+
+
+def test_f32_records_are_the_float32_carry(rec_model, tmp_path):
+    cm, x0 = rec_model
+    g = _rec_gibbs(cm)
+    drv = g.driver
+    run, carries = drv.run, {}
+
+    def watched(*args):
+        for upto in run(*args):
+            # the state entering iteration it_cur (= upto: record_every 1)
+            carries[upto] = (drv.x_cur.copy(),
+                             drv._b_flat(drv.b.numpy()).copy())
+            yield upto
+
+    drv.run = watched
+    chain = g.sample(x0, outdir=tmp_path, niter=22, save_every=4)
+    bchain = g.bchain
+    assert sorted(carries) == [4, 8, 12, 16, 20, 22]
+    for row, (x, b) in carries.items():
+        if row < 22:
+            assert np.array_equal(bchain[row], b.astype(np.float32)), row
+            assert np.array_equal(chain[row], x.astype(np.float32)), row
+    # every row but the exact post-warmup one (3) is a float32 value
+    rows = [r for r in range(22) if r != 3]
+    for arr in (chain, bchain):
+        assert np.array_equal(arr[rows], arr[rows].astype(np.float32))
+    assert not np.array_equal(bchain[3], bchain[3].astype(np.float32))
+
+
+def test_record_precision_bf16(rec_model, tmp_path, monkeypatch):
+    cm, x0 = rec_model
+    g32 = _rec_gibbs(cm)
+    c32 = g32.sample(x0, outdir=tmp_path / "f32", niter=30, save_every=8)
+    g16 = _rec_gibbs(cm, record_precision="bf16")
+    assert g16.driver.rdtype == torch.bfloat16
+    c16 = g16.sample(x0, outdir=tmp_path / "bf16", niter=30, save_every=8)
+    # the process is unchanged: the carries are bitwise equal
+    assert np.array_equal(g16.driver.x_cur, g32.driver.x_cur)
+    assert torch.equal(g16.driver.b, g32.driver.b)
+    # the record agrees to bf16 quantization (1-ulp slack for double
+    # rounding)
+    for a32, a16 in ((c32, c16), (g32.bchain, g16.bchain)):
+        ref = torch.as_tensor(a32, dtype=torch.float32).to(
+            torch.bfloat16).double().numpy()
+        close = np.isclose(a16, ref, rtol=2.0 ** -7, atol=1e-30)
+        assert close.mean() > 0.9999, 1 - close.mean()
+        rows = [r for r in range(30) if r != 3]
+        assert not np.array_equal(a16[rows], a32[rows])
+    # resume is bitwise within a bf16 run
+    ga = _rec_gibbs(cm, record_precision="bf16")
+    ga.sample(x0, outdir=tmp_path / "split", niter=19, save_every=8)
+    gb = _rec_gibbs(cm, record_precision="bf16")
+    resumed = gb.sample(x0, outdir=tmp_path / "split", niter=30,
+                        save_every=8, resume=True)
+    assert np.array_equal(resumed, c16)
+    assert np.array_equal(gb.bchain, g16.bchain)
+    with pytest.raises(ValueError, match="record_precision"):
+        _rec_gibbs(cm, record_precision="f16")
+    monkeypatch.setenv("PTGIBBS_RECORD", "bf16")
+    assert _rec_gibbs(cm).driver.rdtype == torch.bfloat16
+    monkeypatch.setenv("PTGIBBS_RECORD", "f16")
+    with pytest.raises(ValueError, match="record_precision"):
+        _rec_gibbs(cm)
