@@ -4,9 +4,9 @@
 Usage: python3 chip_smoke.py [--seed S] [--outdir DIR] [--steady N]
 
 (``DIR``, default ``build/chip_smoke``, receives phase 13's par/tim
-pair and the checkpoint directories of phases 3b-14d; ``N``, default
-240, is the steady sweeps of the main paths of phases 4, 7 and 13: a
-deeper run reads what checkpoints cost as the record grows.)
+pair and the checkpoint directories of phases 3b-18c; ``N``, default
+240, is the steady sweeps of the main paths of phases 4, 7, 11 and 18:
+a deeper run reads what checkpoints cost as the record grows.)
 
 Phases (any failure exits non-zero):
 
@@ -45,7 +45,12 @@ Phases (any failure exits non-zero):
    (eager runs and graph replays alike): each form the steady graphs hold
    replayed since the captures exactly as often as each capture's
    launches times its replays, and each form's runs equal to the host's
-   eager launches plus those replays;
+   eager launches plus those replays; with the device sketch on
+   (``obs={"lags": 256}``, as ``bench.py``'s headline run): its common
+   rho ACT (sweeps), ESS, ESS/s (chains x sweeps/s / ACT), ``rhat_max``
+   and ``window_saturated``, beside the host Sokal ACT of the phase's own
+   records and their ratio (gate: every steady sweep folded, a finite
+   ACT >= 1); phase 17, without the sketch, is bitwise equal to this run;
 5. profile: ``torch.profiler`` over steady sweeps of the driver's
    steady-chunk entry, continuing from the main path's graphs (after its
    launch counts are read): the device's idle share and kernel time by
@@ -92,10 +97,11 @@ Phases (any failure exits non-zero):
    DE period from chain rows;
 9. R2: the 45-pulsar array with powerlaw red noise (10 bins, Bmax 37,
    90 powerlaw hypers) by ``PTABlockGibbs(nchains=64)``, depth cut to 3
-   warmup and 24 steady sweeps, the gates of 8 but the DE one (the
-   float64 narrow factor must run); 9b. R3: ``model_general([J1713+0747],
-   white_vary=True)`` (common and red powerlaw, 30 bins), 8 chains, 3
-   warmup and 24 steady sweeps, the gates of 9 without rho.
+   warmup and 24 steady sweeps and an adaptation of 1000 MH steps, the
+   gates of 8 but the DE one (the float64 narrow factor must run); 9b.
+   R3: ``model_general([J1713+0747], white_vary=True)`` (common and red
+   powerlaw, 30 bins), 8 chains, 3 warmup and 24 steady sweeps, 1000
+   adaptation steps, the gates of 9 without rho.
    Phase 2 also holds the float64 factor forms against their plain
    version on the marginalized likelihood's systems of R2 (2880 of order
    37) and R1 (8 of order 673), and the Gram's float32-product,
@@ -163,7 +169,7 @@ Phases (any failure exits non-zero):
    red_var=False, white_vary=True, common_psd="spectrum",
    common_components=30, kernel_ecorr=True)`` (the 508 ECORR epochs in
    N: Bmax = 165) by ``PulsarBlockGibbs(nchains=8,
-   ecorrsample="kernel")`` through 20 warmup sweeps, adaptation and 240
+   ecorrsample="kernel")`` through 20 warmup sweeps, adaptation and 120
    steady sweeps from the graphs (one body: white, ECORR, rho and the
    exact b-draw, whose wide widening Gram runs at B1 = 166 every
    sweep), checkpointed every 100, launch counts from 0: samples/s,
@@ -194,7 +200,7 @@ Phases (any failure exits non-zero):
 16. the sampled-ORF array: phase 10's model with ``orf="bin_orf"`` (7
    correlation weights, ``G(theta) = I + sum_j theta_j B_j``, their MH
    block ``orf_mh`` after rho) by ``PTABlockGibbs(nchains=32)`` through
-   20 warmup sweeps, adaptation and 240 steady sweeps from the graphs,
+   20 warmup sweeps, adaptation and 120 steady sweeps from the graphs,
    checkpointed every 100, launch counts from 0: phase 10's gates and
    prints, with ``orf_mh``'s ms and acceptance; G(theta) positive
    definite in every recorded row (host ``eigvalsh``), every weight
@@ -228,10 +234,34 @@ Phases (any failure exits non-zero):
    final carries bitwise equal, the bf16 rows the bfloat16 rounding of
    the f32 rows to 1 ulp (in more than 0.9999 of entries), every f32 b
    row a float32 value.
+18. the ensemble array: ``bench.py``'s ``ensemble=True, pt_ladder=2`` on
+   phase 4's model and seed, 64 chains (the 32 with ``c % 2 == 0`` at
+   beta = 1 are the posterior samples), the sketch on, 20 warmup and 240
+   steady sweeps from the graphs (each steady sweep followed by the
+   stage's ASIS redraw, stretch move and tempering swap, and every
+   likelihood block of a hot chain at its beta: the narrow factor and
+   Grams at ``N / beta``), checkpointed every 100, launch counts from 0:
+   samples/s of the cold chains, per-block ms with ``asis``, ``stretch``
+   and ``pt_swap``, the ensemble summary, the sketch's ACT and ESS/s (as
+   phase 4).  Gates: every record finite; the cold chains' common
+   log10_rho medians inside (-10, -4); per bin, over the steady rows past
+   the first 80, the cold chains' mean of per-chain medians within 5
+   combined standard errors of phase 4's; ``betas[0] == 1``, ``0 <
+   betas[1] < 1``, every rung's swap rate in (0, 1), stretch acceptance
+   above 0 at every temperature, ``sa_steps`` the steady sweeps; the
+   kernel counters as phase 4's; the final checkpoint verified.  Phase 2
+   then holds and times the float32 factor and the three narrow Gram
+   forms at phase 18's final state with every chain at the hot rung's
+   ``N / betas[1]``; (18b) 9 steady sweeps from iteration 264 (across the
+   refresh at 272, both swap parities) graphed equal to eager bitwise in
+   x, b, the counters, the ensemble state and the sketch; (18c) 8 chains
+   with ``pt_ladder=2`` and the sketch, split and resumed bitwise, and a
+   resume of that checkpoint with ``pt_ladder=1`` raises.
 
 To keep the whole run inside its time limit, every main path runs 20
-warmup sweeps, phases 9 and 9b 3 warmup and 24 steady sweeps, 10 5 and
-96 (phase 16 drives the same joint draw at 20 and 240), 14d 3 and 16,
+warmup sweeps, phases 9 and 9b 3 warmup and 24 steady sweeps and 1000
+adaptation steps, 10 5 and 96 (phase 16 drives the same joint draw at
+20 and 120), 13 and 16 120 steady sweeps, 14d 3 and 16,
 the resume checks 11c-14c 3 and 32 (each resumes the whole run's own
 checkpoint: no second run to the split), the graphs-against-eager
 checks 9 sweeps, and every resume and graphs-against-eager check adapts
@@ -374,6 +404,17 @@ SUP_WD_K, SUP_WD_FLOOR_S, SUP_WD_SOFT, SUP_STALL_EXTRA_S = 2.0, 3.0, 0.8, 5.0
 SUP_NAN_OFFSET = 29
 #: the record-precision pair (17b): warmup and steady sweeps
 REC_WARMUP, REC_STEADY = 3, 24
+#: depth cuts that keep the whole run inside its limit: the powerlaw
+#: adaptation's MH steps of R2 and R3 (phases 9, 9b; the main paths run
+#: 2000), the steady sweeps of phases 13 and 16 (cut from 240)
+SIDE_RED_ADAPT, KE_STEADY, ORF_STEADY = 1000, 120, 120
+#: the device sketch of phases 4 and 18 (``bench.py``'s headline run:
+#: ``obs={"lags": 256}``)
+OBS = {"lags": 256}
+#: the ensemble array (phase 18): the tempering ladder's depth, the
+#: steady rows its rho-law gate skips, where its graphs-against-eager
+#: sweeps start (crossing the refresh at 272, both swap parities)
+PT_LADDER, ENS_BURN, ENS_GRAPH_CHECK_AT = 2, 80, 264
 
 
 #: the run's start on the host clock (set by :func:`main`)
@@ -658,7 +699,7 @@ def parity_state(cm, C, gen):
 
 
 def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
-                                      "widen_f64")):
+                                      "widen_f64"), beta=None):
     """Phase 2, Gram: the three kernel forms, which take ``(Ta, N)`` and
     form ``TNa = Ta / N`` on chip, against the plain version.  The
     difference is measured at the Jacobi scale sqrt(G_ii G_jj), and the
@@ -673,7 +714,8 @@ def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
     whole grid, and that of a kernel reading a materialized ``TNa``, are
     printed beside it.  A width beyond the narrow form's runs the wide
     form (``*_wide``).  ``forms`` names the forms to hold; ``timer=None``
-    holds them without timing (a shape an earlier row timed)."""
+    holds them without timing (a shape an earlier row timed); ``beta``
+    (a float) takes the Gram at a tempered chain's ``N / beta``."""
     import torch
 
     from pulsar_timing_gibbsspec_torch.config import settings
@@ -681,8 +723,8 @@ def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
     from pulsar_timing_gibbsspec_torch.sampler import blocks
 
     ref = kernels.reference
-    Ta, N = blocks._gram_operands(cm, cm.ndiag_fast(x),
-                                  settings.gram_seg_len)
+    Nx = cm.ndiag_fast(x) if beta is None else cm.ndiag_fast(x) / beta
+    Ta, N = blocks._gram_operands(cm, Nx, settings.gram_seg_len)
     C = N.shape[0]
     N = N.reshape(-1, N.shape[-1]).contiguous()
     P, nseg, m, B1 = Ta.shape
@@ -791,7 +833,7 @@ def library_factor(Sig, d, z, ridge):
     return L, Li, dj, mean, mean + dj * mz[..., 1]
 
 
-def chol_parity(cm, x, gen, timer):
+def chol_parity(cm, x, gen, timer, beta=None):
     """Phase 2, factor chain: the float32 kernel's error against a
     float64 evaluation of the same float32 inputs must stay in the plain
     float32 chain's class (at most 8x its error plus 64 eps of the
@@ -800,13 +842,16 @@ def chol_parity(cm, x, gen, timer):
     runs the wide form (``*_wide``), which is also held to the plain
     chain's backward errors ``|L L^T - A|`` and ``|Li L - I|`` (A the
     preconditioned matrix in float64): at most 8x the plain chain's plus
-    64 eps_f32 of the matrix scale.  ``timer=None`` skips the timing."""
+    64 eps_f32 of the matrix scale.  ``timer=None`` skips the timing;
+    ``beta`` (a float) factors a tempered chain's system (``N /
+    beta``)."""
     import torch
 
     from pulsar_timing_gibbsspec_torch.ops import kernels
     from pulsar_timing_gibbsspec_torch.sampler import blocks
 
-    TNT, d = blocks.tnt_d_seg32(cm, cm.ndiag_fast(x))
+    Nx = cm.ndiag_fast(x) if beta is None else cm.ndiag_fast(x) / beta
+    TNT, d = blocks.tnt_d_seg32(cm, Nx)
     n = cm.Bmax
     phi32 = cm.phi(x, dtype=torch.float32)
     eye = torch.eye(n, dtype=torch.float32, device=cm.device)
@@ -1005,19 +1050,27 @@ def graphs_vs_eager(drv, x, b, it0, phase, label,
                     sweeps=GRAPH_CHECK_SWEEPS):
     """``sweeps`` steady sweeps of the adapted driver ``drv`` from ``(x,
     b)`` at iteration ``it0``, eagerly and from the CUDA graphs: x, b,
-    the b_mh, refresh, powerlaw-block and ORF-weight acceptance counts
-    and the joint draw's breakdown count must be bitwise equal (every
-    draw comes from the per-sweep stream, and no atomic add of the sweep
-    meets one real slot twice)."""
+    the b_mh, refresh, powerlaw-block and ORF-weight acceptance counts,
+    the joint draw's breakdown count and, where the driver has them, the
+    ensemble state and the sketch must be bitwise equal (every draw comes
+    from the per-sweep stream, and no atomic add of the sweep meets one
+    real slot twice); both runs start from the ensemble state and the
+    sketch the driver holds."""
     import torch
 
     counters = (drv.b_mh_accepts, drv.b_refresh_accepts, drv.red_mh_accepts,
                 drv.orf_mh_accepts, drv.b_joint_breakdowns)
+    stage = {**{"ens_" + k: v for k, v in (drv.ens_state or {}).items()},
+             **{"sketch_" + k: v for k, v in
+                (drv._obs_state or {}).items()}}
+    stage0 = {k: v.clone() for k, v in stage.items()}
     out, wall = {}, {}
     for graphs in (False, True):
         drv.graphs = graphs
         for c in counters:
             c.zero_()
+        for k, v in stage.items():
+            v.copy_(stage0[k])
         drv.begin_steady(x.clone(), b.clone())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1025,11 +1078,13 @@ def graphs_vs_eager(drv, x, b, it0, phase, label,
         torch.cuda.synchronize()
         wall[graphs] = 1e3 * (time.perf_counter() - t0) / sweeps
         out[graphs] = (drv.carry.x.clone(), drv.carry.b.clone(),
-                       *(c.clone() for c in counters))
-    diffs = {what: (e - r).abs().max().item()
+                       *(c.clone() for c in counters),
+                       *(v.clone() for v in stage.values()))
+    diffs = {what: (e - r).abs().max().item() if e.numel() else 0.0
              for e, r, what in zip(out[False], out[True],
                                    ("x", "b", "accepts", "refresh",
-                                    "red_mh", "orf_mh", "joint_breakdowns"))}
+                                    "red_mh", "orf_mh", "joint_breakdowns",
+                                    *stage))}
     same = all(torch.equal(e, r) for e, r in zip(out[False], out[True]))
     ok = same and bool(torch.isfinite(out[True][1]).all())
     exact = sum(t % drv.exact_every == 0 for t in range(it0, it0 + sweeps))
@@ -1759,7 +1814,7 @@ def orf_paths(args, psrs, gen, outdir, hd_rec):
         print("chip_smoke: kernel parity at phase 16's state failed",
               file=sys.stderr)
         return None
-    ok16, runs16, g16 = hd_path(cm16, args.seed, outdir / "orf", args.steady,
+    ok16, runs16, g16 = hd_path(cm16, args.seed, outdir / "orf", ORF_STEADY,
                                 phase="16")
     if not ok16:
         return None
@@ -2312,6 +2367,184 @@ def record_precision_pair(cm, seed, outdir):
     return ok
 
 
+def chain_medians(chain, cm, chains):
+    """Per common rho bin, the mean over ``chains`` of each chain's median
+    over the steady rows past the first ``ENS_BURN``, and its standard
+    error (the chains' spread over sqrt(chains)): the statistic of
+    ``tests/test_torch_sampler.py``."""
+    import numpy as np
+
+    rows = chain[WARMUP + 1 + ENS_BURN:][:, list(chains)]
+    med = np.median(rows[:, :, cm.rho_ix_x.cpu().numpy()], axis=0)
+    return med.mean(0), med.std(0, ddof=1) / np.sqrt(med.shape[0])
+
+
+def sketch_report(phase, g, chain, cold, sps):
+    """Phases 4 and 18: the device sketch finalized (``obs_summary``)
+    beside the host's Sokal ACT of the phase's own records.  Prints the
+    common rho ACT of the cold chains (median over them and the rho
+    channels, in sweeps), their rho ESS, ESS/s (cold chains x sweeps/s /
+    ACT), ``rhat_max`` and ``window_saturated``; the host ACT of the same
+    chains and rows (the float32 record, ``ops.acf``) and device / host.
+    Returns the gate: the sketch folded every steady sweep and its ACT is
+    finite and at least 1."""
+    import numpy as np
+
+    from pulsar_timing_gibbsspec_torch.obs.sketch import state_bytes
+    from pulsar_timing_gibbsspec_torch.ops.acf import integrated_act_columns
+
+    drv, cm = g.driver, g.cm
+    cold = list(cold)
+    t0 = time.perf_counter()
+    s = g.obs_summary()
+    fin_ms = 1e3 * (time.perf_counter() - t0)
+    nrho = sum(1 for nm in drv.obs.names if "rho" in nm and "gw" in nm)
+    act = float(np.median(s["act"][cold][:, :nrho]))
+    n = s["n"]
+    rows = chain[WARMUP + 1:][:, cold][:, :, cm.rho_ix_x.cpu().numpy()]
+    host = float(np.median(integrated_act_columns(
+        rows.reshape(rows.shape[0], -1))))
+    ess = len(cold) * n / act
+    print(f"phase {phase} device sketch ({drv.obs.D} channels, lags "
+          f"{drv.obs.lags}, {state_bytes(drv.obs, drv.C) / 1e6:.2f} MB, "
+          f"finalized in {fin_ms:.1f} ms): {n:.0f} sweeps folded; common rho "
+          f"ACT of the {len(cold)} cold chains {act:.3f} sweeps (all chains "
+          f"{s['act_rho_med']:.3f}), rho ESS {ess:.1f} per bin, ESS/s "
+          f"{len(cold) * sps / act:.3f} per bin ({len(cold)} chains x "
+          f"{sps:.3f} sweeps/s / ACT); rhat_max {s['rhat_max']}; "
+          f"window_saturated {s['window_saturated']}; host Sokal ACT of "
+          f"the phase's records (same chains, rows and bins) {host:.3f}, "
+          f"device / host {act / host:.4f}", flush=True)
+    return bool(n == drv.steady_sweeps and np.isfinite(act) and act >= 1.0)
+
+
+def ensemble_paths(cm, seed, outdir, steady, gen, ref_stats, forms):
+    """Phases 18-18c: ``bench.py``'s ``ensemble=True, pt_ladder=2`` on
+    phase 4's model and seed, 64 chains (32 cold), the sketch on, through
+    ``WARMUP`` warmup and ``steady`` steady sweeps from the graphs,
+    checkpointed every ``SAVE_EVERY``, launch counts from 0; its gates
+    (module docstring) against phase 4's per-bin statistic ``ref_stats``
+    (:func:`chain_medians`); phase 2's row at a hot chain's state; 18b;
+    18c.  Returns ``(records, runs)`` (the phase 2 row's records and the
+    kernels' device counts of the run), or None when a phase failed."""
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+    from pulsar_timing_gibbsspec_torch.runtime import integrity
+
+    C, T = NCHAINS, PT_LADDER
+    niter = WARMUP + 1 + steady
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    g = ptt.PTABlockGibbs(cm, nchains=C, device=cm.device, seed=seed,
+                          warmup_sweeps=WARMUP, progress=False, obs=OBS,
+                          ensemble=True, pt_ladder=T)
+    x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
+        seed))
+    chain = g.sample(x0, outdir=Path(outdir) / "ensemble", niter=niter,
+                     save_every=SAVE_EVERY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    drv, graphs = g.driver, g.driver.carry
+    counts = launch_counts(graphs)
+    missing, unreplayed, unaccounted = count_faults(counts, forms, GRAPHED)
+    sps = drv.steady_sweeps / drv.steady_seconds
+    cold = range(0, C, T)
+    rho = chain[WARMUP + 1:][:, list(cold)][:, :, cm.rho_ix_x.cpu().numpy()]
+    med = np.median(rho.reshape(-1, rho.shape[-1]), axis=0)
+    es = g.ensemble_summary()
+    (m18, s18), (m4, s4) = chain_medians(chain, cm, cold), ref_stats
+    zs = np.abs(m18 - m4) / np.sqrt(s18 ** 2 + s4 ** 2)
+    rep = integrity.verify(Path(outdir) / "ensemble")
+    print(f"phase 18 ensemble array (pt_ladder {T}, {C} chains, "
+          f"{len(cold)} cold): {niter} rows in {wall:.1f} s (warmup "
+          f"{WARMUP}); steady {drv.steady_sweeps} sweeps in "
+          f"{drv.steady_seconds:.3f} s = {sps:.3f} sweeps/s = "
+          f"{sps * len(cold):.1f} samples/s of the cold chains "
+          f"({sps * C:.1f} of all); CUDA graphs {len(graphs.graphs)} "
+          f"captured in {graphs.capture_seconds:.3f} s, pool "
+          f"{graphs.pool_bytes / 1e6:.1f} MB", flush=True)
+    print("phase 18 per-block ms per steady sweep (CUDA events): "
+          + json.dumps({k: round(v / drv.steady_sweeps, 4)
+                        for k, v in sorted(drv.timer.ms.items())}),
+          flush=True)
+    print("phase 18 ensemble summary " + json.dumps(es), flush=True)
+    print("phase 18 cold chains' common log10_rho medians per bin: "
+          + json.dumps([round(float(v), 3) for v in med]) + "; past the "
+          f"first {ENS_BURN} steady rows, mean of per-chain medians "
+          + json.dumps([round(float(v), 3) for v in m18]) + " against "
+          "phase 4's " + json.dumps([round(float(v), 3) for v in m4])
+          + ", in combined standard errors "
+          + json.dumps([round(float(v), 2) for v in zs]), flush=True)
+    print_counts(18, counts)
+    sketch_ok = sketch_report("18", g, chain, cold, sps)
+    finite = bool(np.isfinite(chain).all() and np.isfinite(g.bchain).all())
+    inside = bool(((med > -10.0) & (med < -4.0)).all())
+    law = bool((zs <= 5.0).all())
+    ladder = (es["betas"][0] == 1.0 and 0.0 < es["betas"][1] < 1.0
+              and all(0.0 < r < 1.0 for r in es["swap_rate"])
+              and all(a > 0.0 for a in es["stretch_accept"])
+              and es["sa_steps"] == drv.steady_sweeps)
+    saved = rep["ok"] and rep["rows"] == niter and graphs.graphed
+    ok = (finite and inside and law and ladder and saved and sketch_ok
+          and not missing and not unreplayed and not unaccounted)
+    if not ok:
+        print(f"chip_smoke: ensemble path failed (finite={finite}, medians "
+              f"inside the prior={inside}, rho law as phase 4's={law}, "
+              f"ladder and rates={ladder}, verified checkpoint through the "
+              f"graphs={saved}, sketch={sketch_ok}, never run={missing}, "
+              f"not replayed as captured={unreplayed}, runs other than "
+              f"eager launches plus replays={unaccounted})", file=sys.stderr)
+        return None
+    if not graphs_vs_eager(drv, torch.as_tensor(drv.x_cur, device=cm.device),
+                           drv.b.to(cm.device), ENS_GRAPH_CHECK_AT, "18b",
+                           "PTABlockGibbs, ensemble with pt_ladder 2 and "
+                           "the sketch, across the refresh at 272"):
+        print("chip_smoke: the ensemble graph replay differs from the "
+              "eager sweep", file=sys.stderr)
+        return None
+    # phase 2 at a hot chain's state: the final carry's systems at N /
+    # betas[1] (the tempered b_mh's Gram and factor)
+    beta1 = es["betas"][1]
+    xs = torch.as_tensor(drv.x_cur, device=cm.device)
+    print(f"phase 2 at phase 18's final state, every chain at the hot "
+          f"rung's beta = {beta1:.6f}:", flush=True)
+    records, ok_g = gram_parity(cm, xs, time_ms, beta=beta1)
+    rec_c, ok_c = chol_parity(cm, xs, gen, time_ms, beta=beta1)
+    records.update(rec_c)
+    runs = counts[0]
+    del g, drv, graphs, chain, xs
+    torch.cuda.empty_cache()
+    if not (ok_g and ok_c):
+        print("chip_smoke: kernel parity at phase 18's tempered state "
+              "failed", file=sys.stderr)
+        return None
+    opts = dict(ensemble=True, pt_ladder=T, obs=OBS)
+    res = Path(outdir) / "ensemble_resume"
+    if not resume_check(cm, seed, res, "PTABlockGibbs", "18c", **opts):
+        print("chip_smoke: the resumed ensemble run differs from the whole "
+              "one", file=sys.stderr)
+        return None
+    g1 = ptt.PTABlockGibbs(cm, nchains=RESUME_CHAINS, device=cm.device,
+                           seed=seed, progress=False, ensemble=True,
+                           pt_ladder=1)
+    try:
+        g1.sample(np.zeros(cm.nx), outdir=res / "whole",
+                  niter=RESUME_WARMUP + 1 + RESUME_STEADY, resume=True)
+        refused = "nothing"
+    except RuntimeError as exc:
+        refused = str(exc)
+    good = "pt_ladder=2" in refused
+    print(f"phase 18c a resume of the pt_ladder {T} checkpoint with "
+          f"pt_ladder 1 raises: {refused!r} {'ok' if good else 'FAIL'}",
+          flush=True)
+    if not good:
+        return None
+    return records, runs
+
+
 def earlier_paths(args, psrs, gen, outdir):
     """Phases 2-12: the kernel parity at the shapes of the paths of
     earlier slices, then phases 3-12c.  Returns ``(rows, timed, hd)``:
@@ -2447,7 +2680,7 @@ def earlier_paths(args, psrs, gen, outdir):
     kernels.reset_launches()
     t0 = time.perf_counter()
     g = ptt.PTABlockGibbs(cm, nchains=C, device=dev, seed=args.seed,
-                          warmup_sweeps=WARMUP, progress=False)
+                          warmup_sweeps=WARMUP, progress=False, obs=OBS)
     x0 = g.initial_sample(torch.Generator(device=dev).manual_seed(
         args.seed))
     chain = g.sample(x0, outdir=outdir / "main", niter=niter,
@@ -2508,17 +2741,21 @@ def earlier_paths(args, psrs, gen, outdir):
     print(f"phase 4 non-finite Laplace blocks in warmup and adaptation: "
           f"{int(drv.laplace_nonfinite)} of "
           f"{(WARMUP + 1) * C * cm.P_real}", flush=True)
+    sketch_ok = sketch_report("4", g, chain, range(C), sps)
     finite = bool(np.isfinite(chain).all() and np.isfinite(g.bchain).all())
     inside = bool(((med > -10.0) & (med < -4.0)).all())
     saved = rep["ok"] and rep["rows"] == niter and graphs.graphed
     if (not finite or not inside or missing or unreplayed or unaccounted
-            or not saved):
+            or not saved or not sketch_ok):
         print(f"chip_smoke: main path failed (finite={finite}, medians "
               f"inside the prior={inside}, never run={missing}, not "
               f"replayed as captured={unreplayed}, runs other than eager "
               f"launches plus replays={unaccounted}, verified checkpoint "
-              f"through the graphs={saved})", file=sys.stderr)
+              f"through the graphs={saved}, sketch={sketch_ok})",
+              file=sys.stderr)
         return None
+    # phase 18's rho-law gate: per bin, the chains' medians past the burn
+    rho_stats = chain_medians(chain, cm, range(C))
     if not profile_steady(drv, 16 * (niter // 16 + 1)):
         print("chip_smoke: the device trace disagrees with the kernels' "
               "device counters", file=sys.stderr)
@@ -2540,6 +2777,15 @@ def earlier_paths(args, psrs, gen, outdir):
         return None
     torch.cuda.empty_cache()
     elapsed("phases 17-17b")
+
+    # ---- phases 18-18c: the ensemble array, launch counts from 0 ----------
+    ens = ensemble_paths(cm, args.seed, outdir, args.steady, gen, rho_stats,
+                         narrow)
+    if ens is None:
+        return None
+    ens_records, runs18 = ens
+    torch.cuda.empty_cache()
+    elapsed("phases 18-18c")
 
     # ---- phase 7: the single-pulsar path, launch counts from 0 -------------
     wide = [k for k in records if k[1].endswith("_wide")
@@ -2593,14 +2839,16 @@ def earlier_paths(args, psrs, gen, outdir):
     narrow64 = narrow + [("chol_solve_sample", "f64")]
     ok9, runs9, _ = powerlaw_path("9", cm_r2, "PTABlockGibbs", C, R2_WARMUP,
                                   R2_STEADY, args.seed, outdir / "r2",
-                                  narrow64, GRAPHED)
+                                  narrow64, GRAPHED,
+                                  red_adapt_iters=SIDE_RED_ADAPT)
     if not ok9:
         return None
     runs[("chol_solve_sample", "f64")] = runs9[("chol_solve_sample", "f64")]
     torch.cuda.empty_cache()
     ok9b, _, _ = powerlaw_path("9b", cm_r3, "PulsarBlockGibbs", SINGLE_CHAINS,
                                R3_WARMUP, R3_STEADY, args.seed, outdir / "r3",
-                               wide64, WIDE_GRAPHED)
+                               wide64, WIDE_GRAPHED,
+                               red_adapt_iters=SIDE_RED_ADAPT)
     if not ok9b:
         return None
     torch.cuda.empty_cache()
@@ -2683,6 +2931,11 @@ def earlier_paths(args, psrs, gen, outdir):
              replaces=REPLACES[k], launches=runs17[(k, f)], **r)
         for (k, f), r in records.items()
         if (k, f) in narrow and runs17[(k, f)]] + [
+        dict(name=f"{k}[{f}] (phase 18 path: ensemble, tempered state "
+             f"beta = betas[1], order {cm.Bmax})", route="cuda",
+             source=SOURCES[k][0], replaces=REPLACES[k],
+             launches=runs18[(k, f)], **r)
+        for (k, f), r in ens_records.items()] + [
         dict(name=f"{k}[{f}] (Hellings-Downs path, B1 {cm_hd.Bmax + 1})",
              route="cuda", source=SOURCES[k][0], replaces=REPLACES[k],
              launches=runs10[(k, f)], **r)
@@ -2791,13 +3044,12 @@ def main(argv=None):
               "and the CPU", file=sys.stderr)
         return 1
     del cm_ke_cpu
-    ok13, runs13, g13 = ke_path(cm_ke, args.seed, outdir / "ke",
-                                args.steady)
+    ok13, runs13, g13 = ke_path(cm_ke, args.seed, outdir / "ke", KE_STEADY)
     if not ok13:
         return 1
     drv13 = g13.driver
     if not graphs_vs_eager(drv13, torch.as_tensor(drv13.x_cur, device=dev),
-                           drv13.b.to(dev), WARMUP + 1 + args.steady, "13b",
+                           drv13.b.to(dev), WARMUP + 1 + KE_STEADY, "13b",
                            "PulsarBlockGibbs, kernel ECORR, the exact "
                            "b-draw every sweep"):
         print("chip_smoke: the kernel-ECORR graph replay differs from the "

@@ -4,8 +4,9 @@ The subset of ``pulsar_timing_gibbsspec_tpu/config.py`` the port's
 sweeps read: float32 storage of the large arrays (basis, residuals,
 per-TOA noise), float64 compute of the sampler state, reductions and
 exact factorizations, the TOA-segment lengths of the segmented Gram, the
-rho grid size, the correlated-ORF joint draw's mixed precision and the
-record precision (``PTGIBBS_RECORD``).
+rho grid size, the correlated-ORF joint draw's mixed precision, the
+record precision (``PTGIBBS_RECORD``) and the ensemble stage's knobs
+(``PTGIBBS_ENSEMBLE``, ``PTGIBBS_PT_LADDER``).
 
 Float32 products are full IEEE float32 everywhere in the port (the JAX
 package's ``precision="highest"``): :func:`resolve_device` turns TF32 off
@@ -61,6 +62,21 @@ def hd_kernel_choice() -> str:
             f"PTGIBBS_HD_KERNEL={choice!r}: the correlated-ORF "
             "kernel must be 'joint' (production), 'pulsar' or 'freq'")
     return choice
+
+
+def ensemble_choice(ensemble=None, pt_ladder=None):
+    """``(ensemble, pt_ladder)`` of a driver: the arguments, or where one
+    is None the environment variables ``PTGIBBS_ENSEMBLE`` (on unless
+    unset or ``"0"``) and ``PTGIBBS_PT_LADDER`` (``1`` when unset), the
+    JAX package's knobs with its defaults (the stage off, no tempering);
+    read when a driver is built.  A ladder depth below 1 raises."""
+    ens = (os.environ.get("PTGIBBS_ENSEMBLE", "0") != "0"
+           if ensemble is None else bool(ensemble))
+    T = int(os.environ.get("PTGIBBS_PT_LADDER", "1")
+            if pt_ladder is None else pt_ladder)
+    if T < 1:
+        raise ValueError(f"pt_ladder={T} must be >= 1")
+    return ens, T
 
 
 #: the record precisions: the dtype the recorded rows (x and b) are

@@ -41,3 +41,13 @@ def integrated_act_columns(x: np.ndarray, c: float = 5.0) -> np.ndarray:
     if live.any():
         out[live] = act_from_rho((acf[:, live] / acf[0, live]).T, c)
     return out
+
+
+def integrated_act(x: np.ndarray, c: float = 5.0) -> float:
+    """Sokal windowed ACT of one chain (the NumPy FFT form of the JAX
+    package's ``integrated_act``); chains shorter than 4 steps and
+    constant ones give 1.0."""
+    x = np.asarray(x, dtype=np.float64)
+    if x.ndim != 1:
+        raise ValueError("integrated_act expects a 1-d chain")
+    return float(integrated_act_columns(x[:, None], c)[0])

@@ -35,6 +35,7 @@ import threading
 import time
 import traceback
 
+from ..obs import trace as otrace
 from . import telemetry
 
 
@@ -139,6 +140,10 @@ class DispatchWatchdog:
             box["done"].set()
 
     def _emit(self, stage, info):
+        # the trace keeps the escalation timeline (``watchdog.<stage>``
+        # instants), not the stack dumps; those go through on_event
+        otrace.instant(f"watchdog.{stage}",
+                       **{k: v for k, v in info.items() if k != "stacks"})
         if self.on_event is not None:
             try:
                 self.on_event(stage, info)

@@ -303,24 +303,45 @@ def residual_sq(cm, b):
     return r * r
 
 
-def _logpi_b_per(cm, x, b, u):
+def _per_chain(beta, nd):
+    """A per-chain ``beta`` (...,) shaped to broadcast against a tensor
+    with ``nd`` more trailing axes."""
+    return beta.reshape(beta.shape + (1,) * nd)
+
+
+def tempered_ll(ll, beta):
+    """The likelihood closure ``ll`` (q -> (..., P)) raised to the
+    per-chain inverse temperature ``beta`` (...,) (parallel tempering,
+    :mod:`.ensemble`); ``ll`` itself when ``beta`` is None."""
+    if beta is None:
+        return ll
+    return lambda q: ll(q) * _per_chain(beta, 1)
+
+
+def _logpi_b_per(cm, x, b, u, beta=None):
     """Per-pulsar ``log pi(b | x)`` up to b-independent constants, from
     ``u = T b``: ``-0.5 u^2/N + (y/N) u - 0.5 b^2/phi``; float32
-    elementwise, float64 sums."""
+    elementwise, float64 sums.  ``beta`` (...,) scales the likelihood
+    term only (the b prior is untempered)."""
     N = cm.ndiag_fast(x)
     t1 = (-0.5 * u + cm.y) * (u / N) * cm.toa_mask
+    if beta is not None:
+        t1 = t1 * _per_chain(beta.to(cm.dtype), 2)
     phi32 = cm.phi(x, dtype=cm.dtype)
     bb = b.to(cm.dtype)
     t2 = -0.5 * bb * bb / phi32
     return (t1.to(cm.cdtype).sum(-1) + t2.to(cm.cdtype).sum(-1))
 
 
-def _logpi_b_pair(cm, x, b_old, b_new, u_old, u_new):
+def _logpi_b_pair(cm, x, b_old, b_new, u_old, u_new, beta=None):
     """Both sides of the b MH ratio in one pass; ``(lpi_old,
-    lpi_new)``, each (..., P) in the compute dtype."""
+    lpi_new)``, each (..., P) in the compute dtype (``beta`` as in
+    :func:`_logpi_b_per`)."""
     N = cm.ndiag_fast(x)
     uu = torch.stack([u_old, u_new])
     t1 = (-0.5 * uu + cm.y) * (uu / N) * cm.toa_mask
+    if beta is not None:
+        t1 = t1 * _per_chain(beta.to(cm.dtype), 2)
     phi32 = cm.phi(x, dtype=cm.dtype)
     bb = torch.stack([b_old, b_new]).to(cm.dtype)
     t2 = -0.5 * bb * bb / phi32
@@ -337,11 +358,11 @@ def _factor_batch(Sig, d, z, **kw):
     return tuple(o.reshape(lead + o.shape[1:]) for o in outs)
 
 
-def _log_ratio(cm, x, b, u, L, mean, dj, bp, z, w_dtype):
+def _log_ratio(cm, x, b, u, L, mean, dj, bp, z, w_dtype, beta=None):
     """Exact log Hastings ratio of proposal ``bp`` (drawn as ``mean +
     dj * Li^T z``) against the current ``b``, and ``up = T bp``."""
     up = b_matvec(cm, bp)
-    lpi_old, lpi_new = _logpi_b_pair(cm, x, b, bp, u, up)
+    lpi_old, lpi_new = _logpi_b_pair(cm, x, b, bp, u, up, beta)
     v = (b.to(w_dtype) - mean) / dj
     w_old = torch.matmul(L.transpose(-1, -2), v[..., None])[..., 0]
     logq_old = -0.5 * (w_old * w_old).sum(-1).to(cm.cdtype)
@@ -355,70 +376,80 @@ def _accept(b, u, bp, up, logr, ok, logu):
             torch.where(acc[..., None], up, u), acc)
 
 
-def propose_b_mh(cm, x, b, u, z):
+def _tempered_N(cm, x, beta):
+    """``N`` in the storage dtype, ``N / beta`` per chain when tempered
+    (the likelihood ``L^beta`` is Gaussian with that covariance)."""
+    N = cm.ndiag_fast(x)
+    if beta is None:
+        return N
+    return N / _per_chain(beta.to(N.dtype), 2)
+
+
+def propose_b_mh(cm, x, b, u, z, beta=None):
     """The steady proposal: the float32-factored conditional (segmented
     float32 Gram, fused factor chain with the ``_PROP_RIDGE`` guard) at
     float32 normals ``z`` (..., P, Bmax).  Returns ``(bp, up, logr, ok,
     L, dj)``: proposal, its ``T bp``, the exact log Hastings ratio, the
     finiteness mask, and the preconditioned factor and scaling that
-    whiten the proposal (``L^T (v / dj)`` is in proposal-sd units)."""
+    whiten the proposal (``L^T (v / dj)`` is in proposal-sd units).
+    ``beta`` (...,): the tempered conditional, ``N -> N / beta`` in the
+    Gram and the likelihood term of the ratio scaled."""
     fdt = cm.dtype
-    N = cm.ndiag_fast(x)
-    TNT, d = tnt_d_seg32(cm, N)
+    TNT, d = tnt_d_seg32(cm, _tempered_N(cm, x, beta))
     phi32 = cm.phi(x, dtype=fdt)
     eye = torch.eye(cm.Bmax, dtype=fdt, device=cm.device)
     Sig = TNT + (1.0 / phi32)[..., :, None] * eye
     L, Li, dj, mean, bp32 = _factor_batch(Sig, d, z, ridge=_PROP_RIDGE)
     bp = bp32.to(cm.cdtype)
-    logr, up = _log_ratio(cm, x, b, u, L, mean, dj, bp, z, fdt)
+    logr, up = _log_ratio(cm, x, b, u, L, mean, dj, bp, z, fdt, beta)
     ok = torch.isfinite(bp32).all(-1) & torch.isfinite(logr)
     return bp, up, logr, ok, L, dj
 
 
-def draw_b_mh_core(cm, x, b, u, z, logu):
+def draw_b_mh_core(cm, x, b, u, z, logu, beta=None):
     """Metropolised b-draw: the :func:`propose_b_mh` proposal accepted
     per pulsar with the exact Hastings ratio against ``logu`` (..., P)
     float64 log-uniforms.  Returns ``(b', u', accepted)``."""
-    bp, up, logr, ok = propose_b_mh(cm, x, b, u, z)[:4]
+    bp, up, logr, ok = propose_b_mh(cm, x, b, u, z, beta)[:4]
     return _accept(b, u, bp, up, logr, ok, logu)
 
 
-def draw_b_mh(cm, x, b, u, gen):
+def draw_b_mh(cm, x, b, u, gen, beta=None):
     """:func:`draw_b_mh_core` with its noise drawn from ``gen``."""
     z = _normal(gen, b.shape, cm.dtype, cm.device)
     logu = torch.log(_uniform(gen, b.shape[:-1], cm.cdtype, cm.device))
-    return draw_b_mh_core(cm, x, b, u, z, logu)
+    return draw_b_mh_core(cm, x, b, u, z, logu, beta)
 
 
-def propose_b_refresh(cm, x, b, u, z):
+def propose_b_refresh(cm, x, b, u, z, beta=None):
     """The refresh proposal: the float32-segment/float64-reduce Gram
     factored by the two-float ``tf`` factor (ridge corrected) at float64
     normals ``z``.  Returns ``(bp, up, logr, ok, L, dj)`` as
-    :func:`propose_b_mh` does."""
-    N = cm.ndiag_fast(x)
-    TNT, d = tnt_d_seg(cm, N)
+    :func:`propose_b_mh` does (``beta`` as there)."""
+    TNT, d = tnt_d_seg(cm, _tempered_N(cm, x, beta))
     phi = cm.phi(x)
     Sig = TNT + _batched_diag(1.0 / phi)
     L, Li, dj, mean, bp = _factor_batch(Sig, d, z, ridge=_PROP_RIDGE,
                                         factor="tf")
-    logr, up = _log_ratio(cm, x, b, u, L, mean, dj, bp, z, cm.cdtype)
+    logr, up = _log_ratio(cm, x, b, u, L, mean, dj, bp, z, cm.cdtype,
+                          beta)
     ok = torch.isfinite(bp).all(-1) & torch.isfinite(logr)
     return bp, up, logr, ok, L, dj
 
 
-def draw_b_refresh_core(cm, x, b, u, z, logu):
+def draw_b_refresh_core(cm, x, b, u, z, logu, beta=None):
     """Near-exact Metropolised refresh: the :func:`propose_b_refresh`
     proposal accepted with the exact Hastings ratio.  Returns ``(b',
     u', accepted)``."""
-    bp, up, logr, ok = propose_b_refresh(cm, x, b, u, z)[:4]
+    bp, up, logr, ok = propose_b_refresh(cm, x, b, u, z, beta)[:4]
     return _accept(b, u, bp, up, logr, ok, logu)
 
 
-def draw_b_refresh(cm, x, b, u, gen):
+def draw_b_refresh(cm, x, b, u, gen, beta=None):
     """:func:`draw_b_refresh_core` with its noise drawn from ``gen``."""
     z = _normal(gen, b.shape, cm.cdtype, cm.device)
     logu = torch.log(_uniform(gen, b.shape[:-1], cm.cdtype, cm.device))
-    return draw_b_refresh_core(cm, x, b, u, z, logu)
+    return draw_b_refresh_core(cm, x, b, u, z, logu, beta)
 
 
 def draw_b_fn_core(cm, x, z, b=None):
@@ -1527,13 +1558,15 @@ def _rho_scale_applies(cm) -> bool:
             and bool(cm.K) and len(cm.rho_ix_x) > 0 and not cm.has_ke)
 
 
-def rho_scale_moves_core(cm, x, b, u, eps, logu):
+def rho_scale_moves_core(cm, x, b, u, eps, logu, beta=None):
     """Interweaving scale moves along the rho <-> b funnel: per frequency
     k, jointly propose ``rho_k -> e^z rho_k`` and ``b_pk -> e^(z/2) b_pk``
     on the shared columns (``z = RHO_SCALE_SIGMA * eps[..., k]``),
     Metropolis-accepted with the exact joint density ratio and the
-    Jacobian ``e^(z n/2)``.  ``eps``/``logu`` (..., K) float64.  Returns
-    ``(x, b, u)`` with ``u = T b`` updated in place of a new matvec."""
+    Jacobian ``e^(z n/2)``.  ``eps``/``logu`` (..., K) float64; ``beta``
+    (...,) scales the likelihood delta only (prior and Jacobian
+    untempered).  Returns ``(x, b, u)`` with ``u = T b`` updated in place
+    of a new matvec."""
     cdt, fdt = cm.cdtype, cm.dtype
     B, P, K = cm.Bmax, cm.P, cm.K
     live = cm.psr_mask.to(cdt)
@@ -1558,6 +1591,8 @@ def rho_scale_moves_core(cm, x, b, u, eps, logu):
         r = cm.y - u
         dll = (delta * (r * t * invN).sum((-2, -1))
                - 0.5 * delta * delta * (t * t * invN).sum((-2, -1)))
+        if beta is not None:
+            dll = dll * beta.to(dll.dtype)
         # a (1,) index: indexing with a 0-d device tensor reads it on the
         # host, a sync a captured CUDA graph cannot hold
         rix = cm.rho_ix_x[k:k + 1]
@@ -1594,12 +1629,12 @@ def rho_scale_moves_core(cm, x, b, u, eps, logu):
     return x, b, u
 
 
-def rho_scale_moves(cm, x, b, u, gen):
+def rho_scale_moves(cm, x, b, u, gen, beta=None):
     """:func:`rho_scale_moves_core` with its noise drawn from ``gen``."""
     shape = x.shape[:-1] + (cm.K,)
     eps = _normal(gen, shape, cm.cdtype, cm.device)
     logu = torch.log(_uniform(gen, shape, cm.cdtype, cm.device))
-    return rho_scale_moves_core(cm, x, b, u, eps, logu)
+    return rho_scale_moves_core(cm, x, b, u, eps, logu, beta)
 
 
 # ===========================================================================

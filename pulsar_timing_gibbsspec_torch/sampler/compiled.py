@@ -765,3 +765,38 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
         b_names=tuple(fields.get("b_names", ())),
         red_f=t(red_f), red_df=t(red_df), **ke,
     )
+
+
+#: the keys of the ensemble stage's state and of the device sketch's
+ENS_STATE_KEYS = ("lsp", "m", "swap_acc", "swap_try", "stretch_acc",
+                  "stretch_try")
+SKETCH_STATE_KEYS = ("n", "mean", "m2", "cross", "lag", "tail", "move",
+                     "moven")
+
+
+def _f64_state(arrays, keys, what, device):
+    missing = [k for k in keys if k not in arrays]
+    if missing:
+        raise ValueError(f"{what} lacks {', '.join(missing)}")
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.array(arrays[k], np.float64),
+                               device=dev) for k in keys}
+
+
+def ens_state_from_arrays(arrays: dict, device=None) -> dict:
+    """The ensemble stage's state carried across: the JAX ``ens_state``
+    dict (``sampler/ensemble.py::init_ens_state``'s keys, as numpy
+    arrays) as the port's float64 tensors on ``device``."""
+    return _f64_state(arrays, ENS_STATE_KEYS, "ensemble state", device)
+
+
+def sketch_state_from_arrays(arrays: dict, device=None) -> dict:
+    """The device sketch's state carried across: the JAX sketch-state
+    dict (``obs/sketch.py::init_state``'s keys, as numpy arrays) as the
+    port's float64 tensors on ``device``, with the port's ``shift`` at 0
+    (the JAX sketch sums raw lagged products) where the dict has none."""
+    out = _f64_state(arrays, SKETCH_STATE_KEYS, "sketch state", device)
+    out["shift"] = (torch.as_tensor(np.array(arrays["shift"], np.float64),
+                                    device=out["mean"].device)
+                    if "shift" in arrays else torch.zeros_like(out["mean"]))
+    return out

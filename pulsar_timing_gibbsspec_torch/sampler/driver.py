@@ -78,6 +78,16 @@ post-warmup row, the carry and ``adapt.npz`` stay exact, so the sampled
 process does not depend on it (but for the DE history, which reads the
 recorded rows).
 
+**Ensemble stage and sketch** (``ensemble``, ``pt_ladder``, ``obs``;
+the JAX driver's ``ens_step`` and obs chunk): with the stage on, each
+steady sweep is followed by :mod:`.ensemble`'s ASIS redraw, stretch
+move and, under tempering, the swap of the sweep's parity, drawing from
+the sweep's stream after its blocks; the ladder and counters live on the
+device and reach the checkpoint at each writeback.  With ``obs`` each
+steady sweep starts with the sketch's fold of the pre-sweep carry
+(:mod:`..obs.sketch`).  Off, neither enters the sweep.  The run loop's
+seams are :mod:`..obs.trace` spans with the JAX driver's names.
+
 **Resilience** (the JAX driver's, ``runtime``): per chunk, the
 sentinels' :func:`..runtime.sentinels.chunk_health` runs on the chunk's
 device records and reaches the host with them (``sentinels=True``);
@@ -98,12 +108,14 @@ import time
 import numpy as np
 import torch
 
-from ..config import hd_kernel_choice, record_dtype, settings
+from ..config import ensemble_choice, hd_kernel_choice, record_dtype, settings
+from ..obs import trace as otrace
 from ..ops.acf import integrated_act_columns
 from ..runtime import faults, preemption, telemetry
 from ..runtime.sentinels import ChainDivergence, SentinelMonitor, chunk_health
 from ..runtime.watchdog import DispatchWatchdog
 from . import blocks
+from . import ensemble as ens_mod
 from .blocks import EXACT_EVERY
 from .graphs import SteadyGraphs
 
@@ -132,6 +144,10 @@ def stream_seed(seed, t):
     ``splitmix64(splitmix64(seed) ^ t)`` on 64-bit words."""
     return _splitmix64(_splitmix64(int(seed) & _MASK64) ^ (int(t) & _MASK64))
 
+
+#: the blocks whose likelihood a tempered chain raises to its beta
+TEMPERED_BLOCKS = frozenset(("white", "ecorr", "scale", "b_mh", "b_refresh",
+                             "asis"))
 
 #: the reserved stream index a refolded seed is drawn from (no sweep
 #: uses it: sweeps are ``t >= 0``, the initial draw ``INIT_STREAM``)
@@ -267,9 +283,9 @@ class _Carry:
         """``u = T b`` afresh."""
         self.u = blocks.b_matvec(self.drv.cm, self.b)
 
-    def sweep(self, exact):
+    def sweep(self, exact, t):
         self.x, self.b, self.u = self.drv._sweep(self.x, self.b, self.u,
-                                                 exact)
+                                                 exact, t)
 
 
 class _Records:
@@ -291,6 +307,11 @@ class _Records:
             finite=torch.empty(C, dtype=torch.bool, device=dev),
             move_frac=torch.empty(C, dtype=torch.float32, device=dev),
             rho_ok=torch.empty(C, dtype=torch.bool, device=dev))
+        #: the ensemble state and the sketch's moments at the chunk's end
+        #: (the checkpoint's ``ens_*`` keys, the split-R-hat trail)
+        self.extra = drv.chunk_extras()
+        for k, v in self.extra.items():
+            self.dev[k] = torch.empty_like(v)
         self.cuda = dev.type == "cuda"
         if self.cuda:
             self.host = {k: torch.empty(v.shape, dtype=v.dtype,
@@ -318,6 +339,8 @@ class _Records:
         d["x_end"].copy_(carry.x)
         d["b_end"].copy_(carry.b)
         d["acc"].copy_(acc)
+        for k, v in self.extra.items():
+            d[k].copy_(v)
         if health_args is not None:
             for k, v in chunk_health(d["xs"][:m], d["bs"][:m],
                                      *health_args).items():
@@ -332,8 +355,10 @@ class _Records:
             copy_stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(copy_stream):
                 for k, v in self.host.items():
-                    n = m if k in ("xs", "bs") else None
-                    v[:n].copy_(d[k][:n], non_blocking=True)
+                    if k in ("xs", "bs"):
+                        v[:m].copy_(d[k][:m], non_blocking=True)
+                    else:
+                        v.copy_(d[k], non_blocking=True)
                 self.copied.record(copy_stream)
 
     def ready(self):
@@ -341,17 +366,18 @@ class _Records:
         return not self.cuda or self.copied.query()
 
     def read(self):
-        """Host numpy copies of the chunk's rows (float64), carry and
-        health (waits for the copy)."""
+        """Host numpy copies of the chunk's rows (float64), carry,
+        health and extras (waits for the copy)."""
         if self.cuda:
             self.copied.synchronize()
         m = self.meta[1]
         h = {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
              for k, v in self.host.items()}
         health = {k: h[k].copy() for k in ("finite", "move_frac", "rho_ok")}
+        extra = {k: h[k].copy() for k in self.extra}
         return (h["xs"][:m].astype(np.float64),
                 h["bs"][:m].astype(np.float64), h["x_end"].copy(),
-                h["b_end"].copy(), h["acc"].copy(), health)
+                h["b_end"].copy(), h["acc"].copy(), health, extra)
 
 
 class TorchGibbsDriver:
@@ -384,7 +410,21 @@ class TorchGibbsDriver:
     health reductions and their :class:`..runtime.sentinels.
     SentinelMonitor`) and ``watchdog`` (True: a default
     :class:`..runtime.watchdog.DispatchWatchdog`; an instance is used as
-    it is; None or False: no guard)."""
+    it is; None or False: no guard).
+
+    And its ensemble and diagnostic options: ``ensemble`` (None:
+    ``PTGIBBS_ENSEMBLE``) appends the stage of :mod:`.ensemble` (ASIS,
+    stretch, with ``pt_ladder`` > 1 (None: ``PTGIBBS_PT_LADDER``) the
+    tempering swaps) to every steady sweep, after its blocks; a model
+    outside :func:`.ensemble.ensemble_applies`, a chain count the ladder
+    does not tile and ``pt_ladder > 1`` without the stage raise
+    ``ValueError``.  Under tempering, chain ``c`` runs at
+    ``betas[c % pt_ladder]`` (computed on the device from the ladder's
+    state in every block that needs it); only ``c % pt_ladder == 0`` are
+    posterior samples.  ``obs`` (True, or a dict of
+    :func:`..obs.sketch.make_sketch_spec` options) folds the carry of
+    every steady sweep into the device sketch of :mod:`..obs.sketch`;
+    :meth:`obs_summary` finalizes it."""
 
     def __init__(self, cm, nchains=1, seed=0, warmup_sweeps=50,
                  white_adapt_iters=1000, red_adapt_iters=2000, red_steps=20,
@@ -392,7 +432,8 @@ class TorchGibbsDriver:
                  joint_mixed=None, exact_every=EXACT_EVERY,
                  white_steps_max=WHITE_STEPS_MAX,
                  warmup_white_steps=WARMUP_WHITE_STEPS, common_rho=False,
-                 record_precision=None, sentinels=True, watchdog=None):
+                 record_precision=None, sentinels=True, watchdog=None,
+                 obs=None, ensemble=None, pt_ladder=None):
         self.cm = cm
         self.C = int(nchains)
         if self.C < 1:
@@ -566,11 +607,101 @@ class TorchGibbsDriver:
         #: SteadyGraphs`) after the last steady chunk
         self.carry = None
         self._copy_stream = None
+        #: the device sketch (:mod:`..obs.sketch`): its spec, state, the
+        #: state entering the last folded sweep, the spec's device index;
+        #: the cumulative (n, mean, m2) host snapshot of each writeback
+        self.obs = self._obs_state = self._obs_prev = None
+        self._obs_index = None
+        self._obs_snaps = []
+        #: the sketch has folded nothing yet (its shift is set at the
+        #: first steady carry)
+        self._obs_fresh = True
+        if obs:
+            from ..obs import sketch
+
+            self.obs = sketch.make_sketch_spec(
+                cm, **(obs if isinstance(obs, dict) else {}))
+            self._obs_state = sketch.init_state(self.obs, self.C, cm.device)
+            self._obs_prev = torch.zeros((self.C, cm.nx), dtype=cm.cdtype,
+                                         device=cm.device)
+            self._obs_index = sketch.spec_index(self.obs, cm.device)
+        #: the ensemble stage's spec, its state on the device (static
+        #: buffers the stage updates in place) and the host copy of that
+        #: state at the last writeback (the checkpoint's ``ens_*``)
+        self.ens = self.ens_state = self._ens_host = None
+        ens_on, n_temps = ensemble_choice(ensemble, pt_ladder)
+        if ens_on:
+            if not ens_mod.ensemble_applies(cm):
+                raise ValueError(
+                    "ensemble=True requires a CRN free-spectrum model "
+                    "with a shared rho block and diagonal N (no kernel "
+                    "ECORR); build with common_psd='spectrum'")
+            spec = ens_mod.EnsembleSpec(n_temps=n_temps)
+            ens_mod.validate_ensemble(spec, self.C)
+            self.ens = spec
+            self.ens_state = ens_mod.init_ens_state(spec, cm.cdtype,
+                                                    cm.device)
+            self._ens_host = {k: v.cpu().numpy()
+                              for k, v in self.ens_state.items()}
+        elif n_temps > 1:
+            raise ValueError(
+                "pt_ladder > 1 requires ensemble=True (tempered chains "
+                "only exist inside the ensemble stage)")
 
     # ---- streams and blocks ------------------------------------------------
 
     def _reseed(self, t):
         self.gen.manual_seed(stream_seed(self.seed, t))
+
+    def betas(self):
+        """(C,) per-chain inverse temperatures from the ladder's device
+        state, or None without tempering."""
+        if self.ens is None or self.ens.n_temps == 1:
+            return None
+        return ens_mod.chain_betas(self.ens, self.ens_state, self.C)
+
+    def stage_blocks(self, t):
+        """The ensemble stage's blocks after steady sweep ``t``."""
+        if self.ens is None:
+            return []
+        out = ((["asis"] if self.ens.asis else [])
+               + (["stretch"] if self.ens.stretch else []))
+        if self.ens.n_temps > 1:
+            out.append("pt_swap_odd" if t % 2 else "pt_swap_even")
+        return out
+
+    def sweep_order(self, exact, t):
+        """Every block of steady sweep ``t`` in order: the sketch's fold
+        of the pre-sweep state, the sweep's blocks, the stage's."""
+        return ((["sketch"] if self.obs is not None else [])
+                + self.sweep_blocks(exact) + self.stage_blocks(t))
+
+    def chunk_extras(self):
+        """Device tensors a chunk's records copy at its end: the ensemble
+        state (``ens_<key>``) and the sketch's ``n``, ``mean``, ``m2``
+        (``sk_<key>``)."""
+        out = {}
+        if self.ens is not None:
+            out.update({"ens_" + k: v for k, v in self.ens_state.items()})
+        if self.obs is not None:
+            out.update({"sk_" + k: self._obs_state[k]
+                        for k in ("n", "mean", "m2")})
+        return out
+
+    def reset_stage(self):
+        """The ensemble state and the sketch as a fresh run starts them,
+        in place (graphs hold the buffers)."""
+        if self.ens is not None:
+            init = ens_mod.init_ens_state(self.ens, self.cm.cdtype,
+                                          self.cm.device)
+            for k, v in init.items():
+                self.ens_state[k].copy_(v)
+            self._ens_host = {k: v.cpu().numpy() for k, v in init.items()}
+        if self.obs is not None:
+            for v in self._obs_state.values():
+                v.zero_()
+            self._obs_snaps = []
+            self._obs_fresh = True
 
     def _hyper_blocks(self):
         return ((["red"] if self.do_red_conditional else [])
@@ -599,18 +730,25 @@ class TorchGibbsDriver:
         :attr:`b_mh_accepts` (:attr:`b_refresh_accepts`) in place,
         ``orf_mh`` its accepted steps to :attr:`orf_mh_accepts`, and
         ``b_joint`` / ``b_joint_exact`` the chains that kept their b to
-        :attr:`b_joint_breakdowns`."""
+        :attr:`b_joint_breakdowns`; the stage's blocks (``asis``,
+        ``stretch``, ``pt_swap_even`` / ``pt_swap_odd``) update
+        :attr:`ens_state` in place, ``sketch`` folds ``x`` into the
+        sketch (x, b, u unchanged).  Under tempering the white, ECORR,
+        scale and b blocks run at :meth:`betas`."""
         cm, gen = self.cm, self.gen
+        beta = self.betas() if name in TEMPERED_BLOCKS else None
         if name == "white":
             r = cm.y - u
             x, _ = blocks.parallel_cov_mh_scan(
-                cm, x, gen, blocks.white_block_ll(cm, x, r, r * r),
+                cm, x, gen, blocks.tempered_ll(
+                    blocks.white_block_ll(cm, x, r, r * r), beta),
                 cm.white_par_ix, cm.white_nper, self.chol_white,
                 self.aclength_white, record=False, mode=self.mode_white,
                 asqrt=self.asqrt_white)
         elif name == "ecorr":
             x, _ = blocks.parallel_cov_mh_scan(
-                cm, x, gen, blocks.ecorr_block_ll(cm, x, b, cm.y - u),
+                cm, x, gen, blocks.tempered_ll(
+                    blocks.ecorr_block_ll(cm, x, b, cm.y - u), beta),
                 cm.ecorr_par_ix, cm.ecorr_nper, self.chol_ecorr,
                 self.aclength_ecorr, record=False, mode=self.mode_ecorr,
                 asqrt=self.asqrt_ecorr)
@@ -626,16 +764,16 @@ class TorchGibbsDriver:
         elif name == "rho":
             x = blocks.rho_update(cm, x, b, gen)
         elif name == "scale":
-            x, b, u = blocks.rho_scale_moves(cm, x, b, u, gen)
+            x, b, u = blocks.rho_scale_moves(cm, x, b, u, gen, beta)
         elif name == "orf_mh":
             x, _ = blocks.mh_scan(cm, x, gen, blocks.lnlike_orf_fn(cm, b),
                                   cm.orf_ix, self.red_steps,
                                   accepts=self.orf_mh_accepts)
         elif name == "b_mh":
-            b, u, acc = blocks.draw_b_mh(cm, x, b, u, gen)
+            b, u, acc = blocks.draw_b_mh(cm, x, b, u, gen, beta)
             self.b_mh_accepts += acc.to(torch.float64)
         elif name == "b_refresh":
-            b, u, acc = blocks.draw_b_refresh(cm, x, b, u, gen)
+            b, u, acc = blocks.draw_b_refresh(cm, x, b, u, gen, beta)
             self.b_refresh_accepts += acc.to(torch.float64)
         elif name == "b_exact":
             b = blocks.draw_b_fn(cm, x, gen, b)
@@ -643,6 +781,24 @@ class TorchGibbsDriver:
         elif name in ("b_joint", "b_joint_exact"):
             b = self._draw_corr(x, b, exact=name == "b_joint_exact")
             u = blocks.b_matvec(cm, b)
+        elif name == "asis":
+            x, b, u = ens_mod.asis_rho_redraw(cm, x, b, u, gen, beta)
+        elif name == "stretch":
+            es = self.ens_state
+            x, nacc = ens_mod.stretch_rho_move(cm, self.ens, x, b, gen)
+            es["stretch_acc"].add_(nacc)
+            es["stretch_try"].add_(float(self.C // self.ens.n_temps))
+        elif name in ("pt_swap_even", "pt_swap_odd"):
+            x, b, u, es = ens_mod.pt_swap(cm, self.ens, x, b, u,
+                                          self.ens_state, gen,
+                                          int(name == "pt_swap_odd"))
+            for k, v in es.items():
+                self.ens_state[k].copy_(v)
+        elif name == "sketch":
+            from ..obs.sketch import fold_
+
+            fold_(self.obs, self._obs_state, self._obs_prev, x,
+                  self._obs_index)
         else:
             raise ValueError(f"unknown block {name!r}")
         return x, b, u
@@ -771,10 +927,11 @@ class TorchGibbsDriver:
                 b, u, _ = blocks.draw_b_refresh(cm, x, b, u, self.gen)
         return x, b, u
 
-    def _sweep(self, x, b, u, exact):
-        """One eager steady sweep; ``exact`` selects the refresh b-draw."""
-        for name in self.sweep_blocks(exact):
-            with self.timer(name):
+    def _sweep(self, x, b, u, exact, t):
+        """One eager steady sweep ``t`` (:meth:`sweep_order`); ``exact``
+        selects the refresh b-draw."""
+        for name in self.sweep_order(exact, t):
+            with self.timer(ens_mod.TIMER_NAME.get(name, name)):
                 x, b, u = self.block(name, x, b, u)
         return x, b, u
 
@@ -912,6 +1069,15 @@ class TorchGibbsDriver:
         on, capture the steady blocks' graphs around it (a capture
         failure raises)."""
         self._de_key = None     # the first sweep loads its period's rows
+        if self.obs is not None:
+            # the first steady transition is counted from the entry state,
+            # and a fresh sketch's lagged sums are shifted by it
+            self._obs_prev.copy_(x)
+            if self._obs_fresh:
+                from ..obs.sketch import set_shift_
+
+                set_shift_(self.obs, self._obs_state, x, self._obs_index)
+                self._obs_fresh = False
         if self.graphs:
             self.carry = None        # release an earlier run's graphs
             self.carry = SteadyGraphs(self, x, b)
@@ -935,7 +1101,7 @@ class TorchGibbsDriver:
                 self._de_select(t)
             self._reseed(t)
             exact = t % self.exact_every == 0
-            c.sweep(exact)
+            c.sweep(exact, t)
             if exact:
                 self.b_refresh_sweeps += 1
             else:
@@ -1043,13 +1209,14 @@ class TorchGibbsDriver:
         first = 0           # rows [first, wr] get the post-warmup state
         if W > 0:
             xs, bs = [], []
-            for t in range(W):
-                if t % k == 0:
-                    xs.append(x.to(self.rdtype))
-                    bs.append(b[:, self._b_pi_t, self._b_ci_t].to(
-                        self.rdtype))
-                self._reseed(t)
-                x, b, u = self._warmup_sweep(x, b, u)
+            with otrace.span("warmup.chunk", sweeps=W):
+                for t in range(W):
+                    if t % k == 0:
+                        xs.append(x.to(self.rdtype))
+                        bs.append(b[:, self._b_pi_t, self._b_ci_t].to(
+                            self.rdtype))
+                    self._reseed(t)
+                    x, b, u = self._warmup_sweep(x, b, u)
             xs_t, bs_t = torch.stack(xs), torch.stack(bs)
             health_args = self._health_args()
             health = (None if health_args is None else
@@ -1089,21 +1256,31 @@ class TorchGibbsDriver:
 
     def _writeback(self, rec, chain, bchain):
         row, m, it_end, bmh_end, mark = rec.meta
-        xs, bs, x_end, b_end, acc, health = rec.read()
-        xs, bs = self._squeeze(xs), self._squeeze(bs)
-        self._check_finite(xs, row, "chain state")
-        self._check_finite(bs, row, "b coefficients")
-        self._check_finite(b_end[None], row + m, "b carry")
-        # before the state advances: a stuck-chain raise leaves the
-        # checkpointable state at the previous writeback
-        self._observe_health(health, it_end)
-        chain[row:row + m] = xs
-        bchain[row:row + m] = bs
-        self.x_cur = x_end
-        self.b = torch.as_tensor(b_end)
-        self.it_cur = it_end
-        self._acc_cur, self._b_mh_sweeps_cur = acc, bmh_end
-        self.timer.flush(mark)
+        with otrace.span("chunk.d2h", row=row, rows=m):
+            xs, bs, x_end, b_end, acc, health, extra = rec.read()
+        with otrace.span("chunk.writeback", row=row, rows=m):
+            xs, bs = self._squeeze(xs), self._squeeze(bs)
+            self._check_finite(xs, row, "chain state")
+            self._check_finite(bs, row, "b coefficients")
+            self._check_finite(b_end[None], row + m, "b carry")
+            # before the state advances: a stuck-chain raise leaves the
+            # checkpointable state at the previous writeback
+            self._observe_health(health, it_end)
+            chain[row:row + m] = xs
+            bchain[row:row + m] = bs
+            self.x_cur = x_end
+            self.b = torch.as_tensor(b_end)
+            self.it_cur = it_end
+            self._acc_cur, self._b_mh_sweeps_cur = acc, bmh_end
+            if self.ens is not None:
+                self._ens_host = {k[4:]: v for k, v in extra.items()
+                                  if k.startswith("ens_")}
+            if self.obs is not None:
+                # the split-R-hat trail: cumulative moments at this chunk
+                self._obs_snaps.append((float(extra["sk_n"]),
+                                        extra["sk_mean"].copy(),
+                                        extra["sk_m2"].copy()))
+            self.timer.flush(mark)
         return row + m
 
     def run(self, x, chain, bchain, start, niter):
@@ -1129,6 +1306,7 @@ class TorchGibbsDriver:
         if start == 0:
             self.b_mh_accepts.zero_()
             self.b_mh_sweeps = 0
+            self.reset_stage()
             x, b, ii, rowc = self._start(x, chain, bchain, niter)
             self.x_cur = x.cpu().numpy()
             self.b = b.cpu()
@@ -1164,16 +1342,19 @@ class TorchGibbsDriver:
             if preemption.drain_requested():
                 # queue nothing more; the chunk in flight is decided below
                 break
-            n = min(cs - (ii - it_base) % cs, niter - ii)
-            off = (it_base - ii) % k
-            m = max(0, -(-(n - off) // k))
-            rec = recs[j % 2]
-            rec.begin()
-            self.steady_chunk(ii, n, rec, it_base)
+            with otrace.span("chunk.host_prep", it0=ii):
+                n = min(cs - (ii - it_base) % cs, niter - ii)
+                off = (it_base - ii) % k
+                m = max(0, -(-(n - off) // k))
+                rec = recs[j % 2]
+                rec.begin()
+            with otrace.span("chunk.dispatch", it0=ii, n=n):
+                self.steady_chunk(ii, n, rec, it_base)
             rec.meta = (rowc, m, ii + n, self.b_mh_sweeps,
                         self.timer.recorded)
-            rec.end(self.carry, self.b_mh_accepts, self._copy_stream,
-                    health_args)
+            with otrace.span("chunk.carry_sync", it0=ii):
+                rec.end(self.carry, self.b_mh_accepts, self._copy_stream,
+                        health_args)
             tw = time.monotonic()
             self._guarded(lambda it0=ii: faults.fire("dispatch.chunk",
                                                      row=it0),
@@ -1196,6 +1377,7 @@ class TorchGibbsDriver:
                 # landing it would blow the grace window: drop it (its
                 # sweeps replay bitwise on resume)
                 telemetry.incr("drain_abandoned_chunks")
+                otrace.instant("drain.abandon_chunk", row=pending.meta[0])
             else:
                 self._guarded(None, f"writeback@{pending.meta[0]}", pending)
                 yield self._writeback(pending, chain, bchain)
@@ -1214,7 +1396,77 @@ class TorchGibbsDriver:
         wd.call(seam or (lambda: None), what=what, n=self.chunk_size,
                 done=None if pending is None else pending.ready)
 
+    # ---- diagnostics ------------------------------------------------------
+
+    def obs_summary(self):
+        """Finalize the device sketch (:mod:`..obs.summary`): one copy of
+        its state to the host, then NumPy: per-chain/channel mean and
+        variance, Sokal ACT and ESS in sweep units (the sketch folds every
+        steady sweep, before record thinning), cross-covariance, per-block
+        move rates, ``act_rho_med``, ``window_saturated``, and the moment
+        split-R-hat over the writebacks' snapshots (``split_rhat_moment``,
+        ``rhat_max``); with the ensemble stage, its
+        :meth:`ensemble_summary` under ``"ensemble"``.  Raises without
+        ``obs``."""
+        if self.obs is None:
+            raise RuntimeError(
+                "driver built without obs=; pass obs=True (or a dict of "
+                "sketch options) to the driver to enable the on-device "
+                "diagnostics")
+        from ..obs.summary import finalize, moment_split_rhat
+
+        state_h = {k: v.cpu().numpy() for k, v in self._obs_state.items()}
+        out = finalize(self.obs, state_h)
+        rhat = moment_split_rhat(self._obs_snaps, state_h)
+        out["split_rhat_moment"] = rhat
+        out["rhat_max"] = float(np.max(rhat)) if rhat is not None else None
+        if self.ens is not None:
+            out["ensemble"] = self.ensemble_summary()
+        return out
+
+    def ensemble_summary(self):
+        """The stage's counters at the last writeback, rolled up
+        (:func:`.ensemble.ensemble_summary`: swap rate per rung, stretch
+        acceptance per temperature, the ladder); None without the
+        stage."""
+        if self.ens is None:
+            return None
+        return ens_mod.ensemble_summary(self.ens, self._ens_host)
+
     # ---- checkpointable state ----------------------------------------------
+
+    def _load_ens(self, state):
+        """The ensemble state of a checkpoint, into the device buffers;
+        raises ``RuntimeError`` when the checkpoint's stage or ladder is
+        not this sampler's."""
+        got_t = state.pop("ens_pt_ladder", None)
+        if self.ens is None:
+            if got_t is not None:
+                raise RuntimeError(
+                    "resume checkpoint was written with the ensemble stage "
+                    "on (pt_ladder={}) but this sampler has ensemble=False; "
+                    "they must match".format(int(got_t)))
+            return
+        if got_t is None:
+            raise RuntimeError(
+                "resume checkpoint was written with the ensemble "
+                "stage off but this sampler has ensemble=True; they "
+                "must match (the stage changes the sampled process)")
+        if int(got_t) != self.ens.n_temps:
+            raise RuntimeError(
+                f"resume checkpoint was written with pt_ladder="
+                f"{int(got_t)} but this sampler has pt_ladder="
+                f"{self.ens.n_temps}; they must match")
+        host = {}
+        for k, v in self.ens_state.items():
+            ck = "ens_" + k
+            if ck not in state:
+                raise RuntimeError(
+                    f"resume checkpoint lacks ensemble state {ck!r}; "
+                    "it was written by an incompatible version")
+            host[k] = np.asarray(state[ck], np.float64).reshape(v.shape)
+            v.copy_(torch.as_tensor(host[k]))
+        self._ens_host = host
 
     def stream_options(self):
         """The sweep options that change the random stream, as the
@@ -1247,6 +1499,12 @@ class TorchGibbsDriver:
                     "red_hist"):
             if getattr(self, key) is not None:
                 out[key] = np.asarray(getattr(self, key))
+        if self.ens is not None:
+            # the ladder and counters are part of the sampled process
+            # when tempering is on: resume restores them exactly
+            out["ens_pt_ladder"] = np.int64(self.ens.n_temps)
+            for k, v in self._ens_host.items():
+                out["ens_" + k] = np.asarray(v)
         return out
 
     def load_adapt_state(self, state):
@@ -1328,6 +1586,7 @@ class TorchGibbsDriver:
         self._set_adapt(**{k: state[k] for k in (
             "chol_white", "mode_white", "asqrt_white", "chol_ecorr",
             "mode_ecorr", "asqrt_ecorr") if k in state})
+        self._load_ens(state)
         if self.do_red_mh:
             if "cov_red" not in state or "red_hist" not in state:
                 raise RuntimeError(

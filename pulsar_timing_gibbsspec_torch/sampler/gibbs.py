@@ -49,7 +49,8 @@ class _GibbsBase:
     validate_sampling_flags``).  ``ecorrsample="kernel"`` (kernel ECORR)
     needs a model compiled with ``kernel_ecorr=True``, and such a model
     refuses ``ecorrsample="mh"``: the facade takes a compiled model and
-    recompiles nothing."""
+    recompiles nothing.  The driver's options pass through, the JAX
+    facade's ``ensemble``, ``pt_ladder`` and ``obs`` among them."""
 
     #: the backend name the supervisor reports and the metrics carry
     backend_name = "torch"
@@ -86,6 +87,17 @@ class _GibbsBase:
         #: the chain store of the last sample() (its ``seconds`` split the
         #: saves by step)
         self.store = None
+
+    def obs_summary(self):
+        """The device sketch finalized (driver option ``obs``):
+        :meth:`.driver.TorchGibbsDriver.obs_summary`."""
+        return self.driver.obs_summary()
+
+    def ensemble_summary(self):
+        """The ensemble stage's roll-up (driver options ``ensemble``,
+        ``pt_ladder``), None without it:
+        :meth:`.driver.TorchGibbsDriver.ensemble_summary`."""
+        return self.driver.ensemble_summary()
 
     @property
     def params(self):

@@ -6,15 +6,21 @@ steady sweep is fixed (the white and ECORR sub-chain lengths
 ``aclength_white`` and ``aclength_ecorr`` included), so each of its
 blocks (white, ecorr, red or tprocess, red_mh, rho, scale, orf_mh,
 b_mh, b_refresh; under a correlated ORF b_joint and b_joint_exact; under
-kernel ECORR the one b_exact: as the model has them) is captured once as
-a CUDA graph and a sweep is a few graph launches in place of thousands
-of kernel launches from the host.
+kernel ECORR the one b_exact: as the model has them), the ensemble
+stage's (asis, stretch, and a tempering swap of each parity,
+pt_swap_even and pt_swap_odd) and the sketch's fold (sketch) is captured
+once as a CUDA graph and a sweep is a few graph launches in place of
+thousands of kernel launches from the host.
 
 - ``x``, ``b``, ``u = T b`` and the acceptance counters live in static
   buffers that every graph reads and writes in place; so do the powerlaw
   block's adapted ``U``, ``S`` and its DE history, which the driver
   refills in place between replays when a DE period starts
-  (``driver._de_select``).
+  (``driver._de_select``).  The ensemble state (the tempering ladder and
+  the stage's counters) and the sketch are static buffers too, updated
+  in place by their graphs; a chain's beta is computed from the ladder
+  on the device inside each graph that needs it, never read back between
+  replays.
 - The driver's generator is registered with every graph, so a replay
   draws from the generator's current seed and offset and advances the
   offset by what the capture drew; the driver re-seeds it between
@@ -42,6 +48,7 @@ import torch
 
 from ..ops import kernels
 from . import blocks
+from .ensemble import TIMER_NAME
 
 
 class SteadyGraphs:
@@ -64,14 +71,18 @@ class SteadyGraphs:
         self.x = x.clone()
         self.b = b.clone()
         self.u = blocks.b_matvec(cm, self.b)
-        names = dict.fromkeys(drv.sweep_blocks(False)
-                              + drv.sweep_blocks(True))
+        names = dict.fromkeys(drv.sweep_order(False, 0)
+                              + drv.sweep_order(True, 1))
         stream = torch.cuda.Stream(cm.device)
         torch.cuda.synchronize(cm.device)
         t0 = time.perf_counter()
+        # state the warm-up pass below moves, restored after it
         counters = (drv.b_mh_accepts, drv.b_refresh_accepts,
                     drv.red_mh_accepts, drv.orf_mh_accepts,
-                    drv.b_joint_breakdowns)
+                    drv.b_joint_breakdowns,
+                    *(drv.ens_state or {}).values(),
+                    *(drv._obs_state or {}).values(),
+                    *(() if drv._obs_prev is None else (drv._obs_prev,)))
         acc0 = [c.clone() for c in counters]
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
@@ -131,10 +142,11 @@ class SteadyGraphs:
         """``u = T b`` afresh, into the static buffer."""
         self.u.copy_(blocks.b_matvec(self.drv.cm, self.b))
 
-    def sweep(self, exact):
-        """Replay one steady sweep's graphs in the JAX order, each inside
-        the driver's block timer."""
-        for name in self.drv.sweep_blocks(exact):
-            with self.drv.timer(name):
+    def sweep(self, exact, t):
+        """Replay steady sweep ``t``'s graphs in the JAX order
+        (``drv.sweep_order``), each inside the driver's block timer."""
+        drv = self.drv
+        for name in drv.sweep_order(exact, t):
+            with drv.timer(TIMER_NAME.get(name, name)):
                 self.graphs[name].replay()
             self.replays[name] += 1
