@@ -4,7 +4,7 @@
 Usage: python3 chip_smoke.py [--seed S] [--outdir DIR] [--steady N]
 
 (``DIR``, default ``build/chip_smoke``, receives phase 13's par/tim
-pair and the checkpoint directories of phases 3b-18c; ``N``, default
+pair and the checkpoint directories of phases 3b-21; ``N``, default
 240, is the steady sweeps of the main paths of phases 4, 7, 11 and 18:
 a deeper run reads what checkpoints cost as the record grows.)
 
@@ -63,10 +63,10 @@ Phases (any failure exits non-zero):
    through the graphs at 64 chains, bitwise);
 7. the single-pulsar main path: README's Quick-start model of
    ``tests/data/enterprise_J1713+0747.npz`` (basis ECORR, the inverse-CDF
-   rho draw) sampled by ``PulsarBlockGibbs(nchains=8)`` through 20
-   warmup sweeps, adaptation and 240 steady sweeps replayed from the
-   CUDA graphs, checkpointed every 100 sweeps, with the launch counts set
-   to 0 just before it: samples/s, per-block ms, the white and ECORR
+   rho draw) sampled by ``PulsarBlockGibbs(nchains=8)`` through 5
+   warmup sweeps, adaptation and 240 steady sweeps
+   replayed from the CUDA graphs, checkpointed every 100 sweeps, with the
+   launch counts set to 0 just before it: samples/s, per-block ms, the white and ECORR
    sub-chain lengths, the b_mh and refresh acceptance per chain, every
    record finite, every log10_rho median inside (-10, -4), the final
    checkpoint verified, every wide kernel form run on the card and each
@@ -81,9 +81,9 @@ Phases (any failure exits non-zero):
    sweep, ``model_general([J1713+0747], white_vary=True,
    common_psd="spectrum", red_psd="powerlaw")`` (30 bins each; white,
    ECORR, the red powerlaw MH with its DE history, rho by the grid draw,
-   scale moves, b) by ``PulsarBlockGibbs(nchains=8)`` through 20 warmup
-   sweeps, the adaptation (2000 MH steps on the b-marginalized
-   likelihood, the float64 wide factor) and 500 steady sweeps from the
+   scale moves, b) by ``PulsarBlockGibbs(nchains=8)`` through 5 warmup
+   sweeps, the adaptation (1000 MH steps on the b-marginalized
+   likelihood, the float64 wide factor) and 515 steady sweeps from the
    graphs, checkpointed every 100, launch counts from 0: samples/s,
    per-block ms, the adaptation's seconds and float64 factor runs,
    red_mh acceptance per chain, the DE periods read from chain rows (at
@@ -114,7 +114,7 @@ Phases (any failure exits non-zero):
    red_components=10, orf="hd")`` on the synthetic 45-pulsar array (the
    common process on columns of its own: Bmax = 57), by
    ``PTABlockGibbs(nchains=32)`` through 5 warmup sweeps (the float64
-   joint b-draw), adaptation and 96 steady sweeps from the CUDA graphs
+   joint b-draw), adaptation and 64 steady sweeps from the CUDA graphs
    (the two-float joint draw ``b_joint``, float64 ``b_joint_exact`` on
    every 16th), checkpointed every 100, launch counts from 0:
    samples/s, per-block ms, the warmup's ms, capture seconds and pool MB,
@@ -151,8 +151,8 @@ Phases (any failure exits non-zero):
    red_psd="powerlaw", dm_var=True, dm_components=30, bayesephem=True)``
    (fixed EFAC/EQUAD, fixed ECORR on 508 columns, the 11 BayesEphem
    columns: Bmax = 744, the wide forms at an order they had not run at)
-   by ``PulsarBlockGibbs(nchains=8)`` through 20 warmup sweeps, the
-   adaptation (the float64 wide factor) and 480 steady sweeps, so the DE
+   by ``PulsarBlockGibbs(nchains=8)`` through 5 warmup sweeps, the
+   adaptation (the float64 wide factor) and 495 steady sweeps, so the DE
    history reads chain rows; the gates of 8 but the rho one, and no
    white or ECORR block; (12c) a split-and-resumed run bitwise as 7c.
    Phase 2 also holds and times every kernel form of these two paths at
@@ -169,7 +169,7 @@ Phases (any failure exits non-zero):
    red_var=False, white_vary=True, common_psd="spectrum",
    common_components=30, kernel_ecorr=True)`` (the 508 ECORR epochs in
    N: Bmax = 165) by ``PulsarBlockGibbs(nchains=8,
-   ecorrsample="kernel")`` through 20 warmup sweeps, adaptation and 120
+   ecorrsample="kernel")`` through 5 warmup sweeps, adaptation and 64
    steady sweeps from the graphs (one body: white, ECORR, rho and the
    exact b-draw, whose wide widening Gram runs at B1 = 166 every
    sweep), checkpointed every 100, launch counts from 0: samples/s,
@@ -185,8 +185,9 @@ Phases (any failure exits non-zero):
    white_vary=True, common_psd="spectrum", common_components=10,
    red_psd="tprocess", red_components=10)`` on the synthetic 45-pulsar
    array (450 InvGamma alphas drawn by their conjugate grid draw, 90
-   powerlaw hypers) by ``PTABlockGibbs(nchains=64)`` through 20 warmup
-   sweeps, the adaptation and 370 steady sweeps (so the DE history reads
+   powerlaw hypers) by ``PTABlockGibbs(nchains=64)`` through 5 warmup
+   sweeps, the adaptation (1000 MH steps) and 385 steady sweeps (so the
+   DE history reads
    chain rows), the gates of 9 with the DE one, every alpha finite and
    positive and moved; (14b) 9 steady sweeps from iteration 392,
    across the refresh at 400, graphed equal to eager bitwise; (14c) 8
@@ -200,7 +201,7 @@ Phases (any failure exits non-zero):
 16. the sampled-ORF array: phase 10's model with ``orf="bin_orf"`` (7
    correlation weights, ``G(theta) = I + sum_j theta_j B_j``, their MH
    block ``orf_mh`` after rho) by ``PTABlockGibbs(nchains=32)`` through
-   20 warmup sweeps, adaptation and 120 steady sweeps from the graphs,
+   5 warmup sweeps, adaptation and 64 steady sweeps from the graphs,
    checkpointed every 100, launch counts from 0: phase 10's gates and
    prints, with ``orf_mh``'s ms and acceptance; G(theta) positive
    definite in every recorded row (host ``eigvalsh``), every weight
@@ -208,7 +209,7 @@ Phases (any failure exits non-zero):
    across the refresh at 304 graphed equal to eager bitwise; (16c) 8
    chains, split and resumed bitwise; (16d) phase 10's model at 32
    chains under ``PTGIBBS_HD_KERNEL=pulsar`` and ``=freq`` (the
-   pulsar-wise and frequency-block b-draws), 3 warmup and 24 steady
+   pulsar-wise and frequency-block b-draws), 3 warmup and 12 steady
    sweeps each: every record finite, rho medians inside (-10, -4), one
    steady sweep graphed equal to eager bitwise, the Gram form run on
    the card.  Phase 2 holds the Gram form at phase 16's state.
@@ -257,17 +258,75 @@ Phases (any failure exits non-zero):
    x, b, the counters, the ensemble state and the sketch; (18c) 8 chains
    with ``pt_ladder=2`` and the sketch, split and resumed bitwise, and a
    resume of that checkpoint with ``pt_ladder=1`` raises.
+19. the collapsed rho draw: phase 4's model, seed and 64 chains with
+   ``PTGIBBS_RHO_COLLAPSE=1`` (read when the driver is built: rho drawn
+   with the per-pulsar red amplitudes integrated out over a 64-point
+   quadrature, before the red draw), 20 warmup and 96 steady sweeps
+   from the graphs, checkpointed every 100, launch counts from 0: rho and
+   red ms per sweep, sweeps/s, samples/s, the draw alone against the
+   conditional draw and its transient's peak memory.  Gates: the
+   predicate holds; rho before red in the sweep; every common and red
+   log10_rho record finite and inside its prior; per bin, past the first
+   48 steady rows, the chains' mean of per-chain medians within 5
+   combined standard errors of phase 4's; the kernel counters as phase
+   4's; the final checkpoint verified.  Phase 2 holds and times the
+   narrow forms at its final state; (19b) 9 steady sweeps from iteration
+   104 (across the refresh at 112) graphed equal to eager bitwise.
+20. the card's posterior against the oracle: before the first card
+   phase the script starts a child process (no card, one BLAS thread)
+   that runs README's Quick-start model of the snapshot on the port's
+   NumPy oracle (``backend="numpy"``, one chain, float64 on the host):
+   its adaptation sweep, then 1000 sweeps.  (20a) After phase 16d the
+   card runs the same model at 32 chains, 50 warmup sweeps (the facades'
+   default) and 400 steady sweeps from the graphs, launch counts from 0
+   (every wide form run, replays as captured, the final checkpoint
+   verified), and phase 2 holds the wide forms at its final state.
+   (20b) At each chain's final b the card's ECORR block runs alone 200
+   times; given b each backend's log10_ecorr has an exact
+   one-dimensional law (its columns and prior from the oracle's float64
+   host view), under which the draws' probability integral transform is
+   uniform: per hyper, past 10 calls, its mean within 5 standard errors
+   of 1/2 and its variance within 5 of 1/12.  Then the script waits for
+   the child (failing past 1150 s of the run's clock, or if the child
+   fails) and holds 20a's chains (past their first 100 steady rows)
+   against the oracle's chain (past its first 100 rows): per common
+   log10_rho bin and per white-noise hyper, |median difference| at most
+   5 combined standard errors (each median's error its interquartile
+   range over sqrt(ESS), the ESS from ``ops/acf.py``'s ACT window, of
+   the card's chains together through their multi-chain
+   autocorrelation), every white-noise hyper with an ESS of at least 20
+   on both sides; the ECORR hypers (ACT of hundreds of sweeps on either
+   side) have their z printed, and gated where both sides' ESS reach
+   20.  Prints the oracle's sweeps/s and the host CPU's model name, and
+   phase 4's samples/s with the oracle running beside it.
+21. repeated device errors on the card: the Quick start at one chain (3
+   warmup and 40 steady sweeps, chunks and checkpoints of 10, the white
+   and ECORR adaptation on 120 steps), whole, and under
+   ``run_supervised`` with the device error injected at the
+   ``sample.loop`` seam from row 14, three times in a row
+   (``degrade_after=3``, where the JAX package would move the run to its
+   NumPy oracle): the run stays on the card.  Gates: the report
+   completed with three device failures, ``degradations == 0`` in the
+   report and the telemetry, ``rep.backend == "torch"``, no
+   ``backend_degraded`` event; the chain and the b chain bitwise the
+   whole card run's; the final checkpoint verified with
+   ``layout.backend == "torch"``; the wide forms run on the card during
+   the supervised run.  Phase 2 then holds and times the wide forms at
+   one system, at the final state.  (Phase 17's report keeps 0
+   degradations too.)
 
-To keep the whole run inside its time limit, every main path runs 20
-warmup sweeps, phases 9 and 9b 3 warmup and 24 steady sweeps and 1000
-adaptation steps, 10 5 and 96 (phase 16 drives the same joint draw at
-20 and 120), 13 and 16 120 steady sweeps, 14d 3 and 16,
-the resume checks 11c-14c 3 and 32 (each resumes the whole run's own
-checkpoint: no second run to the split), the graphs-against-eager
-checks 9 sweeps, and every resume and graphs-against-eager check adapts
-its white and ECORR blocks on a record of 250 steps; phase 2 times each
-kernel form once, at its path's shape, beside its plain version and
-library call.  Every phase prints the run's seconds when it is done.
+To keep the whole run inside its time limit, every main path (4, 11,
+17-19) runs 20 warmup sweeps and phase 7 and the side paths 8 and 12-16
+5 (8, 12 and 14 run 15 more steady sweeps so their DE iterations stand;
+20a runs the facades' 50), phases 9 and 9b 3 warmup and 24 steady
+sweeps, the powerlaw adaptations of 8, 9, 9b, 11, 12, 14 and 15b 500
+steps (the facades' default is 2000), 10 5 and 64, 13 and 16 64 steady
+sweeps, 16d 3 and 12, 14d 3 and 16, the resume checks 11c-14c 3 and 32
+(each resumes the whole run's own checkpoint: no second run to the
+split), the graphs-against-eager checks 9 sweeps, and every resume and
+graphs-against-eager check adapts its white and ECORR blocks on a
+record of 120 steps; phase 2 times each kernel form once, at its path's
+shape, beside its plain version and library call.  Every phase prints the run's seconds when it is done.
 
 The kernels' JSON record and the card as ``nvidia-smi`` reports it are
 the two lines before the last; the last line is the JSON result.
@@ -337,7 +396,7 @@ RESUME_CHAINS, RESUME_WARMUP, RESUME_STEADY, RESUME_CHUNK = 8, 5, 64, 16
 #: DE history first reads chain rows, and 512, where it reads them anew);
 #: the depth of R2 and R3 (warmup, steady sweeps; cut from 10 + 100 to
 #: keep the run inside its limit)
-R1_STEADY = 500
+R1_STEADY = 515
 R2_WARMUP, R2_STEADY, R3_WARMUP, R3_STEADY = 3, 24, 3, 24
 #: R1's graphs-against-eager sweeps start here (crossing the DE period
 #: switch at 512); its resume check's steady sweeps, split row (after
@@ -354,7 +413,7 @@ F64_FORMS = (("chol_solve_sample", "f64"), ("chol_solve_sample", "f64_wide"))
 HD_CHAINS, HD_BINS, HD_GRAPH_CHECK_AT = 32, 10, 296
 #: phase 10's warmup and steady sweeps (short: phase 16 drives the same
 #: joint draw at the main paths' depth)
-HD_WARMUP, HD_STEADY = 5, 96
+HD_WARMUP, HD_STEADY = 5, 64
 #: its resume check's warmup and steady sweeps (split at row 20, after the
 #: refresh at 16, before the one at 32)
 HD_RESUME_WARMUP, HD_RESUME_STEADY = 3, 32
@@ -365,7 +424,7 @@ HD_FORMS = (("gram_accumulate", "f32_dot_f64_reduce"),)
 #: noise model (phase 12): its bins and steady sweeps (past 384, where
 #: the DE history first reads chain rows)
 N11_BINS, N11_GRAPH_CHECK_AT = 10, 296
-N12_BINS, N12_STEADY = 30, 480
+N12_BINS, N12_STEADY = 30, 495
 #: the Quick start from par/tim with kernel ECORR (phase 13): the
 #: injection ``load_pulsar`` regenerates the residuals with, and the one
 #: kernel form its sweeps run (the exact b-draw's widening Gram, wide at
@@ -376,13 +435,13 @@ KE_FORMS = (("gram_accumulate", "widen_f64_wide"),)
 #: DE history reads chain rows), where its graphs-against-eager sweeps
 #: start (crossing the refresh at 400); the infinitepower array (14d):
 #: chains, warmup and steady sweeps
-TP_BINS, TP_STEADY, TP_GRAPH_CHECK_AT = 10, 370, 392
+TP_BINS, TP_STEADY, TP_GRAPH_CHECK_AT = 10, 385, 392
 IP_CHAINS, IP_WARMUP, IP_STEADY = 8, 3, 16
 #: warmup and steady sweeps of the resume checks 11c-14c (cut from 5 +
 #: 64 to keep the run inside its limit), and the white / ECORR
 #: adaptation record of every resume and graphs-against-eager check's
 #: sampler (the main paths' 1000: these checks compare two runs)
-SIDE_RESUME_WARMUP, SIDE_RESUME_STEADY, CHECK_ADAPT = 3, 32, 250
+SIDE_RESUME_WARMUP, SIDE_RESUME_STEADY, CHECK_ADAPT = 3, 32, 120
 #: the frequency-grid options (phase 15): the linear and log-spaced bins
 #: of the grid, the pshift seed, the driver options, the steady sweeps;
 #: the band-split red noise (15b): warmup and steady sweeps
@@ -394,7 +453,7 @@ P15B_WARMUP, P15B_STEADY = 3, 32
 #: alternative correlated-ORF b-draws (16d): the choices of
 #: ``PTGIBBS_HD_KERNEL``, warmup and steady sweeps
 ORF_SAMPLED, ORF_GRAPH_CHECK_AT = "bin_orf", 296
-HD_ALT_KERNELS, HD_ALT_WARMUP, HD_ALT_STEADY = ("pulsar", "freq"), 3, 24
+HD_ALT_KERNELS, HD_ALT_WARMUP, HD_ALT_STEADY = ("pulsar", "freq"), 3, 12
 #: the supervised run (phase 17): the watchdog's k, floor and soft
 #: fraction (its deadline is k guarded waits, at least the floor), the
 #: seconds the stall outlasts k chunk walls (the most its deadline can
@@ -405,9 +464,13 @@ SUP_NAN_OFFSET = 29
 #: the record-precision pair (17b): warmup and steady sweeps
 REC_WARMUP, REC_STEADY = 3, 24
 #: depth cuts that keep the whole run inside its limit: the powerlaw
-#: adaptation's MH steps of R2 and R3 (phases 9, 9b; the main paths run
-#: 2000), the steady sweeps of phases 13 and 16 (cut from 240)
-SIDE_RED_ADAPT, KE_STEADY, ORF_STEADY = 1000, 120, 120
+#: adaptation's MH steps of every path that adapts one (the facades'
+#: default is 2000), the steady sweeps of phases 13 and 16 (cut from 240)
+SIDE_RED_ADAPT, KE_STEADY, ORF_STEADY = 500, 64, 64
+#: the warmup sweeps of phase 7 and the side paths 8, 12-16 (cut from 20:
+#: their eager warmup sweeps were the dearest part of each; phases 8,
+#: 12 and 14 run 15 more steady sweeps, so their DE iterations stand)
+SIDE_WARMUP = 5
 #: the device sketch of phases 4 and 18 (``bench.py``'s headline run:
 #: ``obs={"lags": 256}``)
 OBS = {"lags": 256}
@@ -415,6 +478,31 @@ OBS = {"lags": 256}
 #: steady rows its rho-law gate skips, where its graphs-against-eager
 #: sweeps start (crossing the refresh at 272, both swap parities)
 PT_LADDER, ENS_BURN, ENS_GRAPH_CHECK_AT = 2, 80, 264
+#: the collapsed rho draw (phase 19): steady sweeps, the steady rows its
+#: rho-law gate skips, where its graphs-against-eager sweeps start
+#: (crossing the refresh at 112)
+COLLAPSE_STEADY, COLLAPSE_BURN, COLLAPSE_GRAPH_CHECK_AT = 96, 48, 104
+#: the oracle (phase 20): its sweeps after the adaptation sweep, the
+#: rows it skips after that sweep, the steady rows of phase 7's card
+#: chains skipped, the ESS both sides need before a white-noise or
+#: ECORR hyper is gated, and the second of the run's clock by which it
+#: must have finished
+ORACLE_SWEEPS, ORACLE_BURN, ORACLE_CARD_BURN, ORACLE_MIN_ESS = (1000, 100,
+                                                                100, 20)
+ORACLE_DEADLINE_S = 1150.0
+#: the card's side of phase 20 (20a): its chains, warmup sweeps (the
+#: facades' default: at 5 the white hypers of chains drawn from the prior
+#: stay apart for hundreds of sweeps) and steady sweeps; the ECORR block
+#: alone (20b): its calls, the calls skipped and the points of the exact
+#: law's grid over the prior
+ORACLE_CARD_CHAINS, ORACLE_CARD_WARMUP, ORACLE_CARD_STEADY = 32, 50, 400
+ECORR_CHECK_CALLS, ECORR_CHECK_BURN, ECORR_CHECK_GRID = 200, 10, 20001
+#: repeated device errors (phase 21): warmup and steady sweeps at one
+#: chain, the chunk length (and checkpoint interval), the row of the
+#: first injected device error, and ``degrade_after`` (the errors in a
+#: row)
+RETRY_WARMUP, RETRY_STEADY, RETRY_CHUNK, RETRY_AT, RETRY_AFTER = (3, 40, 10,
+                                                                  14, 3)
 
 
 #: the run's start on the host clock (set by :func:`main`)
@@ -1375,11 +1463,11 @@ def single_pulsar_path(cm, seed, outdir, steady, forms):
     from pulsar_timing_gibbsspec_torch.ops import kernels
     from pulsar_timing_gibbsspec_torch.runtime import integrity
 
-    C, niter = SINGLE_CHAINS, WARMUP + 1 + steady
+    C, niter = SINGLE_CHAINS, SIDE_WARMUP + 1 + steady
     kernels.reset_launches()
     t0 = time.perf_counter()
     g = ptt.PulsarBlockGibbs(cm, nchains=C, device=cm.device, seed=seed,
-                             warmup_sweeps=WARMUP, progress=False)
+                             warmup_sweeps=SIDE_WARMUP, progress=False)
     x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
         seed))
     chain = g.sample(x0, outdir=outdir, niter=niter, save_every=SAVE_EVERY)
@@ -1393,14 +1481,14 @@ def single_pulsar_path(cm, seed, outdir, steady, forms):
     acc = (drv.b_mh_accepts[:, 0] / max(drv.b_mh_sweeps, 1)).tolist()
     racc = (drv.b_refresh_accepts[:, 0]
             / max(drv.b_refresh_sweeps, 1)).tolist()
-    rho = chain[WARMUP + 1:, :, cm.rho_ix_x.cpu().numpy()]
+    rho = chain[SIDE_WARMUP + 1:, :, cm.rho_ix_x.cpu().numpy()]
     med = np.median(rho.reshape(-1, rho.shape[-1]), axis=0)
-    ecorr = chain[WARMUP + 1:, :, cm.idx.ecorr]
+    ecorr = chain[SIDE_WARMUP + 1:, :, cm.idx.ecorr]
     rep = integrity.verify(outdir)
     print(f"phase 7 single-pulsar path ({cm.pulsars[0]}, Bmax {cm.Bmax}, "
           f"Nmax {cm.Nmax}, nx {cm.nx}, {cm.ec_cols.shape[1]} ECORR "
           f"columns): {niter} rows x {C} chains in {wall:.1f} s (warmup "
-          f"{WARMUP}); white sub-chain {drv.aclength_white} steps, ECORR "
+          f"{SIDE_WARMUP}); white sub-chain {drv.aclength_white} steps, ECORR "
           f"sub-chain {drv.aclength_ecorr} steps; steady "
           f"{drv.steady_sweeps} sweeps in {drv.steady_seconds:.3f} s = "
           f"{sps:.3f} sweeps/s = {sps * C:.1f} samples/s", flush=True)
@@ -1420,7 +1508,7 @@ def single_pulsar_path(cm, seed, outdir, steady, forms):
               f"{drv.timer.ms['b_refresh'] / drv.b_refresh_sweeps:.4f}"
               if drv.b_refresh_sweeps else "-"), flush=True)
     print("phase 7 warmup block ms in all (CUDA events, eager; "
-          f"{WARMUP} sweeps): " + json.dumps(
+          f"{SIDE_WARMUP} sweeps): " + json.dumps(
               {k: round(v, 1) for k, v in sorted(drv.warmup_ms.items())}),
           flush=True)
     busy = sum(g.store.seconds.values())
@@ -1815,7 +1903,7 @@ def orf_paths(args, psrs, gen, outdir, hd_rec):
               file=sys.stderr)
         return None
     ok16, runs16, g16 = hd_path(cm16, args.seed, outdir / "orf", ORF_STEADY,
-                                phase="16")
+                                warmup=SIDE_WARMUP, phase="16")
     if not ok16:
         return None
     drv16 = g16.driver
@@ -1924,11 +2012,11 @@ def ke_path(cm, seed, outdir, steady):
     from pulsar_timing_gibbsspec_torch.ops import kernels
     from pulsar_timing_gibbsspec_torch.runtime import integrity
 
-    C, niter = SINGLE_CHAINS, WARMUP + 1 + steady
+    C, niter = SINGLE_CHAINS, SIDE_WARMUP + 1 + steady
     kernels.reset_launches()
     t0 = time.perf_counter()
     g = ptt.PulsarBlockGibbs(cm, nchains=C, device=cm.device, seed=seed,
-                             warmup_sweeps=WARMUP, ecorrsample="kernel",
+                             warmup_sweeps=SIDE_WARMUP, ecorrsample="kernel",
                              progress=False)
     x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
         seed))
@@ -1944,7 +2032,7 @@ def ke_path(cm, seed, outdir, steady):
     per_sweep = (since == drv.steady_sweeps
                  and graphs.launches.get("b_exact") == {form: 1})
     sps = drv.steady_sweeps / drv.steady_seconds
-    rows = chain[WARMUP + 1:]
+    rows = chain[SIDE_WARMUP + 1:]
     med = np.median(rows[:, :, cm.rho_ix_x.cpu().numpy()], axis=(0, 1))
     ec = [int(j) for j in cm.idx.ecorr]
     med_ec = np.median(rows[:, :, ec], axis=(0, 1))
@@ -1954,7 +2042,8 @@ def ke_path(cm, seed, outdir, steady):
     print(f"phase 13 Quick start from par/tim with kernel ECORR "
           f"({cm.pulsars[0]}, Bmax {cm.Bmax} (B1 {cm.Bmax + 1}), Nmax "
           f"{cm.Nmax}, nx {cm.nx}, {cm.ke_par_ix.shape[1]} ECORR epochs in "
-          f"N): {niter} rows x {C} chains in {wall:.1f} s (warmup {WARMUP});"
+          f"N): {niter} rows x {C} chains in {wall:.1f} s (warmup "
+          f"{SIDE_WARMUP});"
           f" sweep {blocks_}; white sub-chain {drv.aclength_white} steps, "
           f"ECORR sub-chain {drv.aclength_ecorr} steps; steady "
           f"{drv.steady_sweeps} sweeps in {drv.steady_seconds:.3f} s = "
@@ -2126,12 +2215,13 @@ def grid_paths(args, psrs, gen, outdir):
     # ---- phase 15: the log grid, pshift and the driver options ------------
     out15 = outdir / "grid"
     ok15, runs15, g15 = powerlaw_path(
-        "15", cm15, "PTABlockGibbs", NCHAINS, WARMUP, P15_STEADY, args.seed,
+        "15", cm15, "PTABlockGibbs", NCHAINS, SIDE_WARMUP, P15_STEADY,
+        args.seed,
         out15, list(recs["15"]), GRAPHED, backup=False, **P15_OPTS)
     drv = g15.driver
     baks = sorted(p.name for p in out15.iterdir() if ".bak" in p.name)
-    steady = range(drv._it_base(WARMUP + 1 + P15_STEADY),
-                   WARMUP + 1 + P15_STEADY)
+    steady = range(drv._it_base(SIDE_WARMUP + 1 + P15_STEADY),
+                   SIDE_WARMUP + 1 + P15_STEADY)
     cadence = drv.b_refresh_sweeps == sum(
         t % P15_OPTS["exact_every"] == 0 for t in steady)
     capped = drv.aclength_white <= P15_OPTS["white_steps_max"]
@@ -2145,7 +2235,8 @@ def grid_paths(args, psrs, gen, outdir):
               file=sys.stderr)
         return None
     if not graphs_vs_eager(drv, torch.as_tensor(drv.x_cur, device=dev),
-                           drv.b.to(dev), WARMUP + 1 + P15_STEADY, "15c",
+                           drv.b.to(dev), SIDE_WARMUP + 1 + P15_STEADY,
+                           "15c",
                            "PTABlockGibbs, log grid and pshift, across a "
                            "refresh"):
         print("chip_smoke: phase 15's graph replay differs from the eager "
@@ -2165,7 +2256,7 @@ def grid_paths(args, psrs, gen, outdir):
     ok15b, runs15b, g15b = powerlaw_path(
         "15b", cm15b, "PulsarBlockGibbs", SINGLE_CHAINS, P15B_WARMUP,
         P15B_STEADY, args.seed, outdir / "band", list(recs["15b"]),
-        WIDE_GRAPHED)
+        WIDE_GRAPHED, red_adapt_iters=SIDE_RED_ADAPT)
     hyp = g15b.chain[P15B_WARMUP + 1:][:, :, band]          # (S, C, 4)
     pa = cm15b.pa.cpu().numpy()[band]
     pb = cm15b.pb.cpu().numpy()[band]
@@ -2367,14 +2458,14 @@ def record_precision_pair(cm, seed, outdir):
     return ok
 
 
-def chain_medians(chain, cm, chains):
+def chain_medians(chain, cm, chains, burn=ENS_BURN):
     """Per common rho bin, the mean over ``chains`` of each chain's median
-    over the steady rows past the first ``ENS_BURN``, and its standard
+    over the steady rows past the first ``burn``, and its standard
     error (the chains' spread over sqrt(chains)): the statistic of
     ``tests/test_torch_sampler.py``."""
     import numpy as np
 
-    rows = chain[WARMUP + 1 + ENS_BURN:][:, list(chains)]
+    rows = chain[WARMUP + 1 + burn:][:, list(chains)]
     med = np.median(rows[:, :, cm.rho_ix_x.cpu().numpy()], axis=0)
     return med.mean(0), med.std(0, ddof=1) / np.sqrt(med.shape[0])
 
@@ -2545,9 +2636,574 @@ def ensemble_paths(cm, seed, outdir, steady, gen, ref_stats, forms):
     return records, runs
 
 
-def earlier_paths(args, psrs, gen, outdir):
+def collapse_path(cm, seed, outdir, steady, gen, ref_stats, forms, timed):
+    """Phases 19-19b: phase 4's model, seed and 64 chains with the
+    partially collapsed rho draw (``PTGIBBS_RHO_COLLAPSE=1`` while the
+    driver is built), ``WARMUP`` warmup and ``steady`` steady sweeps from
+    the graphs, checkpointed every ``SAVE_EVERY``, launch counts from 0;
+    its gates (module docstring) against phase 4's per-bin statistic
+    ``ref_stats``; phase 2's row at its final state; 19b.  Returns
+    ``(records, runs)`` or None when a phase failed."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+    from pulsar_timing_gibbsspec_torch.runtime import integrity
+    from pulsar_timing_gibbsspec_torch.sampler import blocks
+
+    C, niter = NCHAINS, WARMUP + 1 + steady
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    os.environ["PTGIBBS_RHO_COLLAPSE"] = "1"
+    try:
+        g = ptt.PTABlockGibbs(cm, nchains=C, device=cm.device, seed=seed,
+                              warmup_sweeps=WARMUP, progress=False)
+    finally:
+        del os.environ["PTGIBBS_RHO_COLLAPSE"]
+    x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
+        seed))
+    chain = g.sample(x0, outdir=Path(outdir) / "collapsed", niter=niter,
+                     save_every=SAVE_EVERY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    drv, graphs = g.driver, g.driver.carry
+    counts = launch_counts(graphs)
+    missing, unreplayed, unaccounted = count_faults(counts, forms, GRAPHED)
+    sps = drv.steady_sweeps / drv.steady_seconds
+    order = drv.sweep_blocks(False)
+    before = ("rho" in order and "red" in order
+              and order.index("rho") < order.index("red"))
+    per_block = {k: round(v / drv.steady_sweeps, 4)
+                 for k, v in sorted(drv.timer.ms.items())}
+    # every common and red log10_rho record inside its prior (the float32
+    # grid's ends round within 1e-5 of the bounds)
+    inside = True
+    for ix, lo, hi in ((cm.rho_ix_x.cpu().numpy(), cm.rhomin, cm.rhomax),
+                       (cm.idx.red_rho, cm.red_rhomin, cm.red_rhomax)):
+        v = chain[:, :, ix]
+        inside &= bool(((v >= 0.5 * math.log10(lo) - 1e-5)
+                        & (v <= 0.5 * math.log10(hi) + 1e-5)).all())
+    (m19, s19), (m4, s4) = (chain_medians(chain, cm, range(C),
+                                          COLLAPSE_BURN), ref_stats)
+    zs = np.abs(m19 - m4) / np.sqrt(s19 ** 2 + s4 ** 2)
+    rep = integrity.verify(Path(outdir) / "collapsed")
+    # the collapsed draw alone at the final state: its time against the
+    # conditional draw's, and the memory its transient takes
+    xs = torch.as_tensor(drv.x_cur, device=cm.device)
+    bs = drv.b.to(cm.device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    blocks.rho_update(cm, xs, bs, drv.gen, collapse=True)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+    rho_c = cuda_ms(lambda: blocks.rho_update(cm, xs, bs, drv.gen,
+                                              collapse=True), reps=10)
+    rho_p = cuda_ms(lambda: blocks.rho_update(cm, xs, bs, drv.gen),
+                    reps=10)
+    step = max(1, min(1000, blocks.RHO_COLLAPSE_CHUNK_BYTES
+                      // (C * cm.P * blocks.RHO_COLLAPSE_J * 4)))
+    print(f"phase 19 collapsed rho draw on the array ({C} chains, J "
+          f"{blocks.RHO_COLLAPSE_J} red quadrature points, grid chunks of "
+          f"{step} points): predicate {drv.rho_collapse}; {niter} rows in "
+          f"{wall:.1f} s (warmup {WARMUP}); steady {drv.steady_sweeps} "
+          f"sweeps in {drv.steady_seconds:.3f} s = {sps:.3f} sweeps/s = "
+          f"{sps * C:.1f} samples/s; sweep order " + json.dumps(order)
+          + f"; CUDA graphs {len(graphs.graphs)} captured in "
+          f"{graphs.capture_seconds:.3f} s, pool "
+          f"{graphs.pool_bytes / 1e6:.1f} MB", flush=True)
+    print("phase 19 per-block ms per steady sweep (CUDA events): "
+          + json.dumps(per_block) + f"; rho {per_block.get('rho')} ms, red "
+          f"{per_block.get('red')} ms", flush=True)
+    print(f"phase 19 the draw alone at the final state (CUDA events, "
+          f"median of 10, eager): collapsed {rho_c:.4f} ms, the "
+          f"conditional draw {rho_p:.4f} ms; the collapsed draw's peak "
+          f"memory above the state {peak:.1f} MB, its largest "
+          f"intermediate {C * cm.P * step * blocks.RHO_COLLAPSE_J * 4 / 1e6:.1f}"
+          " MB", flush=True)
+    print(f"phase 19 common log10_rho past the first {COLLAPSE_BURN} steady "
+          "rows, mean of per-chain medians " + json.dumps(
+              [round(float(v), 3) for v in m19]) + " against phase 4's "
+          + json.dumps([round(float(v), 3) for v in m4]) + ", in combined "
+          "standard errors " + json.dumps([round(float(v), 2) for v in zs]),
+          flush=True)
+    print_counts(19, counts)
+    finite = bool(np.isfinite(chain).all() and np.isfinite(g.bchain).all())
+    law = bool((zs <= 5.0).all())
+    saved = rep["ok"] and rep["rows"] == niter and graphs.graphed
+    ok = (drv.rho_collapse and before and finite and inside and law
+          and saved and not missing and not unreplayed and not unaccounted)
+    if not ok:
+        print(f"chip_smoke: collapsed rho path failed (predicate="
+              f"{drv.rho_collapse}, rho before red={before}, finite="
+              f"{finite}, inside the priors={inside}, rho law as phase "
+              f"4's={law}, verified checkpoint through the graphs={saved}, "
+              f"never run={missing}, not replayed as captured={unreplayed}, "
+              f"runs other than eager launches plus replays={unaccounted})",
+              file=sys.stderr)
+        return None
+    if not graphs_vs_eager(drv, xs, bs, COLLAPSE_GRAPH_CHECK_AT, "19b",
+                           "PTABlockGibbs, the collapsed rho draw, across "
+                           "the refresh at 112"):
+        print("chip_smoke: the collapsed-rho graph replay differs from the "
+              "eager sweep", file=sys.stderr)
+        return None
+    print("phase 2 at phase 19's final state (phase 4's shapes: timed in "
+          "those rows):", flush=True)
+    records, ok_g = gram_parity(cm, xs, None)
+    rec_c, ok_c = chol_parity(cm, xs, gen, None)
+    records.update(rec_c)
+    for key, rec in records.items():
+        rec.update({m: v for m, v in timed[key].items()
+                    if m != "max_abs_err"})
+    runs = counts[0]
+    del g, drv, graphs, chain, xs, bs
+    torch.cuda.empty_cache()
+    if not (ok_g and ok_c):
+        print("chip_smoke: kernel parity at phase 19's state failed",
+              file=sys.stderr)
+        return None
+    return records, runs
+
+
+def oracle_card_path(cm, seed, outdir, forms, gen):
+    """Phase 20a: the card's side of phase 20, README's Quick start at
+    ``ORACLE_CARD_CHAINS`` chains through ``ORACLE_CARD_WARMUP`` warmup
+    sweeps,
+    adaptation and ``ORACLE_CARD_STEADY`` steady sweeps from the graphs,
+    launch counts from 0, and phase 2 (held, not timed) at its final
+    state; then (20b) the ECORR block alone at each chain's final b
+    (:func:`ecorr_conditional`).  Returns ``(ok, chain)``."""
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+    from pulsar_timing_gibbsspec_torch.runtime import integrity
+
+    C, W = ORACLE_CARD_CHAINS, ORACLE_CARD_WARMUP
+    niter = W + 1 + ORACLE_CARD_STEADY
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    g = ptt.PulsarBlockGibbs(cm, nchains=C, device=cm.device, seed=seed,
+                             warmup_sweeps=W, progress=False)
+    x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
+        seed))
+    chain = g.sample(x0, outdir=outdir, niter=niter, save_every=SAVE_EVERY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    drv = g.driver
+    counts = launch_counts(drv.carry)
+    missing, unreplayed, unaccounted = count_faults(counts, forms,
+                                                    WIDE_GRAPHED)
+    sps = drv.steady_sweeps / drv.steady_seconds
+    rep = integrity.verify(outdir)
+    print(f"phase 20a the card's Quick-start chains for phase 20: {niter} "
+          f"rows x {C} chains in {wall:.1f} s (warmup {W}, its blocks' ms "
+          "in all (CUDA events, eager) " + json.dumps(
+              {k: round(v, 1) for k, v in sorted(drv.warmup_ms.items())})
+          + "); "
+          f"white sub-chain {drv.aclength_white} steps, ECORR sub-chain "
+          f"{drv.aclength_ecorr} steps; steady {drv.steady_sweeps} sweeps "
+          f"in {drv.steady_seconds:.3f} s = {sps:.3f} sweeps/s = "
+          f"{sps * C:.1f} samples/s; per-block ms per steady sweep (CUDA "
+          "events) " + json.dumps({k: round(v / drv.steady_sweeps, 4)
+                                   for k, v in sorted(drv.timer.ms.items())}),
+          flush=True)
+    print_counts("20a", counts)
+    ok = bool(np.isfinite(chain).all() and not missing and not unreplayed
+              and not unaccounted and rep["ok"] and rep["rows"] == niter)
+    print(f"phase 2 at phase 20a's shapes ({C} systems), its final state:",
+          flush=True)
+    x_end = torch.as_tensor(drv.x_cur, device=cm.device)
+    ok &= gram_parity(cm, x_end, None)[1] & chol_parity(cm, x_end, gen,
+                                                        None)[1]
+    ok_e = ecorr_conditional(drv, cm)
+    del g, drv
+    torch.cuda.empty_cache()
+    if not ok:
+        print(f"chip_smoke: phase 20a failed (never run={missing}, not "
+              f"replayed as captured={unreplayed}, runs other than eager "
+              f"launches plus replays={unaccounted}, verified "
+              f"checkpoint={rep['ok']}; the kernel parity above)",
+              file=sys.stderr)
+    return ok and ok_e, chain
+
+
+def ecorr_conditional(drv, cm):
+    """Phase 20b: the card's ECORR block against its exact conditional.
+    Each chain's b held at its final state, the block runs
+    ``ECORR_CHECK_CALLS`` times from the chain's x; given b, backend k's
+    ``log10_ecorr`` has the density ``exp(-n_k ln10 e - S_k 10^(-2e) /
+    2)`` on its prior, ``n_k`` its ECORR columns and ``S_k`` the sum of
+    their squared coefficients (the columns and prior from the oracle's
+    float64 host view).  Each draw's probability integral transform under
+    that law is uniform: per hyper, past ``ECORR_CHECK_BURN`` calls, its
+    mean within 5 standard errors of 1/2 and its variance within 5 of
+    1/12, the errors from the multi-chain ESS.  Returns the gate."""
+    import numpy as np
+    import torch
+
+    from pulsar_timing_gibbsspec_torch.sampler import blocks
+    from pulsar_timing_gibbsspec_torch.sampler.host_model import host_view
+
+    hv = host_view(cm)
+    ec = hv.model(0).ecorr
+    hyp = sorted(set(int(h) for h in ec.rho_ix))
+    x = torch.as_tensor(drv.x_cur, device=cm.device)
+    b = drv.b.to(cm.device)
+    u = blocks.b_matvec(cm, b)
+    t0 = time.perf_counter()
+    draws = []
+    for _ in range(ECORR_CHECK_CALLS):
+        x, b, u = drv.block("ecorr", x, b, u)
+        draws.append(x[:, hyp])
+    e = torch.stack(draws).cpu().numpy()[ECORR_CHECK_BURN:].astype(np.float64)
+    wall = time.perf_counter() - t0
+    bc = b.reshape(b.shape[0], -1)[:, ec.cols].cpu().numpy().astype(
+        np.float64)
+    pit = np.empty_like(e)
+    for i, h in enumerate(hyp):
+        cols = ec.rho_ix == h
+        n, S = int(cols.sum()), (bc[:, cols] ** 2).sum(-1)
+        par = hv.params[h]
+        grid = np.linspace(par.a, par.b, ECORR_CHECK_GRID)
+        lp = (-n * np.log(10.0) * grid[None]
+              - 0.5 * S[:, None] * 10.0 ** (-2.0 * grid[None]))
+        dens = np.exp(lp - lp.max(-1, keepdims=True))
+        cdf = np.concatenate([np.zeros((len(S), 1)), np.cumsum(
+            0.5 * (dens[:, 1:] + dens[:, :-1]), -1)], -1)
+        cdf /= cdf[:, -1:]
+        for c in range(len(S)):
+            pit[:, c, i] = np.interp(e[:, c, i], grid, cdf[c])
+    ess = _multichain_ess(pit)
+    mean, var = pit.mean((0, 1)), pit.var((0, 1))
+    z_m = np.abs(mean - 0.5) / np.sqrt(1 / 12 / ess)
+    z_v = np.abs(var - 1 / 12) / np.sqrt((1 / 80 - 1 / 144) / ess)
+    names = [cm.param_names[h] for h in hyp]
+    print(f"phase 20b the card's ECORR block alone at each chain's final b, "
+          f"{ECORR_CHECK_CALLS} calls x {e.shape[1]} chains in {wall:.3f} s, "
+          f"past {ECORR_CHECK_BURN}: its draws' transform under the exact "
+          "conditional law, per hyper [mean, variance, ESS, z of the mean, "
+          "z of the variance] " + json.dumps(
+              {nm: [round(float(mean[i]), 4), round(float(var[i]), 5),
+                    round(float(ess[i]), 1), round(float(z_m[i]), 2),
+                    round(float(z_v[i]), 2)] for i, nm in enumerate(names)})
+          + " (uniform: 0.5, 0.08333)", flush=True)
+    ok = bool((z_m <= 5.0).all() and (z_v <= 5.0).all())
+    if not ok:
+        print("chip_smoke: the card's ECORR block differs from its exact "
+              "conditional", file=sys.stderr)
+    return ok
+
+
+def oracle_child(outdir, seed):
+    """Phase 20's child process (``--oracle-child DIR``): README's
+    Quick-start model of the snapshot on the port's NumPy oracle
+    (``backend="numpy"``, one chain, float64 on the host, one BLAS and
+    one torch thread, at the lowest priority), the adaptation sweep and
+    then ``ORACLE_SWEEPS``
+    sweeps, checkpointed under ``DIR``; its timings and the host CPU's
+    model name go to ``DIR/oracle.json``.  Returns the exit code."""
+    import os
+
+    import torch
+
+    # the lowest priority and one thread: the card phases' host work runs
+    # beside it
+    os.nice(19)
+    torch.set_num_threads(1)
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.data import load_enterprise_snapshot
+
+    out = Path(outdir)
+    cm = ptt.model_general([load_enterprise_snapshot(SNAPSHOT)],
+                           red_var=False, white_vary=True,
+                           common_psd="spectrum",
+                           common_components=SINGLE_BINS, device="cpu")
+    g = ptt.PulsarBlockGibbs(cm, backend="numpy", seed=seed, progress=False)
+    x0 = g.initial_sample(torch.Generator().manual_seed(seed))[0]
+    t0 = time.perf_counter()
+    g.sample(x0, outdir=out / "chains", niter=1, save_every=SAVE_EVERY)
+    t1 = time.perf_counter()
+    g = ptt.PulsarBlockGibbs(cm, backend="numpy", seed=seed, progress=False)
+    g.sample(x0, outdir=out / "chains", niter=1 + ORACLE_SWEEPS,
+             save_every=SAVE_EVERY, resume=True)
+    t2 = time.perf_counter()
+    import platform
+
+    cpu = platform.processor() or platform.machine()
+    try:
+        with open("/proc/cpuinfo") as fh:
+            cpu = next((ln.split(":", 1)[1].strip() for ln in fh
+                        if ln.split(":")[0].strip() in (
+                            "model name", "Model", "cpu model")), cpu)
+    except OSError:
+        pass
+    (out / "oracle.json").write_text(json.dumps({
+        "first_sweep_s": t1 - t0, "sweeps": ORACLE_SWEEPS,
+        "steady_s": t2 - t1, "sweeps_per_s": ORACLE_SWEEPS / (t2 - t1),
+        "cpu": cpu, "aclength_white": g.driver.aclength_white,
+        "aclength_ecorr": g.driver.aclength_ecorr}))
+    return 0
+
+
+def start_oracle(outdir, seed):
+    """Start :func:`oracle_child` in a process of its own that sees no
+    card and runs on one BLAS thread; returns ``(process, log file)``."""
+    import os
+    import shutil
+
+    out = Path(outdir)
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    log = open(out / "child.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--oracle-child",
+         str(out), "--seed", str(seed)], env=env, stdout=log,
+        stderr=subprocess.STDOUT)
+    print(f"phase 20 the oracle started in process {proc.pid} (one BLAS "
+          f"thread, no card): {ORACLE_SWEEPS} sweeps after its adaptation",
+          flush=True)
+    return proc, log
+
+
+def _multichain_ess(x):
+    """ESS per column of ``x`` (n, C, d): the rows over the Sokal ACT
+    (``ops/acf.py``'s window) of the multi-chain autocorrelation ``rho_t
+    = 1 - (W - mean_c acov_c(t)) / var+`` (W the mean within-chain
+    variance, ``var+ = (n-1)/n W + B/n``), which counts chains that
+    disagree, or have not resolved their ACT, as long correlations."""
+    import numpy as np
+
+    from pulsar_timing_gibbsspec_torch.ops.acf import act_from_rho
+
+    n, C, _ = x.shape
+    mean = x.mean(0)
+    nfft = 1 << (2 * n - 1).bit_length()
+    f = np.fft.rfft(x - mean, nfft, axis=0)
+    acov = np.fft.irfft(f * np.conj(f), nfft, axis=0)[:n].real / n
+    W = acov[0].mean(0) * n / (n - 1)
+    var_plus = (n - 1) / n * W + mean.var(0, ddof=1)
+    rho = 1.0 - (W - acov.mean(1)) / np.maximum(var_plus, 1e-300)
+    return C * n / act_from_rho(rho.T)
+
+
+def _posterior_z(card, oracle):
+    """Per column, ``|median difference|`` over the combined standard
+    error of the two medians, and each side's ESS.  ``card`` (n, C, d)
+    holds the card's chains, ``oracle`` (m, d) the oracle's; a median's
+    standard error is the interquartile range over sqrt(ESS) (exact for
+    a flat posterior, 7.6% above the normal's); the ESS is the rows over
+    the Sokal ACT of ``ops/acf.py``: of the card's chains together
+    (:func:`_multichain_ess`), of the oracle's one chain."""
+    import numpy as np
+
+    from pulsar_timing_gibbsspec_torch.ops.acf import integrated_act_columns
+
+    ess_c = _multichain_ess(card)
+    ess_o = len(oracle) / integrated_act_columns(oracle)
+    flat = card.reshape(-1, card.shape[-1])
+
+    def se(x, ess):
+        q75, q25 = np.percentile(x, [75, 25], axis=0)
+        return (q75 - q25) / np.sqrt(ess)
+
+    diff = np.median(flat, axis=0) - np.median(oracle, axis=0)
+    comb = np.sqrt(se(flat, ess_c) ** 2 + se(oracle, ess_o) ** 2)
+    z = np.abs(diff) / np.maximum(comb, 1e-12)
+    return z, diff, ess_c, ess_o
+
+
+def oracle_compare(proc, log, outdir, chain20, cm, sps4):
+    """Phase 20: wait for the oracle (failing past ``ORACLE_DEADLINE_S``
+    of the run's clock), then hold phase 20a's card chains (past
+    ``ORACLE_CARD_BURN`` steady rows) against the oracle's chain (past
+    ``ORACLE_BURN`` rows after its adaptation sweep): every common
+    log10_rho bin and every white-noise hyper within 5 combined standard
+    errors, each white-noise hyper with an ESS of at least
+    ``ORACLE_MIN_ESS`` on both sides; the ECORR hypers' z printed, and
+    gated where both sides' ESS reach ``ORACLE_MIN_ESS`` (phase 20b holds
+    the card's ECORR block against its exact conditional).  Returns the
+    gate."""
+    import numpy as np
+
+    left = ORACLE_DEADLINE_S - (time.perf_counter() - _RUN_START)
+    try:
+        rc = proc.wait(timeout=max(1.0, left))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    log.close()
+    out = Path(outdir)
+    if rc != 0:
+        tail = (out / "child.log").read_text()[-2000:]
+        print(f"chip_smoke: the oracle child {'ran out of time' if rc is None else f'exited {rc}'}"
+              f"; its log ends: {tail}", file=sys.stderr)
+        return False
+    info = json.loads((out / "oracle.json").read_text())
+    oracle = np.load(out / "chains" / "chain.npy")[1 + ORACLE_BURN:]
+    card = chain20[ORACLE_CARD_WARMUP + 1 + ORACLE_CARD_BURN:]
+    rix = cm.rho_ix_x.cpu().numpy()
+    hyp = list(cm.idx.white) + list(cm.idx.ecorr)
+    z, diff, ess_c, ess_o = _posterior_z(card[..., list(rix) + hyp],
+                                         oracle[:, list(rix) + hyp])
+    k, nw = len(rix), len(cm.idx.white)
+    gated = (ess_c[k:] >= ORACLE_MIN_ESS) & (ess_o[k:] >= ORACLE_MIN_ESS)
+    print(f"phase 20 the oracle (port, backend='numpy', one chain, float64 "
+          f"on the host; CPU {info['cpu']}): adaptation sweep "
+          f"{info['first_sweep_s']:.3f} s, then {info['sweeps']} sweeps in "
+          f"{info['steady_s']:.3f} s = {info['sweeps_per_s']:.3f} sweeps/s; "
+          f"white sub-chain {info['aclength_white']} steps, ECORR "
+          f"{info['aclength_ecorr']}; done at "
+          f"{time.perf_counter() - _RUN_START:.1f} s of the run; phase 4's "
+          f"{sps4 * NCHAINS:.1f} samples/s with the oracle beside it "
+          "(1687.3-1727.5 in runs N1 and N3 without it)", flush=True)
+    print(f"phase 20 common log10_rho, phase 20a's {card.shape[1]} card chains "
+          f"x {card.shape[0]} rows (past {ORACLE_CARD_BURN} steady rows) "
+          f"against the oracle's {len(oracle)} rows (past {ORACLE_BURN}): "
+          "median differences " + json.dumps(
+              [round(float(v), 3) for v in diff[:k]]) + ", in combined "
+          "standard errors " + json.dumps([round(float(v), 2)
+                                          for v in z[:k]])
+          + f" (largest {float(z[:k].max()):.2f}); ESS card "
+          + json.dumps([round(float(v), 1) for v in ess_c[:k]])
+          + ", oracle " + json.dumps([round(float(v), 1)
+                                      for v in ess_o[:k]]), flush=True)
+    print("phase 20 white-noise and ECORR hypers "
+          + json.dumps({cm.param_names[j]: [round(float(z[k + i]), 2),
+                                            round(float(ess_c[k + i]), 1),
+                                            round(float(ess_o[k + i]), 1),
+                                            bool(gated[i])]
+                        for i, j in enumerate(hyp)})
+          + f" ([z, ESS card, ESS oracle, gated at ESS >= "
+          f"{ORACLE_MIN_ESS}])", flush=True)
+    ok = bool((z[:k] <= 5.0).all() and (z[k:][gated] <= 5.0).all())
+    if not ok:
+        print("chip_smoke: the card's Quick-start posterior differs from "
+              "the oracle's", file=sys.stderr)
+    if not gated[:nw].all():
+        print("chip_smoke: too few effective samples to hold the white-noise "
+              "hypers against the oracle: " + json.dumps(
+                  [cm.param_names[j] for i, j in enumerate(hyp[:nw])
+                   if not gated[i]]), file=sys.stderr)
+    return ok and bool(gated[:nw].all())
+
+
+def retry_path(cm, seed, outdir, gen):
+    """Phase 21: README's Quick start at one chain on the card, whole, and
+    under ``run_supervised`` with the device-class fault injected at the
+    ``sample.loop`` seam ``RETRY_AFTER`` times in a row (``degrade_after``,
+    where the JAX package moves such a run to its NumPy oracle): the run
+    stays on the card.  Gates (module docstring).  Then phase 2 at the
+    one-chain shapes, at the run's final state.  Returns ``(records,
+    runs)`` or None when a phase failed."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+    from pulsar_timing_gibbsspec_torch.runtime import (faults, integrity,
+                                                       preemption,
+                                                       run_supervised,
+                                                       telemetry)
+
+    out = Path(outdir)
+    shutil.rmtree(out, ignore_errors=True)
+    niter = RETRY_WARMUP + 1 + RETRY_STEADY
+    kw = dict(nchains=1, device=cm.device, seed=seed, progress=False,
+              warmup_sweeps=RETRY_WARMUP, chunk_size=RETRY_CHUNK,
+              white_adapt_iters=CHECK_ADAPT)
+    x0 = ptt.PulsarBlockGibbs(cm, **kw).initial_sample(
+        torch.Generator(device=cm.device).manual_seed(seed))[0]
+    t0 = time.perf_counter()
+    whole = ptt.PulsarBlockGibbs(cm, **kw)
+    base = whole.sample(x0, outdir=out / "whole", niter=niter,
+                        save_every=RETRY_CHUNK)
+    wall0 = time.perf_counter() - t0
+    faults.clear()
+    telemetry.reset()
+    preemption.reset()
+    faults.inject("xla_error", point="sample.loop", at_row=RETRY_AT,
+                  times=RETRY_AFTER)
+    kernels.reset_launches()
+    delays = []
+    g = ptt.PulsarBlockGibbs(cm, **kw)
+    t0 = time.perf_counter()
+    chain, rep = run_supervised(g, x0, out / "supervised", niter,
+                                save_every=RETRY_CHUNK,
+                                degrade_after=RETRY_AFTER,
+                                sleep=delays.append)
+    wall = time.perf_counter() - t0
+    faults.clear()
+    runs = kernels.device_launches()
+    with open(out / "supervised" / "metrics.jsonl") as fh:
+        events = [json.loads(ln) for ln in fh]
+    down = sum(e.get("event") == "backend_degraded" for e in events)
+    layout = (integrity.read_manifest(out / "supervised") or {}).get(
+        "layout") or {}
+    verified = integrity.verify(out / "supervised")
+    same = {"chain": bool(np.array_equal(chain, base)),
+            "bchain": bool(np.array_equal(g.bchain, whole.bchain))}
+    wide = [("chol_solve_sample", "f32_wide"), ("gram_accumulate", "f32_wide"),
+            ("gram_accumulate", "widen_f64_wide")]
+    ran = {f"{k}[{f}]": runs[(k, f)] for k, f in wide}
+    print(f"phase 21 repeated device errors on the card: the Quick start at "
+          f"one chain, {niter} rows (warmup {RETRY_WARMUP}, chunks of "
+          f"{RETRY_CHUNK}); whole on the card {wall0:.3f} s; supervised "
+          f"with the device error at sample.loop from row {RETRY_AT}, "
+          f"{RETRY_AFTER} times (degrade_after {RETRY_AFTER}): "
+          f"{wall:.3f} s, {wall - wall0:.3f} s over the whole run; report "
+          + json.dumps(rep.as_dict()) + "; telemetry "
+          + json.dumps(telemetry.snapshot()), flush=True)
+    print(f"phase 21 the run stayed on the card: backend {rep.backend!r}, "
+          f"degradations {rep.degradations}, backend_degraded events "
+          f"{down}; bitwise the whole card run's " + json.dumps(same)
+          + f"; final checkpoint verified {verified['ok']} at "
+          f"{verified['rows']} rows, layout.backend "
+          f"{layout.get('backend')!r}; kernel runs counted on the card "
+          + json.dumps(ran), flush=True)
+    ok = (rep.status == "completed" and rep.degradations == 0
+          and rep.backend == "torch" and not telemetry.get("degradations")
+          and down == 0
+          and [f["kind"] for f in rep.failures] == ["device"] * RETRY_AFTER
+          and all(same.values()) and verified["ok"]
+          and verified["rows"] == niter and layout.get("backend") == "torch"
+          and all(n > 0 for n in ran.values()))
+    telemetry.reset()
+    if not ok:
+        print("chip_smoke: the one-chain run did not recover on the card",
+              file=sys.stderr)
+        return None
+    print("phase 2 at the one-chain shapes (phase 21's final state):",
+          flush=True)
+    x1 = torch.as_tensor(chain[-1:], device=cm.device)
+    records, ok_g = gram_parity(cm, x1, time_ms)
+    rec_c, ok_c = chol_parity(cm, x1, gen, time_ms)
+    records.update(rec_c)
+    del g, whole
+    torch.cuda.empty_cache()
+    if not (ok_g and ok_c):
+        print("chip_smoke: kernel parity at phase 21's shapes failed",
+              file=sys.stderr)
+        return None
+    return records, runs
+
+
+def earlier_paths(args, psrs, gen, outdir, extra):
     """Phases 2-12: the kernel parity at the shapes of the paths of
-    earlier slices, then phases 3-12c.  Returns ``(rows, timed, hd)``:
+    earlier slices, then phases 3-12c with 19-19b after 18c and 21 after
+    7c; ``extra`` receives phase 4's steady sweeps per second (``sps4``),
+    the single-pulsar model on the card (``cm1``) and its wide kernel
+    forms (``wide``) for phases 20a-20.  Returns ``(rows, timed, hd)``:
     the ``kernels`` JSON rows of those shapes, with their launches from
     their paths' runs, the records of the 45-pulsar shapes (the narrow
     forms at order 37, the float64 factor at 2880 x 37) and the
@@ -2756,6 +3412,7 @@ def earlier_paths(args, psrs, gen, outdir):
         return None
     # phase 18's rho-law gate: per bin, the chains' medians past the burn
     rho_stats = chain_medians(chain, cm, range(C))
+    extra["sps4"] = sps
     if not profile_steady(drv, 16 * (niter // 16 + 1)):
         print("chip_smoke: the device trace disagrees with the kernels' "
               "device counters", file=sys.stderr)
@@ -2787,6 +3444,14 @@ def earlier_paths(args, psrs, gen, outdir):
     torch.cuda.empty_cache()
     elapsed("phases 18-18c")
 
+    # ---- phases 19-19b: the collapsed rho draw, launch counts from 0 ------
+    col = collapse_path(cm, args.seed, outdir, COLLAPSE_STEADY, gen,
+                        rho_stats, narrow, records)
+    if col is None:
+        return None
+    col_records, runs19 = col
+    elapsed("phases 19-19b")
+
     # ---- phase 7: the single-pulsar path, launch counts from 0 -------------
     wide = [k for k in records if k[1].endswith("_wide")
             and k not in F64_FORMS]
@@ -2808,12 +3473,21 @@ def earlier_paths(args, psrs, gen, outdir):
     torch.cuda.empty_cache()
     elapsed("phases 7-7c")
 
+    # ---- phase 21: repeated device errors at one chain, on the card -------
+    deg = retry_path(cm1, args.seed, outdir / "retry", gen)
+    if deg is None:
+        return None
+    deg_records, runs21 = deg
+    elapsed("phase 21")
+    extra["cm1"], extra["wide"] = cm1, wide
+
     # ---- phases 8-9b: the powerlaw hyper block, launch counts from 0 -------
     wide64 = wide + [("chol_solve_sample", "f64_wide")]
     ok8, runs8, g8 = powerlaw_path("8", cm_r1, "PulsarBlockGibbs",
-                                   SINGLE_CHAINS, WARMUP, R1_STEADY,
+                                   SINGLE_CHAINS, SIDE_WARMUP, R1_STEADY,
                                    args.seed, outdir / "r1", wide64,
-                                   WIDE_GRAPHED, de_gate=True)
+                                   WIDE_GRAPHED, de_gate=True,
+                                   red_adapt_iters=SIDE_RED_ADAPT)
     if not ok8:
         return None
     runs[("chol_solve_sample", "f64_wide")] = runs8[
@@ -2882,7 +3556,8 @@ def earlier_paths(args, psrs, gen, outdir):
     ok11, runs11, g11 = powerlaw_path("11", cm_n11, "PTABlockGibbs", C,
                                       WARMUP, args.steady, args.seed,
                                       outdir / "n11", narrow64, GRAPHED,
-                                      no_white=True)
+                                      no_white=True,
+                                      red_adapt_iters=SIDE_RED_ADAPT)
     if not ok11:
         return None
     drv11 = g11.driver
@@ -2903,10 +3578,11 @@ def earlier_paths(args, psrs, gen, outdir):
         return None
     elapsed("phases 11-11c")
     ok12, runs12, _ = powerlaw_path("12", cm_n12, "PulsarBlockGibbs",
-                                    SINGLE_CHAINS, WARMUP, N12_STEADY,
+                                    SINGLE_CHAINS, SIDE_WARMUP, N12_STEADY,
                                     args.seed, outdir / "n12", wide64,
                                     WIDE_GRAPHED, de_gate=True,
-                                    no_white=True)
+                                    no_white=True,
+                                    red_adapt_iters=SIDE_RED_ADAPT)
     if not ok12:
         return None
     torch.cuda.empty_cache()
@@ -2936,6 +3612,14 @@ def earlier_paths(args, psrs, gen, outdir):
              source=SOURCES[k][0], replaces=REPLACES[k],
              launches=runs18[(k, f)], **r)
         for (k, f), r in ens_records.items()] + [
+        dict(name=f"{k}[{f}] (phase 19 path: the collapsed rho draw, "
+             f"order {cm.Bmax})", route="cuda", source=SOURCES[k][0],
+             replaces=REPLACES[k], launches=runs19[(k, f)], **r)
+        for (k, f), r in col_records.items()] + [
+        dict(name=f"{k}[{f}] (phase 21 path: one chain through three device errors, "
+             f"order {cm1.Bmax})", route="cuda", source=SOURCES[k][1],
+             replaces=REPLACES[k], launches=runs21[(k, f)], **r)
+        for (k, f), r in deg_records.items()] + [
         dict(name=f"{k}[{f}] (Hellings-Downs path, B1 {cm_hd.Bmax + 1})",
              route="cuda", source=SOURCES[k][0], replaces=REPLACES[k],
              launches=runs10[(k, f)], **r)
@@ -2953,7 +3637,12 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--outdir", default="build/chip_smoke")
     ap.add_argument("--steady", type=int, default=STEADY)
+    ap.add_argument("--oracle-child", metavar="DIR",
+                    help="run phase 20's oracle into DIR (the script "
+                    "starts this process itself)")
     args = ap.parse_args(argv)
+    if args.oracle_child:
+        return oracle_child(args.oracle_child, args.seed)
 
     import torch
 
@@ -2961,14 +3650,30 @@ def main(argv=None):
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     try:
-        import pulsar_timing_gibbsspec_torch as ptt
-        from pulsar_timing_gibbsspec_torch.data import (load_pulsar,
-                                                         synthetic_array)
-        from pulsar_timing_gibbsspec_torch.ops.kernels import build
+        import pulsar_timing_gibbsspec_torch.ops.kernels.build  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e}); run it "
               "from the repository root", file=sys.stderr)
         return 2
+
+    oracle = start_oracle(Path(args.outdir) / "oracle", args.seed)
+    try:
+        return _run(args, oracle)
+    finally:
+        if oracle[0].poll() is None:
+            oracle[0].kill()
+            oracle[0].wait()
+        oracle[1].close()
+
+
+def _run(args, oracle):
+    """The card phases of :func:`main`, the oracle child running."""
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.data import (load_pulsar,
+                                                    synthetic_array)
+    from pulsar_timing_gibbsspec_torch.ops.kernels import build
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -3029,7 +3734,8 @@ def main(argv=None):
         return 1
     elapsed("phase 2 (phases 13-14's kernel parity)")
 
-    earlier = earlier_paths(args, psrs, gen, outdir)
+    extra = {}
+    earlier = earlier_paths(args, psrs, gen, outdir, extra)
     if earlier is None:
         return 1
     rows, timed, hd_rec = earlier
@@ -3049,7 +3755,8 @@ def main(argv=None):
         return 1
     drv13 = g13.driver
     if not graphs_vs_eager(drv13, torch.as_tensor(drv13.x_cur, device=dev),
-                           drv13.b.to(dev), WARMUP + 1 + KE_STEADY, "13b",
+                           drv13.b.to(dev), SIDE_WARMUP + 1 + KE_STEADY,
+                           "13b",
                            "PulsarBlockGibbs, kernel ECORR, the exact "
                            "b-draw every sweep"):
         print("chip_smoke: the kernel-ECORR graph replay differs from the "
@@ -3069,9 +3776,10 @@ def main(argv=None):
     # ---- phases 14-14d: the t-process array, launch counts from 0 ----------
     tp_forms = list(tp_records)
     ok14, runs14, g14 = powerlaw_path(
-        "14", cm_tp, "PTABlockGibbs", C, WARMUP, TP_STEADY, args.seed,
-        outdir / "tp", tp_forms, GRAPHED, de_gate=True)
-    ok14 &= tprocess_gates(cm_tp, g14, WARMUP)
+        "14", cm_tp, "PTABlockGibbs", C, SIDE_WARMUP, TP_STEADY, args.seed,
+        outdir / "tp", tp_forms, GRAPHED, de_gate=True,
+        red_adapt_iters=SIDE_RED_ADAPT)
+    ok14 &= tprocess_gates(cm_tp, g14, SIDE_WARMUP)
     if not ok14:
         print("chip_smoke: the t-process path failed", file=sys.stderr)
         return 1
@@ -3105,6 +3813,20 @@ def main(argv=None):
     rows16 = orf_paths(args, psrs, gen, outdir, hd_rec)
     if rows16 is None:
         return 1
+
+    # ---- phases 20a-20b: the card's chains for phase 20, counts from 0 ----
+    cm1 = extra["cm1"]
+    ok20, chain20 = oracle_card_path(cm1, args.seed, outdir / "oracle_card",
+                                     extra["wide"], gen)
+    if not ok20:
+        return 1
+    elapsed("phases 20a-20b")
+
+    # ---- phase 20: the card's Quick-start posterior against the oracle ----
+    if not oracle_compare(*oracle, Path(args.outdir) / "oracle", chain20,
+                          cm1, extra["sps4"]):
+        return 1
+    elapsed("phase 20")
     rows += [
         dict(name=f"{k}[{f}] (phase 13 path: kernel ECORR, B1 "
              f"{cm_ke.Bmax + 1})", route="cuda", source=SOURCES[k][1],

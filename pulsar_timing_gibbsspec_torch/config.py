@@ -5,8 +5,9 @@ sweeps read: float32 storage of the large arrays (basis, residuals,
 per-TOA noise), float64 compute of the sampler state, reductions and
 exact factorizations, the TOA-segment lengths of the segmented Gram, the
 rho grid size, the correlated-ORF joint draw's mixed precision, the
-record precision (``PTGIBBS_RECORD``) and the ensemble stage's knobs
-(``PTGIBBS_ENSEMBLE``, ``PTGIBBS_PT_LADDER``).
+record precision (``PTGIBBS_RECORD``), the ensemble stage's knobs
+(``PTGIBBS_ENSEMBLE``, ``PTGIBBS_PT_LADDER``) and the collapsed rho
+draw's switch (``PTGIBBS_RHO_COLLAPSE``).
 
 Float32 products are full IEEE float32 everywhere in the port (the JAX
 package's ``precision="highest"``): :func:`resolve_device` turns TF32 off
@@ -62,6 +63,13 @@ def hd_kernel_choice() -> str:
             f"PTGIBBS_HD_KERNEL={choice!r}: the correlated-ORF "
             "kernel must be 'joint' (production), 'pulsar' or 'freq'")
     return choice
+
+
+def rho_collapse_choice() -> bool:
+    """True when ``PTGIBBS_RHO_COLLAPSE=1``: the partially collapsed
+    common-rho draw (the JAX package's opt-in switch, off by default);
+    read when a driver is built, so one process can run both draws."""
+    return os.environ.get("PTGIBBS_RHO_COLLAPSE", "") == "1"
 
 
 def ensemble_choice(ensemble=None, pt_ladder=None):

@@ -510,7 +510,10 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
     :func:`~..sampler.compiled.from_arrays`), for ``model_general``'s
     options ``opts`` (defaults: :data:`_DEFAULTS`, which vary the white
     noise and take free spectra), plus ``b_names``, the flat b columns'
-    names.  ``kernel_ecorr`` is ``compile_pta``'s option of that name:
+    names, and ``host``, each real pulsar's basis (``T``, without the
+    ECORR columns under ``kernel_ecorr``), residuals ``y``, TOA
+    variances ``sigma2`` and unclipped ``phi_base`` in float64 for the
+    host oracle.  ``kernel_ecorr`` is ``compile_pta``'s option of that name:
     the ECORR columns leave T and the epochs go into ``ke_eid`` (each
     TOA's epoch, ``Emax`` outside every epoch and on pads) and
     ``ke_par_ix`` (each epoch's log10_ecorr, the -40 constant on dummy
@@ -877,7 +880,22 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
         red_df=red_df, orf_B=orf_B, orf_par_ix=orf_par_ix,
         pinit=pinit if np.isfinite(pinit).any() else None,
         red_shares_gw=red_shares_gw, ke_eid=ke_eid, ke_par_ix=ke_par_ix,
-        b_names=tuple(b_names))
+        b_names=tuple(b_names),
+        host=dict(T=[np.asarray(m["T"], np.float64) for m in models],
+                  y=[np.asarray(p.residuals, np.float64) for p in psrs],
+                  sigma2=[np.asarray(p.toaerrs, np.float64) ** 2
+                          for p in psrs],
+                  phi_base=[_static_phi(m) for m in models]))
+
+
+def _static_phi(m):
+    """One pulsar's float64 ``phi_base`` before the compiled model's
+    clip: the static columns' prior variances, 0 on the GP columns."""
+    out = np.zeros(m["T"].shape[1])
+    for s in m["sigs"]:
+        if s.group == "static":
+            out[m["slices"][s.name]] = s.phi
+    return out
 
 
 def _refuse_orf(orf, common_psd):

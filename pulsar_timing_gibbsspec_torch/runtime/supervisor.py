@@ -13,10 +13,11 @@ each failure class gets its own response:
 - ``device``      CUDA runtime errors, out of memory, the injected device
                   error: retry.  The JAX package degrades a one-chain run
                   to its NumPy oracle after ``degrade_after`` in a row;
-                  the port has no oracle, so it keeps retrying on the
-                  card, never moving the run to the CPU, until the budget
-                  ends (a sticky CUDA error, which poisons the context,
-                  ends there too).
+                  the port does not: a run given to the card keeps
+                  retrying on the card, never moving to the CPU, until
+                  the budget ends (a sticky CUDA error, which poisons the
+                  context, ends there too).  The port's oracle runs only
+                  where the caller asks for it (``backend="numpy"``).
 - ``corruption``  a checkpoint that failed verification past repair:
                   roll back to ``.bak``, then retry.
 - ``divergence``  a NaN or stuck chain caught by the sentinels: rewind
@@ -139,8 +140,8 @@ def _log_event(outdir, record):
 def _degraded(gibbs):
     """The sampler to continue on after repeated device failures, or None
     to keep retrying this one.  The JAX package returns its NumPy oracle
-    for a one-chain run; the port has no oracle yet, so it returns None
-    for every run: a supervised run stays on its card."""
+    for a one-chain run; the port returns None for every run: a
+    supervised run stays on its card, whatever its chains."""
     return None
 
 

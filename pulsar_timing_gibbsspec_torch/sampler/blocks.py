@@ -62,6 +62,12 @@ HD_DENSE_MAX = 64
 #: prior holds nearly all its mass in [1e-4, 1e4] and the likelihood
 #: tail decays as alpha^-2 past tau / plaw
 TP_ALPHA_LOG10_MIN, TP_ALPHA_LOG10_MAX, TP_ALPHA_GRID = -4.0, 10.0, 1000
+#: points of the red quadrature of the partially collapsed common-rho
+#: draw (log-spaced over [red_rhomin, red_rhomax], ~0.1 dex apart)
+RHO_COLLAPSE_J = 64
+#: the largest intermediate the collapsed draw makes, in bytes: its
+#: (chains, pulsars, grid, quadrature) profile is formed in grid chunks
+RHO_COLLAPSE_CHUNK_BYTES = 128 << 20
 
 
 # ===========================================================================
@@ -1419,11 +1425,72 @@ def _rho_hd_logpdf(cm, x, b, grid):
             - (taut[..., None] / grid).to(cm.dtype))
 
 
-def rho_update_core(cm, x, b, gumbel):
+def _rho_collapsed_applies(cm, enabled=None) -> bool:
+    """The partially collapsed common-rho draw applies: the switch is on
+    (``enabled``; None reads ``PTGIBBS_RHO_COLLAPSE``) and the model is a
+    CRN whose sampled per-pulsar free-spectrum red shares the common
+    Fourier columns (a constant red must keep the conditional draw:
+    marginalizing a fixed amplitude over its prior would target another
+    posterior).  The JAX package's predicate; it measured the draw as
+    net-negative in ESS per second, so it is off by default."""
+    if enabled is None:
+        from ..config import rho_collapse_choice
+
+        enabled = rho_collapse_choice()
+    return bool(enabled and cm.orf_name == "crn"
+                and cm.red_kind == "free_spectrum" and cm.red_shares_gw
+                and bool((cm.red_rho_ix_x < cm.nx).any()))
+
+
+def _rho_collapsed_logpdf(cm, ltau, grid):
+    """The collapsed rho conditional on the grid, (..., K, R), from
+    ``ltau`` (..., P, K): per pulsar and frequency, the red amplitude
+    integrated out over its log-uniform prior by a ``RHO_COLLAPSE_J``-
+    point quadrature, ``logsumexp_j (r_j - e^r_j) - ln J`` with ``r_j =
+    log tau - log(rho + red_j)``; slots without a sampled red amplitude
+    keep the plain factor; summed over real pulsars.  One frequency at a
+    time, and within it grid chunks, so that no intermediate exceeds
+    ``RHO_COLLAPSE_CHUNK_BYTES`` (the JAX package maps over K)."""
+    fdt, dev = cm.dtype, cm.device
+    J = RHO_COLLAPSE_J
+    lgrid = torch.log(grid)
+    redg = torch.pow(10.0, torch.linspace(
+        math.log10(cm.red_rhomin), math.log10(cm.red_rhomax), J,
+        dtype=fdt, device=dev))
+    K = ltau.shape[-1]
+    n = min(K, cm.red_rho_ix_x.shape[1])
+    ap = torch.zeros((cm.P, K), dtype=torch.bool, device=dev)
+    ap[:, :n] = (cm.red_rho_ix_x < cm.nx)[:, :n]
+    pmask = cm.psr_mask[:, None] > 0
+    lead = ltau.shape[:-1]                               # (..., P)
+    per_point = math.prod(lead) * J * ltau.element_size()
+    step = max(1, min(grid.shape[0],
+                      RHO_COLLAPSE_CHUNK_BYTES // per_point))
+    zero = torch.zeros((), dtype=fdt, device=dev)
+    out = []
+    for k in range(K):
+        ltk = ltau[..., k]                               # (..., P)
+        parts = []
+        for r0 in range(0, grid.shape[0], step):
+            lq = torch.log(grid[r0:r0 + step, None] + redg)   # (r, J)
+            lr = ltk[..., None, None] - lq                # (..., P, r, J)
+            parts.append(torch.logsumexp(lr - torch.exp(lr), dim=-1))
+        lm = torch.cat(parts, dim=-1) - math.log(J)       # (..., P, R)
+        lp = ltk[..., None] - lgrid
+        lm = torch.where(ap[:, k, None], lm, lp - torch.exp(lp))
+        out.append(torch.where(pmask, lm, zero).sum(-2))
+    return torch.stack(out, dim=-2)
+
+
+def rho_update_core(cm, x, b, gumbel, collapse=False):
     """Common free-spectrum log10_rho draw, Gumbel-max sampled on the
     log-uniform grid: per-pulsar log-PDF grids summed over the pulsar
     axis or, under a correlated ORF, the quadratic-form conditional of
-    :func:`_rho_hd_logpdf`.  ``gumbel`` (..., K, R) in the storage
+    :func:`_rho_hd_logpdf`; with ``collapse`` (where
+    :func:`_rho_collapsed_applies`) the partially collapsed conditional
+    of :func:`_rho_collapsed_logpdf`, the red amplitudes integrated out
+    (the sweep then draws red | rho at once: together an exact blocked
+    draw of (rho, red) | b).  ``gumbel`` (..., K, R) in the storage
     dtype."""
     if cm.K == 0 or len(cm.rho_ix_x) == 0:
         return x
@@ -1439,6 +1506,12 @@ def rho_update_core(cm, x, b, gumbel):
         x[..., cm.rho_ix_x] = (0.5 * torch.log10(rhonew)).to(x.dtype)
         return x
     ltau = torch.log(cm.gw_tau(b)).to(fdt)
+    if collapse:
+        logpdf = _rho_collapsed_logpdf(cm, ltau, grid)
+        rhonew = grid[torch.argmax(logpdf + gumbel, dim=-1)]
+        x = x.clone()
+        x[..., cm.rho_ix_x] = (0.5 * torch.log10(rhonew)).to(x.dtype)
+        return x
     lother = torch.log(cm.red_phi(x)).to(fdt)
     logpdf = _grid_logpdf(ltau, lother, grid)
     # mask by where, not multiply: a pad pulsar's log tau is -inf
@@ -1475,17 +1548,18 @@ def rho_invcdf_core(cm, x, b, u):
     return x
 
 
-def rho_update(cm, x, b, gen):
+def rho_update(cm, x, b, gen, collapse=False):
     """The common log10_rho draw with its noise drawn from ``gen``:
     :func:`rho_invcdf_core` (uniforms) for a single pulsar without
-    intrinsic red noise, :func:`rho_update_core` (Gumbels) otherwise."""
+    intrinsic red noise, :func:`rho_update_core` (Gumbels; ``collapse``
+    its collapsed form) otherwise."""
     if _rho_invcdf_applies(cm):
         u = torch.rand(x.shape[:-1] + (cm.K,), generator=gen,
                        dtype=cm.cdtype, device=cm.device)
         return rho_invcdf_core(cm, x, b, u)
     shape = x.shape[:-1] + (cm.K, settings.rho_grid_size)
     return rho_update_core(cm, x, b, _gumbel(gen, shape, cm.dtype,
-                                             cm.device))
+                                             cm.device), collapse=collapse)
 
 
 def red_conditional_update_core(cm, x, b, gumbel):

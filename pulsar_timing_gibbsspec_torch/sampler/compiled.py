@@ -192,6 +192,29 @@ class Param:
     b: float
 
 
+def params_of(names, kind, a, b):
+    """The sampled parameters in chain order from the chain's names and
+    per-coordinate priors (``kind``, ``a``, ``b``): a vector parameter
+    is the run of names ``<name>_0 .. <name>_{n-1}`` under one prior,
+    every other name a scalar (``size`` None); the sampled ORF weights
+    (``<gw>_orfw_bin_<j>``, ``..._leg_<l>``) are scalars."""
+    out, j, nx = [], 0, len(names)
+    while j < nx:
+        stem, _, k = names[j].rpartition("_")
+        n = 1
+        if "_orfw_" in stem:
+            k = None
+        if k == "0":
+            while j + n < nx and names[j + n] == f"{stem}_{n}":
+                n += 1
+        vec = k == "0"
+        out.append(Param(stem if vec else names[j], n if vec else None,
+                         PRIOR_NAMES[int(kind[j])], float(a[j]),
+                         float(b[j])))
+        j += n
+    return out
+
+
 @dataclasses.dataclass
 class GPComponent:
     """One Fourier-GP or basis-ECORR component, stacked over pulsars:
@@ -306,6 +329,10 @@ class CompiledPTA:
     ke_eid: torch.Tensor = None
     ke_par_ix: torch.Tensor = None
     ke_U: torch.Tensor = None
+    #: the arrays the model was built from (:func:`from_arrays`'s
+    #: ``fields``, numpy on the host), which the NumPy oracle reads
+    #: through :class:`.host_model.HostPTA`; None when not kept
+    arrays: dict = dataclasses.field(default=None, repr=False)
     #: ``idx.red`` and ``idx.orf`` on the device: the powerlaw hypers'
     #: and the sampled ORF weights' positions in x (a block that runs in
     #: a CUDA graph copies nothing from the host)
@@ -327,28 +354,10 @@ class CompiledPTA:
 
     def params(self):
         """The sampled parameters in chain order (the JAX model's
-        ``params``): a vector parameter is the run of names ``<name>_0 ..
-        <name>_{n-1}`` under one prior, every other name a scalar
-        (``size`` None); the sampled ORF weights (``<gw>_orfw_bin_<j>``,
-        ``..._leg_<l>``) are scalars."""
-        kind, a, b = (v.cpu().numpy() for v in (self.pkind, self.pa,
-                                                self.pb))
-        out, j = [], 0
-        while j < self.nx:
-            stem, _, k = self.param_names[j].rpartition("_")
-            n = 1
-            if "_orfw_" in stem:
-                k = None
-            if k == "0":
-                while (j + n < self.nx
-                       and self.param_names[j + n] == f"{stem}_{n}"):
-                    n += 1
-            vec = k == "0"
-            out.append(Param(stem if vec else self.param_names[j],
-                             n if vec else None, PRIOR_NAMES[int(kind[j])],
-                             float(a[j]), float(b[j])))
-            j += n
-        return out
+        ``params``): :func:`params_of` of the model's names and priors."""
+        return params_of(self.param_names, *(v.cpu().numpy() for v in
+                                              (self.pkind, self.pa,
+                                               self.pb)))
 
     def map_params(self, xs):
         """``{name: value}`` of one chain vector ``xs`` (nx,): a float per
@@ -655,7 +664,13 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
     ``const_pool``), kernel ECORR (``ke_eid``, ``ke_par_ix``) and the
     t-process's ``red_f`` / ``red_df``, sampled ORF weights (``orf_B``,
     ``orf_par_ix``) and the coordinates' start values ``pinit`` (NaN:
-    drawn) where the arrays carry them; a correlated ORF whose common
+    drawn) where the arrays carry them.  The model keeps ``fields``
+    (:attr:`CompiledPTA.arrays`) for the host oracle, whose float64
+    basis, residuals, TOA variances and static prior variances come from
+    ``fields["host"]`` (lists of per-pulsar arrays ``T``, ``y``,
+    ``sigma2``, ``phi_base``): arrays without it build a model that the
+    oracle refuses.
+    A correlated ORF whose common
     process shares columns with intrinsic red noise (``compile_pta``
     refuses it) or any other PSD or component kind raises
     ``NotImplementedError``."""
@@ -684,13 +699,15 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
                 "across pulsars")
     if fields["gw_kind"] not in ("free_spectrum",) + POWERLAW_KINDS:
         raise NotImplementedError(
-            f"common PSD {fields['gw_kind']!r} is not in the port yet "
-            "(ROADMAP A.8)")
+            f"common PSD {fields['gw_kind']!r} is not one of the JAX "
+            "package's PSDs (models/psd.py), all of which the port "
+            "compiles")
     if fields["red_kind"] not in ("free_spectrum", "", "tprocess",
                                   "infinitepower") + POWERLAW_KINDS:
         raise NotImplementedError(
-            f"red PSD {fields['red_kind']!r} is not in the port yet "
-            "(ROADMAP A.8)")
+            f"red PSD {fields['red_kind']!r} is not one of the JAX "
+            "package's PSDs (models/psd.py), all of which the port "
+            "compiles")
     dt, cdt = settings.dtype, settings.cdtype
 
     def t(v, dtype=dt):
@@ -707,8 +724,9 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
         if c["kind"] not in ("free_spectrum", "ecorr", "tprocess",
                              "infinitepower") + POWERLAW_KINDS:
             raise NotImplementedError(
-                f"GP component {c['kind']!r} is not in the port yet "
-                "(ROADMAP A.8)")
+                f"GP component {c['kind']!r} is not one of the JAX "
+                "compiled model's component kinds, all of which the port "
+                "compiles")
         comps.append(GPComponent(
             c["kind"], t(c["cols"], torch.int64), t(c["rho_ix"], torch.int64),
             f=t(c["f"]), df=t(c["df"]), hyp_ix=t(c["hyp_ix"], torch.int64)))
@@ -763,7 +781,7 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
         widths=tuple(int(w) for w in fields["widths"]),
         pulsars=tuple(str(p) for p in fields.get("pulsars", ())),
         b_names=tuple(fields.get("b_names", ())),
-        red_f=t(red_f), red_df=t(red_df), **ke,
+        red_f=t(red_f), red_df=t(red_df), **ke, arrays=dict(fields),
     )
 
 

@@ -40,6 +40,12 @@ and every sweep, warmup included, takes the exact float64 b-draw
 N, so the steady sweep is one body (``exact_every`` is 1).  State is
 carried as ``(C, ...)`` tensors on the model's device and every block
 runs on all chains at once, so the kernels see ``C * P`` systems.
+``PTGIBBS_RHO_COLLAPSE=1`` (read when the driver is built) takes the
+partially collapsed common-rho draw on a CRN model whose sampled
+free-spectrum red shares the common columns, and puts rho before the red
+blocks in the warmup and steady sweeps (the adaptation sweep keeps the
+order above), as the JAX sweep bodies do; a checkpoint records it, and a
+resume under the other setting raises.
 
 **Random streams.**  One ``torch.Generator`` is re-seeded at the start
 of every sweep with :func:`stream_seed` of ``(seed, t)``, ``t`` the
@@ -108,7 +114,8 @@ import time
 import numpy as np
 import torch
 
-from ..config import ensemble_choice, hd_kernel_choice, record_dtype, settings
+from ..config import (ensemble_choice, hd_kernel_choice, record_dtype,
+                      rho_collapse_choice, settings)
 from ..obs import trace as otrace
 from ..ops.acf import integrated_act_columns
 from ..runtime import faults, preemption, telemetry
@@ -507,6 +514,13 @@ class TorchGibbsDriver:
             # one steady body: the exact b-draw on every sweep
             self.exact_every = 1
         self.do_rho = bool(cm.K and len(cm.rho_ix_x))
+        #: the partially collapsed common-rho draw
+        #: (``PTGIBBS_RHO_COLLAPSE=1``, read here, where the model has a
+        #: sampled free-spectrum red on the common columns): rho is drawn
+        #: with red integrated out and comes before the red draw in the
+        #: warmup and steady sweeps
+        self.rho_collapse = self.do_rho and blocks._rho_collapsed_applies(
+            cm, rho_collapse_choice())
         self.do_scale = blocks._rho_scale_applies(cm)
         #: the correlated-ORF joint b-draw in place of b_mh / b_refresh
         self.do_joint = cm.orf_name != "crn"
@@ -704,10 +718,12 @@ class TorchGibbsDriver:
             self._obs_fresh = True
 
     def _hyper_blocks(self):
-        return ((["red"] if self.do_red_conditional else [])
-                + (["tprocess"] if self.do_tprocess else [])
-                + (["red_mh"] if self.do_red_mh else [])
-                + (["rho"] if self.do_rho else [])
+        red = ((["red"] if self.do_red_conditional else [])
+               + (["tprocess"] if self.do_tprocess else [])
+               + (["red_mh"] if self.do_red_mh else []))
+        rho = ["rho"] if self.do_rho else []
+        # the collapsed rho draw goes first: red | rho must follow it
+        return ((rho + red if self.rho_collapse else red + rho)
                 + (["scale"] if self.do_scale else [])
                 + (["orf_mh"] if self.do_orf_mh else []))
 
@@ -762,7 +778,7 @@ class TorchGibbsDriver:
                                     hist=self._hist_t,
                                     accepts=self.red_mh_accepts)
         elif name == "rho":
-            x = blocks.rho_update(cm, x, b, gen)
+            x = blocks.rho_update(cm, x, b, gen, collapse=self.rho_collapse)
         elif name == "scale":
             x, b, u = blocks.rho_scale_moves(cm, x, b, u, gen, beta)
         elif name == "orf_mh":
@@ -1059,7 +1075,8 @@ class TorchGibbsDriver:
         if self.do_red_mh:
             x = self._adapt_red(x)
         if self.do_rho:
-            x = blocks.rho_update(cm, x, b, self.gen)
+            x = blocks.rho_update(cm, x, b, self.gen,
+                                  collapse=self.rho_collapse)
         return x, self._exact_b(x, b)
 
     # ---- steady loop -------------------------------------------------------
@@ -1473,7 +1490,8 @@ class TorchGibbsDriver:
         checkpoint records them."""
         return {"exact_every": self.exact_every,
                 "white_steps_max": self.white_steps_max,
-                "warmup_white_steps": self.warmup_white_steps}
+                "warmup_white_steps": self.warmup_white_steps,
+                **({"rho_collapse": 1} if self.rho_collapse else {})}
 
     def adapt_state(self):
         """The state a resume needs, at the last writeback: the seed
@@ -1555,6 +1573,14 @@ class TorchGibbsDriver:
                     f"b-draw {got_kern!r} (PTGIBBS_HD_KERNEL) but this "
                     f"sampler runs {self.hd_kernel!r}; the resumed chain "
                     "would not continue the saved one, so they must match")
+        got_rc = bool(int(state.pop("rho_collapse", 0)))
+        if got_rc != self.rho_collapse:
+            raise RuntimeError(
+                f"resume checkpoint was drawn with the collapsed rho draw "
+                f"{'on' if got_rc else 'off'} (PTGIBBS_RHO_COLLAPSE) but "
+                f"this sampler has it {'on' if self.rho_collapse else 'off'}"
+                "; the resumed chain would not continue the saved one, so "
+                "they must match")
         for key, val in self.stream_options().items():
             got = int(state.pop(key, val))
             if got != val:

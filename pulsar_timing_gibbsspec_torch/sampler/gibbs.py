@@ -13,6 +13,17 @@ sampler/gibbs.py::_GibbsBase.sample``): it writes ``chain.npy`` /
 checkpoint bitwise.  A save runs on a thread while the driver samples the
 next chunk (one save at a time; the run ends when its last save has).
 
+``backend="numpy"`` runs the float64 NumPy oracle on the host in
+place of the driver (:mod:`.numpy_backend`, :mod:`.numpy_pta`: one
+chain, every sweep recorded in float64), whatever ``device`` says, as
+the JAX facade's ``backend="numpy"`` does; it reads the model's host
+arrays (:class:`.host_model.HostPTA`), never its device tensors.
+:meth:`_GibbsBase.with_backend` makes the twin facade on the other
+backend, and the oracle adopts a checkpoint of the card's driver
+(:func:`_adopt_torch_checkpoint`) where the caller resumes one on it.
+The supervisor never makes that move itself: a run given to the card
+stays there (:mod:`..runtime.supervisor`).
+
 The JAX facade's resilience branches come with it (:mod:`..runtime`):
 new rows pass the ``nan_rows`` fault hook and the sentinels' host check
 before they can be saved (a divergence leaves nothing to flush), the
@@ -39,6 +50,18 @@ from .blocks import validate_sampling_flags
 from .chains import ChainStore
 from .driver import RNG_RULE, TorchGibbsDriver
 
+#: the backends a facade runs: the driver on ``cm``'s device, or the
+#: NumPy oracle on the host
+BACKENDS = ("torch", "numpy")
+#: the driver's options that the oracle has no counterpart of: a
+#: ``backend="numpy"`` facade refuses them (:func:`_reject_device_opts`)
+#: and :meth:`_GibbsBase.with_backend` drops them
+DEVICE_ONLY_OPTS = ("record_precision", "record_every", "chunk_size",
+                    "graphs", "joint_mixed", "exact_every",
+                    "white_steps_max", "warmup_white_steps",
+                    "warmup_sweeps", "sentinels", "watchdog", "obs",
+                    "ensemble", "pt_ladder")
+
 
 class _GibbsBase:
     """What both facades share: the driver on ``cm``, the names, the
@@ -50,18 +73,29 @@ class _GibbsBase:
     needs a model compiled with ``kernel_ecorr=True``, and such a model
     refuses ``ecorrsample="mh"``: the facade takes a compiled model and
     recompiles nothing.  The driver's options pass through, the JAX
-    facade's ``ensemble``, ``pt_ladder`` and ``obs`` among them."""
-
-    #: the backend name the supervisor reports and the metrics carry
-    backend_name = "torch"
+    facade's ``ensemble``, ``pt_ladder`` and ``obs`` among them.
+    ``backend`` is ``"torch"`` (the driver) or ``"numpy"`` (the host
+    oracle, one chain: :data:`DEVICE_ONLY_OPTS` raise ``ValueError``);
+    :attr:`backend_name` names it to the supervisor and the metrics."""
 
     def __init__(self, cm, nchains=1, device="cuda", seed=0,
                  hypersample=None, ecorrsample=None, redsample=None,
-                 progress=True, **driver_opts):
-        dev = resolve_device(device)
-        if cm.device != dev:
-            raise ValueError(f"the model lives on {cm.device} but the "
-                             f"sampler was asked to run on {dev}")
+                 progress=True, backend="torch", **driver_opts):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend '{backend}'")
+        #: "torch" or "numpy"
+        self.backend_name = backend
+        # the constructor's arguments, for with_backend
+        self._ctor = dict(nchains=nchains, device=device, seed=seed,
+                          hypersample=hypersample, ecorrsample=ecorrsample,
+                          redsample=redsample,
+                          opts={k: v for k, v in driver_opts.items()
+                                if k != "common_rho"})
+        if backend == "torch":
+            dev = resolve_device(device)
+            if cm.device != dev:
+                raise ValueError(f"the model lives on {cm.device} but the "
+                                 f"sampler was asked to run on {dev}")
         validate_sampling_flags(cm, hypersample, ecorrsample, redsample)
         if ecorrsample == "kernel" and not cm.has_ke:
             raise ValueError(
@@ -77,8 +111,18 @@ class _GibbsBase:
         #: print a progress line at each checkpoint (``\r``-rewritten on
         #: a terminal, one line per checkpoint otherwise)
         self.progress = progress
-        self.driver = TorchGibbsDriver(cm, nchains=nchains, seed=seed,
-                                       **driver_opts)
+        if backend == "numpy":
+            driver_opts.pop("common_rho", None)
+            _reject_device_opts(driver_opts)
+            if nchains != 1:
+                raise ValueError(
+                    f"nchains={nchains}: the numpy oracle backend runs one "
+                    "chain; use backend='torch' for several")
+            self.driver = self._make_numpy(hypersample, ecorrsample,
+                                           redsample, seed, driver_opts)
+        else:
+            self.driver = TorchGibbsDriver(cm, nchains=nchains, seed=seed,
+                                           **driver_opts)
         self.chain = self.bchain = None
         #: host seconds the last sample()'s loop spent on checkpoints:
         #: taking the state, and waiting for a save still running on its
@@ -88,6 +132,23 @@ class _GibbsBase:
         #: saves by step)
         self.store = None
 
+    def with_backend(self, backend):
+        """The twin facade on the same model with another backend: the
+        constructor's arguments again, less :data:`DEVICE_ONLY_OPTS` and
+        at one chain for ``"numpy"``, as the JAX facade's
+        ``with_backend`` drops its device-only options."""
+        c = self._ctor
+        opts, nchains = dict(c["opts"]), c["nchains"]
+        if backend == "numpy":
+            for k in DEVICE_ONLY_OPTS:
+                opts.pop(k, None)
+            nchains = 1
+        return type(self)(self.cm, nchains=nchains, device=c["device"],
+                          seed=c["seed"], hypersample=c["hypersample"],
+                          ecorrsample=c["ecorrsample"],
+                          redsample=c["redsample"], progress=self.progress,
+                          backend=backend, **opts)
+
     def obs_summary(self):
         """The device sketch finalized (driver option ``obs``):
         :meth:`.driver.TorchGibbsDriver.obs_summary`."""
@@ -95,8 +156,10 @@ class _GibbsBase:
 
     def ensemble_summary(self):
         """The ensemble stage's roll-up (driver options ``ensemble``,
-        ``pt_ladder``), None without it:
+        ``pt_ladder``), None without it (and on the oracle):
         :meth:`.driver.TorchGibbsDriver.ensemble_summary`."""
+        if self.backend_name == "numpy":
+            return None
         return self.driver.ensemble_summary()
 
     @property
@@ -154,6 +217,13 @@ class _GibbsBase:
         ORF's b-draw, stream rule and the device type its streams come
         from)."""
         drv = self.driver
+        if self.backend_name == "numpy":
+            return {"layout": {"facade": type(self).__name__,
+                               "backend": "numpy", "nchains": 1,
+                               "record_every": 1,
+                               "pulsars": [str(p) for p in self.cm.pulsars],
+                               "rng": NUMPY_RNG_RULE},
+                    "shard_map": None}
         return {"layout": {"facade": type(self).__name__,
                            "backend": "torch",
                            "nchains": drv.C,
@@ -306,7 +376,7 @@ class _GibbsBase:
                         "aclength_ecorr": drv.aclength_ecorr})
                     last_saved = upto
                     if self.progress:
-                        msg = (f"[torch] {upto}/{total_rows} rows "
+                        msg = (f"[{self.backend_name}] {upto}/{total_rows} rows "
                                f"({rate:.1f} sweeps/s)")
                         if is_tty:
                             print("\r" + msg, end="", flush=True)
@@ -384,6 +454,12 @@ class PulsarBlockGibbs(_GibbsBase):
         super().__init__(cm, nchains=nchains, device=device, seed=seed,
                          **driver_opts)
 
+    def _make_numpy(self, hypersample, ecorrsample, redsample, seed, opts):
+        from .numpy_backend import NumpyGibbs
+
+        return _NumpyDriver(NumpyGibbs, self.cm, hypersample, ecorrsample,
+                            redsample, seed, opts)
+
 
 class PTABlockGibbs(_GibbsBase):
     """Multi-pulsar blocked Gibbs with a common free spectrum, under no
@@ -404,3 +480,121 @@ class PTABlockGibbs(_GibbsBase):
     def __init__(self, cm, nchains=1, device="cuda", seed=0, **driver_opts):
         super().__init__(cm, nchains=nchains, device=device, seed=seed,
                          common_rho=True, **driver_opts)
+
+    def _make_numpy(self, hypersample, ecorrsample, redsample, seed, opts):
+        from .numpy_pta import NumpyPTAGibbs
+
+        return _NumpyDriver(NumpyPTAGibbs, self.cm, hypersample,
+                            ecorrsample, redsample, seed, opts)
+
+
+#: the oracle's stream rule, written in the checkpoint's layout
+NUMPY_RNG_RULE = ("numpy PCG64 Generator, its state in adapt.npz "
+                  "rng_state; adopted from a torch checkpoint as "
+                  "SeedSequence([0x6DE6, seed, it_cur])")
+
+
+def _adopt_torch_checkpoint(drv, state):
+    """Adopt a checkpoint of the card's driver into the oracle: resume
+    from its one chain's ``x_cur``, seed a fresh generator
+    deterministically from the checkpoint's ``(seed, it_cur)``, and have
+    the first resumed sweep re-draw b and re-run the one-shot adaptation
+    (the driver's adaptation state has no counterpart here).  The continuation is a valid Gibbs chain from the
+    same state, not a replay of the card's stream."""
+    xc = np.asarray(state["x_cur"], dtype=np.float64)
+    if xc.ndim == 2:
+        if xc.shape[0] != 1:
+            raise RuntimeError(
+                f"cannot resume a multi-chain (nchains={xc.shape[0]}) "
+                "torch checkpoint on the single-chain numpy backend")
+        xc = xc[0]
+    drv.x_cur = xc
+    ent = [0x6DE6, int(np.asarray(state["seed"])) % (1 << 64),
+           int(np.asarray(state["it_cur"]))]
+    drv.g.rng = np.random.default_rng(np.random.SeedSequence(ent))
+    drv.readapt = True
+
+
+def _reject_device_opts(opts):
+    """A targeted error for a driver option reaching the float64 oracle
+    (:data:`DEVICE_ONLY_OPTS`): the oracle records every sweep in float64
+    on the host, so a silent accept would misstate what ran."""
+    for opt in DEVICE_ONLY_OPTS:
+        if opt in opts:
+            raise ValueError(
+                f"{opt!r} is a torch-backend option (it controls the "
+                "card's driver or its records); the numpy oracle backend "
+                "records every sweep in float64 on the host — drop the "
+                "option or use backend='torch'")
+
+
+class _NumpyDriver:
+    """Adapter: the oracle's sweeps (``NumpyGibbs`` or ``NumpyPTAGibbs``
+    on the model's host view) behind the driver protocol the facade's
+    ``sample`` uses: one chain, every sweep a row."""
+
+    C = 1
+    record_every = 1
+    health_last = None
+
+    def __init__(self, cls, cm, hypersample, ecorrsample, redsample, seed,
+                 opts):
+        from .host_model import host_view
+
+        self.g = cls(host_view(cm), hypersample=hypersample,
+                     ecorrsample=ecorrsample, redsample=redsample,
+                     seed=seed, **opts)
+        self.nb_total = self.g.nb_total
+        self.nx = len(cm.param_names)
+        self.x_cur = None
+        #: rows (sweeps) done at the last yield
+        self.it_cur = 0
+        #: the first resumed sweep re-draws b and adapts again (an
+        #: adopted torch checkpoint)
+        self.readapt = False
+
+    @property
+    def aclength_white(self):
+        return self.g.aclength_white
+
+    @property
+    def aclength_ecorr(self):
+        return self.g.aclength_ecorr
+
+    def chain_shapes(self, niter):
+        return (niter, self.nx), (niter, self.nb_total)
+
+    def _b_flat(self):
+        b = self.g.b
+        return np.concatenate(b) if isinstance(b, list) else b
+
+    def run(self, x, chain, bchain, start, niter):
+        first = start == 0
+        readapt, self.readapt = self.readapt, False
+        self.x_cur = np.asarray(x, dtype=np.float64).reshape(-1)
+        for ii in range(start, niter):
+            if readapt and ii == start:
+                # an adopted checkpoint restored no b: draw it from the
+                # resumed state before it is recorded
+                self.g.draw_b(self.x_cur)
+            chain[ii] = self.x_cur
+            bchain[ii] = self._b_flat()
+            self.x_cur = self.g.sweep(
+                self.x_cur,
+                first=(first and ii == 0) or (readapt and ii == start))
+            self.it_cur = ii + 1
+            yield ii + 1
+
+    def adapt_state(self):
+        out = self.g.adapt_state()
+        out["x_cur"] = np.asarray(self.x_cur)
+        return out
+
+    def load_adapt_state(self, state):
+        state = dict(state)
+        if "rng_state" not in state and "it_cur" in state:
+            _adopt_torch_checkpoint(self, state)
+            return
+        if "x_cur" in state:
+            self.x_cur = np.asarray(state.pop("x_cur"))
+        self.g.load_adapt_state(state)

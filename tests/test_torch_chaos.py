@@ -414,6 +414,28 @@ def test_repeated_device_errors_stay_on_the_card(cm, x0, baseline,
                    for e in _events(tmp_path))
 
 
+def test_repeated_device_errors_stay_on_the_card_multichain(cm, tmp_path):
+    """The same past ``degrade_after`` at three chains: the same sampler,
+    bitwise the uninterrupted three-chain run, no event."""
+    kw = dict(nchains=3)
+    x3 = _gibbs(cm, **kw).initial_sample(torch.Generator().manual_seed(0))
+    base = _gibbs(cm, **kw).sample(x3, outdir=tmp_path / "base",
+                                   niter=NITER, save_every=SAVE)
+    faults.inject("xla_error", point="sample.loop", at_row=30, times=4)
+    g = _gibbs(cm, **kw)
+    chain, rep = run_supervised(g, x3, tmp_path / "c", NITER,
+                                save_every=SAVE, degrade_after=2,
+                                sleep=_nosleep)
+    assert np.array_equal(chain, base)
+    assert rep.degradations == 0 and rep.backend == "torch"
+    assert [f["kind"] for f in rep.failures] == ["device"] * 4
+    assert telemetry.get("degradations") == 0
+    assert integrity.read_manifest(tmp_path / "c")["layout"][
+        "backend"] == "torch"
+    assert not any(e.get("event") == "backend_degraded"
+                   for e in _events(tmp_path / "c"))
+
+
 def test_kill_mid_run_multichain_recovers_bitwise(cm, x0, tmp_path):
     """The torn-checkpoint kill at three chains and four sweeps per chunk:
     rollback and a bitwise replay of every chain."""
