@@ -4,7 +4,7 @@
 Usage: python3 chip_smoke.py [--seed S] [--outdir DIR] [--steady N]
 
 (``DIR``, default ``build/chip_smoke``, receives phase 13's par/tim
-pair and the checkpoint directories of phases 3b-21; ``N``, default
+pair and the checkpoint directories of phases 3b-22; ``N``, default
 240, is the steady sweeps of the main paths of phases 4, 7, 11 and 18:
 a deeper run reads what checkpoints cost as the record grows.)
 
@@ -17,7 +17,9 @@ Phases (any failure exits non-zero):
    (64 chains x 45 pulsars, Bmax = 37, Nmax = 720), from a seeded state
    near the stationary region; each is timed (device time from
    ``torch.profiler``, mean of 10 calls, and CUDA events around each
-   call, median of 10; 3 calls for a call slower than 20 ms) beside its
+   call, median of 10; for a call slower than 20 ms one traced call and
+   two by events; where the trace loses kernels, calls back to back
+   between two CUDA events) beside its
    plain version, the PyTorch library
    equivalent and the least time the card could take (bytes over the HBM
    rate, operations over the peak rate of their type).
@@ -280,7 +282,8 @@ Phases (any failure exits non-zero):
    card runs the same model at 32 chains, 50 warmup sweeps (the facades'
    default) and 400 steady sweeps from the graphs, launch counts from 0
    (every wide form run, replays as captured, the final checkpoint
-   verified), and phase 2 holds the wide forms at its final state.
+   verified), and phase 2 holds and times the wide forms at its final
+   state.
    (20b) At each chain's final b the card's ECORR block runs alone 200
    times; given b each backend's log10_ecorr has an exact
    one-dimensional law (its columns and prior from the oracle's float64
@@ -314,13 +317,41 @@ Phases (any failure exits non-zero):
    the supervised run.  Phase 2 then holds and times the wide forms at
    one system, at the final state.  (Phase 17's report keeps 0
    degradations too.)
+22. the tenant-multiplexed service (``serve.SamplerService``), after
+   phase 20, launch counts from 0: ``BucketTable.ladder(10)``, 4 slots,
+   chunks of 8 sweeps, a fair-share quantum of 24 chunks (one short of
+   a job's 25), checkpoints every 5 chunks, ``bench.py``'s CRN model
+   (10 + 10 bins) on the seeded 45-pulsar array (A) and a second one (B)
+   (bucket (46, 1024, 60, 10): B1 61, the narrow Gram), a 30-pulsar
+   array padded into that bucket (C, another signature), an 8-pulsar
+   array of at most 120 TOAs (D, bucket (8, 128, 60, 10)), and a fifth
+   45-pulsar array (E) submitted once a job is done; 200 sweeps a job.
+   One group samples at a time, and a job that reaches its quantum
+   while another waits yields its slot: A and B (B yields before its
+   last chunk and is readmitted at once), then C, D and E in turns, E on
+   A's captured program.  Gates: every job done, its records finite,
+   its common log10_rho medians inside the prior, its checkpoint
+   verified; one
+   CUDA-graph capture per (bucket, signature, chunk) and none from E's
+   admission on; the widening Gram run on the card as often as its
+   eager launches plus each capture's launches times its replays.
+   Prints aggregate samples/s, E's queueing and warm start (its first
+   admission to its first chunk's rows), the captures and the phase's
+   seconds.
+   (22b) B alone in a service of 4 slots, through the same cached
+   program: its chain and b chain bitwise equal to its multiplexed run
+   (slot 1, evicted once, beside A), no capture more.  (22c) Phase 2
+   holds and times the widening Gram at the stack's shape (184 systems,
+   B1 61, N 184 x 1024).
 
 To keep the whole run inside its time limit, every main path (4, 11,
 17-19) runs 20 warmup sweeps and phase 7 and the side paths 8 and 12-16
 5 (8, 12 and 14 run 15 more steady sweeps so their DE iterations stand;
 20a runs the facades' 50), phases 9 and 9b 3 warmup and 24 steady
 sweeps, the powerlaw adaptations of 8, 9, 9b, 11, 12, 14 and 15b 500
-steps (the facades' default is 2000), 10 5 and 64, 13 and 16 64 steady
+steps (the facades' default is 2000) and the white and ECORR
+adaptation of 8-10 and 13-16 250 steps (the default 1000), 10 5 and 64,
+13 and 16 64 steady
 sweeps, 16d 3 and 12, 14d 3 and 16, the resume checks 11c-14c 3 and 32
 (each resumes the whole run's own checkpoint: no second run to the
 split), the graphs-against-eager checks 9 sweeps, and every resume and
@@ -465,8 +496,10 @@ SUP_NAN_OFFSET = 29
 REC_WARMUP, REC_STEADY = 3, 24
 #: depth cuts that keep the whole run inside its limit: the powerlaw
 #: adaptation's MH steps of every path that adapts one (the facades'
-#: default is 2000), the steady sweeps of phases 13 and 16 (cut from 240)
-SIDE_RED_ADAPT, KE_STEADY, ORF_STEADY = 500, 64, 64
+#: default is 2000), the white and ECORR adaptation record of the side
+#: paths 8-10 and 13-16 (the facades' default is 1000, ~7 s a path on
+#: the card), the steady sweeps of phases 13 and 16 (cut from 240)
+SIDE_RED_ADAPT, SIDE_WHITE_ADAPT, KE_STEADY, ORF_STEADY = 500, 250, 64, 64
 #: the warmup sweeps of phase 7 and the side paths 8, 12-16 (cut from 20:
 #: their eager warmup sweeps were the dearest part of each; phases 8,
 #: 12 and 14 run 15 more steady sweeps, so their DE iterations stand)
@@ -503,6 +536,17 @@ ECORR_CHECK_CALLS, ECORR_CHECK_BURN, ECORR_CHECK_GRID = 200, 10, 20001
 #: row)
 RETRY_WARMUP, RETRY_STEADY, RETRY_CHUNK, RETRY_AT, RETRY_AFTER = (3, 40, 10,
                                                                   14, 3)
+#: the tenant-multiplexed service (phase 22): the bucket ladder's mode
+#: count, slots, sweeps a dispatch, the fair-share quantum in chunks (one
+#: short of a job's chunks: the second array yields its slot once, before
+#: its last chunk), checkpoints every so many chunks, sweeps a job; the
+#: requests (a tag, pulsars, seed offset, largest TOA count); the rows
+#: of a job's record its rho gate skips
+SERVE_MODES, SERVE_SLOTS, SERVE_CHUNK, SERVE_QUANTUM = 10, 4, 8, 24
+SERVE_SAVE_EVERY, SERVE_NITER, SERVE_BURN = 5, 200, 50
+SERVE_REQUESTS = (("A", 45, 0, 720), ("B", 45, 1, 720), ("C", 30, 2, 720),
+                  ("D", 8, 3, 120))
+SERVE_FIFTH = ("E", 45, 4, 720)
 
 
 #: the run's start on the host clock (set by :func:`main`)
@@ -676,19 +720,19 @@ def device_ms(fn, reps=30, warm=3):
     device trace over ``reps`` calls (no host time).  The trace can hold
     fewer kernels than the host launched (on the H100 it loses one at a
     session's edge on some sessions, and on a few all of them): a trace
-    that lost at most a tenth is scaled by launched / found; else it is
-    taken once more, and then the calls are timed back to back between
-    two CUDA events instead (said on a line of its own)."""
+    that lost at most a tenth is scaled by launched / found; else the
+    calls are timed back to back between two CUDA events instead (said
+    on a line of its own; a second trace mostly lost kernels as the
+    first had, so none is taken)."""
     import torch
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    for _ in range(2):
-        dev, kern, host = _trace(fn, reps)
-        if dev and kern >= 0.9 * host:
-            return (sum(e.time_range.end - e.time_range.start for e in dev)
-                    * max(1.0, host / kern) / 1e3 / reps)
+    dev, kern, host = _trace(fn, reps)
+    if dev and kern >= 0.9 * host:
+        return (sum(e.time_range.end - e.time_range.start for e in dev)
+                * max(1.0, host / kern) / 1e3 / reps)
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
     s.record()
@@ -697,7 +741,7 @@ def device_ms(fn, reps=30, warm=3):
     e.record()
     e.synchronize()
     ms = s.elapsed_time(e) / reps
-    print(f"note: the device trace lost kernels twice ({kern} of {host} "
+    print(f"note: the device trace lost kernels ({kern} of {host} "
           f"launched); {ms:.4f} ms is {reps} back-to-back calls between two "
           "CUDA events", flush=True)
     return ms
@@ -726,17 +770,21 @@ def wide_configs(lib, batch):
 
 
 def time_ms(fn):
-    """``(device ms, event ms)`` of one ``fn()``, over 10 calls, or 3 for
-    a call slower than 20 ms (the plain versions at the wide order, whose
-    traces hold thousands of kernels per call)."""
+    """``(device ms, event ms)`` of one ``fn()``: over 10 calls after 3
+    warm-up calls; for a call slower than 20 ms (the plain versions at the
+    wide order: thousands of kernels and ~0.3 s of host time a call, whose
+    device trace took ~6 s a call to read back on the card's host) one
+    traced call and two timed by events, after the call that measured
+    it."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    reps = 10 if time.perf_counter() - t0 < 0.02 else 3
-    return device_ms(fn, reps), cuda_ms(fn, reps)
+    if time.perf_counter() - t0 < 0.02:
+        return device_ms(fn, 10, 3), cuda_ms(fn, 10, 3)
+    return device_ms(fn, 1, 0), cuda_ms(fn, 2, 0)
 
 
 def bound_ms(nbytes, flops, kind):
@@ -787,7 +835,7 @@ def parity_state(cm, C, gen):
 
 
 def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
-                                      "widen_f64"), beta=None):
+                                      "widen_f64"), beta=None, seg_len=None):
     """Phase 2, Gram: the three kernel forms, which take ``(Ta, N)`` and
     form ``TNa = Ta / N`` on chip, against the plain version.  The
     difference is measured at the Jacobi scale sqrt(G_ii G_jj), and the
@@ -803,7 +851,9 @@ def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
     printed beside it.  A width beyond the narrow form's runs the wide
     form (``*_wide``).  ``forms`` names the forms to hold; ``timer=None``
     holds them without timing (a shape an earlier row timed); ``beta``
-    (a float) takes the Gram at a tempered chain's ``N / beta``."""
+    (a float) takes the Gram at a tempered chain's ``N / beta``;
+    ``seg_len`` the TOA segment (``settings.gram_seg_len`` when None).
+    On a tenant stack (``cm.tenants``) the T P systems are one chain's."""
     import torch
 
     from pulsar_timing_gibbsspec_torch.config import settings
@@ -812,10 +862,10 @@ def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
 
     ref = kernels.reference
     Nx = cm.ndiag_fast(x) if beta is None else cm.ndiag_fast(x) / beta
-    Ta, N = blocks._gram_operands(cm, Nx, settings.gram_seg_len)
-    C = N.shape[0]
+    Ta, N = blocks._gram_operands(cm, Nx, seg_len or settings.gram_seg_len)
     N = N.reshape(-1, N.shape[-1]).contiguous()
     P, nseg, m, B1 = Ta.shape
+    C = N.shape[0] // P
     suffix = "_wide" if B1 > kernels.GRAM_MAX_B1 else ""
     Bt = N.shape[0]
     TNa = ref.gram_operand(Ta, N)
@@ -1687,7 +1737,8 @@ def hd_path(cm, seed, outdir, steady, warmup=WARMUP, phase="10"):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     g = ptt.PTABlockGibbs(cm, nchains=C, device=cm.device, seed=seed,
-                          warmup_sweeps=warmup, progress=False)
+                          warmup_sweeps=warmup, progress=False,
+                          white_adapt_iters=SIDE_WHITE_ADAPT)
     x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
         seed))
     chain = g.sample(x0, outdir=outdir, niter=niter, save_every=SAVE_EVERY)
@@ -2017,7 +2068,8 @@ def ke_path(cm, seed, outdir, steady):
     t0 = time.perf_counter()
     g = ptt.PulsarBlockGibbs(cm, nchains=C, device=cm.device, seed=seed,
                              warmup_sweeps=SIDE_WARMUP, ecorrsample="kernel",
-                             progress=False)
+                             progress=False,
+                             white_adapt_iters=SIDE_WHITE_ADAPT)
     x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
         seed))
     chain = g.sample(x0, outdir=outdir, niter=niter, save_every=SAVE_EVERY)
@@ -2123,7 +2175,8 @@ def infinitepower_check(cm, seed, outdir):
 
     t0 = time.perf_counter()
     g = ptt.PTABlockGibbs(cm, nchains=IP_CHAINS, device=cm.device,
-                          seed=seed, warmup_sweeps=IP_WARMUP, progress=False)
+                          seed=seed, warmup_sweeps=IP_WARMUP, progress=False,
+                          white_adapt_iters=SIDE_WHITE_ADAPT)
     chain = g.sample(g.initial_sample(torch.Generator(
         device=cm.device).manual_seed(seed)), outdir=outdir,
         niter=IP_WARMUP + 1 + IP_STEADY)
@@ -2217,7 +2270,8 @@ def grid_paths(args, psrs, gen, outdir):
     ok15, runs15, g15 = powerlaw_path(
         "15", cm15, "PTABlockGibbs", NCHAINS, SIDE_WARMUP, P15_STEADY,
         args.seed,
-        out15, list(recs["15"]), GRAPHED, backup=False, **P15_OPTS)
+        out15, list(recs["15"]), GRAPHED, backup=False,
+        white_adapt_iters=SIDE_WHITE_ADAPT, **P15_OPTS)
     drv = g15.driver
     baks = sorted(p.name for p in out15.iterdir() if ".bak" in p.name)
     steady = range(drv._it_base(SIDE_WARMUP + 1 + P15_STEADY),
@@ -2256,7 +2310,8 @@ def grid_paths(args, psrs, gen, outdir):
     ok15b, runs15b, g15b = powerlaw_path(
         "15b", cm15b, "PulsarBlockGibbs", SINGLE_CHAINS, P15B_WARMUP,
         P15B_STEADY, args.seed, outdir / "band", list(recs["15b"]),
-        WIDE_GRAPHED, red_adapt_iters=SIDE_RED_ADAPT)
+        WIDE_GRAPHED, red_adapt_iters=SIDE_RED_ADAPT,
+        white_adapt_iters=SIDE_WHITE_ADAPT)
     hyp = g15b.chain[P15B_WARMUP + 1:][:, :, band]          # (S, C, 4)
     pa = cm15b.pa.cpu().numpy()[band]
     pb = cm15b.pb.cpu().numpy()[band]
@@ -2774,9 +2829,10 @@ def oracle_card_path(cm, seed, outdir, forms, gen):
     ``ORACLE_CARD_CHAINS`` chains through ``ORACLE_CARD_WARMUP`` warmup
     sweeps,
     adaptation and ``ORACLE_CARD_STEADY`` steady sweeps from the graphs,
-    launch counts from 0, and phase 2 (held, not timed) at its final
+    launch counts from 0, and phase 2 (held and timed) at its final
     state; then (20b) the ECORR block alone at each chain's final b
-    (:func:`ecorr_conditional`).  Returns ``(ok, chain)``."""
+    (:func:`ecorr_conditional`).  Returns ``(ok, chain, rows)``: the
+    kernels line's rows of its forms."""
     import numpy as np
     import torch
 
@@ -2819,8 +2875,16 @@ def oracle_card_path(cm, seed, outdir, forms, gen):
     print(f"phase 2 at phase 20a's shapes ({C} systems), its final state:",
           flush=True)
     x_end = torch.as_tensor(drv.x_cur, device=cm.device)
-    ok &= gram_parity(cm, x_end, None)[1] & chol_parity(cm, x_end, gen,
-                                                        None)[1]
+    recs, good = gram_parity(cm, x_end, time_ms)
+    ok &= good
+    rec, good = chol_parity(cm, x_end, gen, time_ms)
+    recs.update(rec)
+    ok &= good
+    rows = [dict(name=f"{k}[{f}] (phase 20a path: the Quick start at {C} "
+                 f"chains, order {cm.Bmax})", route="cuda",
+                 source=SOURCES[k][1], replaces=REPLACES[k],
+                 launches=counts[0][(k, f)], **r)
+            for (k, f), r in recs.items()]
     ok_e = ecorr_conditional(drv, cm)
     del g, drv
     torch.cuda.empty_cache()
@@ -2830,7 +2894,7 @@ def oracle_card_path(cm, seed, outdir, forms, gen):
               f"launches plus replays={unaccounted}, verified "
               f"checkpoint={rep['ok']}; the kernel parity above)",
               file=sys.stderr)
-    return ok and ok_e, chain
+    return ok and ok_e, chain, rows
 
 
 def ecorr_conditional(drv, cm):
@@ -3198,6 +3262,168 @@ def retry_path(cm, seed, outdir, gen):
     return records, runs
 
 
+def _serve_datasets(seed, requests):
+    from pulsar_timing_gibbsspec_torch.data import synthetic_array
+    from pulsar_timing_gibbsspec_torch.serve import bench_dataset
+
+    return {tag: bench_dataset(synthetic_array(npsr=n, seed=seed + off,
+                                               ntoa_max=ntoa),
+                               SERVE_MODES, SERVE_MODES)
+            for tag, n, off, ntoa in requests}
+
+
+def serve_path(seed, outdir):
+    """Phases 22-22c: the tenant-multiplexed service on the card.
+
+    22: ``BucketTable.ladder(10)``, ``SERVE_SLOTS`` slots, chunks of
+    ``SERVE_CHUNK`` sweeps, a quantum of ``SERVE_QUANTUM`` chunks; the
+    requests of ``SERVE_REQUESTS`` (two 45-pulsar arrays in the bucket
+    (46, 1024, 60, 10), a 30-pulsar array padded into it under another
+    signature, an 8-pulsar array in (8, 128, 60, 10)), a fifth 45-pulsar
+    array once a job is done; ``SERVE_NITER`` sweeps a job, kernel
+    counts from 0.  Gates: every job done, records finite, rho medians
+    inside their prior, checkpoints verified, one graph capture per
+    (bucket, signature, chunk) and none from the fifth admission on, the
+    widening Gram's runs on the card equal to its eager launches plus
+    each capture's launches times its replays.  22b: tenant A alone in a
+    service of as many slots, bitwise equal to its multiplexed chain (in
+    another slot, evicted once, next to others).  22c: the Gram at the
+    stack's shape against its plain version, timed.  Returns ``(ok,
+    rows)``: the kernels line's rows."""
+    import numpy as np
+    import torch
+
+    from pulsar_timing_gibbsspec_torch.config import settings
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+    from pulsar_timing_gibbsspec_torch.runtime import integrity
+    from pulsar_timing_gibbsspec_torch.serve import (BucketTable,
+                                                     ProgramCache,
+                                                     SamplerService,
+                                                     probe_shape)
+    from pulsar_timing_gibbsspec_torch.serve.engine import group_key
+
+    t_phase = time.perf_counter()
+    table = BucketTable.ladder(SERVE_MODES)
+    data = _serve_datasets(seed, SERVE_REQUESTS + (SERVE_FIFTH,))
+    for tag, ds in data.items():
+        shape = probe_shape(ds)
+        print(f"phase 22 request {tag}: {shape.pulsars} pulsars, <= "
+              f"{shape.toas} TOAs, basis <= {shape.basis}, {shape.modes} "
+              f"modes -> bucket {table.route(shape).as_tuple()}", flush=True)
+    cache = ProgramCache()
+    svc = SamplerService(outdir / "mux", table, slots=SERVE_SLOTS,
+                         chunk=SERVE_CHUNK, quantum=SERVE_QUANTUM,
+                         save_every=SERVE_SAVE_EVERY, cache=cache)
+    kernels.reset_launches()
+    jobs = {tag: svc.submit(data[tag], SERVE_NITER, job_id=f"job{tag}",
+                            tenant_id=ord(tag) - ord("A"))
+            for tag, *_ in SERVE_REQUESTS}
+    fifth = SERVE_FIFTH[0]
+    t0 = time.perf_counter()
+    at_fifth = first_admit = None
+    while svc.step_supervised():
+        if fifth not in jobs and any(j.state == "done"
+                                     for j in jobs.values()):
+            jobs[fifth] = svc.submit(data[fifth], SERVE_NITER,
+                                     job_id=f"job{fifth}",
+                                     tenant_id=ord(fifth) - ord("A"))
+        if (at_fifth is None and fifth in jobs
+                and jobs[fifth].admitted_at is not None):
+            at_fifth = svc.captures()
+            first_admit = jobs[fifth].admitted_at
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rep = svc.report()
+    caps = svc.captures()
+    groups = len({group_key(j.bucket, j.cm) for j in jobs.values()})
+    runs = kernels.device_launches()
+    host = kernels.launch_counts()
+    key = ("gram_accumulate", "widen_f64")
+    progs = list(cache._programs.values())
+    replayed = sum(p.captured_launches.get(key, 0) * p.replays
+                   for p in progs)
+    recorded = sum(p.captured_launches.get(key, 0) for p in progs)
+    expect = host[key] - recorded + replayed
+    rows = sum(j.it for j in jobs.values())
+    je = jobs[fifth]
+    wait = 1e3 * (first_admit - je.submitted_at)
+    warm = 1e3 * (je.first_sample_at - first_admit)
+    ok = True
+    for tag, j in jobs.items():
+        cm = j.cm
+        rho = cm.idx.rho
+        med = np.median(j.chain[SERVE_BURN:, rho], axis=0)
+        lo, hi = 0.5 * np.log10(cm.rhomin), 0.5 * np.log10(cm.rhomax)
+        ver = integrity.verify(j.outdir)
+        good = (j.state == "done" and bool(np.isfinite(j.chain).all())
+                and bool(np.isfinite(j.bchain).all())
+                and bool(np.all((med > lo) & (med < hi)))
+                and ver["ok"] and ver["rows"] == SERVE_NITER)
+        ok &= good
+        print(f"phase 22 job {tag} (tenant {j.tenant_id}, bucket "
+              f"{j.bucket.as_tuple()}, P_real {cm.P_real}): {j.state}, "
+              f"{j.it} rows, first sample after "
+              f"{j.time_to_first_sample_ms():.1f} ms, common log10_rho "
+              f"medians {np.round(med, 3).tolist()}, checkpoint verified "
+              f"{ver['ok']} ({ver['rows']} rows) {'ok' if good else 'FAIL'}",
+              flush=True)
+    good_caps = caps == groups and at_fifth == caps
+    good_runs = runs[key] > 0 and runs[key] == expect
+    ok &= good_caps and good_runs
+    print(f"phase 22 the service: {len(jobs)} jobs, {rows} rows in "
+          f"{wall:.3f} s = {rows / wall:.1f} aggregate samples/s, "
+          f"{rep['chunks']} chunks, {rep['evictions']} evictions; the "
+          f"fifth request queued {wait:.1f} ms, then its warm start "
+          f"(admission onto the captured program to its first chunk's "
+          f"rows) {warm:.1f} ms; warm_hit_rate {rep['warm_hit_rate']:.3f}, "
+          f"dispatch seconds {svc.dispatch_seconds:.3f}; graph captures "
+          f"{caps} for {groups} (bucket, signature) groups at "
+          f"chunk {SERVE_CHUNK}, {at_fifth} when the fifth was admitted "
+          f"{'ok' if good_caps else 'FAIL'}", flush=True)
+    print(f"phase 22 kernel runs counted on the card: {key[0]}[{key[1]}] "
+          f"{runs[key]} (host launches {host[key]}, recorded into graphs "
+          f"{recorded}, replayed {replayed}) {'ok' if good_runs else 'FAIL'}",
+          flush=True)
+    launches = runs[key]
+
+    # ---- 22b: the evicted array alone in a service of as many slots ------
+    solo = SamplerService(outdir / "solo", table, slots=SERVE_SLOTS,
+                          chunk=SERVE_CHUNK, quantum=SERVE_QUANTUM,
+                          save_every=SERVE_SAVE_EVERY, cache=cache)
+    jb = solo.submit(data["B"], SERVE_NITER, job_id="jobB", tenant_id=1)
+    solo.run()
+    caps_after = svc.captures()
+    same = (jb.state == "done"
+            and np.array_equal(jb.chain, jobs["B"].chain)
+            and np.array_equal(jb.bchain, jobs["B"].bchain))
+    evicted = rep["evictions"] >= 1
+    ok &= same and evicted and caps_after == caps
+    print(f"phase 22b request B alone in slot 0 of {SERVE_SLOTS} against "
+          f"its chain in slot 1 beside A, evicted before its last chunk "
+          f"({rep['evictions']} evictions in the run): bitwise {same}, "
+          f"captures after {caps_after} "
+          f"{'ok' if same and evicted else 'FAIL'}", flush=True)
+
+    # ---- 22c: the Gram at the stack's shape ------------------------------
+    prog = cache.program(group_key(jobs["A"].bucket, jobs["A"].cm),
+                         SERVE_SLOTS, SERVE_CHUNK)
+    recs, good = gram_parity(prog.stack, prog.x, time_ms,
+                             forms=("widen_f64",),
+                             seg_len=settings.gram_seg_len_exact)
+    ok &= good
+    del svc, solo, progs, prog, cache
+    torch.cuda.empty_cache()
+    print(f"phase 22 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not ok:
+        print("chip_smoke: phase 22 failed", file=sys.stderr)
+    out = [dict(name=f"{k}[{f}] (phase 22 path: the tenant-multiplexed "
+                f"service, {SERVE_SLOTS} slots x 46 pulsars, B1 61)",
+                route="cuda", source=SOURCES[k][0], replaces=REPLACES[k],
+                launches=launches, **r)
+           for (k, f), r in recs.items()]
+    return ok, out
+
+
 def earlier_paths(args, psrs, gen, outdir, extra):
     """Phases 2-12: the kernel parity at the shapes of the paths of
     earlier slices, then phases 3-12c with 19-19b after 18c and 21 after
@@ -3487,7 +3713,8 @@ def earlier_paths(args, psrs, gen, outdir, extra):
                                    SINGLE_CHAINS, SIDE_WARMUP, R1_STEADY,
                                    args.seed, outdir / "r1", wide64,
                                    WIDE_GRAPHED, de_gate=True,
-                                   red_adapt_iters=SIDE_RED_ADAPT)
+                                   red_adapt_iters=SIDE_RED_ADAPT,
+                                   white_adapt_iters=SIDE_WHITE_ADAPT)
     if not ok8:
         return None
     runs[("chol_solve_sample", "f64_wide")] = runs8[
@@ -3514,7 +3741,8 @@ def earlier_paths(args, psrs, gen, outdir, extra):
     ok9, runs9, _ = powerlaw_path("9", cm_r2, "PTABlockGibbs", C, R2_WARMUP,
                                   R2_STEADY, args.seed, outdir / "r2",
                                   narrow64, GRAPHED,
-                                  red_adapt_iters=SIDE_RED_ADAPT)
+                                  red_adapt_iters=SIDE_RED_ADAPT,
+                                  white_adapt_iters=SIDE_WHITE_ADAPT)
     if not ok9:
         return None
     runs[("chol_solve_sample", "f64")] = runs9[("chol_solve_sample", "f64")]
@@ -3522,7 +3750,8 @@ def earlier_paths(args, psrs, gen, outdir, extra):
     ok9b, _, _ = powerlaw_path("9b", cm_r3, "PulsarBlockGibbs", SINGLE_CHAINS,
                                R3_WARMUP, R3_STEADY, args.seed, outdir / "r3",
                                wide64, WIDE_GRAPHED,
-                               red_adapt_iters=SIDE_RED_ADAPT)
+                               red_adapt_iters=SIDE_RED_ADAPT,
+                               white_adapt_iters=SIDE_WHITE_ADAPT)
     if not ok9b:
         return None
     torch.cuda.empty_cache()
@@ -3778,7 +4007,8 @@ def _run(args, oracle):
     ok14, runs14, g14 = powerlaw_path(
         "14", cm_tp, "PTABlockGibbs", C, SIDE_WARMUP, TP_STEADY, args.seed,
         outdir / "tp", tp_forms, GRAPHED, de_gate=True,
-        red_adapt_iters=SIDE_RED_ADAPT)
+        red_adapt_iters=SIDE_RED_ADAPT,
+        white_adapt_iters=SIDE_WHITE_ADAPT)
     ok14 &= tprocess_gates(cm_tp, g14, SIDE_WARMUP)
     if not ok14:
         print("chip_smoke: the t-process path failed", file=sys.stderr)
@@ -3816,8 +4046,8 @@ def _run(args, oracle):
 
     # ---- phases 20a-20b: the card's chains for phase 20, counts from 0 ----
     cm1 = extra["cm1"]
-    ok20, chain20 = oracle_card_path(cm1, args.seed, outdir / "oracle_card",
-                                     extra["wide"], gen)
+    ok20, chain20, rows20 = oracle_card_path(
+        cm1, args.seed, outdir / "oracle_card", extra["wide"], gen)
     if not ok20:
         return 1
     elapsed("phases 20a-20b")
@@ -3827,6 +4057,12 @@ def _run(args, oracle):
                           cm1, extra["sps4"]):
         return 1
     elapsed("phase 20")
+
+    # ---- phases 22-22c: the tenant-multiplexed service, counts from 0 ------
+    ok22, rows22 = serve_path(args.seed, outdir / "serve")
+    if not ok22:
+        return 1
+    elapsed("phases 22-22c")
     rows += [
         dict(name=f"{k}[{f}] (phase 13 path: kernel ECORR, B1 "
              f"{cm_ke.Bmax + 1})", route="cuda", source=SOURCES[k][1],
@@ -3836,7 +4072,8 @@ def _run(args, oracle):
              f"{cm_tp.Bmax})", route="cuda",
              source=SOURCES[k][f.endswith("_wide")], replaces=REPLACES[k],
              launches=runs14[(k, f)], **r)
-        for (k, f), r in tp_records.items()] + rows15 + rows16
+        for (k, f), r in tp_records.items()] + (rows15 + rows16 + rows20
+                                                 + rows22)
 
     print("phase 1 kernel resources (cuobjdump -res-usage: registers, "
           "stack frame bytes, static shared memory bytes): " + (json.dumps(

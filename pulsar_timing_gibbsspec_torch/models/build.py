@@ -504,7 +504,7 @@ _DEFAULTS = dict(
 
 
 def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
-                 **opts) -> dict:
+                 pad_toas=None, pad_basis=None, **opts) -> dict:
     """The compiled model's fields as numpy arrays, named as the JAX
     ``CompiledPTA`` names them (the input of
     :func:`~..sampler.compiled.from_arrays`), for ``model_general``'s
@@ -517,8 +517,15 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
     the ECORR columns leave T and the epochs go into ``ke_eid`` (each
     TOA's epoch, ``Emax`` outside every epoch and on pads) and
     ``ke_par_ix`` (each epoch's log10_ecorr, the -40 constant on dummy
-    epochs).  Unknown options raise ``TypeError``; what the port does not
-    take, ``NotImplementedError``."""
+    epochs).  ``pad_pulsars``, ``pad_toas`` and ``pad_basis`` are
+    ``compile_pta``'s: they force the pulsar axis ``P``, the TOA axis
+    ``Nmax`` and the basis axis ``Bmax`` to at least the data's (smaller
+    raise ``ValueError``).  Pad TOA rows carry ``y = 0``, ``T = 0``,
+    ``sigma2 = 1``, constant EFAC 1 and EQUAD -40 (``N = 1``, no
+    likelihood), pad basis columns ``phi_base = 1`` and ``basis_mask =
+    0``, pad pulsars nothing: a dataset padded to a larger shape samples
+    the same posterior.  Unknown options raise ``TypeError``; what the
+    port does not take, ``NotImplementedError``."""
     unknown = set(opts) - set(_DEFAULTS)
     if unknown:
         raise TypeError(
@@ -597,6 +604,18 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
     widths = tuple(int(m["T"].shape[1]) for m in models)
     Nmax = max(p.ntoa for p in psrs)
     Bmax = max(widths)
+    if pad_toas is not None:
+        if pad_toas < Nmax:
+            raise ValueError(
+                f"pad_toas={pad_toas} smaller than the largest TOA count "
+                f"{Nmax}")
+        Nmax = int(pad_toas)
+    if pad_basis is not None:
+        if pad_basis < Bmax:
+            raise ValueError(
+                f"pad_basis={pad_basis} smaller than the widest basis "
+                f"{Bmax}")
+        Bmax = int(pad_basis)
     efac1, equad_off = ref(_Fixed("", 1.0)), ref(_Fixed("", -40.0))
 
     f32, i32 = np.float32, np.int32
@@ -917,13 +936,17 @@ def _refuse_orf(orf, common_psd):
 
 
 def crn_spectrum_arrays(psrs, nbins: int = 10, red_bins: int = 10,
-                        pad_pulsars: int | None = None) -> dict:
+                        pad_pulsars: int | None = None,
+                        pad_toas: int | None = None,
+                        pad_basis: int | None = None) -> dict:
     """The arrays of the repository's headline model: SVD timing model,
     a common and a per-pulsar red free spectrum (``nbins`` /
-    ``red_bins``), EFAC/EQUAD and, for NANOGrav-flagged pulsars, ECORR."""
+    ``red_bins``), EFAC/EQUAD and, for NANOGrav-flagged pulsars, ECORR;
+    padded as :func:`model_arrays` pads."""
     return model_arrays(psrs, tm_svd=True, common_components=nbins,
                         red_var=True, red_components=red_bins,
-                        pad_pulsars=pad_pulsars)
+                        pad_pulsars=pad_pulsars, pad_toas=pad_toas,
+                        pad_basis=pad_basis)
 
 
 def build_crn_spectrum(psrs, nbins: int = 10, red_bins: int = 10,

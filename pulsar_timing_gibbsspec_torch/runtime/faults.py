@@ -1,9 +1,10 @@
 """Deterministic fault injection for the port's chaos tests.
 
 The port's copy of the part of ``pulsar_timing_gibbsspec_tpu/runtime/
-faults.py`` that a single supervised run reaches.  Production code calls
-the seam hooks (:func:`fire`, :func:`mutate_rows`); with nothing armed
-they are one list check.  Tests arm faults with :func:`inject` and the
+faults.py`` that a supervised run and the serving tier reach.
+Production code calls the seam hooks (:func:`fire`, :func:`mutate_rows`,
+:func:`tenant_evict_request`, :func:`poison_tenant_rows`); with nothing
+armed they are one list check.  Tests arm faults with :func:`inject` and the
 hooks then raise or corrupt deterministically at the requested row.
 
 Seams (``fire``):
@@ -18,6 +19,9 @@ Seams (``fire``):
 - ``"dispatch.chunk"``: in the driver's chunk loop, under the dispatch
   watchdog, once the chunk starting at iteration ``row`` is queued and
   before the host waits for the chunk before it.
+- ``"serve.chunk"``: in the service's scheduler loop, between
+  multiplexed chunks; ``row`` is the service's global chunk counter.
+  The service also polls :func:`tenant_evict_request` there.
 
 Kinds:
 
@@ -36,6 +40,14 @@ Kinds:
   ``seconds`` is the drain deadline (the default when 0).
 - ``"stall"``: sleep ``seconds`` at the seam (a hung device, as the host
   sees it); at ``"dispatch.chunk"`` the watchdog's deadline runs.
+- ``"tenant_evict"``: make :func:`tenant_evict_request` return truthy at
+  ``"serve.chunk"``: the service checkpoints a resident and requeues it.
+  With ``tenant=<id>`` the fault names its victim and ``at_row`` counts
+  that job's resident chunks, not the global chunk counter.
+- ``"poison_rows"``: NaN-poison one tenant's rows of a multiplexed chunk
+  through :func:`poison_tenant_rows` (a single tenant's divergence, the
+  quarantine drill's trigger); ``tenant`` names the victim, ``at_row``
+  counts its resident chunks.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ class _Fault:
     backend: str | None = None  # fire for this backend name only
     path: str | None = None     # target file of the file-damage kinds
     seconds: float = 0.0        # stall sleep / drain deadline
+    tenant: int | None = None   # victim tenant of the serving kinds
     fired: int = 0
 
 
@@ -75,10 +88,10 @@ _lock = threading.Lock()
 
 
 def inject(kind, point=None, at_row=None, times=1, backend=None, path=None,
-           seconds=0.0):
+           seconds=0.0, tenant=None):
     """Arm a fault; returns its handle (removed by :func:`clear`)."""
     f = _Fault(kind=kind, point=point, at_row=at_row, times=times,
-               backend=backend, path=path, seconds=seconds)
+               backend=backend, path=path, seconds=seconds, tenant=tenant)
     with _lock:
         _armed.append(f)
     return f
@@ -161,3 +174,86 @@ def mutate_rows(chain, bchain, lo, hi, backend=None):
     for f in hits:
         chain[f.at_row] = np.nan
         bchain[f.at_row] = np.nan
+
+
+def tenant_evict_request(row=None, job_rows=None):
+    """Consume armed ``tenant_evict`` faults at the ``serve.chunk``
+    seam (counting a firing each).
+
+    ``row`` is the service's global chunk counter; ``job_rows`` maps
+    resident ``tenant_id -> chunks that tenant has been resident``
+    (the service passes it so ``at_row`` on a tenant-targeted fault
+    counts the VICTIM's chunks, not everyone's — a global counter
+    cannot say "evict tenant 2 after its 3rd chunk" when admission
+    order varies).  Returns the set of victim tenant_ids, or ``True``
+    for an untargeted request (evict any one resident — historical
+    behavior), or ``False`` when nothing fired.
+    """
+    if not _armed:
+        return False
+    victims = set()
+    untargeted = False
+    with _lock:
+        for f in _armed:
+            if f.kind != "tenant_evict" or f.fired >= f.times:
+                continue
+            if f.point is not None and f.point != "serve.chunk":
+                continue
+            if f.tenant is not None:
+                held = None if job_rows is None \
+                    else job_rows.get(int(f.tenant))
+                if held is None or (f.at_row is not None
+                                    and held < f.at_row):
+                    continue
+                f.fired += 1
+                victims.add(int(f.tenant))
+            else:
+                if f.at_row is not None and (row is None
+                                             or row < f.at_row):
+                    continue
+                f.fired += 1
+                untargeted = True
+    if victims:
+        return victims
+    return untargeted
+
+
+def poison_tenant_rows(np_xs, np_bs, tenant_slots, job_rows):
+    """NaN-poison ONE tenant's rows of a multiplexed chunk for armed
+    ``poison_rows`` faults (the blast-radius drill: a single tenant's
+    chunk output diverges while its co-residents' rows stay exact).
+
+    ``np_xs`` (chunk, T, nx) / ``np_bs`` (chunk, T, ...) are the host
+    copies of the recorded stacks; ``tenant_slots`` maps tenant_id ->
+    slot index; ``job_rows`` maps tenant_id -> chunks resident (the
+    per-job ``at_row`` clock, same as :func:`tenant_evict_request`).
+    Returns ``(np_xs, np_bs, poisoned_slots)`` — the arrays are copied
+    first when read-only (``np.asarray`` of a device array is an
+    immutable view), so callers must rebind them.
+    """
+    if not _armed:
+        return np_xs, np_bs, set()
+    poisoned = set()
+    with _lock:
+        for f in _armed:
+            if f.kind != "poison_rows" or f.fired >= f.times:
+                continue
+            if f.tenant is None:
+                continue
+            slot = tenant_slots.get(int(f.tenant))
+            if slot is None:
+                continue
+            held = job_rows.get(int(f.tenant), 0)
+            if f.at_row is not None and held < f.at_row:
+                continue
+            f.fired += 1
+            poisoned.add(int(slot))
+    if poisoned:
+        if not np_xs.flags.writeable:
+            np_xs = np_xs.copy()
+        if not np_bs.flags.writeable:
+            np_bs = np_bs.copy()
+        for slot in poisoned:
+            np_xs[:, slot] = np.nan
+            np_bs[:, slot] = np.nan
+    return np_xs, np_bs, poisoned

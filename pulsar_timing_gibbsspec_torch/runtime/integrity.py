@@ -174,3 +174,54 @@ def rollback(outdir) -> bool:
     os.replace(tmp, outdir / MANIFEST)
     telemetry.incr("rollbacks")
     return True
+
+
+def check_not_quarantined(outdir, force_requeue=False, manifest=None):
+    """Refuse a quarantine-marked checkpoint directory unless the
+    operator passed ``force_requeue``.
+
+    A manifest whose ``serve.state`` is ``"quarantined"`` marks a job the
+    serving tier parked after exhausting its quarantine budget: the
+    checkpoint itself is verified (rows up to the last clean save), but
+    resuming it blindly would replay the same poisoned trajectory.
+    :func:`load_resume` and ``ChainStore.load_resume`` both call it, so
+    no resume path skips it.  ``manifest`` skips the re-read when the
+    caller already holds the manifest."""
+    if force_requeue:
+        return
+    man = read_manifest(Path(outdir)) if manifest is None else manifest
+    if (isinstance(man, dict) and not man.get("corrupt")
+            and (man.get("serve") or {}).get("state") == "quarantined"):
+        raise CheckpointError(
+            f"{outdir} holds a QUARANTINED job (its serving tier "
+            "parked it after repeated row-health breaches).  The "
+            "checkpoint is verified but the job needs an operator "
+            "decision: resume with force_requeue=True "
+            "(--force-requeue) to requeue it from the verified rows")
+
+
+def load_resume(outdir, force_requeue=False):
+    """Verified checkpoint load for a bare directory: the store is
+    rebuilt from the directory's own ``pars_chain.txt`` /
+    ``pars_bchain.txt`` and ``ChainStore.load_resume`` runs (manifest
+    verification, ``.bak`` rollback, :class:`CheckpointError` when
+    unrecoverable).  A quarantine-marked directory is refused unless
+    ``force_requeue`` (:func:`check_not_quarantined`).  Returns
+    ``(chain, bchain, start_iter, adapt_state)`` or ``None`` when there
+    is nothing to resume from."""
+    from ..sampler.chains import ChainStore
+
+    outdir = Path(outdir)
+    if not (outdir / "chain.npy").exists():
+        return None
+
+    def _names(fname):
+        p = outdir / fname
+        if not p.exists():
+            return []
+        return [ln.strip() for ln in p.read_text().splitlines()
+                if ln.strip()]
+
+    store = ChainStore(outdir, _names("pars_chain.txt"),
+                       _names("pars_bchain.txt"))
+    return store.load_resume(force_requeue=force_requeue)

@@ -148,12 +148,21 @@ def _scale_choice(gen, shape, dtype, device):
 # index helpers
 # ===========================================================================
 
+def _flat_ix(ix, lead, vals):
+    """``ix`` flattened over its value axes and broadcast to ``lead``:
+    the axes of ``ix`` beyond those of one state's ``vals`` lead, and are
+    a tenant stack's tenant axis (matched to the last of ``lead``)."""
+    nt = ix.dim() - (vals.dim() - len(lead))
+    return ix.reshape(ix.shape[:nt] + (-1,)).expand(lead + (-1,))
+
+
 def _set_x(x, ix, vals):
     """``x.at[ix].set(vals, mode="drop")`` over the last axis: ``ix``
-    (P, W) indexes x's last axis, pads point at ``nx`` and are dropped."""
+    (P, W) (a tenant stack's (T, P, W)) indexes x's last axis, pads point
+    at ``nx`` and are dropped."""
     nx = x.shape[-1]
     lead = x.shape[:-1]
-    flat = ix.reshape(-1).expand(lead + (ix.numel(),))
+    flat = _flat_ix(ix, lead, vals)
     ext = torch.cat([x, x.new_zeros(lead + (1,))], -1)
     ext = ext.scatter(-1, flat, vals.reshape(lead + (-1,)).to(x.dtype))
     return ext[..., :nx]
@@ -163,7 +172,7 @@ def _add_x(x, ix, vals):
     """``x.at[ix].add(vals, mode="drop")`` over the last axis."""
     nx = x.shape[-1]
     lead = x.shape[:-1]
-    flat = ix.reshape(-1).expand(lead + (ix.numel(),))
+    flat = _flat_ix(ix, lead, vals)
     ext = torch.cat([x, x.new_zeros(lead + (1,))], -1)
     ext = ext.scatter_add(-1, flat,
                           vals.reshape(lead + (-1,)).to(x.dtype))
@@ -183,10 +192,13 @@ def _take_cols(b, ix):
 def _gram_operands(cm, Nvec, seg_len):
     """``Ta = [T | y]`` (P, nseg, m, B1) with the TOA axis split into
     equal segments (pad TOA rows zero) and ``N`` (..., P, Nmax) in the
-    storage dtype.  ``TNa = Ta / N`` is never formed here: the kernel
-    forms it on chip, and only the plain version materializes it
-    (``kernels.reference.gram_operand``)."""
+    storage dtype; a tenant stack's ``Ta`` is (T P, nseg, m, B1), each
+    tenant's pulsars in a run, so that row ``b`` of ``N`` flattened
+    meets its own tenant's basis.  ``TNa = Ta / N`` is never formed here:
+    the kernel forms it on chip, and only the plain version materializes
+    it (``kernels.reference.gram_operand``)."""
     Ta = torch.cat([cm.T, cm.y[..., None]], dim=-1)
+    Ta = Ta.reshape((-1,) + Ta.shape[-2:])
     P, N, B1 = Ta.shape
     nseg = max(1, -(-N // seg_len))
     m = -(-N // nseg)
@@ -991,9 +1003,9 @@ def lnlike_white_per(cm, x, r2):
     gradient and Hessian O(1)-O(1e4))."""
     cdt = cm.cdtype
     xev = cm.xe(x)
-    efac = xev[..., cm.efac_ix]
-    equad = xev[..., cm.equad_ix]
-    gequad = xev[..., cm.gequad_ix]
+    efac = cm.gx(xev, cm.efac_ix)
+    equad = cm.gx(xev, cm.equad_ix)
+    gequad = cm.gx(xev, cm.gequad_ix)
     s2 = cm.sigma2.to(cdt)
     ln_s2 = torch.log(s2)
     ln10_2 = 2.0 * _LN10
@@ -1128,8 +1140,11 @@ def _mh_step(cm, lnlike, ind, accepts=None):
         x, ll0, lp0 = carry
         scale, jpos, eps, logu = noise
         j = ind[jpos]
+        # a tenant stack's scales (T, nx): each row's own
+        pj = prop[j] if prop.dim() == 1 else prop.gather(-1, j[..., None])[
+            ..., 0]
         q = x.scatter_add(-1, j[..., None],
-                          (eps * prop[j] * scale)[..., None])
+                          (eps * pj * scale)[..., None])
         lp1 = cm.lnprior(q)
         ll1 = lnlike(q)
         ok = torch.isfinite(lp1) & torch.isfinite(ll1)
@@ -1458,10 +1473,11 @@ def _rho_collapsed_logpdf(cm, ltau, grid):
         math.log10(cm.red_rhomin), math.log10(cm.red_rhomax), J,
         dtype=fdt, device=dev))
     K = ltau.shape[-1]
-    n = min(K, cm.red_rho_ix_x.shape[1])
-    ap = torch.zeros((cm.P, K), dtype=torch.bool, device=dev)
-    ap[:, :n] = (cm.red_rho_ix_x < cm.nx)[:, :n]
-    pmask = cm.psr_mask[:, None] > 0
+    n = min(K, cm.red_rho_ix_x.shape[-1])
+    ap = torch.zeros(cm.red_rho_ix_x.shape[:-1] + (K,), dtype=torch.bool,
+                     device=dev)
+    ap[..., :n] = (cm.red_rho_ix_x < cm.nx)[..., :n]
+    pmask = cm.psr_mask[..., None] > 0
     lead = ltau.shape[:-1]                               # (..., P)
     per_point = math.prod(lead) * J * ltau.element_size()
     step = max(1, min(grid.shape[0],
@@ -1477,7 +1493,7 @@ def _rho_collapsed_logpdf(cm, ltau, grid):
             parts.append(torch.logsumexp(lr - torch.exp(lr), dim=-1))
         lm = torch.cat(parts, dim=-1) - math.log(J)       # (..., P, R)
         lp = ltk[..., None] - lgrid
-        lm = torch.where(ap[:, k, None], lm, lp - torch.exp(lp))
+        lm = torch.where(ap[..., k, None], lm, lp - torch.exp(lp))
         out.append(torch.where(pmask, lm, zero).sum(-2))
     return torch.stack(out, dim=-2)
 
@@ -1515,7 +1531,7 @@ def rho_update_core(cm, x, b, gumbel, collapse=False):
     lother = torch.log(cm.red_phi(x)).to(fdt)
     logpdf = _grid_logpdf(ltau, lother, grid)
     # mask by where, not multiply: a pad pulsar's log tau is -inf
-    logpdf = torch.where(cm.psr_mask[:, None, None] > 0, logpdf,
+    logpdf = torch.where(cm.psr_mask[..., None, None] > 0, logpdf,
                          torch.zeros((), dtype=fdt, device=cm.device))
     logpdf = logpdf.sum(-3)
     rhonew = grid[torch.argmax(logpdf + gumbel, dim=-1)]

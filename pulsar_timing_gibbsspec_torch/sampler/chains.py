@@ -1,7 +1,7 @@
 """Chain persistence: periodic checkpoints, resume, adaptation state.
 
 The port's copy of ``pulsar_timing_gibbsspec_tpu/sampler/chains.py::
-ChainStore``, without its quarantine check (a serving-tier state).  Each
+ChainStore``.  Each
 save rotates the previous verified checkpoint to a ``.bak`` generation,
 writes ``chain.npy`` / ``bchain.npy`` / ``adapt.npz`` through tmp files
 and ``os.replace``, and writes ``manifest.json``
@@ -117,9 +117,13 @@ class ChainStore:
             # a failed export leaves no tmp for a later one to promote
             tmp.unlink(missing_ok=True)
 
-    def load_resume(self):
+    def load_resume(self, force_requeue=False):
         """Return ``(chain, bchain, start_row, adapt_state)``, or None if
         there is nothing to resume from.
+
+        A directory the serving tier parked as quarantined is refused
+        (:class:`..runtime.integrity.CheckpointError`) unless
+        ``force_requeue`` (``integrity.check_not_quarantined``).
 
         With a ``manifest.json`` the set is verified first; a mismatch
         (torn write, truncation, bit rot) rolls back to the ``.bak``
@@ -129,6 +133,7 @@ class ChainStore:
         mismatch is reported with a warning and the common prefix
         taken."""
         man = integrity.read_manifest(self.outdir)
+        integrity.check_not_quarantined(self.outdir, force_requeue, man)
         if man is not None:
             rep = integrity.verify(self.outdir, man)
             if not rep["ok"]:

@@ -24,7 +24,12 @@ basis columns.
 Every method broadcasts over leading batch dimensions of ``x`` / ``b``:
 the driver carries the chains as a leading axis, ``x`` of shape
 ``(C, nx)`` and ``b`` of shape ``(C, P, Bmax)``, where the JAX package
-vmaps a single-chain body.
+vmaps a single-chain body.  A tenant stack (``tenants = T > 0``, built by
+``serve.engine.stack_models``) holds T models of one shape signature:
+each per-pulsar or per-coordinate tensor gains a leading tenant axis,
+``(T, P, ...)`` / ``(T, nx)``, and row t of ``x`` (T, nx) / ``b`` (T, P,
+Bmax) is tenant t's one chain.  Gathers into ``xe`` go through
+:meth:`CompiledPTA.gx`, which pairs each row with its own indices.
 
 Padding conventions are the JAX package's: TOA pads carry ``y=0, T=0,
 sigma2=1, efac=1, equad=-40`` (``N = 1``), basis pads ``phi = 1``, and
@@ -329,6 +334,9 @@ class CompiledPTA:
     ke_eid: torch.Tensor = None
     ke_par_ix: torch.Tensor = None
     ke_U: torch.Tensor = None
+    #: the length of the leading tenant axis of a tenant stack, 0 for one
+    #: model
+    tenants: int = 0
     #: the arrays the model was built from (:func:`from_arrays`'s
     #: ``fields``, numpy on the host), which the NumPy oracle reads
     #: through :class:`.host_model.HostPTA`; None when not kept
@@ -427,12 +435,22 @@ class CompiledPTA:
         return torch.cat([
             x, x.new_zeros(lead + (1,)),
             self.const_pool.to(self.cdtype).expand(
-                lead + self.const_pool.shape)], dim=-1)
+                lead + self.const_pool.shape[-1:])], dim=-1)
+
+    def gx(self, xev, ix):
+        """``xev[..., ix]``, the gather of the index table ``ix`` into
+        ``xe``.  On a tenant stack ``ix`` leads with the tenant axis and
+        ``xev`` (..., T, nxe) row t is gathered through ``ix[t]``."""
+        if not self.tenants:
+            return xev[..., ix]
+        lead = xev.shape[:-1]
+        flat = ix.reshape(ix.shape[0], -1).expand(lead + (-1,))
+        return torch.gather(xev, -1, flat).reshape(lead + ix.shape[1:])
 
     def _ndiag_from(self, xev):
-        efac = xev[..., self.efac_ix]
-        equad = xev[..., self.equad_ix]
-        gequad = xev[..., self.gequad_ix]
+        efac = self.gx(xev, self.efac_ix)
+        equad = self.gx(xev, self.equad_ix)
+        gequad = self.gx(xev, self.gequad_ix)
         return (efac * efac * self.sigma2 + torch.pow(10.0, 2.0 * equad)
                 + torch.pow(10.0, 2.0 * gequad))
 
@@ -444,14 +462,13 @@ class CompiledPTA:
         """(..., P, Nmax) measurement covariance in the storage dtype."""
         return self._ndiag_from(self.xe(x).to(self.dtype))
 
-    @staticmethod
-    def _psd(kind, xev, f, df, hyp_ix):
+    def _psd(self, kind, xev, f, df, hyp_ix):
         """Powerlaw-family variances ``(..., P, W)`` (float64) of PSD
         ``kind`` at ``f``/``df`` (P, W), with its ``H`` hypers gathered
         out of ``xev`` through ``hyp_ix`` (P, H): sampled ones from
         ``x``, constant ones from the pool."""
-        args = [xev[..., hyp_ix[:, h]][..., None]
-                for h in range(hyp_ix.shape[1])]
+        args = [self.gx(xev, hyp_ix[..., h])[..., None]
+                for h in range(hyp_ix.shape[-1])]
         return torch.exp(_LNPSD_FNS[kind](f, df, *args))
 
     def _phi_accum(self, x, base, comps, dtype=None):
@@ -466,18 +483,18 @@ class CompiledPTA:
             torch.broadcast_to(base.to(dtype), lead + (self.P, B)),
             xev.new_zeros(lead + (self.P, 1))], dim=-1)
         for c in comps:
+            shape = lead + c.cols.shape[-2:]
             if c.kind in ("free_spectrum", "ecorr"):
-                vals = torch.pow(10.0, 2.0 * xev[..., c.rho_ix])
+                vals = torch.pow(10.0, 2.0 * self.gx(xev, c.rho_ix))
             elif c.kind == "infinitepower":
-                vals = torch.full(lead + c.cols.shape, BIG_PHI, dtype=dtype,
+                vals = torch.full(shape, BIG_PHI, dtype=dtype,
                                   device=self.device)
             elif c.kind == "tprocess":
                 vals = (self._psd("powerlaw", xev, c.f, c.df, c.hyp_ix)
-                        * xev[..., c.rho_ix])
+                        * self.gx(xev, c.rho_ix))
             else:
                 vals = self._psd(c.kind, xev, c.f, c.df, c.hyp_ix)
-            phi = phi.scatter_add(
-                -1, c.cols.expand(lead + c.cols.shape), vals.to(dtype))
+            phi = phi.scatter_add(-1, c.cols.expand(shape), vals.to(dtype))
         return phi[..., :B]
 
     def phi(self, x, dtype=None):
@@ -600,7 +617,7 @@ class CompiledPTA:
         """(..., P, K) common-process prior variance per frequency."""
         xev = self.xe(x)
         if self.gw_kind == "free_spectrum":
-            return torch.pow(10.0, 2.0 * xev[..., self.gw_rho_ix])
+            return torch.pow(10.0, 2.0 * self.gx(xev, self.gw_rho_ix))
         return self._psd(self.gw_kind, xev, self.gw_f, self.gw_df,
                          self.gw_hyp_ix)
 
@@ -608,7 +625,7 @@ class CompiledPTA:
         """(..., P, Kr) common-process phi on the red frequency grid,
         PHI_FLOOR beyond the common mode count."""
         lead = x.shape[:-1]
-        Kr = self.red_rho_ix_x.shape[1]
+        Kr = self.red_rho_ix_x.shape[-1]
         out = torch.full(lead + (self.P, Kr), PHI_FLOOR, dtype=self.cdtype,
                          device=self.device)
         if self.K and self.red_shares_gw:
@@ -629,15 +646,15 @@ class CompiledPTA:
             k = torch.arange(self.K, device=self.device)
             out = torch.where(k < self.Kr, BIG_PHI, floor)
         elif self.red_kind == "free_spectrum":
-            vals = torch.pow(10.0, 2.0 * xev[..., self.red_rho_ix])
-            n = min(self.K, self.red_rho_ix.shape[1])
+            vals = torch.pow(10.0, 2.0 * self.gx(xev, self.red_rho_ix))
+            n = min(self.K, self.red_rho_ix.shape[-1])
             out = floor.clone()
             out[..., :n] = vals[..., :n]
         elif self.red_kind == "tprocess":
             vals = (self._psd("powerlaw", xev, self.red_f, self.red_df,
-                              self.red_hyp_ix[:, :2])
-                    * xev[..., self.red_rho_ix])
-            n = min(self.K, self.red_rho_ix.shape[1])
+                              self.red_hyp_ix[..., :2])
+                    * self.gx(xev, self.red_rho_ix))
+            n = min(self.K, self.red_rho_ix.shape[-1])
             out = floor.clone()
             out[..., :n] = torch.clamp(vals[..., :n], min=PHI_FLOOR)
         else:
@@ -645,7 +662,7 @@ class CompiledPTA:
                              self.red_hyp_ix)
             k = torch.arange(self.K, device=self.device)
             out = torch.where(k < self.Kr, vals, floor)
-        return torch.where(self.red_valid[:, None] > 0, out, floor)
+        return torch.where(self.red_valid[..., None] > 0, out, floor)
 
 
 # ===========================================================================

@@ -63,6 +63,37 @@ DEVICE_ONLY_OPTS = ("record_precision", "record_every", "chunk_size",
                     "ensemble", "pt_ladder")
 
 
+def prior_sample(cm, n, generator=None):
+    """(n, nx) prior draw of the model ``cm`` on its device (``generator``:
+    a torch.Generator on any device), each coordinate from its prior:
+    uniform on ``[a, b]``, normal ``(a, b)``, LinearExp (``log10`` of a
+    uniform on ``[10^a, 10^b]``) or InvGamma (shape ``a``, rate ``b``); a
+    coordinate the model pins (``cm.pinit``: the sampled ORF weights, at
+    0) starts there."""
+    gdev = generator.device if generator is not None else cm.device
+    shape = (n, cm.nx)
+    f64 = torch.float64
+
+    def draw(fn):
+        return fn(shape, generator=generator, dtype=f64,
+                  device=gdev).to(cm.device)
+
+    u, z = draw(torch.rand), draw(torch.randn)
+    pa, pb = cm.pa.to(f64), cm.pb.to(f64)
+    shape_ig = torch.where(cm.pkind == 3, pa, torch.ones_like(pa))
+    g = torch._standard_gamma(torch.broadcast_to(
+        shape_ig.to(gdev), shape).contiguous(), generator)
+    lo, hi = torch.pow(10.0, pa), torch.pow(10.0, pb)
+    by_kind = (pa + (pb - pa) * u, pa + pb * z,
+               torch.log10(lo + u * (hi - lo)), pb / g.to(cm.device))
+    out = by_kind[0]
+    for kind in (1, 2, 3):
+        out = torch.where(cm.pkind == kind, by_kind[kind], out)
+    if cm.pinit is not None:
+        out = torch.where(torch.isnan(cm.pinit), out, cm.pinit)
+    return out
+
+
 class _GibbsBase:
     """What both facades share: the driver on ``cm``, the names, the
     initial draw and ``sample``.  ``hypersample``, ``ecorrsample`` and
@@ -181,34 +212,9 @@ class _GibbsBase:
 
     def initial_sample(self, generator=None):
         """(C, nx) prior draw, one start per chain, on the model's device
-        (``generator``: a torch.Generator on any device), each coordinate
-        from its prior: uniform on ``[a, b]``, normal ``(a, b)``,
-        LinearExp (``log10`` of a uniform on ``[10^a, 10^b]``) or
-        InvGamma (shape ``a``, rate ``b``); a coordinate the model pins
-        (``cm.pinit``: the sampled ORF weights, at 0) starts there."""
-        cm = self.cm
-        gdev = generator.device if generator is not None else cm.device
-        shape = (self.driver.C, cm.nx)
-        f64 = torch.float64
-
-        def draw(fn):
-            return fn(shape, generator=generator, dtype=f64,
-                      device=gdev).to(cm.device)
-
-        u, z = draw(torch.rand), draw(torch.randn)
-        pa, pb = cm.pa.to(f64), cm.pb.to(f64)
-        shape_ig = torch.where(cm.pkind == 3, pa, torch.ones_like(pa))
-        g = torch._standard_gamma(torch.broadcast_to(
-            shape_ig.to(gdev), shape).contiguous(), generator)
-        lo, hi = torch.pow(10.0, pa), torch.pow(10.0, pb)
-        by_kind = (pa + (pb - pa) * u, pa + pb * z,
-                   torch.log10(lo + u * (hi - lo)), pb / g.to(cm.device))
-        out = by_kind[0]
-        for kind in (1, 2, 3):
-            out = torch.where(cm.pkind == kind, by_kind[kind], out)
-        if cm.pinit is not None:
-            out = torch.where(torch.isnan(cm.pinit), out, cm.pinit)
-        return out
+        (``generator``: a torch.Generator on any device):
+        :func:`prior_sample`."""
+        return prior_sample(self.cm, self.driver.C, generator)
 
     def _checkpoint_extra(self):
         """The manifest's ``layout`` section: the logical identity of
