@@ -4,7 +4,8 @@
 Usage: python3 chip_smoke.py [--seed S] [--outdir DIR] [--steady N]
 
 (``DIR``, default ``build/chip_smoke``, receives phase 13's par/tim
-pair and the checkpoint directories of phases 3b-22; ``N``, default
+pair, the checkpoint directories of phases 3b-23 and phase 23's flight
+recorder capture; ``N``, default
 240, is the steady sweeps of the main paths of phases 4, 7, 11 and 18:
 a deeper run reads what checkpoints cost as the record grows.)
 
@@ -343,6 +344,34 @@ Phases (any failure exits non-zero):
    (slot 1, evicted once, beside A), no capture more.  (22c) Phase 2
    holds and times the widening Gram at the stack's shape (184 systems,
    B1 61, N 184 x 1024).
+23. the serving guards and the perf observatory, after 22 on its
+   bucket table and arrays, launch counts from 0: one
+   ``SamplerService(perf=True, breaker=, admission=, prewarm=1,
+   clock=)`` (4 slots, chunks of 8, a checkpoint every chunk, a fresh
+   program cache, an injected clock, ``max_queue`` 3) takes B as tenant
+   1 (200 sweeps), A as tenant 0 NaN-poisoned at its second chunk
+   (``poison_rows``) and E as tenant 4, then after the first chunk A
+   again as tenant 5 and D (the 8-pulsar bucket, queued behind the full
+   46-pulsar group, so it is prebuilt); A's breaker opens,
+   its re-submission raises ``CircuitOpen``, a job pushes the queue to
+   ``max_queue`` and the next submission is refused, and once the
+   injected clock passes the cooldown (4 chunks later) A's half-open
+   probe is admitted and closes the breaker.  A ``FlightRecorder`` on a second ``StageAggregator``
+   (``band_k`` 5) is armed through the breach path: a 1 s ``stall`` at
+   the ``chainstore.post_save`` seam inside B's checkpoint at row 96,
+   which lies in a ``serve.writeback`` span.  Prints the
+   ``dispatch_ms`` gauges per stage (p50, p90), the breaker's states by
+   chunk (read after each step and at each dispatch), the refusals, the prewarm, ``compile_stalls`` and
+   ``warm_hit_rate`` before and after the step that prebuilt D and at
+   the end, and the capture's device
+   events by name.  Gates: B bitwise equal to 22b's lone B; A
+   quarantined once, readmitted and done, its breaker closed after one
+   opening; both refusals typed; one prewarm and no compile stall at
+   D's admission; every job's records finite and its final checkpoint
+   verified; each kernel form the path launched run on the card as
+   often as its eager launches plus each capture's launches times its
+   replays; one capture whose merged Perfetto file holds the
+   ``serve.*`` spans and at least one kernel or copy of the card.
 
 To keep the whole run inside its time limit, every main path (4, 11,
 17-19) runs 20 warmup sweeps and phase 7 and the side paths 8 and 12-16
@@ -368,6 +397,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -547,6 +577,19 @@ SERVE_SAVE_EVERY, SERVE_NITER, SERVE_BURN = 5, 200, 50
 SERVE_REQUESTS = (("A", 45, 0, 720), ("B", 45, 1, 720), ("C", 30, 2, 720),
                   ("D", 8, 3, 120))
 SERVE_FIFTH = ("E", 45, 4, 720)
+#: the serving guards (phase 23): sweeps of the short jobs, the poisoned
+#: tenant's breaker, the admission controller, the stage band, the stall
+#: (seconds, and the checkpoint row at whose save it fires), the flight
+#: recorder's window in chunks
+GUARD_NITER = 40
+GUARD_BREAKER = {"window": 4, "threshold": 0.5, "min_events": 1,
+                 "cooldown_s": 30.0}
+GUARD_ADMISSION = {"max_queue": 3, "storm_compiles": 3,
+                   "storm_window_s": 600.0}
+GUARD_BAND_K, GUARD_STALL_S, GUARD_STALL_ROW, GUARD_WINDOW = 5.0, 1.0, 96, 3
+#: chunks the poisoned tenant's breaker stays open before the injected
+#: clock passes its cooldown
+GUARD_OPEN_CHUNKS = 4
 
 
 #: the run's start on the host clock (set by :func:`main`)
@@ -3289,7 +3332,8 @@ def serve_path(seed, outdir):
     service of as many slots, bitwise equal to its multiplexed chain (in
     another slot, evicted once, next to others).  22c: the Gram at the
     stack's shape against its plain version, timed.  Returns ``(ok,
-    rows)``: the kernels line's rows."""
+    rows, ctx)``: the kernels line's rows, and for phase 23 the bucket
+    table, the arrays, 22b's chains and 22c's timing record."""
     import numpy as np
     import torch
 
@@ -3411,6 +3455,8 @@ def serve_path(seed, outdir):
                              forms=("widen_f64",),
                              seg_len=settings.gram_seg_len_exact)
     ok &= good
+    ctx = dict(table=table, data=data, recs=recs,
+               ref_b=(jb.chain.copy(), jb.bchain.copy()))
     del svc, solo, progs, prog, cache
     torch.cuda.empty_cache()
     print(f"phase 22 took {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -3421,6 +3467,267 @@ def serve_path(seed, outdir):
                 route="cuda", source=SOURCES[k][0], replaces=REPLACES[k],
                 launches=launches, **r)
            for (k, f), r in recs.items()]
+    return ok, out, ctx
+
+
+def _gpu_events(path):
+    """From a Perfetto file: ``{name: count}`` of the kernels and copies
+    on the card's streams, the ``serve.*`` obs span names, the card's busy
+    share between its first and last event (the union of their
+    intervals over that window), and the host ms of each
+    ``cudaGraphLaunch``."""
+    doc = json.loads(Path(path).read_text())
+    dev, spans, iv, launch = {}, set(), [], []
+    for ev in doc.get("traceEvents", []):
+        name = str(ev.get("name", ""))
+        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            dev[name] = dev.get(name, 0) + 1
+            t = float(ev["ts"])
+            iv.append((t, t + float(ev.get("dur", 0.0))))
+        elif name == "cudaGraphLaunch":
+            launch.append(float(ev.get("dur", 0.0)) / 1e3)
+        elif name.startswith("serve.") and ev.get("ph") == "X":
+            spans.add(name)
+    busy, end = 0.0, None
+    for a, b in sorted(iv):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    share = busy / (end - min(iv)[0]) if iv and end > min(iv)[0] else None
+    return dev, spans, share, launch
+
+
+def guards_path(outdir, ctx):
+    """Phase 23: the serving guards (breaker, admission control,
+    prewarm) and the perf observatory (``perf=True``, a flight recorder
+    armed through a band breach) on phase 22's bucket table and arrays.
+    Returns ``(ok, rows)``: the kernels line's row for the path."""
+    import numpy as np
+    import torch
+
+    from pulsar_timing_gibbsspec_torch.obs import perf
+    from pulsar_timing_gibbsspec_torch.obs import trace as otrace
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+    from pulsar_timing_gibbsspec_torch.runtime import (faults, integrity,
+                                                       telemetry)
+    from pulsar_timing_gibbsspec_torch.runtime.supervisor import CircuitOpen
+    from pulsar_timing_gibbsspec_torch.serve import (ProgramCache,
+                                                     SamplerService)
+
+    t_phase = time.perf_counter()
+    data, now = ctx["data"], [0.0]
+    for prefix in ("dispatch_ms", "stage_band_breaches", "anomaly_captures",
+                   "circuit_opens", "admission_", "serve_prewarms"):
+        telemetry.reset(prefix)
+    rec = perf.FlightRecorder(outdir / "flight", window_chunks=GUARD_WINDOW,
+                              max_captures=1)
+    agg = perf.StageAggregator(job="p23", band_k=GUARD_BAND_K,
+                               recorder=rec).install()
+    cache = ProgramCache()
+    svc = SamplerService(outdir / "svc", ctx["table"], slots=SERVE_SLOTS,
+                         chunk=SERVE_CHUNK, quantum=SERVE_NITER,
+                         save_every=1, cache=cache, perf=True,
+                         breaker=GUARD_BREAKER, admission=GUARD_ADMISSION,
+                         prewarm=1, clock=lambda: now[0])
+    faults.clear()
+    faults.inject("poison_rows", tenant=0, at_row=1, times=1)
+    faults.inject("stall", point="chainstore.post_save",
+                  at_row=GUARD_STALL_ROW, times=1, seconds=GUARD_STALL_S)
+    kernels.reset_launches()
+    jobs = {"B": svc.submit(data["B"], SERVE_NITER, job_id="B",
+                            tenant_id=1)}
+    # two waves under max_queue: B, A, E take three slots at the first
+    # step; A again takes the fourth at the second, with D queued behind
+    # the full group
+    waves = [(("A", "A", 0), ("E", "E", 4)), (("A2", "A", 5), ("D", "D", 3))]
+    warmth, refusals, timeline, ok = [], [], [], True
+    opened = None
+
+    def note(chunk):
+        """Tenant 0's breaker state, kept when it changed."""
+        st = (svc.report()["breakers"].get(0) or {}).get("state", "closed")
+        if not timeline or timeline[-1][1] != st:
+            timeline.append((chunk, st))
+        return st
+
+    def mid_step(ev):
+        # between a chunk's admissions and its write-back: a half-open
+        # probe shows here, before its clean chunk closes the breaker
+        if ev.get("ph") == "X" and ev.get("name") in (
+                "serve.dispatch", "serve.compile_dispatch"):
+            note(ev["args"]["chunk"])
+
+    otrace.add_observer(mid_step)
+    t0 = time.perf_counter()
+    try:
+        prev = None
+        while True:
+            for tag, ds, tenant in (waves.pop(0) if waves else ()):
+                jobs[tag] = svc.submit(data[ds], GUARD_NITER, job_id=tag,
+                                       tenant_id=tenant)
+            if prev is None:
+                prev = svc.report()
+            worked = svc.step_supervised()
+            rep = svc.report()
+            if rep["prewarms"] and not warmth:
+                warmth += [("before the step that prebuilt D", prev),
+                           ("after it", rep)]
+            prev = rep
+            st = note(rep["chunks"])
+            if st == "open" and not refusals:
+                # the open tenant's re-submission, then one job more
+                # fills the queue to max_queue and the next is refused
+                for tag, ds, tenant, what in (
+                        ("A'", "A", 0, "re-submission of tenant 0"),
+                        ("X", "E", 6, None),
+                        ("Y", "E", 7, "a fourth queued job")):
+                    try:
+                        jobs[tag] = svc.submit(data[ds], 2 * SERVE_CHUNK,
+                                               job_id=tag,
+                                               tenant_id=tenant)
+                    except CircuitOpen as exc:
+                        refusals.append((what, str(exc)))
+                opened = rep["chunks"]
+            if opened is not None and \
+                    rep["chunks"] >= opened + GUARD_OPEN_CHUNKS:
+                now[0] = 2.0 * GUARD_BREAKER["cooldown_s"]
+            if not worked and not svc.queue:
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = svc.report()
+    finally:
+        otrace.remove_observer(mid_step)
+        faults.clear()
+        agg.uninstall()
+        svc.close()
+    warmth.append(("at the end", rep))
+    for label, r in warmth:
+        print(f"phase 23 {label}: compile_stalls {r['compile_stalls']}, "
+              f"warm_hit_rate {r['warm_hit_rate']:.4f}, prewarms "
+              f"{r['prewarms']}", flush=True)
+    summ = rep["stage_summary"]
+    for stage in ("host_prep", "enqueue", "device", "writeback"):
+        s = summ.get(stage)
+        ok &= s is not None
+        print(f"phase 23 dispatch_ms{{stage={stage!r},job='svc'}}: "
+              + ("none" if s is None else
+                 f"p50 {s['p50']:.4f} p90 {s['p90']:.4f} ema "
+                 f"{s['ema']:.4f} over {s['n']} spans"), flush=True)
+    if "enqueue" in summ:
+        print("phase 23 dispatch_amortized: no gauge (the service's "
+              "dispatch span carries no n=); the enqueue p50 over "
+              f"{SERVE_CHUNK} sweeps is "
+              f"{summ['enqueue']['p50'] / SERVE_CHUNK:.4f} ms a sweep",
+              flush=True)
+    print("phase 23 tenant 0's breaker by chunk: "
+          + ", ".join(f"{st} at chunk {c}" for c, st in timeline)
+          + f"; snapshot {rep['breakers'].get(0)}", flush=True)
+    for what, msg in refusals:
+        print(f"phase 23 refused ({what}): CircuitOpen: {msg}", flush=True)
+    print(f"phase 23 admission {rep['admission']}, prewarms "
+          f"{rep['prewarms']}, groups {rep['groups']}, quarantines "
+          f"{rep['quarantines']} {rep['quarantine_log']}", flush=True)
+
+    states = [st for _, st in timeline]
+    good_br = (states[:1] == ["closed"] and "open" in states
+               and "half_open" in states and states[-1] == "closed"
+               and rep["breakers"][0]["opens"] == 1)
+    good_ref = ([w for w, _ in refusals] == ["re-submission of tenant 0",
+                                             "a fourth queued job"]
+                and "tenant 0" in refusals[0][1]
+                and "backpressure" in refusals[1][1]
+                and rep["admission"]["rejections"] == 1)
+    d_bucket = str(tuple(jobs["D"].bucket.as_tuple()))
+    good_pre = (rep["prewarms"] == 1
+                and rep["groups"][d_bucket]["misses"] == 0
+                and len(warmth) == 3
+                and warmth[1][1]["compile_stalls"] == rep["compile_stalls"]
+                == 1)
+    jb = jobs["B"]
+    same = (np.array_equal(jb.chain, ctx["ref_b"][0])
+            and np.array_equal(jb.bchain, ctx["ref_b"][1]))
+    ok &= good_br and good_ref and good_pre and same
+    rows = 0
+    for tag, j in jobs.items():
+        ver = integrity.verify(j.outdir)
+        good = (j.state == "done" and bool(np.isfinite(j.chain).all())
+                and bool(np.isfinite(j.bchain).all()) and ver["ok"]
+                and ver["rows"] == j.niter)
+        ok &= good
+        rows += j.it
+        print(f"phase 23 job {tag} (tenant {j.tenant_id}, bucket "
+              f"{j.bucket.as_tuple()}): {j.state}, {j.it} rows, "
+              f"{j.quarantines} quarantines, checkpoint verified "
+              f"{ver['ok']} ({ver['rows']} rows) {'ok' if good else 'FAIL'}",
+              flush=True)
+    print(f"phase 23 B bitwise equal to 22b's lone B under perf=True, the "
+          f"stall and the capture: {same}; breaker "
+          f"{'ok' if good_br else 'FAIL'}, refusals "
+          f"{'ok' if good_ref else 'FAIL'}, prewarm "
+          f"{'ok' if good_pre else 'FAIL'}; {rows} rows in {wall:.3f} s, "
+          f"{rep['chunks']} chunks, graph captures {svc.captures()}",
+          flush=True)
+
+    # each kernel form the path launched, run on the card as counted
+    runs, host = kernels.device_launches(), kernels.launch_counts()
+    progs = list(cache._programs.values())
+    forms = {}
+    for key, n in host.items():
+        if not n:
+            continue
+        replayed = sum(p.captured_launches.get(key, 0) * p.replays
+                       for p in progs)
+        recorded = sum(p.captured_launches.get(key, 0) for p in progs)
+        forms[key] = (runs[key], n - recorded + replayed)
+    gram = ("gram_accumulate", "widen_f64")
+    good_runs = gram in forms and all(r == e and r > 0
+                                      for r, e in forms.values())
+    ok &= good_runs
+    print("phase 23 kernel runs counted on the card: " + ", ".join(
+        f"{k}[{f}] {r} (expected {e})" for (k, f), (r, e) in forms.items())
+        + f" {'ok' if good_runs else 'FAIL'}", flush=True)
+
+    # the flight recorder's capture
+    breaches = telemetry.snapshot("stage_band_breaches")
+    cap = rec.captures[0] if rec.captures else None
+    dev, spans, share, launch = (_gpu_events(cap) if cap
+                                 else ({}, set(), None, []))
+    gram_n = {}
+    for nm, n in dev.items():
+        hit = re.search(r"gram_\w+", nm)
+        if hit:
+            gram_n[hit.group(0)] = gram_n.get(hit.group(0), 0) + n
+    good_cap = (len(rec.captures) == 1 and cap is not None and bool(dev)
+                and {"serve.dispatch", "serve.d2h", "serve.writeback"}
+                <= spans)
+    ok &= good_cap
+    print(f"phase 23 band breaches {breaches}; flight recorder captures "
+          f"{rec.captures} (anomaly_captures "
+          f"{telemetry.get('anomaly_captures')}); obs spans in it "
+          f"{sorted(spans)}; device events by name "
+          f"{json.dumps(dict(sorted(dev.items(), key=lambda kv: -kv[1])))}"
+          f"; the Gram's kernels among them {gram_n}; the card busy "
+          + ("n/a" if share is None else f"{share:.4f}")
+          + " of the window between its first and last event; "
+          f"{len(launch)} cudaGraphLaunch calls of "
+          + (f"{sum(launch) / len(launch):.3f} ms mean on the host"
+             if launch else "n/a")
+          + f" {'ok' if good_cap else 'FAIL'}", flush=True)
+    del svc, progs, cache
+    torch.cuda.empty_cache()
+    print(f"phase 23 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not ok:
+        print("chip_smoke: phase 23 failed", file=sys.stderr)
+    out = [dict(name=f"{k}[{f}] (phase 23 path: the guarded service with "
+                f"perf=True, {SERVE_SLOTS} slots x 46 pulsars, B1 61; timed "
+                "in 22c at the same shape)",
+                route="cuda", source=SOURCES[k][0], replaces=REPLACES[k],
+                launches=forms.get((k, f), (0, 0))[0], **r)
+           for (k, f), r in ctx["recs"].items()]
     return ok, out
 
 
@@ -4059,10 +4366,17 @@ def _run(args, oracle):
     elapsed("phase 20")
 
     # ---- phases 22-22c: the tenant-multiplexed service, counts from 0 ------
-    ok22, rows22 = serve_path(args.seed, outdir / "serve")
+    ok22, rows22, ctx22 = serve_path(args.seed, outdir / "serve")
     if not ok22:
         return 1
     elapsed("phases 22-22c")
+
+    # ---- phase 23: the serving guards and perf=True, counts from 0 --------
+    ok23, rows23 = guards_path(outdir / "guards", ctx22)
+    del ctx22
+    if not ok23:
+        return 1
+    elapsed("phase 23")
     rows += [
         dict(name=f"{k}[{f}] (phase 13 path: kernel ECORR, B1 "
              f"{cm_ke.Bmax + 1})", route="cuda", source=SOURCES[k][1],
@@ -4073,7 +4387,7 @@ def _run(args, oracle):
              source=SOURCES[k][f.endswith("_wide")], replaces=REPLACES[k],
              launches=runs14[(k, f)], **r)
         for (k, f), r in tp_records.items()] + (rows15 + rows16 + rows20
-                                                 + rows22)
+                                                 + rows22 + rows23)
 
     print("phase 1 kernel resources (cuobjdump -res-usage: registers, "
           "stack frame bytes, static shared memory bytes): " + (json.dumps(

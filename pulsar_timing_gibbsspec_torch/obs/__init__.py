@@ -11,7 +11,10 @@ The port of ``pulsar_timing_gibbsspec_tpu/obs``, in two halves:
   nested monotonic trace spans around the driver's seams (Chrome /
   Perfetto ``trace.json``, ``metrics.jsonl`` lines), a Prometheus text
   writer over :mod:`..runtime.telemetry`, and exact rank-normalized
-  split-R-hat on host record slabs.
+  split-R-hat on host record slabs;
+- **the perf observatory** (:mod:`.perf`): streaming per-stage gauges
+  off the trace observers, the anomaly-triggered ``torch.profiler``
+  capture, and the append-only perf ledger.
 
 :mod:`.trace` is stdlib-only and loaded eagerly (the driver touches it
 every chunk); the others load on first attribute access.
@@ -24,6 +27,7 @@ _LAZY = {
     "summary": ".summary",
     "metrics": ".metrics",
     "convergence": ".convergence",
+    "perf": ".perf",
 }
 
 

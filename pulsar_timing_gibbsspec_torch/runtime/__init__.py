@@ -1,14 +1,16 @@
 """Run-time support of the port: checkpoint integrity, telemetry,
 divergence sentinels, the preemption drain, the dispatch watchdog,
-deterministic fault injection and supervised runs (the JAX package's
-``runtime``, without its serving-tier and lineage parts)."""
+deterministic fault injection, supervised runs, and the serving tier's
+circuit breakers and admission control (the JAX package's ``runtime``,
+without its lineage parts)."""
 
 from . import (faults, integrity, preemption, sentinels, supervisor,
                telemetry, watchdog)
 from .integrity import CheckpointError
 from .preemption import EXIT_PREEMPTED, Preempted
 from .sentinels import ChainDivergence, SentinelMonitor
-from .supervisor import (SupervisorReport, backoff_delay, classify_failure,
+from .supervisor import (AdmissionController, CircuitBreaker, CircuitOpen,
+                         SupervisorReport, backoff_delay, classify_failure,
                          run_supervised)
 from .watchdog import DispatchStall, DispatchWatchdog
 
@@ -17,6 +19,7 @@ __all__ = [
     "telemetry", "watchdog",
     "CheckpointError", "ChainDivergence", "SentinelMonitor",
     "SupervisorReport", "backoff_delay", "classify_failure",
-    "run_supervised",
+    "run_supervised", "AdmissionController", "CircuitBreaker",
+    "CircuitOpen",
     "EXIT_PREEMPTED", "Preempted", "DispatchStall", "DispatchWatchdog",
 ]

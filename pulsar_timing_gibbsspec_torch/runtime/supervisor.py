@@ -2,8 +2,8 @@
 
 The port's copy of ``pulsar_timing_gibbsspec_tpu/runtime/supervisor.py``
 (``run_supervised``, ``classify_failure``, ``backoff_delay``,
-``SupervisorReport``; its circuit breaker and admission control belong
-to the serving tier, which the port does not have).  ``run_supervised``
+``SupervisorReport``, and the serving tier's ``CircuitOpen``,
+``CircuitBreaker`` and ``AdmissionController``).  ``run_supervised``
 drives ``gibbs.sample(resume=True)`` to the end through transient
 failures: each attempt resumes from the last verified checkpoint (the
 facade's flush bounds the loss to under ``save_every`` sweeps), retries
@@ -36,6 +36,7 @@ each failure class gets its own response:
 from __future__ import annotations
 
 import json
+import threading
 import time
 from dataclasses import asdict, dataclass, field
 from pathlib import Path
@@ -105,6 +106,211 @@ def backoff_delay(retry, base=0.5, cap=30.0, jitter=0.25, seed=0) -> float:
     u = np.random.default_rng([int(seed), int(retry)]).uniform(-jitter,
                                                                jitter)
     return max(0.0, d * (1.0 + float(u)))
+
+
+class CircuitOpen(RuntimeError):
+    """A circuit breaker rejected the operation: the subject has been
+    failing at a rate that makes immediate retry harmful.  Carries the
+    breaker so callers can report the cooldown."""
+
+    def __init__(self, msg, breaker=None):
+        super().__init__(msg)
+        self.breaker = breaker
+
+
+class CircuitBreaker:
+    """Failure-rate circuit breaker (closed → open → half-open).
+
+    CLOSED counts outcomes over a sliding window of the last ``window``
+    events; once at least ``min_events`` are in the window and the
+    failure fraction reaches ``threshold`` the breaker OPENS — calls
+    are rejected for ``cooldown_s``.  After the cooldown it goes
+    HALF-OPEN: exactly one probe is allowed through; a recorded success
+    closes the breaker (window cleared), a failure re-opens it with a
+    fresh cooldown.  ``clock`` is injectable so tests (and the seeded
+    chaos campaign) never sleep real time.
+
+    The serving tier keys one breaker per tenant: a tenant whose
+    uploads keep diverging stops being re-admitted at full cadence —
+    its retries cost the service build/dispatch wall that healthy
+    tenants are paying for.
+
+    Thread-safe: every transition and query runs under one instance
+    RLock.  Without it, two concurrent ``allow`` callers can both
+    observe ``_probing`` False and BOTH claim the single half-open
+    probe (check-then-set), so one failing probe re-opens the breaker
+    while a duplicate probe is already in flight.
+    """
+
+    def __init__(self, window=8, threshold=0.5, min_events=2,
+                 cooldown_s=30.0, clock=time.monotonic):
+        self.window = int(window)
+        self.threshold = float(threshold)
+        self.min_events = max(1, int(min_events))
+        self.cooldown_s = float(cooldown_s)
+        self.clock = clock
+        self._lock = threading.RLock()
+        self._events: list[bool] = []     # True = failure
+        self.state = "closed"
+        self.opened_at = None
+        self.opens = 0
+        self._probing = False
+
+    def _failure_rate(self) -> float:
+        if not self._events:
+            return 0.0
+        return sum(self._events) / len(self._events)
+
+    def record_failure(self) -> None:
+        with self._lock:
+            if self.state == "half_open":
+                # the probe failed: straight back to open, fresh cooldown
+                self._trip()
+                return
+            self._events = (self._events + [True])[-self.window:]
+            if (self.state == "closed"
+                    and len(self._events) >= self.min_events
+                    and self._failure_rate() >= self.threshold):
+                self._trip()
+
+    def record_success(self) -> None:
+        with self._lock:
+            if self.state == "half_open":
+                # probe succeeded: the fault cleared — close and forget
+                self.state = "closed"
+                self._events = []
+                self._probing = False
+                return
+            self._events = (self._events + [False])[-self.window:]
+
+    def _trip(self) -> None:
+        with self._lock:
+            self.state = "open"
+            self.opened_at = self.clock()
+            self.opens += 1
+            self._probing = False
+        telemetry.incr("circuit_opens")
+
+    def would_allow(self) -> bool:
+        """Non-consuming query: would :meth:`allow` pass right now?
+        (Never transitions state or claims the half-open probe slot —
+        submit-time gating must not eat the scheduler's probe.)"""
+        with self._lock:
+            if self.state == "closed":
+                return True
+            if self.state == "open":
+                return self.clock() - self.opened_at >= self.cooldown_s
+            return not self._probing
+
+    def allow(self) -> bool:
+        """True when a call may proceed: always in CLOSED; in OPEN only
+        once the cooldown elapsed (transitioning to HALF-OPEN); in
+        HALF-OPEN only for the single in-flight probe.  The
+        claim-the-probe decision is atomic under the instance lock:
+        exactly one concurrent caller wins the half-open slot."""
+        with self._lock:
+            if self.state == "closed":
+                return True
+            if self.state == "open":
+                if self.clock() - self.opened_at >= self.cooldown_s:
+                    self.state = "half_open"
+                    self._probing = True
+                    return True
+                return False
+            # half-open: one probe at a time
+            if not self._probing:
+                self._probing = True
+                return True
+            return False
+
+    def check(self, subject="operation") -> None:
+        """Raise :class:`CircuitOpen` unless :meth:`would_allow` —
+        a query, not a claim: the probe slot stays available."""
+        with self._lock:
+            if self.would_allow():
+                return
+            wait = 0.0 if self.opened_at is None else max(
+                0.0, self.cooldown_s - (self.clock() - self.opened_at))
+            raise CircuitOpen(
+                f"circuit open for {subject}: failure rate "
+                f"{self._failure_rate():.2f} over the last "
+                f"{len(self._events)} attempt(s) — retry in "
+                f"{wait:.1f}s", breaker=self)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"state": self.state, "opens": int(self.opens),
+                    "failure_rate": round(self._failure_rate(), 3),
+                    "events": len(self._events)}
+
+
+class AdmissionController:
+    """Service-level admission control / backpressure, driven by the
+    gauges the serving tier already publishes:
+
+    - ``queue_depth`` — past ``max_queue`` the service REJECTS new
+      submissions (typed :class:`CircuitOpen`): unbounded queues turn
+      overload into latency for everyone instead of an error for the
+      marginal request.
+    - ``compile_stalls`` — ``note_compile()`` timestamps every cold
+      compile; when ``storm_compiles`` of them land within
+      ``storm_window_s`` the controller declares a COMPILE STORM and
+      ``defer_cold()`` tells the scheduler to hold NEW dataset shapes
+      (cold buckets) in the queue while warm jobs keep the device busy
+      — a burst of novel shapes would otherwise serialize everyone
+      behind back-to-back model builds and graph captures
+      (``time_to_first_sample_ms`` blows up service-wide).
+
+    Deferral is never starvation: once the storm window drains (no new
+    cold compile for ``storm_window_s``), cold jobs admit again.
+    """
+
+    def __init__(self, max_queue=64, storm_compiles=3, storm_window_s=60.0,
+                 clock=time.monotonic):
+        self.max_queue = int(max_queue)
+        self.storm_compiles = int(storm_compiles)
+        self.storm_window_s = float(storm_window_s)
+        self.clock = clock
+        self._compiles: list[float] = []
+        self.rejections = 0
+        self.deferrals = 0
+
+    def admit_submission(self, queue_depth) -> None:
+        """Gate one submission on backpressure; raises
+        :class:`CircuitOpen` when the queue is full."""
+        if int(queue_depth) >= self.max_queue:
+            self.rejections += 1
+            telemetry.incr("admission_rejections")
+            raise CircuitOpen(
+                f"admission rejected: queue depth {int(queue_depth)} "
+                f">= {self.max_queue} (backpressure — resubmit after "
+                "the queue drains)", breaker=None)
+
+    def note_compile(self) -> None:
+        """Record one cold bucket compile (a ``compile_stalls`` tick)."""
+        now = self.clock()
+        self._compiles = [t for t in self._compiles
+                          if now - t < self.storm_window_s] + [now]
+
+    def storming(self) -> bool:
+        now = self.clock()
+        self._compiles = [t for t in self._compiles
+                          if now - t < self.storm_window_s]
+        return len(self._compiles) >= self.storm_compiles
+
+    def defer_cold(self, warm) -> bool:
+        """True when a job whose program is not yet compiled (``warm``
+        False) should wait out the current compile storm."""
+        if warm or not self.storming():
+            return False
+        self.deferrals += 1
+        telemetry.incr("admission_deferrals")
+        return True
+
+    def snapshot(self) -> dict:
+        return {"storming": self.storming(),
+                "rejections": int(self.rejections),
+                "deferrals": int(self.deferrals)}
 
 
 @dataclass

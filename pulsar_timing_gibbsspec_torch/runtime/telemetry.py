@@ -21,11 +21,20 @@ one place, with the JAX package's counter names:
 - ``watchdog_dumps``      stack dumps at the hard deadline
 - ``watchdog_stalls``     guarded waits abandoned as stalled
 - ``stall_retries``       supervisor retries under the stall policy
+- ``stage_band_breaches`` stage samples past ``band_k`` x their EMA
+                          (labelled ``stage=``; obs.perf.StageAggregator)
+- ``anomaly_captures``    flight-recorder windows opened (obs.perf)
+- ``circuit_opens``       circuit breakers tripped open
+- ``admission_rejections`` / ``admission_deferrals``  submissions refused
+                          on backpressure / cold shapes held in a
+                          compile storm (``AdmissionController``)
+- ``serve_prewarms``      buckets the service built ahead of admission
 
 Gauges (:func:`gauge`) hold last values: ``drain_latency_ms`` (request
 to verified checkpoint of the last drain), ``chunk_wait_ms`` /
 ``chunk_wait_ema_ms`` (the driver's wait for each chunk to land once the
-next is queued), ``watchdog_ema_s`` / ``watchdog_deadline_s``.
+next is queued), ``watchdog_ema_s`` / ``watchdog_deadline_s``, and the
+streaming stage gauges ``dispatch_ms{stage=,stat=}`` (obs.perf).
 
 ``incr``/``gauge`` and their getters take keyword labels, stored under
 the composite key ``name{k="v",...}`` (Prometheus exposition syntax,

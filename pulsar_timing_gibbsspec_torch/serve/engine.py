@@ -474,6 +474,12 @@ class ProgramCache:
         self.hits += 1
         return cm, True
 
+    def has_bucket(self, bucket) -> bool:
+        """Whether any canonical model exists for ``bucket``: the
+        admission controller's warmth probe (bucket granularity: the
+        signature needs a build to learn, the bucket does not)."""
+        return any(k[0] == bucket for k in self._canon)
+
     def canonical(self, bucket, cm):
         """The canonical model sharing ``cm``'s program (the inert filler
         rows of a partly occupied stack)."""

@@ -534,14 +534,25 @@ def test_quarantine_budget_parks(data, solo, tmp_path):
 @pytest.mark.parametrize("kw,exc", [
     ({"ensemble": True}, ValueError), ({"pt_ladder": 2}, ValueError),
     ({"mesh": object()}, NotImplementedError),
-    ({"placement": [{"slots": 2}]}, NotImplementedError),
-    ({"prewarm": 1}, NotImplementedError),
-    ({"breaker": True}, NotImplementedError),
-    ({"admission": True}, NotImplementedError),
-    ({"perf": True}, NotImplementedError)])
+    ({"placement": [{"slots": 2}]}, NotImplementedError)])
 def test_refused_options(tmp_path, kw, exc):
     with pytest.raises(exc, match="ROADMAP|ensemble"):
         _service(tmp_path, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"prewarm": 1}, {"breaker": True}, {"admission": True},
+    {"perf": True}], ids=["prewarm", "breaker", "admission", "perf"])
+def test_guard_options_accepted(tmp_path, kw):
+    """The options the second serving slice brings construct and run a
+    job to the solo chain's end (``tests/test_torch_quarantine.py`` holds
+    their behaviour against the JAX service)."""
+    svc = _service(tmp_path, **kw)
+    job = svc.submit(_dataset(0, 40), 4, tenant_id=0)
+    rep = svc.run()
+    svc.close()
+    assert job.state == "done" and np.isfinite(job.chain).all()
+    assert ("stage_summary" in rep) == bool(kw.get("perf"))
 
 
 @pytest.mark.parametrize("method", ["append_job", "evacuate", "split_slice",
