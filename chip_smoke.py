@@ -372,6 +372,30 @@ Phases (any failure exits non-zero):
    often as its eager launches plus each capture's launches times its
    replays; one capture whose merged Perfetto file holds the
    ``serve.*`` spans and at least one kernel or copy of the card.
+24. the precision settings, each read from the environment while its
+   model is built, launch counts from 0: (24) phase 4's array and seed
+   under ``PTGIBBS_PRECISION=f64`` (float64 storage: T, y and N float64),
+   64 chains, 20 warmup and 96 steady sweeps from the graphs,
+   checkpointed every 100; (24b) the J1713+0747 Quick start (phase 7's
+   model) under ``PTGIBBS_PRECISION=f64``, 8 chains, 5 + 96; (24c) the
+   array under ``PTGIBBS_COMPUTE=f32`` (float32 state, reductions and
+   factors) with ``PTGIBBS_GRAM_SEG=48``, 64 chains, 3 + 24.  Gates, for
+   each: records finite, the medians of the common and red log10_rho and
+   of every hyper with a uniform prior inside that prior, every kernel
+   form of the path run on the card (the float64 storage paths: the
+   ``f64`` / ``f64_wide`` Gram and factor forms, in the steady graphs,
+   and no float32 Gram form; 24c: the float32 forms), each form's runs
+   equal to its eager launches plus the captures' launches times their
+   replays, the final checkpoint verified, 9 steady sweeps from the
+   graphs bitwise equal to eager ones (24 and 24b across the refresh at
+   112, 24c across the one at 32), each form held against its plain
+   version at the path's final state; 24's common log10_rho per bin past
+   the first 48 steady rows within 5 combined standard errors of phase
+   4's.  Phase 2's rows of the ``f64`` Gram form (2880 x 720, B1 38), the
+   ``f64_wide`` form at 8 chains and at one (B1 674) and the float64
+   factor at the steady proposal's systems (2880 x 37, 8 x 673) are timed
+   at those final states, and the float32 form at the 48-TOA segments
+   at 24c's.
 
 To keep the whole run inside its time limit, every main path (4, 11,
 17-19) runs 20 warmup sweeps and phase 7 and the side paths 8 and 12-16
@@ -386,7 +410,9 @@ sweeps, 16d 3 and 12, 14d 3 and 16, the resume checks 11c-14c 3 and 32
 split), the graphs-against-eager checks 9 sweeps, and every resume and
 graphs-against-eager check adapts its white and ECORR blocks on a
 record of 120 steps; phase 2 times each kernel form once, at its path's
-shape, beside its plain version and library call.  Every phase prints the run's seconds when it is done.
+shape, beside its plain version and library call; phase 24 runs 96
+steady sweeps on the array (as phase 19) and 24c 3 + 24.  Every phase
+prints the run's seconds when it is done.
 
 The kernels' JSON record and the card as ``nvidia-smi`` reports it are
 the two lines before the last; the last line is the JSON result.
@@ -395,8 +421,10 @@ the two lines before the last; the last line is the JSON result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -590,6 +618,21 @@ GUARD_BAND_K, GUARD_STALL_S, GUARD_STALL_ROW, GUARD_WINDOW = 5.0, 1.0, 96, 3
 #: chunks the poisoned tenant's breaker stays open before the injected
 #: clock passes its cooldown
 GUARD_OPEN_CHUNKS = 4
+#: the precision settings (phase 24): steady sweeps of the float64
+#: storage paths, the steady rows the rho-law gate skips and where the
+#: graphs-against-eager sweeps start (across the refresh at 112); the
+#: float32-compute array (24c): its Gram segment, warmup and steady
+#: sweeps, where its graphs-against-eager sweeps start (across 32)
+P24_STEADY, P24_BURN, P24_GRAPH_CHECK_AT = 96, 48, 104
+P24C_SEG, P24C_WARMUP, P24C_STEADY, P24C_GRAPH_CHECK_AT = 48, 3, 24, 24
+#: the kernel forms of the float64 storage paths (the exact and refresh
+#: Grams run eagerly too, the steady proposal's Gram and factor replay)
+P24_FORMS = (("gram_accumulate", "f64"), ("chol_solve_sample", "f64"))
+P24B_FORMS = (("gram_accumulate", "f64_wide"),
+              ("chol_solve_sample", "f64_wide"))
+#: the kernel forms of the float32-compute path: every Gram is all
+#: float32 (the exact one too), the steady factor float32
+P24C_FORMS = (("gram_accumulate", "f32"), ("chol_solve_sample", "f32"))
 
 
 #: the run's start on the host clock (set by :func:`main`)
@@ -790,11 +833,12 @@ def device_ms(fn, reps=30, warm=3):
     return ms
 
 
-def wide_configs(lib, batch):
-    """The wide forms' launch configuration at ``batch`` systems as their
-    launchers use it (``ptg_wide_config``): cluster size, output tile,
-    threads per CTA, dynamic shared memory bytes, and how many 16-CTA
-    clusters of the factor the card runs at once."""
+def wide_configs(lib, batch, B1):
+    """The wide forms' launch configuration at ``batch`` systems (of
+    augmented width ``B1``, which the ``f64_wide`` Gram's tile follows) as
+    their launchers use it (``ptg_wide_config``): cluster size, output
+    tile, threads per CTA, dynamic shared memory bytes, and how many
+    16-CTA clusters of the factor the card runs at once."""
     import ctypes
 
     out = {}
@@ -803,9 +847,10 @@ def wide_configs(lib, batch):
             ("chol_solve_sample[f64_wide]", 0, 1),
             ("gram_accumulate[f32_wide]", 1, 0),
             ("gram_accumulate[f32_dot_f64_reduce_wide]", 1, 1),
-            ("gram_accumulate[widen_f64_wide]", 1, 2)):
+            ("gram_accumulate[widen_f64_wide]", 1, 2),
+            ("gram_accumulate[f64_wide]", 1, 3)):
         buf = (ctypes.c_int * 5)()
-        code = lib.ptg_wide_config(kernel, variant, batch, buf)
+        code = lib.ptg_wide_config(kernel, variant, batch, B1, buf)
         keys = ("cluster", "tile", "threads", "dynamic_smem_bytes") + (
             ("clusters_of_16_at_once",) if kernel == 0 else ())
         out[name] = (dict(zip(keys, buf)) if code == 0 else f"error {code}")
@@ -879,8 +924,10 @@ def parity_state(cm, C, gen):
 
 def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
                                       "widen_f64"), beta=None, seg_len=None):
-    """Phase 2, Gram: the three kernel forms, which take ``(Ta, N)`` and
-    form ``TNa = Ta / N`` on chip, against the plain version.  The
+    """Phase 2, Gram: the kernel forms, which take ``(Ta, N)`` and
+    form ``TNa = Ta / N`` on chip, against the plain version: the three
+    float32-operand forms of a float32-storage model, the ``f64`` form
+    (in ``forms``) of a float64-storage one.  The
     difference is measured at the Jacobi scale sqrt(G_ii G_jj), and the
     tolerance is twice the rigorous accumulation bound (m + nseg) eps of
     either side (Cauchy-Schwarz bounds every partial sum's products by
@@ -895,17 +942,18 @@ def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
     form (``*_wide``).  ``forms`` names the forms to hold; ``timer=None``
     holds them without timing (a shape an earlier row timed); ``beta``
     (a float) takes the Gram at a tempered chain's ``N / beta``;
-    ``seg_len`` the TOA segment (``settings.gram_seg_len`` when None).
+    ``seg_len`` the TOA segment (``cm.gram_seg_len`` when None).
     On a tenant stack (``cm.tenants``) the T P systems are one chain's."""
     import torch
 
-    from pulsar_timing_gibbsspec_torch.config import settings
     from pulsar_timing_gibbsspec_torch.ops import kernels
     from pulsar_timing_gibbsspec_torch.sampler import blocks
 
     ref = kernels.reference
     Nx = cm.ndiag_fast(x) if beta is None else cm.ndiag_fast(x) / beta
-    Ta, N = blocks._gram_operands(cm, Nx, seg_len or settings.gram_seg_len)
+    Ta, N = blocks._gram_operands(cm, Nx, seg_len or cm.gram_seg_len)
+    f64_in = Ta.dtype == torch.float64
+    ebytes = Ta.element_size()
     N = N.reshape(-1, N.shape[-1]).contiguous()
     P, nseg, m, B1 = Ta.shape
     C = N.shape[0] // P
@@ -924,9 +972,11 @@ def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
     recs, ok = {}, True
     for form, odt, widen in (("f32", torch.float32, False),
                              ("f32_dot_f64_reduce", torch.float64, False),
-                             ("widen_f64", torch.float64, True)):
-        if form not in forms:
+                             ("widen_f64", torch.float64, True),
+                             ("f64", torch.float64, False)):
+        if form not in forms or (form == "f64") != f64_in:
             continue
+        kind = "f64" if widen or f64_in else "f32"
         def run_k():
             return kernels.gram_accumulate(Ta, N, out_dtype=odt,
                                            widen=widen)
@@ -940,7 +990,7 @@ def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
             torch.diagonal(Gp, dim1=-2, dim2=-1).double(), min=1e-300))
         diff = (Gk.double() - Gp.double()).abs()
         err = (diff / (dg[:, :, None] * dg[:, None, :])).max().item()
-        tol = 2.0 * (m + nseg) * EPS["f64" if widen else "f32"]
+        tol = 2.0 * (m + nseg) * EPS[kind]
         good = bool(torch.isfinite(Gk).all()) and err <= tol
         ok &= good
         del Gk, Gp
@@ -962,13 +1012,12 @@ def gram_parity(cm, x, timer, forms=("f32", "f32_dot_f64_reduce",
         del A, B
         obytes = 4 if odt == torch.float32 else 8
         gbytes = Bt * B1 * B1 * obytes
-        nbytes = (Ta.numel() + N.numel()) * 4 + gbytes
+        nbytes = (Ta.numel() + N.numel()) * ebytes + gbytes
         flops = 2.0 * rows * B1 * B1
-        bms, bby = bound_ms(nbytes, flops, "f64" if widen else "f32")
-        dense_bms, _ = bound_ms(nbytes, 2.0 * Bt * nseg * m * B1 * B1,
-                                "f64" if widen else "f32")
-        old_bms, old_bby = bound_ms((TNa.numel() + Ta.numel()) * 4 + gbytes,
-                                    flops, "f64" if widen else "f32")
+        bms, bby = bound_ms(nbytes, flops, kind)
+        dense_bms, _ = bound_ms(nbytes, 2.0 * Bt * nseg * m * B1 * B1, kind)
+        old_bms, old_bby = bound_ms(
+            (TNa.numel() + Ta.numel()) * ebytes + gbytes, flops, kind)
         recs[("gram_accumulate", form + suffix)] = dict(
             max_abs_err=diff.max().item(), ms=ms_k, plain_ms=ms_p,
             bound_ms=bms, bound_by=bby, library_ms=lib)
@@ -1109,13 +1158,16 @@ def chol_parity(cm, x, gen, timer, beta=None):
         bound_by=bby, library_ms=lib)}, ok
 
 
-def chol64_parity(cm, x, timer):
+def chol64_parity(cm, x, timer, gen=None):
     """Phase 2, the float64 factor forms on the b-marginalized
     likelihood's systems (``blocks.lnlike_fullmarg_fn``, which the
     powerlaw adaptation runs): ``Sigma = TNT + diag(1/phi)`` from the
     exact widening Gram at a seeded state, ``d``, and ``z = 0`` (the
-    likelihood draws nothing).  Every output within ``max(1e-8 scale, 8
-    spread + 64 eps_f64 scale)`` of the plain float64 chain, ``scale``
+    likelihood draws nothing); with ``gen``, on a float64-storage model,
+    the steady proposal's systems instead (``blocks.propose_b_mh``: the
+    segmented Gram, the ``_PROP_RIDGE`` guard, normals from ``gen``).
+    Every output within ``max(1e-8 scale, 8 spread + 64 eps_f64
+    scale)`` of the plain float64 chain, ``scale``
     the output's largest magnitude and ``spread`` the largest difference
     between the plain chain and the library chain (``torch.linalg.
     cholesky`` and ``solve_triangular``), an independent float64
@@ -1133,22 +1185,30 @@ def chol64_parity(cm, x, timer):
     from pulsar_timing_gibbsspec_torch.sampler import blocks
 
     n = cm.Bmax
-    TNT, d = blocks.tnt_d_x(cm, x, cm.ndiag(x))
-    Sig = (TNT + _batched_diag(1.0 / cm.phi(x))).reshape(-1, n, n)
+    if gen is None:
+        TNT, d = blocks.tnt_d_x(cm, x, cm.ndiag(x))
+        phi, ridge, what = cm.phi(x), 0.0, "the marginalized likelihood's"
+    else:
+        TNT, d = blocks.tnt_d_seg32(cm, cm.ndiag_fast(x))
+        phi, ridge = cm.phi(x, dtype=cm.dtype), blocks._PROP_RIDGE
+        what = "the steady proposal's, float64 storage"
+    Sig = (TNT + _batched_diag(1.0 / phi)).reshape(-1, n, n)
     Sig = Sig.contiguous()
     d = d.reshape(-1, n).contiguous()
-    z = torch.zeros_like(d)
+    z = (torch.zeros_like(d) if gen is None else torch.randn(
+        d.shape, generator=gen, dtype=d.dtype,
+        device=gen.device).to(d.device))
     ref = kernels.reference.chol_solve_sample_ref
 
     def run_k():
-        return kernels.chol_solve_sample(Sig, d, z)
+        return kernels.chol_solve_sample(Sig, d, z, ridge=ridge)
 
     def run_p():
-        return ref(Sig, d, z)
+        return ref(Sig, d, z, ridge=ridge)
 
     form = "f64_wide" if n > kernels.CHOL_MAX_N else "f64"
     K, Pl = run_k(), run_p()
-    Lib = library_factor(Sig, d, z, 0.0)
+    Lib = library_factor(Sig, d, z, ridge)
     ok, mae, errs = True, 0.0, {}
     for name, k, p, q in zip(("L", "Li", "dj", "mean", "bp"), K, Pl, Lib):
         e = (k - p).abs().max().item()
@@ -1161,7 +1221,7 @@ def chol64_parity(cm, x, timer):
     del K, Pl, Lib
     if timer is None:
         print(f"phase 2 chol_solve_sample[{form}] ({Sig.shape[0]} systems "
-              f"of order {n}, the marginalized likelihood's): |kernel - "
+              f"of order {n}, {what}): |kernel - "
               "plain|, |library - plain| and tolerance by output "
               + json.dumps({k: [float(f"{v:.3e}") for v in e]
                             for k, e in errs.items()})
@@ -1170,12 +1230,12 @@ def chol64_parity(cm, x, timer):
         return {("chol_solve_sample", form): dict(max_abs_err=mae)}, ok
     (ms_k, ev_k), (ms_p, ev_p), (lib, ev_lib) = (
         timer(run_k), timer(run_p),
-        timer(lambda: library_factor(Sig, d, z, 0.0)))
+        timer(lambda: library_factor(Sig, d, z, ridge)))
     Bt = Sig.shape[0]
     bms, bby = bound_ms(Bt * (3 * n * n + 5 * n) * 8,
                         Bt * (2.0 * n ** 3 / 3.0 + 6.0 * n * n), "f64")
     print(f"phase 2 chol_solve_sample[{form}] ({Bt} systems of order {n}, "
-          "the marginalized likelihood's): |kernel - plain|, |library - "
+          f"{what}): |kernel - plain|, |library - "
           "plain| and tolerance by output " + json.dumps(
               {k: [float(f"{v:.3e}") for v in e] for k, e in errs.items()})
           + f" {'ok' if ok else 'FAIL'}; device ms (event ms): kernel "
@@ -3337,7 +3397,6 @@ def serve_path(seed, outdir):
     import numpy as np
     import torch
 
-    from pulsar_timing_gibbsspec_torch.config import settings
     from pulsar_timing_gibbsspec_torch.ops import kernels
     from pulsar_timing_gibbsspec_torch.runtime import integrity
     from pulsar_timing_gibbsspec_torch.serve import (BucketTable,
@@ -3453,7 +3512,7 @@ def serve_path(seed, outdir):
                          SERVE_SLOTS, SERVE_CHUNK)
     recs, good = gram_parity(prog.stack, prog.x, time_ms,
                              forms=("widen_f64",),
-                             seg_len=settings.gram_seg_len_exact)
+                             seg_len=prog.stack.gram_seg_len_exact)
     ok &= good
     ctx = dict(table=table, data=data, recs=recs,
                ref_b=(jb.chain.copy(), jb.bchain.copy()))
@@ -3731,6 +3790,223 @@ def guards_path(outdir, ctx):
     return ok, out
 
 
+@contextlib.contextmanager
+def environ(**env):
+    """``os.environ`` with ``env`` set, restored after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def precision_run(phase, cm, facade, C, warmup, steady, seed, outdir,
+                  forms, graph_at, label, white_adapt=None):
+    """One path of phase 24: ``facade`` on ``cm`` (built under its
+    setting), ``warmup`` + ``steady`` sweeps from the graphs, checkpointed
+    every ``SAVE_EVERY``, launch counts from 0.  Gates (module
+    docstring) but the rho law; then the graphs-against-eager check from
+    ``graph_at``.  Returns ``(ok, chain, drv, runs)``."""
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+    from pulsar_timing_gibbsspec_torch.runtime import integrity
+
+    niter = warmup + 1 + steady
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    kw = {} if white_adapt is None else {"white_adapt_iters": white_adapt}
+    g = getattr(ptt, facade)(cm, nchains=C, device=cm.device, seed=seed,
+                             warmup_sweeps=warmup, progress=False, **kw)
+    x0 = g.initial_sample(torch.Generator(device=cm.device).manual_seed(
+        seed))
+    chain = g.sample(x0, outdir=outdir, niter=niter, save_every=SAVE_EVERY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    drv, graphs = g.driver, g.driver.carry
+    counts = launch_counts(graphs)
+    runs = counts[0]
+    missing, unreplayed, unaccounted = count_faults(counts, forms, forms)
+    stray = [f"{k}[{f}]" for (k, f), n in runs.items()
+             if n and (k, f) not in forms]
+    sps = drv.steady_sweeps / drv.steady_seconds
+    per_block = {k: round(v / drv.steady_sweeps, 4)
+                 for k, v in sorted(drv.timer.ms.items())}
+    # the medians of the common and red log10_rho and of every hyper with
+    # a uniform prior, over the steady rows, inside that prior
+    med = np.median(chain[warmup + 1:].reshape(-1, cm.nx), axis=0)
+    uni = cm.pkind.cpu().numpy() == 0
+    pa, pb = cm.pa.double().cpu().numpy(), cm.pb.double().cpu().numpy()
+    inside = bool(((med[uni] > pa[uni]) & (med[uni] < pb[uni])).all())
+    rho = med[cm.rho_ix_x.cpu().numpy()]
+    rep = integrity.verify(outdir)
+    finite = bool(np.isfinite(chain).all() and np.isfinite(g.bchain).all())
+    saved = rep["ok"] and rep["rows"] == niter and graphs.graphed
+    print(f"phase {phase} {label}: storage {cm.dtype}, compute "
+          f"{cm.cdtype}, Gram segments {cm.gram_seg_len} / "
+          f"{cm.gram_seg_len_exact} TOAs; {niter} rows x {C} chains in "
+          f"{wall:.1f} s (warmup {warmup}); steady {drv.steady_sweeps} "
+          f"sweeps in {drv.steady_seconds:.3f} s = {sps:.3f} sweeps/s = "
+          f"{sps * C:.1f} samples/s; CUDA graphs {len(graphs.graphs)} "
+          f"captured in {graphs.capture_seconds:.3f} s, pool "
+          f"{graphs.pool_bytes / 1e6:.1f} MB; record {drv.rdtype}, carry "
+          f"{drv.b.dtype}", flush=True)
+    print(f"phase {phase} per-block ms per steady sweep (CUDA events): "
+          + json.dumps(per_block), flush=True)
+    print(f"phase {phase} common log10_rho medians per bin: "
+          + json.dumps([round(float(v), 3) for v in rho]) + "; every "
+          f"uniform-prior median inside its prior {inside}", flush=True)
+    print_counts(phase, counts)
+    ok = (finite and inside and saved and not missing and not unreplayed
+          and not unaccounted and not stray)
+    if not ok:
+        print(f"chip_smoke: phase {phase} failed (finite={finite}, medians "
+              f"inside the priors={inside}, verified checkpoint through "
+              f"the graphs={saved}, never run={missing}, not replayed as "
+              f"captured={unreplayed}, runs other than eager launches plus "
+              f"replays={unaccounted}, forms other than the path's="
+              f"{stray})", file=sys.stderr)
+        return False, chain, drv, runs
+    xs = torch.as_tensor(drv.x_cur, dtype=cm.cdtype, device=cm.device)
+    if not graphs_vs_eager(drv, xs, drv.b.to(cm.device), graph_at, phase,
+                           label):
+        print(f"chip_smoke: phase {phase}'s graph replay differs from the "
+              "eager sweep", file=sys.stderr)
+        return False, chain, drv, runs
+    return True, chain, drv, runs
+
+
+def precision_paths(args, psrs, gen, outdir, ref_stats):
+    """Phases 24-24c (module docstring): the array and the Quick start
+    under ``PTGIBBS_PRECISION=f64``, the array under
+    ``PTGIBBS_COMPUTE=f32`` with ``PTGIBBS_GRAM_SEG=48``; ``ref_stats``
+    is phase 4's per-bin rho statistic.  Returns the kernels line's rows,
+    or None when a phase failed."""
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.data import load_enterprise_snapshot
+
+    dev = torch.device(DEVICE)
+    rows = []
+
+    def row(key, rec, launches, what):
+        k, f = key
+        rows.append(dict(name=f"{k}[{f}] ({what})", route="cuda",
+                         source=SOURCES[k][f.endswith("_wide")],
+                         replaces=REPLACES[k], launches=launches, **rec))
+
+    # ---- 24: the array, float64 storage ---------------------------------
+    with environ(PTGIBBS_PRECISION="f64"):
+        cm = ptt.build_crn_spectrum(psrs, nbins=10, red_bins=10,
+                                    device=dev)
+    ok, chain, drv, runs = precision_run(
+        "24", cm, "PTABlockGibbs", NCHAINS, WARMUP, P24_STEADY, args.seed,
+        outdir / "f64_array", P24_FORMS, P24_GRAPH_CHECK_AT,
+        "the array, PTGIBBS_PRECISION=f64")
+    if not ok:
+        return None
+    (m24, s24), (m4, s4) = (chain_medians(chain, cm, range(NCHAINS),
+                                          P24_BURN), ref_stats)
+    zs = np.abs(m24 - m4) / np.sqrt(s24 ** 2 + s4 ** 2)
+    law = bool((zs <= 5.0).all())
+    print(f"phase 24 common log10_rho past the first {P24_BURN} steady "
+          "rows, mean of per-chain medians " + json.dumps(
+              [round(float(v), 3) for v in m24]) + " against phase 4's "
+          + json.dumps([round(float(v), 3) for v in m4]) + ", in combined "
+          "standard errors " + json.dumps([round(float(v), 2) for v in zs])
+          + f" {'ok' if law else 'FAIL'}", flush=True)
+    xs = torch.as_tensor(drv.x_cur, dtype=cm.cdtype, device=dev)
+    print("phase 2 at phase 24's final state:", flush=True)
+    rg, okg = gram_parity(cm, xs, time_ms, forms=("f64",))
+    rc, okc = chol64_parity(cm, xs, time_ms, gen=gen)
+    if not (law and okg and okc):
+        print("chip_smoke: phase 24 failed (rho law as phase 4's="
+              f"{law}, kernel parity {okg and okc})", file=sys.stderr)
+        return None
+    what = (f"phase 24 path: PTGIBBS_PRECISION=f64, {NCHAINS} chains, "
+            f"B1 {cm.Bmax + 1}")
+    for key, rec in rg.items():
+        row(key, rec, runs[key], what)
+    for key, rec in rc.items():
+        row(key, rec, runs[key], what + ", the steady proposal's systems")
+    del cm, chain, drv, xs
+    torch.cuda.empty_cache()
+    elapsed("phase 24")
+
+    # ---- 24b: the Quick start, float64 storage --------------------------
+    with environ(PTGIBBS_PRECISION="f64"):
+        cm1 = ptt.model_general([load_enterprise_snapshot(SNAPSHOT)],
+                                red_var=False, white_vary=True,
+                                common_psd="spectrum",
+                                common_components=SINGLE_BINS, device=dev)
+    ok, chain, drv, runs = precision_run(
+        "24b", cm1, "PulsarBlockGibbs", SINGLE_CHAINS, SIDE_WARMUP,
+        P24_STEADY, args.seed, outdir / "f64_single", P24B_FORMS,
+        P24_GRAPH_CHECK_AT, "the J1713+0747 Quick start, "
+        "PTGIBBS_PRECISION=f64", white_adapt=SIDE_WHITE_ADAPT)
+    if not ok:
+        return None
+    xs = torch.as_tensor(drv.x_cur, dtype=cm1.cdtype, device=dev)
+    print("phase 2 at phase 24b's final state (8 chains, then the first "
+          "chain alone):", flush=True)
+    rg, okg = gram_parity(cm1, xs, time_ms, forms=("f64",))
+    rg1, okg1 = gram_parity(cm1, xs[:1], time_ms, forms=("f64",))
+    rc, okc = chol64_parity(cm1, xs, time_ms, gen=gen)
+    if not (okg and okg1 and okc):
+        print("chip_smoke: kernel parity at phase 24b's state failed",
+              file=sys.stderr)
+        return None
+    what = (f"phase 24b path: PTGIBBS_PRECISION=f64, B1 {cm1.Bmax + 1}")
+    for key, rec in rg.items():
+        row(key, rec, runs[key], what + f", {SINGLE_CHAINS} chains")
+    for key, rec in rg1.items():
+        row(key, rec, runs[key], what + ", at one chain (launches: 24b's "
+            f"{SINGLE_CHAINS} chains)")
+    for key, rec in rc.items():
+        row(key, rec, runs[key], what + f", {SINGLE_CHAINS} chains, the "
+            "steady proposal's systems")
+    del cm1, chain, drv, xs
+    torch.cuda.empty_cache()
+    elapsed("phase 24b")
+
+    # ---- 24c: the array, float32 compute, 48-TOA Gram segments ----------
+    with environ(PTGIBBS_COMPUTE="f32", PTGIBBS_GRAM_SEG=str(P24C_SEG)):
+        cm = ptt.build_crn_spectrum(psrs, nbins=10, red_bins=10,
+                                    device=dev)
+    ok, chain, drv, runs = precision_run(
+        "24c", cm, "PTABlockGibbs", NCHAINS, P24C_WARMUP, P24C_STEADY,
+        args.seed, outdir / "f32_compute", P24C_FORMS, P24C_GRAPH_CHECK_AT,
+        f"the array, PTGIBBS_COMPUTE=f32, PTGIBBS_GRAM_SEG={P24C_SEG}",
+        white_adapt=SIDE_WHITE_ADAPT)
+    if not ok:
+        return None
+    xs = torch.as_tensor(drv.x_cur, dtype=cm.cdtype, device=dev)
+    print("phase 2 at phase 24c's final state (the float32 factor at phase "
+          "4's shape: timed in that row):", flush=True)
+    rg, okg = gram_parity(cm, xs, time_ms, forms=("f32",))
+    _, okc = chol_parity(cm, xs, gen, None)
+    if not (okg and okc):
+        print("chip_smoke: kernel parity at phase 24c's state failed",
+              file=sys.stderr)
+        return None
+    for key, rec in rg.items():
+        row(key, rec, runs[key], f"phase 24c path: PTGIBBS_COMPUTE=f32, "
+            f"PTGIBBS_GRAM_SEG={P24C_SEG}, B1 {cm.Bmax + 1}")
+    del cm, chain, drv, xs
+    torch.cuda.empty_cache()
+    elapsed("phase 24c")
+    return rows
+
+
 def earlier_paths(args, psrs, gen, outdir, extra):
     """Phases 2-12: the kernel parity at the shapes of the paths of
     earlier slices, then phases 3-12c with 19-19b after 18c and 21 after
@@ -3945,7 +4221,7 @@ def earlier_paths(args, psrs, gen, outdir, extra):
         return None
     # phase 18's rho-law gate: per bin, the chains' medians past the burn
     rho_stats = chain_medians(chain, cm, range(C))
-    extra["sps4"] = sps
+    extra["sps4"], extra["rho_stats"] = sps, rho_stats
     if not profile_steady(drv, 16 * (niter // 16 + 1)):
         print("chip_smoke: the device trace disagrees with the kernels' "
               "device counters", file=sys.stderr)
@@ -4377,6 +4653,11 @@ def _run(args, oracle):
     if not ok23:
         return 1
     elapsed("phase 23")
+
+    # ---- phases 24-24c: the precision settings, counts from 0 -------------
+    rows24 = precision_paths(args, psrs, gen, outdir, extra["rho_stats"])
+    if rows24 is None:
+        return 1
     rows += [
         dict(name=f"{k}[{f}] (phase 13 path: kernel ECORR, B1 "
              f"{cm_ke.Bmax + 1})", route="cuda", source=SOURCES[k][1],
@@ -4387,17 +4668,19 @@ def _run(args, oracle):
              source=SOURCES[k][f.endswith("_wide")], replaces=REPLACES[k],
              launches=runs14[(k, f)], **r)
         for (k, f), r in tp_records.items()] + (rows15 + rows16 + rows20
-                                                 + rows22 + rows23)
+                                                 + rows22 + rows23 + rows24)
 
     print("phase 1 kernel resources (cuobjdump -res-usage: registers, "
           "stack frame bytes, static shared memory bytes): " + (json.dumps(
               {n: [r, st, sh] for n, r, st, sh in usage})
               if usage else "not available"), flush=True)
-    for bt in (SINGLE_CHAINS, WIDE_CONFIG_SYSTEMS):
+    B1 = extra["cm1"].Bmax + 1
+    for bt in (1, SINGLE_CHAINS, WIDE_CONFIG_SYSTEMS):
         print(f"phase 1 wide forms' launch configuration at {bt} systems "
-              "(ptg_wide_config; dynamic shared memory is not in "
-              "cuobjdump's static count): "
-              + json.dumps(wide_configs(build.library(), bt)), flush=True)
+              f"of B1 {B1} (ptg_wide_config; dynamic shared memory is not "
+              "in cuobjdump's static count): "
+              + json.dumps(wide_configs(build.library(), bt, B1)),
+              flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

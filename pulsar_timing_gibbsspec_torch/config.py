@@ -1,13 +1,32 @@
 """Settings of the PyTorch port and the device rule of its entry points.
 
 The subset of ``pulsar_timing_gibbsspec_tpu/config.py`` the port's
-sweeps read: float32 storage of the large arrays (basis, residuals,
-per-TOA noise), float64 compute of the sampler state, reductions and
-exact factorizations, the TOA-segment lengths of the segmented Gram, the
-rho grid size, the correlated-ORF joint draw's mixed precision, the
-record precision (``PTGIBBS_RECORD``), the ensemble stage's knobs
-(``PTGIBBS_ENSEMBLE``, ``PTGIBBS_PT_LADDER``) and the collapsed rho
-draw's switch (``PTGIBBS_RHO_COLLAPSE``).
+sweeps read: the storage precision of the large arrays (basis,
+residuals, per-TOA noise: ``PTGIBBS_PRECISION``, float32 by default),
+the compute precision of the sampler state, reductions and exact
+factorizations (``PTGIBBS_COMPUTE``, float64 by default), the
+TOA-segment lengths of the segmented Grams (``PTGIBBS_GRAM_SEG``,
+``PTGIBBS_GRAM_SEG_EXACT``), the rho grid size, the correlated-ORF joint
+draw's mixed precision (``PTGIBBS_JOINT_MIXED``), the record precision
+(``PTGIBBS_RECORD``), the ensemble stage's knobs (``PTGIBBS_ENSEMBLE``,
+``PTGIBBS_PT_LADDER``) and the collapsed rho draw's switch
+(``PTGIBBS_RHO_COLLAPSE``).
+
+Two differences from the JAX package:
+
+- **when the environment is read.**  The JAX ``Settings`` reads
+  ``PTGIBBS_PRECISION``, ``PTGIBBS_COMPUTE`` and ``PTGIBBS_JOINT_MIXED``
+  when its module is imported.  The port reads every variable when a
+  model is built (:func:`current_settings`, called by ``model_arrays``
+  and :func:`~.sampler.compiled.from_arrays`) or a driver starts, so one
+  process can build models of both storage precisions.  The module's
+  :data:`settings` holds the defaults and reads nothing;
+- **a misspelt precision raises.**  The JAX package maps any
+  ``PTGIBBS_PRECISION`` other than ``"f64"`` to float32 storage (and any
+  ``PTGIBBS_COMPUTE`` other than ``"f64"`` to the storage dtype), so
+  ``"F64"`` or ``"double"`` runs float32 without a word.  The port takes
+  ``f32`` and ``f64`` only and raises :class:`SettingsError` naming the
+  variable for anything else (ROADMAP C.21).
 
 Float32 products are full IEEE float32 everywhere in the port (the JAX
 package's ``precision="highest"``): :func:`resolve_device` turns TF32 off
@@ -22,14 +41,51 @@ import os
 import torch
 
 
+class SettingsError(ValueError):
+    """A malformed setting: a bad constructor value or a bad
+    ``PTGIBBS_*`` environment override (the JAX package's type)."""
+
+
+def _env_int(env: str, default: str) -> int:
+    """A positive-integer environment override, validated at read time
+    (the JAX package's checks and messages)."""
+    raw = os.environ.get(env, default)
+    try:
+        val = int(str(raw).strip())
+    except (TypeError, ValueError) as e:
+        raise SettingsError(
+            f"{env}={raw!r} is not an integer") from e
+    if val <= 0:
+        raise SettingsError(
+            f"{env}={val} must be a positive integer")
+    return val
+
+
+#: the storage and compute precisions by name
+PRECISIONS = {"f32": torch.float32, "f64": torch.float64}
+
+
+def _env_precision(env: str, default: str) -> str:
+    """``f32`` or ``f64`` from ``env``; anything else raises (the JAX
+    package would read it as float32)."""
+    raw = os.environ.get(env, default)
+    if raw not in PRECISIONS:
+        raise SettingsError(
+            f"{env}={raw!r} must be one of {sorted(PRECISIONS)}")
+    return raw
+
+
 @dataclasses.dataclass(frozen=True)
 class Settings:
     """Knobs read when a model is built or a driver starts."""
 
-    #: storage dtype of the large device arrays (basis, residuals, N)
-    dtype: torch.dtype = torch.float32
-    #: compute dtype of the sampler state, reductions and exact solves
-    cdtype: torch.dtype = torch.float64
+    #: storage precision of the large device arrays (basis, residuals,
+    #: N): "f32" (default) or "f64"
+    precision: str = "f32"
+    #: compute precision of the sampler state, reductions and exact
+    #: solves: "f64" (default) or "f32", which is the storage dtype: so
+    #: "f32" compute matters only under float32 storage
+    compute_precision: str = "f64"
     #: TOA-segment length of the segmented float32 Gram (steady and
     #: refresh b-draws): in-segment float32 accumulation is bounded by
     #: ~sqrt(seg)*eps_f32 of the Jacobi scale sqrt(G_bb G_cc)
@@ -45,8 +101,49 @@ class Settings:
     #: in float64 whatever this says.  False: float64 everywhere
     joint_mixed: bool = True
 
+    def __post_init__(self):
+        for name, env in (("precision", "PTGIBBS_PRECISION"),
+                          ("compute_precision", "PTGIBBS_COMPUTE")):
+            v = getattr(self, name)
+            if v not in PRECISIONS:
+                raise SettingsError(
+                    f"settings.{name}={v!r} must be one of "
+                    f"{sorted(PRECISIONS)} (env: {env})")
+        for name in ("gram_seg_len", "gram_seg_len_exact"):
+            v = getattr(self, name)
+            if isinstance(v, bool) or not isinstance(v, int) or v <= 0:
+                raise SettingsError(
+                    f"settings.{name}={v!r} must be a positive integer "
+                    "(env: PTGIBBS_GRAM_SEG / PTGIBBS_GRAM_SEG_EXACT)")
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """Storage dtype (the JAX ``real_dtype()``)."""
+        return PRECISIONS[self.precision]
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        """Compute dtype (the JAX ``compute_dtype()``): float64 under
+        "f64" compute, else the storage dtype."""
+        return (torch.float64 if self.compute_precision == "f64"
+                else self.dtype)
+
+
+#: the defaults (no environment read): what a model built without the
+#: variables gets
 settings = Settings()
+
+
+def current_settings() -> Settings:
+    """The settings the environment names, with the JAX defaults; read
+    when a model is built or a driver starts."""
+    return Settings(
+        precision=_env_precision("PTGIBBS_PRECISION", "f32"),
+        compute_precision=_env_precision("PTGIBBS_COMPUTE", "f64"),
+        gram_seg_len=_env_int("PTGIBBS_GRAM_SEG", "96"),
+        gram_seg_len_exact=_env_int("PTGIBBS_GRAM_SEG_EXACT", "96"),
+        joint_mixed=os.environ.get("PTGIBBS_JOINT_MIXED", "1") != "0")
+
 
 #: the correlated-ORF b-draws ``PTGIBBS_HD_KERNEL`` chooses between: the
 #: structured joint draw, the pulsar-wise sweep, the frequency-block sweep

@@ -56,6 +56,7 @@ import dataclasses
 
 import numpy as np
 
+from ..config import current_settings
 from ..data.dataset import get_tspan
 from ..data.fourier import DAY, fourier_basis, pshift_phases, pshift_seed
 from ..sampler.compiled import BIG_PHI, PHI_FLOOR, from_arrays
@@ -524,8 +525,12 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
     ``sigma2 = 1``, constant EFAC 1 and EQUAD -40 (``N = 1``, no
     likelihood), pad basis columns ``phi_base = 1`` and ``basis_mask =
     0``, pad pulsars nothing: a dataset padded to a larger shape samples
-    the same posterior.  Unknown options raise ``TypeError``; what the
-    port does not take, ``NotImplementedError``."""
+    the same posterior.  The arrays take ``compile_pta``'s dtypes from
+    the environment, read here (:func:`..config.current_settings`):
+    storage ``dtype`` float64 under ``PTGIBBS_PRECISION=f64``, compute
+    ``cdtype`` float64 unless ``PTGIBBS_COMPUTE=f32``.  Unknown options
+    raise ``TypeError``; what the port does not take,
+    ``NotImplementedError``."""
     unknown = set(opts) - set(_DEFAULTS)
     if unknown:
         raise TypeError(
@@ -618,18 +623,21 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
         Bmax = int(pad_basis)
     efac1, equad_off = ref(_Fixed("", 1.0)), ref(_Fixed("", -40.0))
 
-    f32, i32 = np.float32, np.int32
-    y = np.zeros((P, Nmax), f32)
-    T = np.zeros((P, Nmax, Bmax), f32)
-    toa_mask = np.zeros((P, Nmax), f32)
-    basis_mask = np.zeros((P, Bmax), f32)
-    psr_mask = np.zeros(P, f32)
-    sigma2 = np.ones((P, Nmax), f32)
+    st = current_settings()
+    np_dtype = np.float64 if st.precision == "f64" else np.float32
+    np_cdtype = np.float64 if st.compute_precision == "f64" else np_dtype
+    i32 = np.int32
+    y = np.zeros((P, Nmax), np_dtype)
+    T = np.zeros((P, Nmax, Bmax), np_dtype)
+    toa_mask = np.zeros((P, Nmax), np_dtype)
+    basis_mask = np.zeros((P, Bmax), np_dtype)
+    psr_mask = np.zeros(P, np_dtype)
+    sigma2 = np.ones((P, Nmax), np_dtype)
     efac_ix = np.full((P, Nmax), efac1, np.int32)
     equad_ix = np.full((P, Nmax), equad_off, np.int32)
     gequad_ix = np.full((P, Nmax), equad_off, np.int32)
-    phi_base = np.ones((P, Bmax), f32)
-    gp_mask = np.zeros((P, Bmax), f32)
+    phi_base = np.ones((P, Bmax), np_dtype)
+    gp_mask = np.zeros((P, Bmax), np_dtype)
     for ii, m in enumerate(models):
         p, n, w = m["p"], m["p"].ntoa, widths[ii]
         efac, equad, _, geq = m["white"]
@@ -735,8 +743,8 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
         H = max((len(r[3]) for r in rows), default=0)
         comps.append(dict(
             kind=kind, cols=pad2([r[0] for r in rows], Bmax, W).astype(i32),
-            f=pad2([r[1] for r in rows], 1.0, W).astype(f32),
-            df=pad2([r[2] for r in rows], 0.0, W).astype(f32),
+            f=pad2([r[1] for r in rows], 1.0, W).astype(np_dtype),
+            df=pad2([r[2] for r in rows], 0.0, W).astype(np_dtype),
             hyp_ix=pad2([r[3] for r in rows], sentinel, H).astype(i32),
             rho_ix=pad2([r[4] for r in rows], sentinel, W).astype(i32)))
 
@@ -747,8 +755,8 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
     gw_kind = gsig[0].psd
     gw_sin = np.zeros((P, K), i32)
     gw_cos = np.zeros((P, K), i32)
-    gw_f = np.ones((P, K), f32)
-    gw_df = np.zeros((P, K), f32)
+    gw_f = np.ones((P, K), np_dtype)
+    gw_df = np.zeros((P, K), np_dtype)
     Hg = 0 if gw_kind == "free_spectrum" else len(gsig[0].params)
     gw_hyp = np.full((P, max(Hg, 1)), sentinel, i32)
     gw_rho = np.full((P, K), floor_ref, i32)
@@ -766,7 +774,7 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
                 else np.zeros(0, i32))
 
     rsig = [next((s for s in f if "red" in s.name), None) for f in fourier]
-    red_valid = np.zeros(P, f32)
+    red_valid = np.zeros(P, np_dtype)
     red_kind = rsig[0].psd if rsig[0] is not None else ""
     Kr = len(rsig[0].f) // 2 if red_kind else 0
     Kr1 = max(Kr, 1)
@@ -777,8 +785,8 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
     red_rho_x = np.full((P, Kr1), nx, i32)
     red_sin = np.zeros((P, Kr1), i32)
     red_cos = np.zeros((P, Kr1), i32)
-    red_f = np.ones((P, Kr1), f32)
-    red_df = np.zeros((P, Kr1), f32)
+    red_f = np.ones((P, Kr1), np_dtype)
+    red_df = np.zeros((P, Kr1), np_dtype)
     red_shares_gw = True
     if red_kind:
         overlaps = []
@@ -827,8 +835,8 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
 
     # ---- priors ------------------------------------------------------------
     pkind = np.zeros(nx, i32)
-    pa = np.zeros(nx, f32)
-    pb = np.ones(nx, f32)
+    pa = np.zeros(nx, np_dtype)
+    pb = np.ones(nx, np_dtype)
     pinit = np.full(nx, np.nan)
     ct = 0
     for q in params:
@@ -841,7 +849,7 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
     # InvGamma alphas are never MH-proposed (conjugate draws); they keep
     # a nonzero scale all the same
     prop_scale = np.where((pkind == NORMAL) | (pkind == INV_GAMMA), pb,
-                          0.1 * np.abs(pb - pa)).astype(f32)
+                          0.1 * np.abs(pb - pa)).astype(np_dtype)
 
     def rho_bounds(frag):
         """Variance bounds of the first free spectrum named ``frag``."""
@@ -881,11 +889,11 @@ def model_arrays(psrs, *, pad_pulsars=None, kernel_ecorr=False,
     return dict(
         P=P, P_real=P_real, Nmax=Nmax, Bmax=Bmax, nx=nx, K=K, Kr=Kr,
         widths=widths, pulsars=tuple(p.name for p in psrs),
-        param_names=tuple(names), dtype=f32,
-        cdtype=np.float64, y=y, T=T, toa_mask=toa_mask,
+        param_names=tuple(names), dtype=np_dtype,
+        cdtype=np_cdtype, y=y, T=T, toa_mask=toa_mask,
         basis_mask=basis_mask, psr_mask=psr_mask, sigma2=sigma2,
         efac_ix=efac_ix, equad_ix=equad_ix, gequad_ix=gequad_ix,
-        const_pool=np.asarray(pool, f32), phi_base=phi_base,
+        const_pool=np.asarray(pool, np_dtype), phi_base=phi_base,
         components=comps, pkind=pkind, pa=pa, pb=pb, prop_scale=prop_scale,
         gw_sin_ix=gw_sin, gw_cos_ix=gw_cos, gw_f=gw_f, gw_df=gw_df,
         gw_kind=gw_kind, gw_hyp_ix=gw_hyp, gw_rho_ix=gw_rho,

@@ -117,8 +117,9 @@ def chol_solve_sample(Sig, d, z, *, ridge=0.0, factor="blocked"):
 #: algebra, as the JAX package does)
 CHOL_FORMS = {torch.float32: "f32", torch.float64: "f64"}
 #: instantiation name of gram_accumulate by kernel form number (the wide
-#: form adds ``_wide``)
-GRAM_FORMS = ("f32", "f32_dot_f64_reduce", "widen_f64")
+#: form adds ``_wide``): float32 operands (forms 0-2) or, under float64
+#: storage, float64 operands (form 3, whatever ``out_dtype``/``widen``)
+GRAM_FORMS = ("f32", "f32_dot_f64_reduce", "widen_f64", "f64")
 #: largest matrix order of chol_solve_sample and augmented width of
 #: gram_accumulate the narrow kernels take, the largest the wide forms
 #: take, and the row slices per pulsar of the Gram's extent scan
@@ -131,12 +132,36 @@ chol_solve_sample.launches = 0
 chol_solve_sample.form_launches = dict.fromkeys(_CHOL_ALL, 0)
 
 
+def _gram_form(in_dtype, out_dtype, widen):
+    """The kernel form (index into ``GRAM_FORMS``) of operands of
+    ``in_dtype`` and an output of ``out_dtype``: float64 operands take the
+    float64 form and a float64 output; float32 operands take the widening
+    form for ``widen`` with a float64 output, the all-float32 form for a
+    float32 output (``widen`` with a float32 output is the float32-compute
+    exact Gram: float32 products, float32 reduce), else the float64-reduce
+    form."""
+    f32, f64 = torch.float32, torch.float64
+    if out_dtype not in (f32, f64):
+        raise TypeError(f"out_dtype must be float32 or float64, got "
+                        f"{out_dtype}")
+    if in_dtype == f64:
+        if out_dtype != f64:
+            raise TypeError("float64 operands give a float64 Gram, not "
+                            f"{out_dtype}")
+        return 3
+    if in_dtype != f32:
+        raise TypeError(f"Ta must be float32 or float64, got {in_dtype}")
+    if out_dtype == f32:
+        return 0
+    return 2 if widen else 1
+
+
 def _gram_accumulate_cuda(Ta, N, out_dtype, widen):
     from .build import check, library
 
-    f32 = torch.float32
-    _need(Ta, "Ta", f32, 4)
-    _need(N, "N", f32, 2)
+    form = _gram_form(Ta.dtype, out_dtype, widen)
+    _need(Ta, "Ta", Ta.dtype, 4)
+    _need(N, "N", Ta.dtype, 2)
     Pt, nseg, m, B1 = Ta.shape
     batch, Nmax = N.shape
     if batch % Pt or Nmax > nseg * m:
@@ -147,17 +172,6 @@ def _gram_accumulate_cuda(Ta, N, out_dtype, widen):
                          f"got {B1}")
     if N.device != Ta.device:
         raise ValueError(f"N is on {N.device}, Ta on {Ta.device}")
-    if widen:
-        if out_dtype != torch.float64:
-            raise TypeError("widen=True accumulates in float64")
-        form = 2
-    elif out_dtype == torch.float64:
-        form = 1
-    elif out_dtype == f32:
-        form = 0
-    else:
-        raise TypeError(f"out_dtype must be float32 or float64, got "
-                        f"{out_dtype}")
     wide = B1 > GRAM_MAX_B1
     name = GRAM_FORMS[form] + ("_wide" if wide else "")
     count = _counter(Ta.device, ("gram_accumulate", name))
@@ -183,12 +197,16 @@ def gram_accumulate(Ta, N, *, out_dtype=None, widen=False):
     the plain version materializes it (``reference.gram_operand``).
 
     ``widen=True`` accumulates every product in ``out_dtype`` (float64,
-    the exact ``tnt_d``); otherwise each segment is a float32 product
-    cast to ``out_dtype`` before the sequential segment reduce (float32:
-    the steady ``tnt_d_seg32``; float64: the refresh ``tnt_d_seg``)."""
+    the exact ``tnt_d``; float32 under float32 compute); otherwise each
+    segment is a float32 product cast to ``out_dtype`` before the
+    sequential segment reduce (float32: the steady ``tnt_d_seg32``;
+    float64: the refresh ``tnt_d_seg``).  Float64 operands (float64
+    storage) take float64 products and sums in every call, into a
+    float64 output; a float32 output of them raises."""
     if out_dtype is None:
         out_dtype = Ta.dtype
     if Ta.device.type == "cpu":
+        _gram_form(Ta.dtype, out_dtype, widen)
         return reference.gram_accumulate_ref(Ta, N, out_dtype=out_dtype,
                                              widen=widen)
     out, form = _gram_accumulate_cuda(Ta.contiguous(), N.contiguous(),

@@ -40,7 +40,7 @@ def _declare(lib):
     lib.ptg_gram_accumulate_wide.argtypes = [P, P, P, P, I, I, I, I, I, I,
                                              I, P, P]
     lib.ptg_gram_accumulate_wide.restype = I
-    lib.ptg_wide_config.argtypes = [I, I, I, P]
+    lib.ptg_wide_config.argtypes = [I, I, I, I, P]
     lib.ptg_wide_config.restype = I
     return lib
 

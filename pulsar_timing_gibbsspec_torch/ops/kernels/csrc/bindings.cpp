@@ -41,11 +41,10 @@ int ptg_gram_accumulate(const void* Ta, const void* N, void* G, void* extent,
                         int form, void* count, void* stream) {
   if (batch < 0 || P < 1 || batch % P != 0 || nseg < 1 || m < 1 ||
       B1 < 1 || B1 > kGramMaxB1 || Nmax < 1 || Nmax > nseg * m ||
-      form < 0 || form > 2 || count == nullptr)
+      form < 0 || form > 3 || count == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(ptg_launch_gram_accumulate(
-      static_cast<const float*>(Ta), static_cast<const float*>(N), G,
-      static_cast<int*>(extent), batch, P, nseg, m, B1, Nmax, form,
+      Ta, N, G, static_cast<int*>(extent), batch, P, nseg, m, B1, Nmax, form,
       static_cast<unsigned long long*>(count),
       static_cast<cudaStream_t>(stream)));
 }
@@ -81,11 +80,10 @@ int ptg_gram_accumulate_wide(const void* Ta, const void* N, void* G,
                              void* stream) {
   if (batch < 0 || batch > 65535 || P < 1 || batch % P != 0 || nseg < 1 ||
       m < 1 || B1 <= kGramMaxB1 || B1 > kGramWideMaxB1 || Nmax < 1 ||
-      Nmax > nseg * m || form < 0 || form > 2 || count == nullptr)
+      Nmax > nseg * m || form < 0 || form > 3 || count == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(ptg_launch_gram_accumulate_wide(
-      static_cast<const float*>(Ta), static_cast<const float*>(N), G,
-      static_cast<int*>(extent), batch, P, nseg, m, B1, Nmax, form,
+      Ta, N, G, static_cast<int*>(extent), batch, P, nseg, m, B1, Nmax, form,
       static_cast<unsigned long long*>(count),
       static_cast<cudaStream_t>(stream)));
 }
@@ -95,8 +93,8 @@ int ptg_gram_accumulate_wide(const void* Ta, const void* N, void* G,
 // dynamic shared memory bytes, and (the factor) how many 16-CTA clusters
 // the card runs at once, of the wide form of `kernel` (0:
 // chol_solve_sample, `variant` = is_f64; 1: gram_accumulate, `variant` =
-// form).
-int ptg_wide_config(int kernel, int variant, int batch, int* out) {
+// form, at augmented width B1).
+int ptg_wide_config(int kernel, int variant, int batch, int B1, int* out) {
   int a = 0, active16 = 0, threads = 0;
   size_t smem = 0;
   int code;
@@ -106,7 +104,7 @@ int ptg_wide_config(int kernel, int variant, int batch, int* out) {
     out[0] = a;
     out[1] = 0;
   } else {
-    code = ptg_gram_wide_config(variant, &a, &threads, &smem);
+    code = ptg_gram_wide_config(variant, batch, B1, &a, &threads, &smem);
     out[0] = 1;
     out[1] = a;
   }

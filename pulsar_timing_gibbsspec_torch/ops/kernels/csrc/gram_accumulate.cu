@@ -46,7 +46,16 @@
 //     (mma.sync m8n8k4 f64, DMMA): TNa and Ta are converted to float64 once
 //     per element as the stage is formed (products of float32 values are
 //     exact in float64), each warp owns 8 rows of one chain's output and all
-//     of its 8-wide column tiles, and segments are reduced in order.
+//     of its 8-wide column tiles, and segments are reduced in order;
+//   - the float64 form (float64 storage: Ta and N float64) is the widening
+//     kernel over float64 operands: the raw ring holds 8-byte rows (cp.async
+//     of 8 bytes), TNa is the IEEE float64 quotient (__ddiv_rn, no
+//     reciprocal: bit for bit the plain version's operand), products and
+//     in-segment sums are float64 DMMAs and segments are reduced in order.
+//     At B1 = 64 (one chain per CTA) it takes 32 768 B of raw ring, 512 B
+//     of N and 34 816 B of float64 tiles: 68 096 B of shared memory.  Its
+//     float64 products round (float32 products did not), so it agrees with
+//     the plain version to a few ULPs of the Jacobi scale, not bitwise.
 #include "kernels.h"
 
 namespace {
@@ -60,11 +69,20 @@ constexpr int kMaxThreads = 512;
 constexpr int kF32Threads = 512, kF64AccThreads = 256, kWidenThreads = 384;
 constexpr int kExtentThreads = 256;
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+// One element of type T (4 or 8 bytes) copied asynchronously into shared
+// memory.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* smem, const T* gmem) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "4- or 8-byte elements");
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
 }
 
 __device__ __forceinline__ void dmma(double (&c)[2], double a, double b) {
@@ -80,6 +98,10 @@ __device__ __forceinline__ void dmma(double (&c)[2], double a, double b) {
 __device__ __forceinline__ float quotient(float t, float n) {
   return (t == 0.f && n == n && n != 0.f) ? t * copysignf(1.f, n) : t / n;
 }
+__device__ __forceinline__ double quotient(double t, double n) {
+  return (t == 0.0 && n == n && n != 0.0) ? t * copysign(1.0, n)
+                                          : __ddiv_rn(t, n);
+}
 
 struct Geom {
   int P;       // Ta rows (pulsars); batch row b pairs with Ta row b % P
@@ -93,8 +115,9 @@ struct Geom {
 // extent[p * kGramExtentSlices + s]: 1 + the last row r of slice s of
 // pulsar p (r < Nmax) whose Ta row has a nonzero (or NaN) entry, or whose
 // N is zero or NaN for some chain of p; 0 if there is none.
+template <typename T>
 __global__ void __launch_bounds__(kExtentThreads)
-gram_extent_kernel(const float* __restrict__ Ta, const float* __restrict__ N,
+gram_extent_kernel(const T* __restrict__ Ta, const T* __restrict__ N,
                    int* __restrict__ extent, Geom g) {
   __shared__ int s_end;
   const int p = blockIdx.x, sl = blockIdx.y;
@@ -103,15 +126,15 @@ gram_extent_kernel(const float* __restrict__ Ta, const float* __restrict__ N,
   if (threadIdx.x == 0) s_end = 0;
   __syncthreads();
   int end = 0;
-  const float* Tp = Ta + (static_cast<size_t>(p) * g.nseg * g.m + r0) * g.B1;
+  const T* Tp = Ta + (static_cast<size_t>(p) * g.nseg * g.m + r0) * g.B1;
 #pragma unroll 4
   for (int e = threadIdx.x; e < rows * g.B1; e += blockDim.x)
-    if (Tp[e] != 0.f) end = max(end, r0 + e / g.B1 + 1);
+    if (Tp[e] != T(0)) end = max(end, r0 + e / g.B1 + 1);
 #pragma unroll 4
   for (int e = threadIdx.x; e < g.chains * rows; e += blockDim.x) {
     const int c = e / rows, r = r0 + e - c * rows;
-    const float nv = N[(static_cast<size_t>(c) * g.P + p) * g.Nmax + r];
-    if (nv == 0.f || nv != nv) end = max(end, r + 1);
+    const T nv = N[(static_cast<size_t>(c) * g.P + p) * g.Nmax + r];
+    if (nv == T(0) || nv != nv) end = max(end, r + 1);
   }
   if (end > 0) atomicMax(&s_end, end);
   __syncthreads();
@@ -142,24 +165,25 @@ struct Stage {
 // for each chain c of the group the N values of those rows below Nmax into
 // sN[c][k].  A stage past the last one commits an empty group, which keeps
 // the count of groups in flight uniform.
-__device__ void enqueue_stage(const Geom& g, const float* __restrict__ Ta,
-                            const float* __restrict__ N, int p, int c0,
-                            int nc, int t, int end, float* sT, float* sN) {
+template <typename T>
+__device__ void enqueue_stage(const Geom& g, const T* __restrict__ Ta,
+                              const T* __restrict__ N, int p, int c0, int nc,
+                              int t, int end, T* sT, T* sN) {
   if (t < g.nseg * g.spseg) {
     const Stage st(g, t);
     const int len = min(st.len, end - st.r0);
-    float* dT = sT + (t % kRing) * kStageRows * g.B1;
-    float* dN = sN + (t % kRing) * g.cg * kStageRows;
-    const float* src =
+    T* dT = sT + (t % kRing) * kStageRows * g.B1;
+    T* dN = sN + (t % kRing) * g.cg * kStageRows;
+    const T* src =
         Ta + ((static_cast<size_t>(p) * g.nseg + st.s) * g.m + st.k0) * g.B1;
     for (int e = threadIdx.x; e < len * g.B1; e += blockDim.x)
-      cp_async4(dT + e, src + e);
+      cp_async(dT + e, src + e);
     for (int e = threadIdx.x; e < nc * kStageRows; e += blockDim.x) {
       const int c = e / kStageRows, k = e % kStageRows;
       if (k < len && st.r0 + k < g.Nmax)
-        cp_async4(dN + e, N + (static_cast<size_t>(c0 + c) * g.P + p) *
-                                  g.Nmax +
-                              st.r0 + k);
+        cp_async(dN + e, N + (static_cast<size_t>(c0 + c) * g.P + p) *
+                                 g.Nmax +
+                             st.r0 + k);
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -170,12 +194,11 @@ __device__ void enqueue_stage(const Geom& g, const float* __restrict__ Ta,
 // the stage's Ta rows, N0 its N values with chain c at N0 + c *
 // kStageRows) and multiplied (compute(len)); segment_end() after the last
 // stage of each segment and after the last stage overall.
-template <typename Form, typename Compute, typename SegmentEnd>
-__device__ void stream_stages(const Geom& g, const float* __restrict__ Ta,
-                              const float* __restrict__ N, int p, int c0,
-                              int nc, int end, float* sT, float* sN,
-                              Form form, Compute compute,
-                              SegmentEnd segment_end) {
+template <typename T, typename Form, typename Compute, typename SegmentEnd>
+__device__ void stream_stages(const Geom& g, const T* __restrict__ Ta,
+                              const T* __restrict__ N, int p, int c0, int nc,
+                              int end, T* sT, T* sN, Form form,
+                              Compute compute, SegmentEnd segment_end) {
   const int nstage = g.nseg * g.spseg;
   enqueue_stage(g, Ta, N, p, c0, nc, 0, end, sT, sN);
   for (int t = 0; t < nstage; ++t) {
@@ -303,22 +326,23 @@ gram_f32_kernel(const float* __restrict__ Ta, const float* __restrict__ N,
     atomicAdd(count, 1ull);
 }
 
-// Widening float64 form on DMMA.  The CTA holds cg chains x RT warps,
-// RT = ceil(B1 / 8); warp (c, rt) owns output rows 8 rt .. 8 rt + 7 of
-// chain c and its RT 8-wide column tiles.  The float64 tiles have row
+// Float64 products on DMMA of operands of type T: float32 (the widening
+// form) or float64 (the float64 form).  The CTA holds cg chains x RT
+// warps, RT = ceil(B1 / 8); warp (c, rt) owns output rows 8 rt .. 8 rt + 7
+// of chain c and its RT 8-wide column tiles.  The float64 tiles have row
 // stride 8 RT + 4, which puts the four k-rows of an m8n8k4 fragment on
 // disjoint banks.
-template <int RT>
+template <int RT, typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-gram_widen_kernel(const float* __restrict__ Ta, const float* __restrict__ N,
+gram_widen_kernel(const T* __restrict__ Ta, const T* __restrict__ N,
                   const int* __restrict__ extent, double* __restrict__ G,
                   Geom g, unsigned long long* __restrict__ count) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int B8 = 8 * RT, ld = B8 + 4;
   const int p = blockIdx.x, c0 = blockIdx.y * g.cg;
   const int nc = min(g.cg, g.chains - c0);
-  float* sT = reinterpret_cast<float*>(smem_raw);  // [kRing][kStageRows*B1]
-  float* sN = sT + kRing * kStageRows * g.B1;       // [kRing][cg][kStageRows]
+  T* sT = reinterpret_cast<T*>(smem_raw);  // [kRing][kStageRows*B1]
+  T* sN = sT + kRing * kStageRows * g.B1;  // [kRing][cg][kStageRows]
   double* sB = reinterpret_cast<double*>(sN + kRing * g.cg * kStageRows);
   double* sA = sB + kStageRows * ld;  // [cg][kStageRows][ld]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -335,12 +359,11 @@ gram_widen_kernel(const float* __restrict__ Ta, const float* __restrict__ N,
 
   // rows up to the stage's length rounded up to 4 (the MMA depth), zero
   // past its end
-  auto form = [&](const Stage& st, int len, const float* Tk,
-                  const float* N0) {
+  auto form = [&](const Stage& st, int len, const T* Tk, const T* N0) {
     const int rows4 = (len + 3) & ~3;
     for (int k = frow; k < rows4; k += fstep) {
       const bool in = k < len && fcol < g.B1;
-      const float tv = in ? Tk[k * g.B1 + fcol] : 0.f;
+      const T tv = in ? Tk[k * g.B1 + fcol] : T(0);
       sB[k * ld + fcol] = static_cast<double>(tv);
       const bool live = in && st.r0 + k < g.Nmax;
       for (int cc = 0; cc < nc; ++cc)
@@ -394,11 +417,11 @@ int chains_per_cta(int target_threads, int per_chain) {
   return fit < 1 ? 1 : (fit > kMaxChainsPerCta ? kMaxChainsPerCta : fit);
 }
 
-template <typename OutT>
-cudaError_t launch(void (*kernel)(const float*, const float*, const int*,
-                                  OutT*, Geom, unsigned long long*),
-                   const Geom& g, int threads, size_t smem, const float* Ta,
-                   const float* N, const int* extent, void* G,
+template <typename InT, typename OutT>
+cudaError_t launch(void (*kernel)(const InT*, const InT*, const int*, OutT*,
+                                  Geom, unsigned long long*),
+                   const Geom& g, int threads, size_t smem, const InT* Ta,
+                   const InT* N, const int* extent, void* G,
                    unsigned long long* count, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -412,9 +435,48 @@ cudaError_t launch(void (*kernel)(const float*, const float*, const int*,
   return cudaGetLastError();
 }
 
+// The DMMA kernels (widening form: T float; float64 form: T double).
+template <typename T>
+cudaError_t launch_dmma(const Geom& g0, const T* Ta, const T* N,
+                        const int* extent, void* G,
+                        unsigned long long* count, cudaStream_t stream) {
+  Geom g = g0;
+  const int RT = (g.B1 + 7) / 8;
+  g.cg = chains_per_cta(kWidenThreads, 32 * RT);
+  const int threads = 32 * RT * g.cg;
+  const size_t smem =
+      static_cast<size_t>(kRing) * kStageRows * g.B1 * sizeof(T) +
+      static_cast<size_t>(kRing) * g.cg * kStageRows * sizeof(T) +
+      (1 + g.cg) * static_cast<size_t>(kStageRows) * (8 * RT + 4) *
+          sizeof(double);
+  const auto run = [&](auto kernel) {
+    return launch(kernel, g, threads, smem, Ta, N, extent, G, count, stream);
+  };
+  switch (RT) {
+    case 1:
+      return run(gram_widen_kernel<1, T>);
+    case 2:
+      return run(gram_widen_kernel<2, T>);
+    case 3:
+      return run(gram_widen_kernel<3, T>);
+    case 4:
+      return run(gram_widen_kernel<4, T>);
+    case 5:
+      return run(gram_widen_kernel<5, T>);
+    case 6:
+      return run(gram_widen_kernel<6, T>);
+    case 7:
+      return run(gram_widen_kernel<7, T>);
+    case 8:
+      return run(gram_widen_kernel<8, T>);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-cudaError_t ptg_launch_gram_accumulate(const float* Ta, const float* N,
+cudaError_t ptg_launch_gram_accumulate(const void* Ta_, const void* N_,
                                        void* G, int* extent, int batch,
                                        int P, int nseg, int m, int B1,
                                        int Nmax, int form,
@@ -431,46 +493,26 @@ cudaError_t ptg_launch_gram_accumulate(const float* Ta, const float* N,
   g.spseg = (m + kStageRows - 1) / kStageRows;
   g.rows_per_slice = (Nmax + kGramExtentSlices - 1) / kGramExtentSlices;
   g.cg = 1;
-  gram_extent_kernel<<<dim3(P, kGramExtentSlices), kExtentThreads, 0,
-                       stream>>>(Ta, N, extent, g);
+  const dim3 egrid(P, kGramExtentSlices);
+  if (form == 3) {
+    const auto* Ta = static_cast<const double*>(Ta_);
+    const auto* N = static_cast<const double*>(N_);
+    gram_extent_kernel<double><<<egrid, kExtentThreads, 0, stream>>>(
+        Ta, N, extent, g);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return launch_dmma(g, Ta, N, extent, G, count, stream);
+  }
+  const auto* Ta = static_cast<const float*>(Ta_);
+  const auto* N = static_cast<const float*>(N_);
+  gram_extent_kernel<float><<<egrid, kExtentThreads, 0, stream>>>(Ta, N,
+                                                                  extent, g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (form == 2) return launch_dmma(g, Ta, N, extent, G, count, stream);
 
   const size_t ring = static_cast<size_t>(kRing) * kStageRows * B1 *
                       sizeof(float);
-  if (form == 2) {
-    const int RT = (B1 + 7) / 8;
-    g.cg = chains_per_cta(kWidenThreads, 32 * RT);
-    const int threads = 32 * RT * g.cg;
-    const size_t smem =
-        ring + static_cast<size_t>(kRing) * g.cg * kStageRows * sizeof(float) +
-        (1 + g.cg) * static_cast<size_t>(kStageRows) * (8 * RT + 4) *
-            sizeof(double);
-    const auto run = [&](auto kernel) {
-      return launch(kernel, g, threads, smem, Ta, N, extent, G, count,
-                    stream);
-    };
-    switch (RT) {
-      case 1:
-        return run(gram_widen_kernel<1>);
-      case 2:
-        return run(gram_widen_kernel<2>);
-      case 3:
-        return run(gram_widen_kernel<3>);
-      case 4:
-        return run(gram_widen_kernel<4>);
-      case 5:
-        return run(gram_widen_kernel<5>);
-      case 6:
-        return run(gram_widen_kernel<6>);
-      case 7:
-        return run(gram_widen_kernel<7>);
-      case 8:
-        return run(gram_widen_kernel<8>);
-      default:
-        return cudaErrorInvalidValue;
-    }
-  }
   const int TB = (B1 + 3) / 4;
   g.cg = chains_per_cta(form == 0 ? kF32Threads : kF64AccThreads, TB * TB);
   const int threads = TB * TB * g.cg;

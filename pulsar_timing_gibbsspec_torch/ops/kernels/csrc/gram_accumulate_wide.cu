@@ -45,6 +45,18 @@
 //   - each stage forms its quotients once, for the CTA's row tile, in
 //     shared memory with the narrow form's IEEE quotient(); the float32
 //     forms multiply the column tile's Ta rows straight from their ring.
+//   - the float64 form (float64 storage: Ta and N float64) is a DMMA
+//     kernel of its own: 8-byte raw rows would not fit beside the widening
+//     form's 128 x 128 tile (231 552 B of the 232 448 B a CTA can have).
+//     Its running sums stay in shared memory as the widening form's do,
+//     its stages hold 8 rows, the column tile's Ta rows are multiplied
+//     straight from their ring (no conversion), and only the row tile's
+//     quotients (IEEE float64, __ddiv_rn) are formed.  The tile follows
+//     the grid: 128 x 128 (16 warps, 189 824 B) where that grid holds at
+//     least one CTA per SM (8 chains at B1 = 674: 288 CTAs), else 64 x 64
+//     (4 warps, 62 848 B, several CTAs per SM; one chain at B1 = 674:
+//     121 CTAs on 132 SMs).  Its float64 products round, so it agrees with
+//     the plain version to a few ULPs of the Jacobi scale, not bitwise.
 // Every TOA row of the grid is multiplied, pad rows too, as the plain
 // version multiplies them: a skipped zero product could turn a -0 partial
 // into +0 and back, and on the single pulsar every row holds a TOA.  One
@@ -57,17 +69,27 @@
 namespace {
 
 constexpr int kStage = 16;  // TOA rows per stage: a multiple of the DMMA depth
+constexpr int kStage64 = 8;  // the float64 form's stage
 constexpr int kMaxDevices = 64;
 // output tile: 8 * TD square for the float32 forms (TD x TD threads)
 constexpr int kF32TD = 22, kF64AccTD = 17;
 // widening form: tile, row stride of its float64 stage tiles, threads
 constexpr int kDmmaTile = 128, kDmmaLd = kDmmaTile + 4, kDmmaThreads = 512;
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+// One element of type T (4 or 8 bytes) copied asynchronously into shared
+// memory.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* smem, const T* gmem) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "4- or 8-byte elements");
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
 }
 
 __device__ __forceinline__ void dmma(double (&c)[2], double a, double b) {
@@ -83,46 +105,52 @@ __device__ __forceinline__ void dmma(double (&c)[2], double a, double b) {
 __device__ __forceinline__ float quotient(float t, float n) {
   return (t == 0.f && n == n && n != 0.f) ? t * copysignf(1.f, n) : t / n;
 }
+__device__ __forceinline__ double quotient(double t, double n) {
+  return (t == 0.0 && n == n && n != 0.0) ? t * copysign(1.0, n)
+                                          : __ddiv_rn(t, n);
+}
 
 struct WideGeom {
   int P, nseg, m, B1, Nmax;
   int spseg;  // stages per segment
 };
 
-// Stage t: `len` rows of segment t / spseg from grid row r0
-struct Stage {
+// Stage t of KS rows: `len` rows of segment t / spseg from grid row r0
+template <int KS>
+struct StageT {
   int len, r0;
-  __device__ Stage(const WideGeom& g, int t) {
-    const int s = t / g.spseg, k0 = (t - s * g.spseg) * kStage;
-    len = min(kStage, g.m - k0);
+  __device__ StageT(const WideGeom& g, int t) {
+    const int s = t / g.spseg, k0 = (t - s * g.spseg) * KS;
+    len = min(KS, g.m - k0);
     r0 = s * g.m + k0;
   }
 };
+using Stage = StageT<kStage>;
 
 // One commit group of copies for stage t: the pulsar's Ta rows of the
-// stage, columns i0 .. i0 + BT - 1 into ring slot t % 2 of rA and j0 ..
-// into slot t % RB of rB (row stride BT; columns at or beyond B1 are not
-// copied and hold stale values, which reach only outputs that are never
-// stored), and N of those rows below Nmax into slot t % 2 of rN.  A stage
-// past the last commits an empty group.
-template <int BT, int NT, int RB>
-__device__ void enqueue(const WideGeom& g, const float* __restrict__ Ta,
-                        const float* __restrict__ Nb, int p, int t,
-                        int nstage, int i0, int j0, float* rA, float* rB,
-                        float* rN) {
+// stage (KS rows), columns i0 .. i0 + BT - 1 into ring slot t % 2 of rA
+// (row stride BT) and j0 .. into slot t % RB of rB (row stride LDB;
+// columns at or beyond B1 are not copied and hold stale values, which
+// reach only outputs that are never stored), and N of those rows below
+// Nmax into slot t % 2 of rN.  A stage past the last commits an empty
+// group.
+template <typename T, int KS, int BT, int NT, int RB, int LDB>
+__device__ void enqueue(const WideGeom& g, const T* __restrict__ Ta,
+                        const T* __restrict__ Nb, int p, int t, int nstage,
+                        int i0, int j0, T* rA, T* rB, T* rN) {
   if (t < nstage) {
-    const Stage st(g, t);
-    float* dA = rA + (t & 1) * kStage * BT;
-    float* dB = rB + (t % RB) * kStage * BT;
-    float* dN = rN + (t & 1) * kStage;
-    const float* src =
+    const StageT<KS> st(g, t);
+    T* dA = rA + (t & 1) * KS * BT;
+    T* dB = rB + (t % RB) * KS * LDB;
+    T* dN = rN + (t & 1) * KS;
+    const T* src =
         Ta + (static_cast<size_t>(p) * g.nseg * g.m + st.r0) * g.B1;
     const int wa = min(BT, g.B1 - i0), wb = min(BT, g.B1 - j0);
     int k = threadIdx.x / BT, c = threadIdx.x - k * BT;
     while (k < st.len) {
-      const float* row = src + static_cast<size_t>(k) * g.B1;
-      if (c < wa) cp_async4(dA + k * BT + c, row + i0 + c);
-      if (c < wb) cp_async4(dB + k * BT + c, row + j0 + c);
+      const T* row = src + static_cast<size_t>(k) * g.B1;
+      if (c < wa) cp_async(dA + k * BT + c, row + i0 + c);
+      if (c < wb) cp_async(dB + k * LDB + c, row + j0 + c);
       c += NT % BT;
       k += NT / BT;
       if (c >= BT) {
@@ -131,12 +159,12 @@ __device__ void enqueue(const WideGeom& g, const float* __restrict__ Ta,
       }
     }
     for (k = threadIdx.x; k < st.len; k += NT)
-      if (st.r0 + k < g.Nmax) cp_async4(dN + k, Nb + st.r0 + k);
+      if (st.r0 + k < g.Nmax) cp_async(dN + k, Nb + st.r0 + k);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// The stage loop both kernels share, one CTA barrier per stage: with
+// The stage loop every kernel shares, one CTA barrier per stage: with
 // stage t + 1's copies landed, every warp puts stage t + 2's in flight,
 // forms stage t + 1 (form(t + 1), from raw slot (t + 1) % 2 into formed
 // slot (t + 1) % 2) and multiplies stage t (compute(t)); segment_end()
@@ -144,23 +172,25 @@ __device__ void enqueue(const WideGeom& g, const float* __restrict__ Ta,
 // last read before its next write: raw A and N of stage t were read by
 // form(t) in the previous step, raw B of stage t - 1 (ring of RB = 3
 // when compute reads it) and formed slot (t - 1) % 2 by compute(t - 1).
-template <int BT, int NT, int RB, typename Form, typename Compute,
-          typename SegmentEnd>
-__device__ void stream_stages(const WideGeom& g, const float* __restrict__ Ta,
-                              const float* __restrict__ Nb, int p, int i0,
-                              int j0, float* rA, float* rB, float* rN,
-                              Form form, Compute compute,
-                              SegmentEnd segment_end) {
+template <typename T, int KS, int BT, int NT, int RB, int LDB, typename Form,
+          typename Compute, typename SegmentEnd>
+__device__ void stream_stages(const WideGeom& g, const T* __restrict__ Ta,
+                              const T* __restrict__ Nb, int p, int i0,
+                              int j0, T* rA, T* rB, T* rN, Form form,
+                              Compute compute, SegmentEnd segment_end) {
   const int nstage = g.nseg * g.spseg;
-  enqueue<BT, NT, RB>(g, Ta, Nb, p, 0, nstage, i0, j0, rA, rB, rN);
-  enqueue<BT, NT, RB>(g, Ta, Nb, p, 1, nstage, i0, j0, rA, rB, rN);
+  enqueue<T, KS, BT, NT, RB, LDB>(g, Ta, Nb, p, 0, nstage, i0, j0, rA, rB,
+                                  rN);
+  enqueue<T, KS, BT, NT, RB, LDB>(g, Ta, Nb, p, 1, nstage, i0, j0, rA, rB,
+                                  rN);
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   __syncthreads();
   form(0);
   for (int t = 0; t < nstage; ++t) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
-    enqueue<BT, NT, RB>(g, Ta, Nb, p, t + 2, nstage, i0, j0, rA, rB, rN);
+    enqueue<T, KS, BT, NT, RB, LDB>(g, Ta, Nb, p, t + 2, nstage, i0, j0, rA,
+                                    rB, rN);
     if (t + 1 < nstage) form(t + 1);
     compute(t);
     if ((t + 1) % g.spseg == 0 || t + 1 == nstage) segment_end();
@@ -237,8 +267,8 @@ wide_gram_f32_kernel(const float* __restrict__ Ta,
         part[u][v] = 0.f;
       }
   };
-  stream_stages<BT, NT, 3>(g, Ta, Nb, p, i0, j0, rA, rB, rN, form, compute,
-                           segment_end);
+  stream_stages<float, kStage, BT, NT, 3, BT>(g, Ta, Nb, p, i0, j0, rA, rB,
+                                              rN, form, compute, segment_end);
 
   AccT* Gb = G + static_cast<size_t>(b) * g.B1 * g.B1;
 #pragma unroll
@@ -340,8 +370,115 @@ wide_gram_dmma_kernel(const float* __restrict__ Ta,
           part[u][v][e] = 0.0;
         }
   };
-  stream_stages<BT, NT, 2>(g, Ta, Nb, p, i0, j0, rA, rB, rN, form, compute,
-                           segment_end);
+  stream_stages<float, kStage, BT, NT, 2, BT>(g, Ta, Nb, p, i0, j0, rA, rB,
+                                              rN, form, compute, segment_end);
+
+  double* Gb = G + static_cast<size_t>(b) * g.B1 * g.B1;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = i0 + 32 * wr + 8 * u + (lane >> 2);
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + 32 * wc + 8 * v + 2 * (lane & 3) + e;
+        if (i < g.B1 && j < g.B1)
+          Gb[static_cast<size_t>(i) * g.B1 + j] =
+              sAcc[((4 * u + v) * 2 + e) * NT + tid];
+      }
+  }
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && tid == 0)
+    atomicAdd(count, 1ull);
+}
+
+// Float64 form on DMMA over float64 Ta and N: tile BT = 32 W, warp (wr,
+// wc) of W x W owns rows i0 + 32 wr .. + 31 and columns j0 + 32 wc .. + 31
+// as 4 x 4 MMA tiles, with the widening form's fragment layout.  Stages of
+// kStage64 rows; the column tile's raw rows (ring of 3, row stride LD =
+// BT + 4) are the B operand as they land, and form(t) zeroes their rows
+// from the stage's length up to the next multiple of 4 (never copied,
+// they would otherwise hold stale values, NaN among them).  Shared
+// memory: the running sums [32][NT], the quotients [2][kStage64][LD], the
+// column tile's rows [3][kStage64][LD], the row tile's raw rows
+// [2][kStage64][BT], N [2][kStage64].
+template <int W>
+__global__ void __launch_bounds__(32 * W * W, 1)
+wide_gram_f64_kernel(const double* __restrict__ Ta,
+                     const double* __restrict__ N, double* __restrict__ G,
+                     WideGeom g, unsigned long long* __restrict__ count) {
+  constexpr int BT = 32 * W, LD = BT + 4, NT = 32 * W * W, KS = kStage64;
+  constexpr int SR = KS * BT, SD = KS * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* sAcc = reinterpret_cast<double*>(smem_raw);
+  double* sA = sAcc + 32 * NT;
+  double* rB = sA + 2 * SD;
+  double* rA = rB + 3 * SD;
+  double* rN = rA + 2 * SR;
+  const int b = blockIdx.z, p = b % g.P;
+  const int i0 = blockIdx.y * BT, j0 = blockIdx.x * BT;
+  const int wa = min(BT, g.B1 - i0);
+  const double* Nb = N + static_cast<size_t>(b) * g.Nmax;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wr = warp / W, wc = warp - wr * W;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) sAcc[e * NT + tid] = 0.0;
+  double part[4][4][2];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) part[u][v][0] = part[u][v][1] = 0.0;
+
+  auto form = [&](int t) {
+    const StageT<KS> st(g, t);
+    const int rows4 = (st.len + 3) & ~3;
+    const double* cA = rA + (t & 1) * SR;
+    const double* cN = rN + (t & 1) * KS;
+    double* dA = sA + (t & 1) * SD;
+    double* dB = rB + (t % 3) * SD;
+    for (int e = tid; e < rows4 * BT; e += NT) {
+      const int k = e / BT, c = e - k * BT;
+      if (k < st.len) {
+        dA[k * LD + c] = c < wa && st.r0 + k < g.Nmax
+                             ? quotient(cA[e], cN[k])
+                             : 0.0;
+      } else {
+        dA[k * LD + c] = 0.0;
+        dB[k * LD + c] = 0.0;
+      }
+    }
+  };
+  auto compute = [&](int t) {
+    const int rows4 = (StageT<KS>(g, t).len + 3) & ~3;
+    const double* pa =
+        sA + (t & 1) * SD + (lane & 3) * LD + 32 * wr + (lane >> 2);
+    const double* pb =
+        rB + (t % 3) * SD + (lane & 3) * LD + 32 * wc + (lane >> 2);
+    for (int k = 0; k < rows4; k += 4) {
+      double a[4], bq[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) a[u] = pa[k * LD + 8 * u];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) bq[v] = pb[k * LD + 8 * v];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) dmma(part[u][v], a[u], bq[v]);
+    }
+  };
+  auto segment_end = [&]() {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          double& a = sAcc[((4 * u + v) * 2 + e) * NT + tid];
+          a = a + part[u][v][e];
+          part[u][v][e] = 0.0;
+        }
+  };
+  stream_stages<double, KS, BT, NT, 3, LD>(g, Ta, Nb, p, i0, j0, rA, rB, rN,
+                                           form, compute, segment_end);
 
   double* Gb = G + static_cast<size_t>(b) * g.B1 * g.B1;
 #pragma unroll
@@ -370,16 +507,23 @@ constexpr size_t kDmmaSmem =
     (32 * static_cast<size_t>(kDmmaThreads) + 4 * kStage * kDmmaLd) *
         sizeof(double) +
     (4 * kStage * kDmmaTile + 2 * kStage) * sizeof(float);
+// the float64 form at W x W warps
+constexpr size_t f64_smem(int w) {
+  return (32 * 32 * static_cast<size_t>(w) * w +
+          5 * kStage64 * (32 * static_cast<size_t>(w) + 4) +
+          2 * kStage64 * 32 * static_cast<size_t>(w) + 2 * kStage64) *
+         sizeof(double);
+}
 
 // Launch `kernel` (tile bt, threads per CTA, dynamic shared memory smem),
 // raising its shared-memory limit on the current device at the first
 // launch there (`done` is the kernel's own record).
-template <typename OutT>
-cudaError_t launch(void (*kernel)(const float*, const float*, OutT*,
-                                  WideGeom, unsigned long long*),
+template <typename InT, typename OutT>
+cudaError_t launch(void (*kernel)(const InT*, const InT*, OutT*, WideGeom,
+                                  unsigned long long*),
                    int* done, int bt, int threads, size_t smem,
-                   const WideGeom& g, int batch, const float* Ta,
-                   const float* N, void* G, unsigned long long* count,
+                   const WideGeom& g, int batch, const void* Ta,
+                   const void* N, void* G, unsigned long long* count,
                    cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -393,15 +537,18 @@ cudaError_t launch(void (*kernel)(const float*, const float*, OutT*,
   }
   const int tiles = (g.B1 + bt - 1) / bt;
   kernel<<<dim3(tiles, tiles, batch), threads, smem, stream>>>(
-      Ta, N, static_cast<OutT*>(G), g, count);
+      static_cast<const InT*>(Ta), static_cast<const InT*>(N),
+      static_cast<OutT*>(G), g, count);
   return cudaGetLastError();
 }
 
-int done_f32[kMaxDevices], done_f64acc[kMaxDevices], done_dmma[kMaxDevices];
+int done_f32[kMaxDevices], done_f64acc[kMaxDevices], done_dmma[kMaxDevices],
+    done_f64w2[kMaxDevices], done_f64w4[kMaxDevices];
 
 }  // namespace
 
-int ptg_gram_wide_config(int form, int* tile, int* threads, size_t* smem) {
+int ptg_gram_wide_config(int form, int batch, int B1, int* tile,
+                         int* threads, size_t* smem) {
   switch (form) {
     case 0:
       *tile = 8 * kF32TD;
@@ -418,22 +565,40 @@ int ptg_gram_wide_config(int form, int* tile, int* threads, size_t* smem) {
       *threads = kDmmaThreads;
       *smem = kDmmaSmem;
       return 0;
+    case 3: {
+      // 128 x 128 where that grid holds a CTA per SM, else 64 x 64
+      int dev = 0, sms = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const long t128 = (B1 + 127) / 128;
+      const int w = t128 * t128 * batch >= sms ? 4 : 2;
+      *tile = 32 * w;
+      *threads = 32 * w * w;
+      *smem = f64_smem(w);
+      return 0;
+    }
     default:
       return -1;
   }
 }
 
 cudaError_t ptg_launch_gram_accumulate_wide(
-    const float* Ta, const float* N, void* G, int* extent, int batch, int P,
+    const void* Ta, const void* N, void* G, int* extent, int batch, int P,
     int nseg, int m, int B1, int Nmax, int form, unsigned long long* count,
     cudaStream_t stream) {
   (void)extent;  // every row is multiplied: no extent scan
   if (batch == 0) return cudaSuccess;
   int tile = 0, threads = 0;
   size_t smem = 0;
-  if (ptg_gram_wide_config(form, &tile, &threads, &smem) != 0)
-    return cudaErrorInvalidValue;
-  const WideGeom g{P, nseg, m, B1, Nmax, (m + kStage - 1) / kStage};
+  const int code = ptg_gram_wide_config(form, batch, B1, &tile, &threads,
+                                        &smem);
+  if (code != 0)
+    return code < 0 ? cudaErrorInvalidValue : static_cast<cudaError_t>(code);
+  const int ks = form == 3 ? kStage64 : kStage;
+  const WideGeom g{P, nseg, m, B1, Nmax, (m + ks - 1) / ks};
   switch (form) {
     case 0:
       return launch(wide_gram_f32_kernel<float, kF32TD>, done_f32, tile,
@@ -441,8 +606,14 @@ cudaError_t ptg_launch_gram_accumulate_wide(
     case 1:
       return launch(wide_gram_f32_kernel<double, kF64AccTD>, done_f64acc,
                     tile, threads, smem, g, batch, Ta, N, G, count, stream);
-    default:
+    case 2:
       return launch(wide_gram_dmma_kernel, done_dmma, tile, threads, smem, g,
                     batch, Ta, N, G, count, stream);
+    default:
+      return tile == 128
+                 ? launch(wide_gram_f64_kernel<4>, done_f64w4, tile, threads,
+                          smem, g, batch, Ta, N, G, count, stream)
+                 : launch(wide_gram_f64_kernel<2>, done_f64w2, tile, threads,
+                          smem, g, batch, Ta, N, G, count, stream);
   }
 }

@@ -15,7 +15,7 @@
 constexpr int kCholMaxN = 96;
 // Largest augmented basis width B1 gram_accumulate takes: 16 x 16 threads
 // of 4 x 4 register tiles per chain (float32 forms), 8 DMMA column tiles
-// per warp (widening form).
+// per warp (widening and float64 forms).
 constexpr int kGramMaxB1 = 64;
 // Row slices per pulsar of gram_accumulate's extent scan; the caller's
 // extent scratch holds P * kGramExtentSlices ints.
@@ -43,8 +43,11 @@ cudaError_t ptg_launch_chol_solve_sample_f64(
 // form 0: float32 segment dots, float32 segment reduce, float32 out
 // form 1: float32 segment dots, float64 segment reduce, float64 out
 // form 2: float64 ("widen") accumulation inside and across segments
+// form 3: float64 Ta and N (float64 storage), float64 products and sums
+// Ta and N are float32 in forms 0-2 and float64 in form 3; G is float32 in
+// form 0 and float64 otherwise.
 cudaError_t ptg_launch_gram_accumulate(
-    const float* Ta, const float* N, void* G, int* extent, int batch, int P,
+    const void* Ta, const void* N, void* G, int* extent, int batch, int P,
     int nseg, int m, int B1, int Nmax, int form, unsigned long long* count,
     cudaStream_t stream);
 
@@ -65,7 +68,7 @@ cudaError_t ptg_launch_chol_solve_sample_wide_f64(
 // same arguments (extent unused: every row is multiplied), forms and
 // result, the output tiled across CTAs.  One launch.
 cudaError_t ptg_launch_gram_accumulate_wide(
-    const float* Ta, const float* N, void* G, int* extent, int batch, int P,
+    const void* Ta, const void* N, void* G, int* extent, int batch, int P,
     int nseg, int m, int B1, int Nmax, int form, unsigned long long* count,
     cudaStream_t stream);
 
@@ -74,8 +77,10 @@ cudaError_t ptg_launch_gram_accumulate_wide(
 // clusters the card runs at once (found, with the kernel's attributes
 // set, on the first call on the current device), threads per CTA and
 // dynamic shared memory; the Gram's output tile, threads per CTA and
-// dynamic shared memory of form `form`.  Return a CUDA error code / -1
-// for a bad form.
+// dynamic shared memory of form `form` at `batch` systems of augmented
+// width B1 (the float64 form picks its tile from both).  Return a CUDA
+// error code / -1 for a bad form.
 int ptg_chol_wide_config(int is_f64, int batch, int* cluster,
                          int* active16, int* threads, size_t* smem);
-int ptg_gram_wide_config(int form, int* tile, int* threads, size_t* smem);
+int ptg_gram_wide_config(int form, int batch, int B1, int* tile,
+                         int* threads, size_t* smem);

@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import settings
+from ..config import current_settings, settings
 from ..ops import kernels
 from ..ops.linalg import (_batched_diag, _mm, _mm_t, _mv, _t,
                           block_grid_cholinv,
@@ -217,22 +217,23 @@ def _gram(cm, Nvec, seg_len, out_dtype, widen):
 
 
 def tnt_d(cm, Nvec, seg_len=None):
-    """``(T^T N^-1 T, T^T N^-1 y)`` with exact (float64) accumulation of
-    the float32 operands, segments reduced in order."""
-    return _gram(cm, Nvec, seg_len or settings.gram_seg_len_exact,
-                 cm.cdtype, True)
+    """``(T^T N^-1 T, T^T N^-1 y)`` with exact (compute-dtype)
+    accumulation of the storage-dtype operands, segments of
+    ``cm.gram_seg_len_exact`` TOAs reduced in order."""
+    return _gram(cm, Nvec, seg_len or cm.gram_seg_len_exact, cm.cdtype,
+                 True)
 
 
 def tnt_d_seg(cm, Nvec, seg_len=None):
-    """Float32 segment products reduced in float64 (the refresh Gram)."""
-    return _gram(cm, Nvec, seg_len or settings.gram_seg_len, cm.cdtype,
-                 False)
+    """Storage-dtype segment products (of ``cm.gram_seg_len`` TOAs)
+    reduced in the compute dtype (the refresh Gram)."""
+    return _gram(cm, Nvec, seg_len or cm.gram_seg_len, cm.cdtype, False)
 
 
 def tnt_d_seg32(cm, Nvec, seg_len=None):
-    """All-float32 segmented Gram (the steady proposal Gram)."""
-    return _gram(cm, Nvec, seg_len or settings.gram_seg_len, cm.dtype,
-                 False)
+    """Storage-dtype segmented Gram, reduced in the storage dtype (the
+    steady proposal Gram; all-float32 under float32 storage)."""
+    return _gram(cm, Nvec, seg_len or cm.gram_seg_len, cm.dtype, False)
 
 
 # ---- kernel ECORR: N = D + U c U^T, disjoint epochs --------------------
@@ -641,11 +642,11 @@ class JointFactors(NamedTuple):
 
 def joint_factor_cache(cm, x, exact=False, mixed=None):
     """Stage 1: the batched factor of the P local blocks, float64
-    (``blocked_chol_inv``) or, in mixed precision (``settings.
-    joint_mixed`` unless ``mixed`` says) and not ``exact``, two-float
+    (``blocked_chol_inv``) or, in mixed precision (``PTGIBBS_JOINT_MIXED``
+    read now, unless ``mixed`` says) and not ``exact``, two-float
     (``tf_chol_factor``)."""
     if mixed is None:
-        mixed = settings.joint_mixed
+        mixed = current_settings().joint_mixed
     use_tf = bool(mixed) and not exact
     d, cols, valid, ccl, nm, Snn, Tg, Agg = _joint_perm_parts(cm, x)
     dj_n = 1.0 / torch.sqrt(torch.diagonal(Snn, dim1=-2, dim2=-1))
@@ -1016,8 +1017,8 @@ def lnlike_white_per(cm, x, r2):
 
 
 def white_ll_rel(cm, x0, r2):
-    """Closure ``q -> ll(q) - ll(x0)`` per pulsar in float32, with the
-    cancellation done per TOA before the sum (``z = N0/Nq``,
+    """Closure ``q -> ll(q) - ll(x0)`` per pulsar in the storage dtype,
+    with the cancellation done per TOA before the sum (``z = N0/Nq``,
     ``0.5 (log z - w (z - 1))``, ``w = r2/N0``)."""
     fdt = cm.dtype
     N0f = cm.ndiag_fast(x0)
@@ -1040,9 +1041,9 @@ def white_block_ll(cm, x, r, r2):
 
 
 def white_ll_ke(cm, x0, r, r2):
-    """Kernel-ECORR white-block closure: the float32 relative diagonal
-    form plus the Woodbury correction at ``q`` (its ``x0`` constant
-    cancels in MH differences), ``r`` the block-fixed residual.  N is
+    """Kernel-ECORR white-block closure: the storage-dtype relative
+    diagonal form plus the Woodbury correction at ``q`` (its ``x0``
+    constant cancels in MH differences), ``r`` the block-fixed residual.  N is
     ``ndiag_fast`` throughout, as in the exact b-draw's weights."""
     base = white_ll_rel(cm, x0, r2)
 
@@ -1225,10 +1226,10 @@ def lnlike_orf_fn(cm, b):
 def parallel_cov_mh_scan_core(cm, x, ll_per_fn, par_ix, nper, chol,
                               scale, z, logu, coin=None, record=True,
                               mode=None, asqrt=None, inflate=1.3):
-    """Per-pulsar full-block MH with adapted proposals (float32), mixing
-    a random walk ``x_p + scale (2.38/sqrt(W_p)) L_p z`` with, when
-    ``mode`` is given, an independence proposal ``mode_p + inflate L_p
-    z`` accepted with its Hastings ratio.
+    """Per-pulsar full-block MH with adapted proposals (storage dtype),
+    mixing a random walk ``x_p + scale (2.38/sqrt(W_p)) L_p z`` with,
+    when ``mode`` is given, an independence proposal ``mode_p + inflate
+    L_p z`` accepted with its Hastings ratio.
 
     Noise (steps lead): ``scale`` (S, ..., P), ``z`` (S, ..., P, W),
     ``logu`` (S, ..., P), ``coin`` (S, ..., P) bool (independence
@@ -1303,9 +1304,9 @@ def parallel_cov_mh_scan(cm, x, gen, ll_per_fn, par_ix, nper, chol, nsteps,
 
 
 def _prior_halfwidth2(cm):
-    """(nx,) squared prior half-widths (normal: 2 sd)."""
-    pb = cm.pb.to(torch.float64)
-    pa = cm.pa.to(torch.float64)
+    """(nx,) squared prior half-widths (normal: 2 sd), in the storage
+    dtype of ``pa``/``pb`` as the JAX package's numpy computes them."""
+    pb, pa = cm.pb, cm.pa
     w = torch.where(cm.pkind == 1, 2.0 * pb, torch.abs(pb - pa))
     return (0.5 * w) ** 2
 

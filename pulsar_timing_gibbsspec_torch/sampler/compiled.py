@@ -44,7 +44,7 @@ import math
 import numpy as np
 import torch
 
-from ..config import resolve_device, settings
+from ..config import current_settings, resolve_device, settings
 
 #: prior-variance stand-in for the marginalized timing-model columns
 #: (the JAX package's ``BIG_PHI``, kept identical)
@@ -337,6 +337,10 @@ class CompiledPTA:
     #: the length of the leading tenant axis of a tenant stack, 0 for one
     #: model
     tenants: int = 0
+    #: TOA-segment lengths of the segmented Grams (steady and refresh /
+    #: exact), the settings' when the model was built
+    gram_seg_len: int = 96
+    gram_seg_len_exact: int = 96
     #: the arrays the model was built from (:func:`from_arrays`'s
     #: ``fields``, numpy on the host), which the NumPy oracle reads
     #: through :class:`.host_model.HostPTA`; None when not kept
@@ -686,7 +690,11 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
     basis, residuals, TOA variances and static prior variances come from
     ``fields["host"]`` (lists of per-pulsar arrays ``T``, ``y``,
     ``sigma2``, ``phi_base``): arrays without it build a model that the
-    oracle refuses.
+    oracle refuses.  The storage and compute dtypes are the fields'
+    ``dtype`` and ``cdtype`` (the JAX ``CompiledPTA`` records both; the
+    defaults float32 / float64 where ``fields`` lacks them), not the
+    environment's: a float64 JAX model arrives float64.  The Gram segment
+    lengths are the environment's (:func:`..config.current_settings`).
     A correlated ORF whose common
     process shares columns with intrinsic red noise (``compile_pta``
     refuses it) or any other PSD or component kind raises
@@ -725,7 +733,9 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
             f"red PSD {fields['red_kind']!r} is not one of the JAX "
             "package's PSDs (models/psd.py), all of which the port "
             "compiles")
-    dt, cdt = settings.dtype, settings.cdtype
+    st = current_settings()
+    dt = _torch_dtype(fields.get("dtype", settings.dtype), "dtype")
+    cdt = _torch_dtype(fields.get("cdtype", settings.cdtype), "cdtype")
 
     def t(v, dtype=dt):
         return torch.as_tensor(np.asarray(v), dtype=dtype, device=dev)
@@ -799,7 +809,23 @@ def from_arrays(fields: dict, device=None) -> CompiledPTA:
         pulsars=tuple(str(p) for p in fields.get("pulsars", ())),
         b_names=tuple(fields.get("b_names", ())),
         red_f=t(red_f), red_df=t(red_df), **ke, arrays=dict(fields),
+        gram_seg_len=st.gram_seg_len,
+        gram_seg_len_exact=st.gram_seg_len_exact,
     )
+
+
+def _torch_dtype(v, name):
+    """A float32 / float64 dtype given as a torch dtype, a numpy dtype
+    or type, or a name."""
+    if isinstance(v, torch.dtype):
+        out = v
+    else:
+        out = {"float32": torch.float32, "float64": torch.float64}.get(
+            np.dtype(v).name)
+    if out not in (torch.float32, torch.float64):
+        raise ValueError(f"fields[{name!r}]={v!r} must be float32 or "
+                         "float64")
+    return out
 
 
 #: the keys of the ensemble stage's state and of the device sketch's

@@ -114,8 +114,8 @@ import time
 import numpy as np
 import torch
 
-from ..config import (ensemble_choice, hd_kernel_choice, record_dtype,
-                      rho_collapse_choice, settings)
+from ..config import (current_settings, ensemble_choice, hd_kernel_choice,
+                      record_dtype, rho_collapse_choice)
 from ..obs import trace as otrace
 from ..ops.acf import integrated_act_columns
 from ..runtime import faults, preemption, telemetry
@@ -303,14 +303,14 @@ class _Records:
     def __init__(self, drv, rows):
         cm, C = drv.cm, drv.C
         dev = cm.device
-        f64 = torch.float64
+        cdt = cm.cdtype
         self.dev = dict(
             xs=torch.empty((rows, C, cm.nx), dtype=drv.rdtype, device=dev),
             bs=torch.empty((rows, C, drv.nb_total), dtype=drv.rdtype,
                            device=dev),
-            x_end=torch.empty((C, cm.nx), dtype=f64, device=dev),
-            b_end=torch.empty((C, cm.P, cm.Bmax), dtype=f64, device=dev),
-            acc=torch.empty((C, cm.P), dtype=f64, device=dev),
+            x_end=torch.empty((C, cm.nx), dtype=cdt, device=dev),
+            b_end=torch.empty((C, cm.P, cm.Bmax), dtype=cdt, device=dev),
+            acc=torch.empty((C, cm.P), dtype=torch.float64, device=dev),
             finite=torch.empty(C, dtype=torch.bool, device=dev),
             move_frac=torch.empty(C, dtype=torch.float32, device=dev),
             rho_ok=torch.empty(C, dtype=torch.bool, device=dev))
@@ -399,8 +399,9 @@ class TorchGibbsDriver:
     ``graphs`` (default: on when ``cm`` lives on a card) replays the
     steady sweep from CUDA graphs; ``graphs=False`` runs it eagerly, the
     check of the graphs against the eager sweep.  ``joint_mixed`` (None:
-    ``settings.joint_mixed``) selects the two-float factors of a
-    correlated ORF's steady joint b-draw; False keeps float64.
+    ``PTGIBBS_JOINT_MIXED``, read when the driver is built) selects the
+    two-float factors of a correlated ORF's steady joint b-draw; False
+    keeps float64.
 
     The JAX driver's sweep options: ``exact_every`` (the near-exact
     refresh b-draw on every ``exact_every``-th sweep; 1 under kernel
@@ -524,8 +525,8 @@ class TorchGibbsDriver:
         self.do_scale = blocks._rho_scale_applies(cm)
         #: the correlated-ORF joint b-draw in place of b_mh / b_refresh
         self.do_joint = cm.orf_name != "crn"
-        self.joint_mixed = (settings.joint_mixed if joint_mixed is None
-                            else bool(joint_mixed))
+        self.joint_mixed = (current_settings().joint_mixed
+                            if joint_mixed is None else bool(joint_mixed))
         #: the correlated-ORF b-draw that runs: "joint" (the structured
         #: draw), "pulsar" or "freq" (``PTGIBBS_HD_KERNEL``, past
         #: ``blocks.HD_DENSE_MAX`` coefficients); None without one
@@ -1285,7 +1286,7 @@ class TorchGibbsDriver:
             self._observe_health(health, it_end)
             chain[row:row + m] = xs
             bchain[row:row + m] = bs
-            self.x_cur = x_end
+            self.x_cur = np.asarray(x_end, np.float64)
             self.b = torch.as_tensor(b_end)
             self.it_cur = it_end
             self._acc_cur, self._b_mh_sweeps_cur = acc, bmh_end
@@ -1325,7 +1326,7 @@ class TorchGibbsDriver:
             self.b_mh_sweeps = 0
             self.reset_stage()
             x, b, ii, rowc = self._start(x, chain, bchain, niter)
-            self.x_cur = x.cpu().numpy()
+            self.x_cur = x.cpu().numpy().astype(np.float64)
             self.b = b.cpu()
             self.it_cur = ii
             self._acc_cur = self.b_mh_accepts.cpu().numpy()

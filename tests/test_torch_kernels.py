@@ -265,10 +265,26 @@ def test_cpu_sampler_blocks_never_build_or_launch():
     assert not any(kernels.chol_solve_sample.form_launches.values())
 
 
+def _gram_f64_close_on_card(Ta, N):
+    """The float64-operand form (float64 storage) on float64 copies of
+    ``(Ta, N)`` against its plain version on the card, at the Jacobi
+    scale: within 2 (m + nseg) eps_f64 (float64 products round)."""
+    nseg, m = Ta.shape[1], Ta.shape[2]
+    k = kernels.gram_accumulate(Ta.double(), N.double())
+    p = reference.gram_accumulate_ref(Ta.double(), N.double())
+    dg = torch.sqrt(torch.diagonal(p, dim1=1, dim2=2))
+    scale = dg[:, :, None] * dg[:, None, :]
+    err = ((k - p).abs() / torch.where(scale > 0, scale, 1.0)).max().item()
+    assert k.dtype == torch.float64
+    assert err <= 2 * (m + nseg) * EPS64, (tuple(Ta.shape), err)
+
+
 def _gram_close_on_card(Ta, N):
     """Every Gram form against its plain version on the card, at the
     Jacobi scale: float32 products within 8 sqrt(m + nseg) eps_f32,
-    widened float64 within 2 (m + nseg) eps_f64."""
+    widened float64 and the float64-operand form within 2 (m + nseg)
+    eps_f64."""
+    _gram_f64_close_on_card(Ta, N)
     nseg, m = Ta.shape[1], Ta.shape[2]
     for odt, widen in ((torch.float32, False), (torch.float64, False),
                        (torch.float64, True)):
@@ -366,9 +382,11 @@ def test_cuda_kernels_match_plain_on_the_card():
 
 
 def _gram_equal_on_card(Ta, N):
-    """Every Gram form bitwise equal to its plain version on the card:
-    within a segment each output is one FMA chain over the TOA rows in
-    index order, and segments are added in order, on both sides."""
+    """Every float32-operand Gram form bitwise equal to its plain version
+    on the card: within a segment each output is one FMA chain over the
+    TOA rows in index order, and segments are added in order, on both
+    sides; the float64-operand form in its class."""
+    _gram_f64_close_on_card(Ta, N)
     for odt, widen in ((torch.float32, False), (torch.float64, False),
                        (torch.float64, True)):
         k = kernels.gram_accumulate(Ta, N, out_dtype=odt, widen=widen)
