@@ -4,7 +4,7 @@
 Usage: python3 chip_smoke.py [--seed S] [--outdir DIR] [--steady N]
 
 (``DIR``, default ``build/chip_smoke``, receives phase 13's par/tim
-pair, the checkpoint directories of phases 3b-23 and phase 23's flight
+pair, the checkpoint directories of phases 3b-25 and phase 23's flight
 recorder capture; ``N``, default
 240, is the steady sweeps of the main paths of phases 4, 7, 11 and 18:
 a deeper run reads what checkpoints cost as the record grows.)
@@ -395,7 +395,32 @@ Phases (any failure exits non-zero):
    ``f64_wide`` form at 8 chains and at one (B1 674) and the float64
    factor at the steady proposal's systems (2880 x 37, 8 x 673) are timed
    at those final states, and the float32 form at the 48-TOA segments
-   at 24c's.
+   at 24c's;
+25. the array sharded over ranks (``mesh=``, ``parallel/sharding.py``):
+   the array padded to 46 pulsars at 64 chains, 5 + 48 (its white
+   block adapted on 250 steps, as the side paths'), unsharded and
+   eager (the reference), then on two gloo ranks that share the card
+   (``parallel.sharding.spawn``, pulsar mesh 2: 23 pulsars a rank,
+   eager, since gloo's collectives cannot be captured), checkpointed
+   every 24 sweeps; its chain bitwise equal to the reference's, or else
+   within the class this phase prints (per common rho bin the chains'
+   medians past 8 steady rows within 5 combined standard errors), the
+   manifest verified, every kernel form of the path run on each rank
+   (the ranks' device counters), and each form held against its plain
+   version at the shard's shapes on each rank in turn (timed);
+   samples/s beside the reference's and the card; 25c: the reference's
+   own checkpoint at 5 + 1 + 24 (the ``.bak`` generation) resumed by
+   ``integrity.reshard_restore`` on one rank, eager as the reference,
+   to the end: bitwise equal to the reference's whole chain; then phase
+   25's checkpoint at the same row resumed so on one rank, then again
+   with ``device_count_change_on_resume`` armed (asked 2 ranks, given
+   1): each its first 5 + 1 + 24 rows bitwise phase 25's, the two
+   resumes bitwise equal to each other, and to phase 25's whole chain
+   when 25 was bitwise the reference's; 25b:
+   phase 4's array on a one-rank NCCL group on an explicit (1, 1) mesh,
+   its steady sweep from CUDA graphs with the collectives captured, to
+   W + 48: bitwise equal to phase 4's first rows, its kernels replayed
+   as captured, each form held against its plain version.
 
 To keep the whole run inside its time limit, every main path (4, 11,
 17-19) runs 20 warmup sweeps and phase 7 and the side paths 8 and 12-16
@@ -411,8 +436,8 @@ split), the graphs-against-eager checks 9 sweeps, and every resume and
 graphs-against-eager check adapts its white and ECORR blocks on a
 record of 120 steps; phase 2 times each kernel form once, at its path's
 shape, beside its plain version and library call; phase 24 runs 96
-steady sweeps on the array (as phase 19) and 24c 3 + 24.  Every phase
-prints the run's seconds when it is done.
+steady sweeps on the array (as phase 19) and 24c 3 + 24, phase 25 48.
+Every phase prints the run's seconds when it is done.
 
 The kernels' JSON record and the card as ``nvidia-smi`` reports it are
 the two lines before the last; the last line is the JSON result.
@@ -633,6 +658,15 @@ P24B_FORMS = (("gram_accumulate", "f64_wide"),
 #: the kernel forms of the float32-compute path: every Gram is all
 #: float32 (the exact one too), the steady factor float32
 P24C_FORMS = (("gram_accumulate", "f32"), ("chol_solve_sample", "f32"))
+#: the array sharded over ranks (phases 25-25c): its padded width (an
+#: even split over two ranks), steady sweeps, the checkpoint interval and
+#: chunk (a mid-run checkpoint at 5 + 1 + 24), the steady rows the rho
+#: law skips when a chain is not bitwise, and the kernel forms the path
+#: runs (every Gram form of the f32 array, the steady factor)
+P25_PAD, P25_STEADY, P25_SAVE, P25_BURN = 46, 48, 24, 8
+P25_FORMS = (("gram_accumulate", "f32"),
+             ("gram_accumulate", "f32_dot_f64_reduce"),
+             ("gram_accumulate", "widen_f64"), ("chol_solve_sample", "f32"))
 
 
 #: the run's start on the host clock (set by :func:`main`)
@@ -3790,6 +3824,371 @@ def guards_path(outdir, ctx):
     return ok, out
 
 
+def mesh_rank(rank, kind, seed, outdir):
+    """A rank of phases 25 (``kind`` ``"gloo"``: one of two gloo ranks
+    sharing the card, pulsar mesh 2, the array padded to ``P25_PAD``,
+    eager) and 25b (``"nccl"``: the one rank of an NCCL group on an
+    explicit ``(1, 1)`` mesh, phase 4's array, CUDA graphs captured
+    around the collectives).  Runs the array at 64 chains through W +
+    ``P25_STEADY`` sweeps with its kernel counts set to 0 first, then
+    counts the collectives of one more sweep and holds each kernel form
+    against its plain version at the shard's shapes (the gloo ranks one
+    after the other).  Returns the chains (rank 0), the counts, the
+    parity rows and the timings."""
+    import torch
+    import torch.distributed as dist
+
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.data import synthetic_array
+    from pulsar_timing_gibbsspec_torch.ops import kernels
+    from pulsar_timing_gibbsspec_torch.parallel import sharding
+    from pulsar_timing_gibbsspec_torch.runtime import integrity
+
+    dev = torch.device(DEVICE)
+    gloo = kind == "gloo"
+    psrs = synthetic_array(npsr=45, seed=seed)
+    cm = ptt.build_crn_spectrum(psrs, nbins=10, red_bins=10,
+                                pad_pulsars=P25_PAD if gloo else None,
+                                device=dev)
+    mesh = sharding.make_mesh(2 if gloo else (1, 1), device=DEVICE)
+    # 25 cuts its warmup and white adaptation as the side paths do; 25b
+    # keeps phase 4's, whose rows it must equal
+    warm = SIDE_WARMUP if gloo else WARMUP
+    niter = warm + 1 + P25_STEADY
+    sharding.reset_collectives()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    g = ptt.PTABlockGibbs(cm, nchains=NCHAINS, device=dev, seed=seed,
+                          warmup_sweeps=warm, progress=False, mesh=mesh,
+                          **({"chunk_size": P25_SAVE,
+                              "white_adapt_iters": SIDE_WHITE_ADAPT}
+                             if gloo else {}))
+    x0 = g.initial_sample(torch.Generator(device=dev).manual_seed(seed))
+    out = Path(outdir) / ("mesh2" if gloo else "mesh11")
+    chain = g.sample(x0, outdir=out, niter=niter,
+                     save_every=P25_SAVE if gloo else SAVE_EVERY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    drv = g.driver
+    runs = kernels.device_launches()
+    host = kernels.launch_counts()
+    run_coll = dict(sharding.COLLECTIVES)
+    res = {"rank": rank, "wall": wall, "runs": runs, "host": host,
+           "sps": drv.steady_sweeps / drv.steady_seconds,
+           "steady_ms": {k: v / drv.steady_sweeps
+                         for k, v in drv.timer.ms.items()},
+           "graphs_off": drv.graphs_off, "graphed": drv.carry.graphed,
+           "collectives_run": run_coll,
+           "layout": sharding.mesh_layout(mesh),
+           "shard": (drv.cm.p0, drv.cm.pn, drv.c0, drv.Cl),
+           "verify": integrity.verify(out) if rank == 0 else None}
+    if drv.carry.graphed:
+        res["counts"] = launch_counts(drv.carry)
+    c = drv.carry
+    if not c.graphed:
+        _, res["collectives_sweep"] = sharding.collective_report(
+            lambda: drv._sweep(c.x, c.b, c.u, False, niter))
+    if rank == 0:
+        res["chain"], res["bchain"] = chain, g.bchain
+    xs = torch.as_tensor(drv.x_cur[drv.c0:drv.c0 + drv.Cl],
+                         dtype=cm.cdtype, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 25)
+    recs, ok = {}, True
+    for turn in range(mesh.size if gloo else 1):
+        if turn == rank:
+            print(f"phase 2 at phase 25{'' if gloo else 'b'}'s final "
+                  f"state, rank {rank}'s shard ({drv.cm.pn} of "
+                  f"{drv.cm.P} pulsars, {drv.Cl} chains):", flush=True)
+            rg, okg = gram_parity(drv.cm, xs, time_ms,
+                                  forms=tuple(f for k, f in P25_FORMS
+                                              if k == "gram_accumulate"))
+            rc, okc = chol_parity(drv.cm, xs, gen, time_ms)
+            recs, ok = {**rg, **rc}, okg and okc
+        if gloo:
+            dist.barrier()
+    res["recs"], res["parity_ok"] = recs, ok
+    return res
+
+
+def _first_difference(a, b):
+    """``(first differing row, max |a - b|)`` of two chains, or ``(None,
+    0.0)`` when they are bitwise equal."""
+    import numpy as np
+
+    if np.array_equal(a, b):
+        return None, 0.0
+    bad = np.argwhere((a != b).reshape(len(a), -1).any(-1))
+    return int(bad[0][0]), float(np.nanmax(np.abs(a - b)))
+
+
+def mesh_paths(args, psrs, head4, outdir):
+    """Phases 25-25c (module docstring): the array padded to
+    ``P25_PAD`` unsharded (eager, the reference), on two gloo ranks
+    sharing the card (25), its mid-run checkpoint resumed on one rank
+    by ``reshard_restore`` (25c, and again with
+    ``device_count_change_on_resume`` armed), and phase 4's array on a
+    one-rank NCCL ``(1, 1)`` mesh with graphs (25b) against ``head4``,
+    phase 4's first rows.  Returns the kernels line's rows, or None when
+    a phase failed."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import pulsar_timing_gibbsspec_torch as ptt
+    from pulsar_timing_gibbsspec_torch.parallel import sharding
+    from pulsar_timing_gibbsspec_torch.runtime import faults, integrity
+    from pulsar_timing_gibbsspec_torch.sampler import blocks
+
+    dev = torch.device(DEVICE)
+    card = card_line()
+    niter = SIDE_WARMUP + 1 + P25_STEADY
+    cm = ptt.build_crn_spectrum(psrs, nbins=10, red_bins=10,
+                                pad_pulsars=P25_PAD, device=dev)
+    kw = dict(nchains=NCHAINS, device=dev, seed=args.seed,
+              warmup_sweeps=SIDE_WARMUP, progress=False,
+              white_adapt_iters=SIDE_WHITE_ADAPT)
+
+    # ---- 25: the reference, then two gloo ranks sharing the card -------
+    t0 = time.perf_counter()
+    g = ptt.PTABlockGibbs(cm, graphs=False, chunk_size=P25_SAVE, **kw)
+    x0 = g.initial_sample(torch.Generator(device=dev).manual_seed(
+        args.seed))
+    ref = g.sample(x0, outdir=outdir / "mesh_ref", niter=niter,
+                   save_every=P25_SAVE)
+    ref_b, drv = g.bchain, g.driver
+    ref_sps = drv.steady_sweeps / drv.steady_seconds
+    print(f"phase 25 reference: the array padded to {P25_PAD} pulsars, "
+          f"unsharded, eager, {niter} rows x {NCHAINS} chains in "
+          f"{time.perf_counter() - t0:.1f} s; steady {ref_sps:.3f} "
+          f"sweeps/s = {ref_sps * NCHAINS:.1f} samples/s ({card})",
+          flush=True)
+    del g, drv
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = sharding.spawn(mesh_rank, 2, backend="gloo", device="cuda:0",
+                           args=("gloo", args.seed, str(outdir)))
+    r0 = ranks[0]
+    chain, bchain = r0["chain"], r0["bchain"]
+    row_x, dx = _first_difference(chain, ref)
+    row_b, db = _first_difference(bchain, ref_b)
+    bitwise = row_x is None and row_b is None
+    finite = bool(np.isfinite(chain).all() and np.isfinite(bchain).all())
+    if bitwise:
+        law, zs = True, None
+    else:
+        # the class when not bitwise: the common rho law of both runs,
+        # past P25_BURN steady rows (chain_medians counts from W + 1)
+        burn = P25_BURN - (WARMUP - SIDE_WARMUP)
+        (m1, s1), (m2, s2) = (chain_medians(chain, cm, range(NCHAINS),
+                                            burn),
+                              chain_medians(ref, cm, range(NCHAINS), burn))
+        zs = np.abs(m1 - m2) / np.sqrt(s1 ** 2 + s2 ** 2 + 1e-300)
+        law = bool((zs <= 5.0).all())
+    rep = r0["verify"]
+    sps = r0["sps"]
+    print(f"phase 25 two gloo ranks sharing the card, pulsar mesh 2 (shards "
+          + json.dumps([r["shard"] for r in ranks]) + " as (first pulsar, "
+          f"pulsars, first chain, chains)), eager ({r0['graphs_off']} "
+          f"collectives cannot be captured): {niter} rows x {NCHAINS} "
+          f"chains, spawn to exit {time.perf_counter() - t0:.1f} s (rank "
+          f"0's run {r0['wall']:.1f} s); steady {sps:.3f} sweeps/s = "
+          f"{sps * NCHAINS:.1f} samples/s, "
+          f"{sps / ref_sps:.3f} of the unsharded eager reference's "
+          f"({card}); rows {len(chain)}, manifest verified {rep['ok']} at "
+          f"{rep['rows']} rows", flush=True)
+    print("phase 25 per-block ms per steady sweep, rank 0 (CUDA events): "
+          + json.dumps({k: round(v, 4)
+                        for k, v in sorted(r0["steady_ms"].items())}),
+          flush=True)
+    for r in ranks:
+        print(f"phase 25 rank {r['rank']} kernel runs counted on the card "
+              "(eager: the host's launches): " + json.dumps(
+                  {f"{k}[{f}]": n for (k, f), n in r["runs"].items() if n})
+              + "; collectives in the run " + json.dumps(
+                  r["collectives_run"]) + ", in one steady sweep "
+              + json.dumps(r["collectives_sweep"]), flush=True)
+    # why a shard's chain may leave the reference's: whether a row sum's
+    # and a batched product's bits on the card depend on how many rows or
+    # systems the call is given (a shard gives half of them)
+    pg = torch.Generator(device=dev).manual_seed(args.seed)
+    ph, n = P25_PAD // 2, cm.Bmax
+    a = torch.randn((NCHAINS * P25_PAD, cm.Nmax), dtype=cm.dtype,
+                    device=dev, generator=pg)
+    bb = torch.randn((NCHAINS, P25_PAD, n), dtype=cm.dtype, device=dev,
+                     generator=pg)
+    S = torch.randn((NCHAINS * P25_PAD, n, n), dtype=torch.float64,
+                    device=dev, generator=pg)
+    probes = {
+        "row sums": torch.equal(a.sum(-1)[:NCHAINS * ph],
+                                a[:NCHAINS * ph].sum(-1)),
+        "u = T b": torch.equal(blocks.b_matvec(cm, bb)[:, :ph], torch.matmul(
+            cm.T[:ph], bb[:, :ph, :, None])[..., 0]),
+        "float64 products of the factor": torch.equal(
+            torch.matmul(S, S)[:NCHAINS * ph],
+            torch.matmul(S[:NCHAINS * ph], S[:NCHAINS * ph]))}
+    # the Laplace step's eigendecompositions of the white blocks
+    W = int(cm.white_par_ix.shape[1])
+    E = S[:, :W, :W]
+    E = E @ E.transpose(-1, -2) + torch.eye(W, dtype=E.dtype, device=dev)
+    full, part = (torch.linalg.eigh(E), torch.linalg.eigh(
+        E[:NCHAINS * ph]))
+    probes[f"eigh of {W} x {W} blocks"] = (
+        torch.equal(full[0][:NCHAINS * ph], part[0])
+        and torch.equal(full[1][:NCHAINS * ph], part[1]))
+    print(f"phase 25 the card's results for the first half of a call's rows "
+          f"or systems, bitwise equal to the same half given alone: "
+          + json.dumps(probes) + f" (rows of {cm.Nmax} TOAs, T b at "
+          f"{NCHAINS} x {P25_PAD} pulsars, {NCHAINS * P25_PAD} float64 "
+          f"products of order {n}, as many eigh)", flush=True)
+    del a, bb, S, E, full, part
+    print(f"phase 25 against the reference: chain "
+          + ("bitwise equal" if bitwise else
+             f"not bitwise (x from row {row_x}, max |dx| {dx:.3e}; b from "
+             f"row {row_b}, max |db| {db:.3e}); the common rho law in "
+             "combined standard errors " + json.dumps(
+                 [round(float(v), 2) for v in zs]))
+          + f" {'ok' if law else 'FAIL'}", flush=True)
+    missing = [f"rank {r['rank']} {k}[{f}]" for r in ranks
+               for k, f in P25_FORMS if r["runs"].get((k, f), 0) == 0]
+    ok25 = (finite and law and rep["ok"] and rep["rows"] == niter
+            and not missing and all(r["parity_ok"] for r in ranks)
+            and r0["graphs_off"] == "gloo")
+    if not ok25:
+        print(f"chip_smoke: phase 25 failed (finite={finite}, as the "
+              f"reference={law}, verified={rep['ok']}, never run={missing}"
+              ", kernel parity "
+              f"{[r['parity_ok'] for r in ranks]})", file=sys.stderr)
+        return None
+    rows = []
+    for r in ranks:
+        for key, rec in r["recs"].items():
+            k, f = key
+            rows.append(dict(
+                name=f"{k}[{f}] (phase 25 path: rank {r['rank']} of two "
+                f"gloo ranks sharing the card, pulsar mesh 2, its shard "
+                f"{r['shard'][1]} of {P25_PAD} pulsars x {NCHAINS} chains)",
+                route="cuda", source=SOURCES[k][f.endswith("_wide")],
+                replaces=REPLACES[k], launches=r["runs"][key], **rec))
+    elapsed("phase 25")
+
+    # ---- 25c: the mid-run checkpoint resumed on one rank --------------
+    mid = SIDE_WARMUP + 1 + P25_SAVE
+    # the reference's own checkpoint: the resume replays the rest of the
+    # uninterrupted reference bitwise
+    dst = outdir / "mesh_ref_resume"
+    shutil.copytree(outdir / "mesh_ref", dst)
+    # the .bak generation is the checkpoint before the last: row mid
+    rolled = integrity.rollback(dst)
+    at = integrity.verify(dst)
+    g = integrity.reshard_restore(dst, cm, devices=1, graphs=False,
+                                  chunk_size=P25_SAVE, **{
+                                      k: v for k, v in kw.items()
+                                      if k != "nchains"})
+    res = g.sample(x0, outdir=dst, niter=niter, resume=True,
+                   save_every=P25_SAVE)
+    row_x, dx = _first_difference(res, ref)
+    row_b, db = _first_difference(g.bchain, ref_b)
+    same = row_x is None and row_b is None
+    print(f"phase 25c the reference's checkpoint at row {at['rows']} "
+          f"(rolled back to .bak {rolled}) resumed by reshard_restore on "
+          f"one rank, eager: {len(res)} rows, bitwise equal to the "
+          "uninterrupted reference " + ("True" if same else
+                                        f"False (x from row {row_x}, max "
+                                        f"|dx| {dx:.3e}; b from row "
+                                        f"{row_b}, max |db| {db:.3e})"),
+          flush=True)
+    if not (rolled and at["rows"] == mid and g.mesh is None and same):
+        print("chip_smoke: phase 25c failed (the reference's resume)",
+              file=sys.stderr)
+        return None
+    del g, res
+    # phase 25's checkpoint, twice: the resumes run unsharded from one
+    # checkpoint, bitwise equal to each other and to phase 25's rows
+    # before it; to phase 25's whole chain where 25 was bitwise the
+    # reference's
+    got = []
+    for tag, devices, fault in (("", 1, None), (" under the device-count "
+                                               "fault (asked 2, given 1)",
+                                               2, 1)):
+        dst = outdir / f"mesh2_resume{devices}"
+        shutil.copytree(outdir / "mesh2", dst)
+        rolled = integrity.rollback(dst)
+        at = integrity.verify(dst)
+        if fault is not None:
+            faults.inject("device_count_change_on_resume", devices=fault)
+        g = integrity.reshard_restore(dst, cm, devices=devices,
+                                      chunk_size=P25_SAVE, **{
+                                          k: v for k, v in kw.items()
+                                          if k != "nchains"})
+        faults.clear()
+        res = g.sample(x0, outdir=dst, niter=niter, resume=True,
+                       save_every=P25_SAVE)
+        prefix = (np.array_equal(res[:mid], chain[:mid])
+                  and np.array_equal(g.bchain[:mid], bchain[:mid]))
+        whole = (np.array_equal(res, chain)
+                 and np.array_equal(g.bchain, bchain))
+        twin = (not got or (np.array_equal(res, got[0][0])
+                            and np.array_equal(g.bchain, got[0][1])))
+        got.append((res, g.bchain))
+        print(f"phase 25c phase 25's checkpoint at row {at['rows']} "
+              f"(rolled back to .bak {rolled}) resumed by reshard_restore "
+              f"on one rank{tag}: mesh {g.mesh}, graphs "
+              f"{g.driver.carry.graphed}, {len(res)} rows; its first {mid} "
+              f"rows bitwise phase 25's {prefix}, the whole chain {whole}"
+              + ("" if len(got) == 1 else
+                 f", bitwise equal to the resume without the fault {twin}"),
+              flush=True)
+        ok = (rolled and at["rows"] == mid and g.mesh is None and prefix
+              and twin and bool(np.isfinite(res).all())
+              and (whole or not bitwise))
+        if not ok:
+            print("chip_smoke: phase 25c failed", file=sys.stderr)
+            return None
+        del g
+    del got
+    elapsed("phase 25c")
+
+    # ---- 25b: one NCCL rank on a (1, 1) mesh, graphs -------------------
+    t0 = time.perf_counter()
+    r = sharding.spawn(mesh_rank, 1, backend="nccl", device="cuda:0",
+                       args=("nccl", args.seed, str(outdir)))[0]
+    niter = WARMUP + 1 + P25_STEADY
+    c4, b4 = head4
+    same = (np.array_equal(r["chain"], c4)
+            and np.array_equal(r["bchain"], b4))
+    if not r["graphed"]:
+        print("chip_smoke: phase 25b ran without CUDA graphs",
+              file=sys.stderr)
+        return None
+    runs = r["counts"][0]
+    missing, unreplayed, unaccounted = count_faults(
+        r["counts"], P25_FORMS, GRAPHED)
+    print(f"phase 25b one rank of an NCCL group on the (1, 1) mesh, CUDA "
+          f"graphs {r['graphed']}: {niter} rows x {NCHAINS} chains of "
+          f"phase 4's array, spawn to exit {time.perf_counter() - t0:.1f} "
+          f"s; steady {r['sps']:.3f} sweeps/s = {r['sps'] * NCHAINS:.1f} "
+          f"samples/s ({card}); collectives issued (captures included) "
+          + json.dumps(r["collectives_run"]) + f"; bitwise equal to phase "
+          f"4's first {niter} rows (unsharded, graphed) {same}", flush=True)
+    print_counts("25b", r["counts"])
+    if not (same and r["graphed"] and not missing and not unreplayed
+            and not unaccounted and r["parity_ok"]):
+        print(f"chip_smoke: phase 25b failed (bitwise={same}, graphed="
+              f"{r['graphed']}, never run={missing}, not replayed="
+              f"{unreplayed}, unaccounted={unaccounted})", file=sys.stderr)
+        return None
+    for key, rec in r["recs"].items():
+        k, f = key
+        rows.append(dict(
+            name=f"{k}[{f}] (phase 25b path: one NCCL rank, (1, 1) mesh, "
+            f"graphs, 45 pulsars x {NCHAINS} chains)", route="cuda",
+            source=SOURCES[k][f.endswith("_wide")], replaces=REPLACES[k],
+            launches=runs[key], **rec))
+    elapsed("phase 25b")
+    return rows
+
+
 @contextlib.contextmanager
 def environ(**env):
     """``os.environ`` with ``env`` set, restored after."""
@@ -4222,6 +4621,9 @@ def earlier_paths(args, psrs, gen, outdir, extra):
     # phase 18's rho-law gate: per bin, the chains' medians past the burn
     rho_stats = chain_medians(chain, cm, range(C))
     extra["sps4"], extra["rho_stats"] = sps, rho_stats
+    # phase 25b's reference: the first rows of this unsharded graphed run
+    n25 = WARMUP + 1 + P25_STEADY
+    extra["head4"] = (chain[:n25].copy(), g.bchain[:n25].copy())
     if not profile_steady(drv, 16 * (niter // 16 + 1)):
         print("chip_smoke: the device trace disagrees with the kernels' "
               "device counters", file=sys.stderr)
@@ -4658,6 +5060,11 @@ def _run(args, oracle):
     rows24 = precision_paths(args, psrs, gen, outdir, extra["rho_stats"])
     if rows24 is None:
         return 1
+
+    # ---- phases 25-25c: the array sharded over ranks, counts from 0 -----
+    rows25 = mesh_paths(args, psrs, extra.pop("head4"), outdir)
+    if rows25 is None:
+        return 1
     rows += [
         dict(name=f"{k}[{f}] (phase 13 path: kernel ECORR, B1 "
              f"{cm_ke.Bmax + 1})", route="cuda", source=SOURCES[k][1],
@@ -4668,7 +5075,8 @@ def _run(args, oracle):
              source=SOURCES[k][f.endswith("_wide")], replaces=REPLACES[k],
              launches=runs14[(k, f)], **r)
         for (k, f), r in tp_records.items()] + (rows15 + rows16 + rows20
-                                                 + rows22 + rows23 + rows24)
+                                                 + rows22 + rows23 + rows24
+                                                 + rows25)
 
     print("phase 1 kernel resources (cuobjdump -res-usage: registers, "
           "stack frame bytes, static shared memory bytes): " + (json.dumps(

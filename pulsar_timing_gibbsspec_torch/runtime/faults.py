@@ -48,6 +48,13 @@ Kinds:
   through :func:`poison_tenant_rows` (a single tenant's divergence, the
   quarantine drill's trigger); ``tenant`` names the victim, ``at_row``
   counts its resident chunks.
+- ``"device_loss"``: raise :class:`DeviceLost` at the seam, carrying
+  ``devices``, the surviving device count (and ``slice``, the placement
+  slice it is attributed to, when given).
+- ``"device_count_change_on_resume"``: make :func:`device_count_override`
+  return ``devices``: the pool handing the next incarnation another
+  device count than the checkpoint was written under
+  (``integrity.reshard_restore`` consults it).
 """
 
 from __future__ import annotations
@@ -70,6 +77,27 @@ class InjectedDeviceError(RuntimeError):
     ``device`` class."""
 
 
+class DeviceLost(RuntimeError):
+    """A device dropped out of the mesh mid-run.
+
+    Unlike a transient :class:`InjectedDeviceError`, the lost capacity
+    does not come back on retry: the run must evacuate (drain state
+    through verified checkpoints, rebuild on the surviving devices,
+    ``devices`` or None when unknown, and resume there with
+    ``integrity.reshard_restore``).  ``slice_id`` attributes the loss to
+    one placement slice of a multi-slice service; None: the whole
+    run."""
+
+    def __init__(self, msg, devices=None, slice_id=None):
+        super().__init__(msg)
+        self.devices = devices
+        self.slice_id = slice_id
+
+    def __reduce__(self):
+        # a rank re-raises the writer's exception from its pickle
+        return (type(self), (str(self), self.devices, self.slice_id))
+
+
 @dataclass
 class _Fault:
     kind: str
@@ -79,7 +107,9 @@ class _Fault:
     backend: str | None = None  # fire for this backend name only
     path: str | None = None     # target file of the file-damage kinds
     seconds: float = 0.0        # stall sleep / drain deadline
+    devices: int | None = None  # device_count override / survivors
     tenant: int | None = None   # victim tenant of the serving kinds
+    slice: int | None = None    # victim placement slice (device_loss)
     fired: int = 0
 
 
@@ -88,10 +118,11 @@ _lock = threading.Lock()
 
 
 def inject(kind, point=None, at_row=None, times=1, backend=None, path=None,
-           seconds=0.0, tenant=None):
+           seconds=0.0, devices=None, tenant=None, slice=None):
     """Arm a fault; returns its handle (removed by :func:`clear`)."""
     f = _Fault(kind=kind, point=point, at_row=at_row, times=times,
-               backend=backend, path=path, seconds=seconds, tenant=tenant)
+               backend=backend, path=path, seconds=seconds, devices=devices,
+               tenant=tenant, slice=slice)
     with _lock:
         _armed.append(f)
     return f
@@ -139,11 +170,30 @@ def fire(point, row=None, backend=None, outdir=None):
 
         preemption.request_drain(reason=f"sigterm_at_seam:{point}",
                                  deadline_s=f.seconds or None)
-    for f in _take(point, row, backend, ("crash", "xla_error")):
+    for f in _take(point, row, backend, ("crash", "xla_error",
+                                         "device_loss")):
         if f.kind == "crash":
             raise InjectedCrash(f"injected crash at {point} (row {row})")
+        if f.kind == "device_loss":
+            where = "" if f.slice is None else f" on slice {f.slice}"
+            raise DeviceLost(
+                f"injected device loss{where} at {point} (row {row}): "
+                f"{f.devices if f.devices is not None else '?'} "
+                "device(s) survive", devices=f.devices, slice_id=f.slice)
         raise InjectedDeviceError(
             f"CUDA error: injected device failure at {point} (row {row})")
+
+
+def device_count_override(default=None):
+    """Consume an armed ``device_count_change_on_resume`` fault: its
+    ``devices`` (counting a firing), or ``default`` when none is armed.
+    Resume paths call it to learn the device count the pool hands the
+    next incarnation."""
+    if not _armed:
+        return default
+    hits = _take("resume.device_count", None, None,
+                 ("device_count_change_on_resume",))
+    return hits[-1].devices if hits else default
 
 
 def _damage(path, kind):

@@ -18,6 +18,10 @@ each failure class gets its own response:
                   the budget ends (a sticky CUDA error, which poisons the
                   context, ends there too).  The port's oracle runs only
                   where the caller asks for it (``backend="numpy"``).
+- ``device_loss`` a device left the run (:class:`.faults.DeviceLost`):
+                  counted with ``device``, and retried; moving the run
+                  onto the surviving devices is the caller's
+                  (``integrity.reshard_restore``).
 - ``corruption``  a checkpoint that failed verification past repair:
                   roll back to ``.bak``, then retry.
 - ``divergence``  a NaN or stuck chain caught by the sentinels: rewind
@@ -31,6 +35,12 @@ each failure class gets its own response:
                   ``status="preempted"`` and the call returns.
 - ``user``        bugs and contract violations (shape errors, "no CUDA
                   device is available"): raised at once.
+
+Under a mesh (``gibbs.mesh``, :mod:`..parallel.sharding`) every rank
+runs this loop on its own facade and sees the same exception at the same
+seam (the facade broadcasts the writer's save outcome), so every rank
+takes the same branch; only the writer (global rank 0) writes events,
+rolls back or refolds a checkpoint, and the others learn its outcome.
 """
 
 from __future__ import annotations
@@ -64,12 +74,16 @@ _DEVICE_TYPES = ("OutOfMemoryError", "AcceleratorError", "InternalError")
 
 def classify_failure(exc) -> str:
     """Map an exception from ``sample()`` to a failure class: ``device |
-    corruption | divergence | crash | stall | preempted | user |
-    unknown``."""
+    device_loss | corruption | divergence | crash | stall | preempted |
+    user | unknown``."""
     if isinstance(exc, preemption.Preempted):
         return "preempted"
     if isinstance(exc, DispatchStall):
         return "stall"
+    if isinstance(exc, faults.DeviceLost):
+        # lost capacity does not come back on retry: the caller must
+        # evacuate onto the surviving devices, not replay blindly
+        return "device_loss"
     if isinstance(exc, faults.InjectedCrash):
         return "crash"
     if isinstance(exc, integrity.CheckpointError):
@@ -368,6 +382,18 @@ def run_supervised(gibbs, x0, outdir, niter, save_every=100, resume=True,
     base ``stall_backoff_base``, default ``backoff_base``) without using
     the general budget."""
     rep = SupervisorReport(backend=gibbs.backend_name)
+    mesh = getattr(gibbs, "mesh", None)
+    writer = mesh is None or mesh.rank == 0
+
+    def agree(fn):
+        """``fn()`` on the writer, its result on every rank."""
+        out = fn() if writer else None
+        return out if mesh is None else mesh.broadcast_object(out)
+
+    def log(record):
+        if writer:
+            _log_event(outdir, record)
+
     consecutive_device = 0
     last_div_sig = None
     while True:
@@ -377,7 +403,7 @@ def run_supervised(gibbs, x0, outdir, niter, save_every=100, resume=True,
                                  resume=resume or rep.attempts > 1,
                                  save_every=save_every, **sample_kwargs)
             rep.backend = gibbs.backend_name
-            _log_event(outdir, {"event": "supervised_run_complete",
+            log({"event": "supervised_run_complete",
                                 **rep.as_dict()})
             return chain, rep
         except KeyboardInterrupt:
@@ -387,7 +413,7 @@ def run_supervised(gibbs, x0, outdir, niter, save_every=100, resume=True,
             if kind == "preempted":
                 rep.status = "preempted"
                 rep.backend = gibbs.backend_name
-                _log_event(outdir, {
+                log({
                     "event": "supervised_preempted",
                     "rows": getattr(exc, "rows", None),
                     "verified": getattr(exc, "verified", None),
@@ -396,12 +422,12 @@ def run_supervised(gibbs, x0, outdir, niter, save_every=100, resume=True,
             fail = {"attempt": rep.attempts, "kind": kind,
                     "error": f"{type(exc).__name__}: {exc}"[:300]}
             rep.failures.append(fail)
-            _log_event(outdir, {"event": "supervised_failure", **fail})
+            log({"event": "supervised_failure", **fail})
             if kind == "user":
                 raise
             if kind == "stall":
                 if rep.stall_retries >= stall_max_retries:
-                    _log_event(outdir, {"event": "supervised_giving_up",
+                    log({"event": "supervised_giving_up",
                                         "reason": "stall budget",
                                         **rep.as_dict()})
                     raise
@@ -412,7 +438,7 @@ def run_supervised(gibbs, x0, outdir, niter, save_every=100, resume=True,
                     backoff_base if stall_backoff_base is None
                     else stall_backoff_base,
                     backoff_cap, jitter, seed=backoff_seed)
-                _log_event(outdir, {"event": "supervised_retry",
+                log({"event": "supervised_retry",
                                     "next_attempt": rep.attempts + 1,
                                     "kind": kind,
                                     "stall_retry": rep.stall_retries,
@@ -420,7 +446,7 @@ def run_supervised(gibbs, x0, outdir, niter, save_every=100, resume=True,
                 sleep(delay)
                 continue
             if rep.retries >= max_retries:
-                _log_event(outdir, {"event": "supervised_giving_up",
+                log({"event": "supervised_giving_up",
                                     **rep.as_dict()})
                 raise
             rep.retries += 1
@@ -428,9 +454,9 @@ def run_supervised(gibbs, x0, outdir, niter, save_every=100, resume=True,
             if kind == "corruption":
                 # load_resume already tried the .bak: one more explicit
                 # attempt, then give up
-                if integrity.rollback(outdir):
+                if agree(lambda: integrity.rollback(outdir)):
                     rep.rollbacks += 1
-                    _log_event(outdir, {"event": "checkpoint_rollback",
+                    log({"event": "checkpoint_rollback",
                                         "attempt": rep.attempts})
                 else:
                     raise
@@ -439,16 +465,17 @@ def run_supervised(gibbs, x0, outdir, niter, save_every=100, resume=True,
                 if sig == last_div_sig:
                     # the deterministic replay reproduced it: re-draw the
                     # stretch under a refolded seed
-                    if sentinels.refold_checkpoint_key(
-                            outdir, salt=rep.attempts):
+                    if agree(lambda: sentinels.refold_checkpoint_key(
+                            outdir, salt=rep.attempts)):
                         rep.refolds += 1
-                        _log_event(outdir, {"event": "prng_refold",
+                        log({"event": "prng_refold",
                                             "attempt": rep.attempts})
                 last_div_sig = sig
             else:
                 last_div_sig = None
             consecutive_device = (consecutive_device + 1
-                                  if kind == "device" else 0)
+                                  if kind in ("device", "device_loss")
+                                  else 0)
             if allow_degrade and consecutive_device >= degrade_after:
                 down = _degraded(gibbs)
                 if down is not None:
@@ -457,12 +484,12 @@ def run_supervised(gibbs, x0, outdir, niter, save_every=100, resume=True,
                     rep.backend = gibbs.backend_name
                     telemetry.incr("degradations")
                     consecutive_device = 0
-                    _log_event(outdir, {"event": "backend_degraded",
+                    log({"event": "backend_degraded",
                                         "to": gibbs.backend_name,
                                         "attempt": rep.attempts})
             delay = backoff_delay(rep.retries, backoff_base, backoff_cap,
                                   jitter, seed=backoff_seed)
-            _log_event(outdir, {"event": "supervised_retry",
+            log({"event": "supervised_retry",
                                 "next_attempt": rep.attempts + 1,
                                 "kind": kind,
                                 "backoff_s": round(delay, 3)})

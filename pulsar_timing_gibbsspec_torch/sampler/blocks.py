@@ -41,6 +41,7 @@ from ..ops.linalg import (_batched_diag, _mm, _mm_t, _mv, _t,
                           block_grid_solve_lower, block_grid_solve_upper,
                           block_grid_to_dense, blocked_chol_inv,
                           mvn_conditional_draw, tf_chol_factor, tf_mm)
+from ..parallel import sharding
 
 _SCALES = (0.1, 0.5, 1.0, 3.0, 10.0)
 _SCALE_P = (0.1, 0.15, 0.5, 0.15, 0.1)
@@ -131,6 +132,15 @@ def _uniform(gen, shape, dtype, device):
 
 def _gumbel(gen, shape, dtype, device):
     return -torch.log(-torch.log(_uniform(gen, shape, dtype, device)))
+
+
+def _draw(cm, fn, shape, c_axis=None, p_axis=None):
+    """``fn(shape)`` for a model shard (:func:`..parallel.sharding.
+    draw`): the draw is made at the logical chain and pulsar counts of
+    axes ``c_axis`` and ``p_axis`` of the local ``shape`` and this rank's
+    rows are kept, so a sharded sweep draws the unsharded one's noise;
+    ``fn(shape)`` itself on one model."""
+    return sharding.draw(cm.shard, fn, shape, c_axis, p_axis)
 
 
 def _scale_choice(gen, shape, dtype, device):
@@ -433,10 +443,21 @@ def draw_b_mh_core(cm, x, b, u, z, logu, beta=None):
     return _accept(b, u, bp, up, logr, ok, logu)
 
 
+def _b_noise(cm, gen, b, dtype):
+    """The b-draws' normals (..., P, Bmax) in ``dtype`` and float64
+    log-uniforms (..., P), chains and pulsars of a shard kept."""
+    pa = b.dim() - 2
+    z = _draw(cm, lambda s: _normal(gen, s, dtype, cm.device), b.shape,
+              0, pa)
+    logu = torch.log(_draw(cm, lambda s: _uniform(gen, s, cm.cdtype,
+                                                  cm.device),
+                           b.shape[:-1], 0, pa))
+    return z, logu
+
+
 def draw_b_mh(cm, x, b, u, gen, beta=None):
     """:func:`draw_b_mh_core` with its noise drawn from ``gen``."""
-    z = _normal(gen, b.shape, cm.dtype, cm.device)
-    logu = torch.log(_uniform(gen, b.shape[:-1], cm.cdtype, cm.device))
+    z, logu = _b_noise(cm, gen, b, cm.dtype)
     return draw_b_mh_core(cm, x, b, u, z, logu, beta)
 
 
@@ -466,8 +487,7 @@ def draw_b_refresh_core(cm, x, b, u, z, logu, beta=None):
 
 def draw_b_refresh(cm, x, b, u, gen, beta=None):
     """:func:`draw_b_refresh_core` with its noise drawn from ``gen``."""
-    z = _normal(gen, b.shape, cm.cdtype, cm.device)
-    logu = torch.log(_uniform(gen, b.shape[:-1], cm.cdtype, cm.device))
+    z, logu = _b_noise(cm, gen, b, cm.cdtype)
     return draw_b_refresh_core(cm, x, b, u, z, logu, beta)
 
 
@@ -498,9 +518,13 @@ def draw_b_fn_core(cm, x, z, b=None):
 
 def draw_b_fn(cm, x, gen, b=None):
     """:func:`draw_b_fn_core` with its noise drawn from ``gen``."""
-    shape = ((_joint_dim(cm),) if cm.orf_name != "crn"
-             else (cm.P, cm.Bmax))
-    z = _normal(gen, x.shape[:-1] + shape, cm.cdtype, cm.device)
+    if cm.orf_name != "crn":
+        z = _normal(gen, x.shape[:-1] + (_joint_dim(cm),), cm.cdtype,
+                    cm.device)
+    else:
+        lead = x.shape[:-1]
+        z = _draw(cm, lambda s: _normal(gen, s, cm.cdtype, cm.device),
+                  lead + (cm.pn, cm.Bmax), 0, len(lead))
     return draw_b_fn_core(cm, x, z, b)
 
 
@@ -1180,10 +1204,15 @@ def mh_scan(cm, x, gen, lnlike, ind, nsteps, accepts=None):
     """:func:`mh_scan_core` with its noise drawn from ``gen``."""
     cdt, dev = cm.cdtype, cm.device
     shape = (nsteps,) + x.shape[:-1]
-    scale = _scale_choice(gen, shape, cdt, dev)
-    jpos = torch.randint(0, len(ind), shape, generator=gen, device=dev)
-    eps = _normal(gen, shape, cdt, dev)
-    logu = torch.log(_uniform(gen, shape, cdt, dev))
+
+    def noise(fn):
+        return _draw(cm, fn, shape, 1)
+
+    scale = noise(lambda s: _scale_choice(gen, s, cdt, dev))
+    jpos = noise(lambda s: torch.randint(0, len(ind), s, generator=gen,
+                                         device=dev))
+    eps = noise(lambda s: _normal(gen, s, cdt, dev))
+    logu = torch.log(noise(lambda s: _uniform(gen, s, cdt, dev)))
     return mh_scan_core(cm, x, lnlike, ind, scale, jpos, eps, logu,
                         accepts)
 
@@ -1292,12 +1321,17 @@ def parallel_cov_mh_scan(cm, x, gen, ll_per_fn, par_ix, nper, chol, nsteps,
     fdt, dev = cm.dtype, cm.device
     P, W = par_ix.shape
     shape = (nsteps,) + x.shape[:-1] + (P,)
-    scale = _scale_choice(gen, shape, fdt, dev)
-    z = _normal(gen, shape + (W,), fdt, dev)
-    logu = torch.log(_uniform(gen, shape, fdt, dev))
+    pa = len(shape) - 1
+
+    def noise(fn, shp=shape):
+        return _draw(cm, fn, shp, 1, pa)
+
+    scale = noise(lambda s: _scale_choice(gen, s, fdt, dev))
+    z = noise(lambda s: _normal(gen, s, fdt, dev), shape + (W,))
+    logu = torch.log(noise(lambda s: _uniform(gen, s, fdt, dev)))
     coin = None
     if mode is not None:
-        coin = _uniform(gen, shape, fdt, dev) < p_indep
+        coin = noise(lambda s: _uniform(gen, s, fdt, dev)) < p_indep
     return parallel_cov_mh_scan_core(
         cm, x, ll_per_fn, par_ix, nper, chol, scale, z, logu, coin=coin,
         record=record, mode=mode, asqrt=asqrt, inflate=inflate)
@@ -1530,9 +1564,17 @@ def rho_update_core(cm, x, b, gumbel, collapse=False):
         x[..., cm.rho_ix_x] = (0.5 * torch.log10(rhonew)).to(x.dtype)
         return x
     lother = torch.log(cm.red_phi(x)).to(fdt)
+    live = cm.psr_mask[..., None, None]
+    if cm.shard is not None:
+        # a shard's per-pulsar terms, gathered: the grid and its sum over
+        # pulsars are formed whole on every rank, in the logical order
+        live = live[..., 0].to(fdt).expand(ltau.shape)
+        ltau, lother, live = sharding.gather_pulsars(
+            cm.shard, torch.stack([ltau, lother, live]), -2).unbind(0)
+        live = live[..., None]
     logpdf = _grid_logpdf(ltau, lother, grid)
     # mask by where, not multiply: a pad pulsar's log tau is -inf
-    logpdf = torch.where(cm.psr_mask[..., None, None] > 0, logpdf,
+    logpdf = torch.where(live > 0, logpdf,
                          torch.zeros((), dtype=fdt, device=cm.device))
     logpdf = logpdf.sum(-3)
     rhonew = grid[torch.argmax(logpdf + gumbel, dim=-1)]
@@ -1556,7 +1598,8 @@ def rho_invcdf_core(cm, x, b, u):
     with a relative density error ~1e-6."""
     if cm.K == 0 or len(cm.rho_ix_x) == 0:
         return x
-    t = torch.clamp(cm.gw_tau(b)[..., 0, :], min=cm.rhomin * 1e-6)
+    tau = sharding.gather_pulsars(cm.shard, cm.gw_tau(b), -2)
+    t = torch.clamp(tau[..., 0, :], min=cm.rhomin * 1e-6)
     hi = -torch.expm1(t / cm.rhomax - t / cm.rhomin)
     eta = hi * u
     rhonew = t / (t / cm.rhomax - torch.log1p(-eta))
@@ -1571,12 +1614,15 @@ def rho_update(cm, x, b, gen, collapse=False):
     intrinsic red noise, :func:`rho_update_core` (Gumbels; ``collapse``
     its collapsed form) otherwise."""
     if _rho_invcdf_applies(cm):
-        u = torch.rand(x.shape[:-1] + (cm.K,), generator=gen,
-                       dtype=cm.cdtype, device=cm.device)
+        u = _draw(cm, lambda s: torch.rand(s, generator=gen,
+                                           dtype=cm.cdtype,
+                                           device=cm.device),
+                  x.shape[:-1] + (cm.K,), 0)
         return rho_invcdf_core(cm, x, b, u)
     shape = x.shape[:-1] + (cm.K, settings.rho_grid_size)
-    return rho_update_core(cm, x, b, _gumbel(gen, shape, cm.dtype,
-                                             cm.device), collapse=collapse)
+    return rho_update_core(
+        cm, x, b, _draw(cm, lambda s: _gumbel(gen, s, cm.dtype, cm.device),
+                        shape, 0), collapse=collapse)
 
 
 def red_conditional_update_core(cm, x, b, gumbel):
@@ -1595,8 +1641,9 @@ def red_conditional_update(cm, x, b, gen):
     """:func:`red_conditional_update_core` with Gumbels from ``gen``."""
     shape = x.shape[:-1] + tuple(cm.red_rho_ix_x.shape) + (
         settings.rho_grid_size,)
-    return red_conditional_update_core(
-        cm, x, b, _gumbel(gen, shape, cm.dtype, cm.device))
+    return red_conditional_update_core(cm, x, b, _draw(
+        cm, lambda s: _gumbel(gen, s, cm.dtype, cm.device), shape, 0,
+        x.dim() - 1))
 
 
 def tprocess_alpha_update_core(cm, x, b, gumbel):
@@ -1638,8 +1685,9 @@ def tprocess_alpha_update(cm, x, b, gen):
     """:func:`tprocess_alpha_update_core` with its Gumbels from
     ``gen``."""
     shape = x.shape[:-1] + tuple(cm.red_rho_ix_x.shape) + (TP_ALPHA_GRID,)
-    return tprocess_alpha_update_core(
-        cm, x, b, _gumbel(gen, shape, cm.dtype, cm.device))
+    return tprocess_alpha_update_core(cm, x, b, _draw(
+        cm, lambda s: _gumbel(gen, s, cm.dtype, cm.device), shape, 0,
+        x.dim() - 1))
 
 
 def _rho_scale_applies(cm) -> bool:
@@ -1659,7 +1707,7 @@ def rho_scale_moves_core(cm, x, b, u, eps, logu, beta=None):
     untempered).  Returns ``(x, b, u)`` with ``u = T b`` updated in place
     of a new matvec."""
     cdt, fdt = cm.cdtype, cm.dtype
-    B, P, K = cm.Bmax, cm.P, cm.K
+    B, P, K = cm.Bmax, cm.pn, cm.K
     live = cm.psr_mask.to(cdt)
     redv = cm.red_phi(x)
     invN = cm.toa_mask / cm.ndiag_fast(x)
@@ -1680,10 +1728,10 @@ def rho_scale_moves_core(cm, x, b, u, eps, logu, beta=None):
         t = Ts * bs.to(fdt)[..., None] + Tc * bc.to(fdt)[..., None]
         delta = (torch.exp(0.5 * z) - 1.0).to(fdt)
         r = cm.y - u
-        dll = (delta * (r * t * invN).sum((-2, -1))
-               - 0.5 * delta * delta * (t * t * invN).sum((-2, -1)))
-        if beta is not None:
-            dll = dll * beta.to(dll.dtype)
+        # per-pulsar sums over the TOAs, then over pulsars in the compute
+        # dtype (below), in the logical order on a shard
+        rt = (r * t * invN).sum(-1).to(cdt)
+        tt = (t * t * invN).sum(-1).to(cdt)
         # a (1,) index: indexing with a 0-d device tensor reads it on the
         # host, a sync a captured CUDA graph cannot hold
         rix = cm.rho_ix_x[k:k + 1]
@@ -1700,8 +1748,18 @@ def rho_scale_moves_core(cm, x, b, u, eps, logu, beta=None):
             nv > 0,
             -(ez[..., None] * tau / phi1 - tau / phi0)
             - 0.5 * nv * (torch.log(phi1) - torch.log(phi0)),
-            torch.zeros((), dtype=cdt, device=cm.device)).sum(-1)
-        njac = 0.5 * nv.sum() * z
+            torch.zeros((), dtype=cdt, device=cm.device))
+        if cm.shard is None:
+            rt, tt, dlp, nvs = rt.sum(-1), tt.sum(-1), dlp.sum(-1), nv.sum()
+        else:
+            rt, tt, dlp, nvs = sharding.gather_pulsars(
+                cm.shard, torch.stack([rt, tt, dlp, nv.expand(dlp.shape)]),
+                -1).sum(-1).unbind(0)
+        d64 = delta.to(cdt)
+        dll = d64 * rt - 0.5 * d64 * d64 * tt
+        if beta is not None:
+            dll = dll * beta.to(dll.dtype)
+        njac = 0.5 * nvs * z
         inb = (lrho + z > lo) & (lrho + z < hi)
         logr = torch.where(inb, dll.to(cdt) + dlp + njac,
                            torch.full_like(dlp, -math.inf))
@@ -1723,8 +1781,10 @@ def rho_scale_moves_core(cm, x, b, u, eps, logu, beta=None):
 def rho_scale_moves(cm, x, b, u, gen, beta=None):
     """:func:`rho_scale_moves_core` with its noise drawn from ``gen``."""
     shape = x.shape[:-1] + (cm.K,)
-    eps = _normal(gen, shape, cm.cdtype, cm.device)
-    logu = torch.log(_uniform(gen, shape, cm.cdtype, cm.device))
+    eps = _draw(cm, lambda s: _normal(gen, s, cm.cdtype, cm.device),
+                shape, 0)
+    logu = torch.log(_draw(cm, lambda s: _uniform(gen, s, cm.cdtype,
+                                                  cm.device), shape, 0))
     return rho_scale_moves_core(cm, x, b, u, eps, logu, beta)
 
 

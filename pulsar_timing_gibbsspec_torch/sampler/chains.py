@@ -32,19 +32,26 @@ class ChainStore:
     pars_bchain.txt, adapt.npz, metrics.jsonl (+ manifest.json and, with
     ``backup``, one rotating .bak generation; without it a torn save
     leaves no set to roll back to, and resume still verifies the
-    manifest)."""
+    manifest).  ``writer=False`` (a rank of a mesh other than the
+    writer) writes nothing: no names, no metrics."""
 
-    def __init__(self, outdir, param_names, b_param_names, backup=True):
+    def __init__(self, outdir, param_names, b_param_names, backup=True,
+                 writer=True):
         self.outdir = Path(outdir)
-        self.outdir.mkdir(parents=True, exist_ok=True)
         self.param_names = list(param_names)
         self.b_param_names = list(b_param_names)
+        #: this process writes the directory (False: another rank of a
+        #: mesh does, and this store writes nothing)
+        self.writer = bool(writer)
         #: keep a rotating .bak of the previous verified checkpoint set
         self.backup = bool(backup)
         #: host seconds of the saves so far, by step: "rotate" (verify
         #: the previous set, link it to .bak), "write" (chain, bchain,
         #: adapt.npz), "manifest" (hash the new set)
         self.seconds = collections.Counter()
+        if not self.writer:
+            return
+        self.outdir.mkdir(parents=True, exist_ok=True)
         np.savetxt(self.outdir / "pars_chain.txt", self.param_names,
                    fmt="%s")
         np.savetxt(self.outdir / "pars_bchain.txt", self.b_param_names,
@@ -81,6 +88,8 @@ class ChainStore:
     def log_metrics(self, record: dict):
         """Append one JSON line to ``metrics.jsonl`` (iteration progress,
         rates, adaptation state); ``None`` values are left out."""
+        if not self.writer:
+            return
         record = {"ts": round(time.time(), 3),
                   **{k: v for k, v in record.items() if v is not None}}
         with open(self.outdir / "metrics.jsonl", "a") as fh:

@@ -350,8 +350,18 @@ class CompiledPTA:
     #: a CUDA graph copies nothing from the host)
     red_ix: torch.Tensor = dataclasses.field(init=False)
     orf_ix: torch.Tensor = dataclasses.field(init=False)
+    #: a shard of a mesh (:func:`..parallel.sharding.shard_compiled`):
+    #: the per-pulsar tensors hold the rows ``[p0, p0 + pn)`` of the
+    #: logical padded width ``P`` (``P_real``, ``widths`` and ``pulsars``
+    #: stay logical), and ``shard`` carries the mesh; one model holds
+    #: every row (``p0`` 0, ``pn`` ``P``, ``shard`` None)
+    p0: int = 0
+    pn: int = 0
+    shard: object = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
+        if not self.pn:
+            self.pn = self.P
         self.red_ix = torch.as_tensor(self.idx.red, dtype=torch.int64,
                                       device=self.device)
         self.orf_ix = torch.as_tensor(self.idx.orf, dtype=torch.int64,
@@ -484,8 +494,8 @@ class CompiledPTA:
         lead = xev.shape[:-1]
         B = self.Bmax
         phi = torch.cat([
-            torch.broadcast_to(base.to(dtype), lead + (self.P, B)),
-            xev.new_zeros(lead + (self.P, 1))], dim=-1)
+            torch.broadcast_to(base.to(dtype), lead + (self.pn, B)),
+            xev.new_zeros(lead + (self.pn, 1))], dim=-1)
         for c in comps:
             shape = lead + c.cols.shape[-2:]
             if c.kind in ("free_spectrum", "ecorr"):
@@ -630,7 +640,7 @@ class CompiledPTA:
         PHI_FLOOR beyond the common mode count."""
         lead = x.shape[:-1]
         Kr = self.red_rho_ix_x.shape[-1]
-        out = torch.full(lead + (self.P, Kr), PHI_FLOOR, dtype=self.cdtype,
+        out = torch.full(lead + (self.pn, Kr), PHI_FLOOR, dtype=self.cdtype,
                          device=self.device)
         if self.K and self.red_shares_gw:
             n = min(self.K, Kr)
@@ -641,7 +651,7 @@ class CompiledPTA:
         """(..., P, K) intrinsic-red prior variance on the common grid,
         PHI_FLOOR beyond each pulsar's red modes / without red."""
         lead = x.shape[:-1]
-        floor = torch.full(lead + (self.P, self.K), PHI_FLOOR,
+        floor = torch.full(lead + (self.pn, self.K), PHI_FLOOR,
                            dtype=self.cdtype, device=self.device)
         if self.red_kind == "" or not self.red_shares_gw:
             return floor

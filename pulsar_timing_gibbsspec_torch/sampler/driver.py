@@ -94,6 +94,18 @@ steady sweep starts with the sketch's fold of the pre-sweep carry
 (:mod:`..obs.sketch`).  Off, neither enters the sweep.  The run loop's
 seams are :mod:`..obs.trace` spans with the JAX driver's names.
 
+**Sharding** (a model shard of :func:`..parallel.sharding.
+shard_compiled`): the carries hold this rank's chains (``Cl`` from
+``c0``) and pulsars (``cm.pn`` from ``cm.p0``); every block draws its
+noise at the logical shape and keeps its rows, the blocks that write
+per-pulsar slots of ``x`` (white, ECORR, red) end with
+:func:`..parallel.sharding.sync_x`, and the records, the carry at each
+writeback and the adaptation's records are assembled on the host into
+the logical arrays on every rank, so the checkpoint state
+(:meth:`TorchGibbsDriver.adapt_state`) is the unsharded run's layout.
+Under gloo the steady sweep runs eagerly (:attr:`TorchGibbsDriver.
+graphs_off`).
+
 **Resilience** (the JAX driver's, ``runtime``): per chunk, the
 sentinels' :func:`..runtime.sentinels.chunk_health` runs on the chunk's
 device records and reaches the host with them (``sentinels=True``);
@@ -109,6 +121,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import time
 
 import numpy as np
@@ -118,6 +131,7 @@ from ..config import (current_settings, ensemble_choice, hd_kernel_choice,
                       record_dtype, rho_collapse_choice)
 from ..obs import trace as otrace
 from ..ops.acf import integrated_act_columns
+from ..parallel import sharding
 from ..runtime import faults, preemption, telemetry
 from ..runtime.sentinels import ChainDivergence, SentinelMonitor, chunk_health
 from ..runtime.watchdog import DispatchWatchdog
@@ -301,16 +315,16 @@ class _Records:
     host twins filled by a copy stream."""
 
     def __init__(self, drv, rows):
-        cm, C = drv.cm, drv.C
+        cm, C = drv.cm, drv.Cl
         dev = cm.device
         cdt = cm.cdtype
         self.dev = dict(
             xs=torch.empty((rows, C, cm.nx), dtype=drv.rdtype, device=dev),
-            bs=torch.empty((rows, C, drv.nb_total), dtype=drv.rdtype,
+            bs=torch.empty((rows, C, drv.nb_local), dtype=drv.rdtype,
                            device=dev),
             x_end=torch.empty((C, cm.nx), dtype=cdt, device=dev),
-            b_end=torch.empty((C, cm.P, cm.Bmax), dtype=cdt, device=dev),
-            acc=torch.empty((C, cm.P), dtype=torch.float64, device=dev),
+            b_end=torch.empty((C, cm.pn, cm.Bmax), dtype=cdt, device=dev),
+            acc=torch.empty((C, cm.pn), dtype=torch.float64, device=dev),
             finite=torch.empty(C, dtype=torch.bool, device=dev),
             move_frac=torch.empty(C, dtype=torch.float32, device=dev),
             rho_ok=torch.empty(C, dtype=torch.bool, device=dev))
@@ -442,10 +456,19 @@ class TorchGibbsDriver:
                  warmup_white_steps=WARMUP_WHITE_STEPS, common_rho=False,
                  record_precision=None, sentinels=True, watchdog=None,
                  obs=None, ensemble=None, pt_ladder=None):
-        self.cm = cm
         self.C = int(nchains)
         if self.C < 1:
             raise ValueError("nchains must be >= 1")
+        #: the model's shard of a mesh (None on one model), with this
+        #: driver's chains; ``Cl`` chains live here, from ``c0``
+        self.shard = None
+        self.Cl, self.c0 = self.C, 0
+        if cm.shard is not None:
+            sharding.validate_chains(cm.shard.mesh, self.C)
+            self.shard = cm.shard.with_chains(self.C)
+            cm = dataclasses.replace(cm, shard=self.shard)
+            self.Cl, self.c0 = self.shard.cn, self.shard.c0
+        self.cm = cm
         if common_rho and not (cm.K and len(cm.rho_ix_x)):
             raise ValueError(
                 "common_rho=True but the model has no shared free-spectrum "
@@ -495,6 +518,14 @@ class TorchGibbsDriver:
         self.graphs = on_card if graphs is None else bool(graphs)
         if self.graphs and not on_card:
             raise ValueError("CUDA graphs need a model on a cuda device")
+        #: why the steady sweep runs eagerly on a card, when it does
+        self.graphs_off = None
+        if (self.graphs and self.shard is not None
+                and self.shard.mesh.group_backend(
+                    self.shard.mesh.pulsar_group) == "gloo"):
+            # gloo's collectives run on the host: a graph cannot hold them
+            self.graphs = False
+            self.graphs_off = "gloo"
         self.exact_every = int(exact_every)
         self.warmup_white_steps = int(warmup_white_steps)
         self.white_steps_max = int(white_steps_max)
@@ -569,8 +600,12 @@ class TorchGibbsDriver:
             ci += list(range(w))
         self._b_pi, self._b_ci = np.asarray(pi), np.asarray(ci)
         self.nb_total = len(pi)
-        self._b_pi_t = torch.as_tensor(self._b_pi, device=cm.device)
-        self._b_ci_t = torch.as_tensor(self._b_ci, device=cm.device)
+        # a shard records its own pulsars' columns, in the same order
+        mine = (self._b_pi >= cm.p0) & (self._b_pi < cm.p0 + cm.pn)
+        self.nb_local = int(mine.sum())
+        self._b_pi_t = torch.as_tensor(self._b_pi[mine] - cm.p0,
+                                       device=cm.device)
+        self._b_ci_t = torch.as_tensor(self._b_ci[mine], device=cm.device)
         #: the padded b carry (C, P, Bmax) on the host at the last
         #: writeback (the checkpoint's ``b_pad``)
         self.b = torch.zeros((self.C, cm.P, cm.Bmax), dtype=cm.cdtype)
@@ -581,7 +616,8 @@ class TorchGibbsDriver:
         self.it_cur = 0
         #: per-(chain, pulsar) accepted steady Metropolised b-draws (a
         #: device counter the b_mh graph adds to) and their sweep count
-        self.b_mh_accepts = torch.zeros((self.C, cm.P), dtype=torch.float64,
+        self.b_mh_accepts = torch.zeros((self.Cl, cm.pn),
+                                        dtype=torch.float64,
                                         device=cm.device)
         self.b_mh_sweeps = 0
         #: the same for the steady refresh b-draws since this driver was
@@ -591,7 +627,7 @@ class TorchGibbsDriver:
         self.b_refresh_sweeps = 0
         #: the same for the steady powerlaw block's accepted MH steps per
         #: chain (``red_steps`` per sweep; not checkpointed)
-        self.red_mh_accepts = torch.zeros(self.C, dtype=torch.float64,
+        self.red_mh_accepts = torch.zeros(self.Cl, dtype=torch.float64,
                                           device=cm.device)
         self.red_mh_sweeps = 0
         #: the same for the steady ORF-weight MH block
@@ -662,6 +698,31 @@ class TorchGibbsDriver:
             raise ValueError(
                 "pt_ladder > 1 requires ensemble=True (tempered chains "
                 "only exist inside the ensemble stage)")
+        if self.shard is not None:
+            self._refuse_unsharded()
+
+    def _refuse_unsharded(self):
+        """Under a mesh the driver shards the CRN free-spectrum sweep of
+        the array model (white and basis-ECORR MH, the free-spectrum red
+        and common rho draws, the scale moves and the b-draws); what it
+        does not shard yet raises ``NotImplementedError``."""
+        cm = self.cm
+        what = [name for name, on in (
+            ("a correlated ORF (its joint b-draw and Schur stage)",
+             self.do_joint),
+            ("the ensemble stage", self.ens is not None),
+            ("the device sketch (obs)", self.obs is not None),
+            ("the powerlaw hyper MH block", self.do_red_mh),
+            ("the t-process alpha draw", self.do_tprocess),
+            ("kernel ECORR", cm.has_ke),
+            ("the collapsed rho draw", self.rho_collapse),
+            ("a common process that is not a free spectrum",
+             cm.K and cm.gw_kind != "free_spectrum"),
+        ) if on]
+        if what:
+            raise NotImplementedError(
+                f"{what[0]} does not run under a mesh yet (ROADMAP "
+                "A.14b); run it without mesh=")
 
     # ---- streams and blocks ------------------------------------------------
 
@@ -818,6 +879,9 @@ class TorchGibbsDriver:
                   self._obs_index)
         else:
             raise ValueError(f"unknown block {name!r}")
+        if name in ("white", "ecorr", "red", "tprocess"):
+            # the block wrote its own pulsars' slots of x
+            x = sharding.sync_x(self.shard, x)
         return x, b, u
 
     def _draw_corr(self, x, b, exact):
@@ -870,11 +934,13 @@ class TorchGibbsDriver:
         ``asqrt_white`` and their ECORR twins) on the device, in the
         model's storage type, and keep host copies: a checkpoint taken
         while a chunk runs must not wait for the device."""
+        cm = self.cm
         for key, val in state.items():
-            t = torch.as_tensor(np.asarray(val), dtype=self.cm.dtype,
-                                device=self.cm.device)
-            setattr(self, key, t)
-            self._adapt_host[key] = t.cpu().numpy()
+            t = torch.as_tensor(np.asarray(val), dtype=cm.dtype)
+            self._adapt_host[key] = t.numpy()
+            # (C, P, ...): a shard keeps its chains and pulsars
+            t = t[self.c0:self.c0 + self.Cl, cm.p0:cm.p0 + cm.pn]
+            setattr(self, key, t.contiguous().to(cm.device))
 
     def _count_nonfinite(self, chol):
         self.laplace_nonfinite += (~torch.isfinite(chol)).any(-1).any(
@@ -908,6 +974,7 @@ class TorchGibbsDriver:
                     cm, x, self.gen, blocks.white_block_ll(cm, x, r, r2),
                     cm.white_par_ix, cm.white_nper, chol,
                     self.warmup_white_steps, record=False)
+                x = sharding.sync_x(self.shard, x)
         if self.do_ecorr:
             with tm("ecorr"):
                 r = cm.y - u
@@ -919,6 +986,7 @@ class TorchGibbsDriver:
                     cm, x, self.gen, blocks.ecorr_block_ll(cm, x, b, r),
                     cm.ecorr_par_ix, cm.ecorr_nper, chol,
                     self.warmup_white_steps, record=False)
+                x = sharding.sync_x(self.shard, x)
         for name in self._hyper_blocks():
             with tm(name):
                 if name == "red_mh":
@@ -962,25 +1030,29 @@ class TorchGibbsDriver:
         cm = self.cm
         f32 = cm.dtype
         x, chol, asq = blocks.laplace_newton_chol(cm, x, curv, par_ix, nper)
+        x = sharding.sync_x(self.shard, x)
         self._count_nonfinite(chol)
         mode = x[..., torch.clamp(par_ix, max=cm.nx - 1)]
 
         def record(x, chol, mode, asq):
-            return blocks.parallel_cov_mh_scan(
+            x, rec = blocks.parallel_cov_mh_scan(
                 cm, x, self.gen, target(x), par_ix, nper, chol.to(f32),
                 self.white_adapt_iters, mode=mode.to(f32),
                 asqrt=asq.to(f32))
+            # the proposals and the sub-chain length come from the whole
+            # record (chains, steps, pulsars, slots)
+            return (sharding.sync_x(self.shard, x),
+                    self._assemble(rec.cpu().numpy(), 0, 2))
 
-        nper_h = nper.cpu().numpy()
+        nper_h = self._assemble(nper.cpu().numpy(), None, 0)
         x, rec2 = record(x, chol, mode, asq)
-        m2, c2, a2 = _moment_proposal(rec2.cpu().numpy(), nper_h)
+        m2, c2, a2 = _moment_proposal(rec2, nper_h)
         self._set_adapt(**{f"mode_{which}": m2, f"chol_{which}": c2,
                            f"asqrt_{which}": a2})
         x, rec3 = record(x, *(getattr(self, f"{k}_{which}")
                               for k in ("chol", "mode", "asqrt")))
         setattr(self, f"aclength_{which}", min(
-            _act_from_rec(rec3.cpu().numpy(), nper_h, cm.P_real),
-            self.white_steps_max))
+            _act_from_rec(rec3, nper_h, cm.P_real), self.white_steps_max))
         return x
 
     def _set_red(self, cov, U, S, hist):
@@ -1070,7 +1142,8 @@ class TorchGibbsDriver:
                 lambda x: blocks.ecorr_block_ll(cm, x, b, r),
                 cm.ecorr_par_ix, cm.ecorr_nper)
         if self.do_red_conditional:
-            x = blocks.red_conditional_update(cm, x, b, self.gen)
+            x = sharding.sync_x(self.shard, blocks.red_conditional_update(
+                cm, x, b, self.gen))
         if self.do_tprocess:
             x = blocks.tprocess_alpha_update(cm, x, b, self.gen)
         if self.do_red_mh:
@@ -1176,7 +1249,7 @@ class TorchGibbsDriver:
         if tuple(x.shape) != (self.C, cm.nx):
             raise ValueError(f"x0 has shape {tuple(x.shape)}; expected "
                              f"({cm.nx},) or ({self.C}, {cm.nx})")
-        return x.clone()
+        return x[self.c0:self.c0 + self.Cl].clone()
 
     @staticmethod
     def _check_finite(arr, it0, what):
@@ -1204,6 +1277,31 @@ class TorchGibbsDriver:
             return None, None, None
         return (cm.rho_ix_x, 0.5 * float(np.log10(cm.rhomin)),
                 0.5 * float(np.log10(cm.rhomax)))
+
+    def _assemble(self, arr, c_axis, p_axis=None):
+        """A host array of this rank's chains (axis ``c_axis``) and
+        pulsars (axis ``p_axis``) as the logical array, on every rank of
+        a mesh; ``arr`` itself on one model."""
+        if self.shard is None:
+            return arr
+        return self.shard.mesh.assemble(arr, c_axis, p_axis)
+
+    def _local(self, t):
+        """This rank's chains and pulsars of a logical (C, P, ...)
+        tensor."""
+        cm = self.cm
+        return t[self.c0:self.c0 + self.Cl, cm.p0:cm.p0 + cm.pn]
+
+    def _host_health(self, xs, bs):
+        """:func:`..runtime.sentinels.chunk_health` of logical host
+        records (a shard's health is the whole chunk's, on every
+        rank)."""
+        args = self._health_args()
+        if args is None:
+            return None
+        rho_ix = None if args[0] is None else args[0].cpu()
+        return {k: v.numpy() for k, v in chunk_health(
+            xs, bs, rho_ix, *args[1:]).items()}
 
     def _observe_health(self, health, it_end):
         """Fold a chunk's host health reductions into the monitor."""
@@ -1237,15 +1335,21 @@ class TorchGibbsDriver:
                     x, b, u = self._warmup_sweep(x, b, u)
             xs_t, bs_t = torch.stack(xs), torch.stack(bs)
             health_args = self._health_args()
-            health = (None if health_args is None else
-                      chunk_health(xs_t, bs_t, *health_args))
-            xs_h, bs_h = (self._squeeze(t.float().cpu().numpy().astype(
-                np.float64)) for t in (xs_t, bs_t))
+            if self.shard is None:
+                health = (None if health_args is None else
+                          {k: v.cpu().numpy() for k, v in chunk_health(
+                              xs_t, bs_t, *health_args).items()})
+                xs_h, bs_h = (t.float().cpu().numpy() for t in (xs_t, bs_t))
+            else:
+                xs_h = self._assemble(xs_t.float().cpu().numpy(), 1)
+                bs_h = self._assemble(bs_t.float().cpu().numpy(), 1, 2)
+                health = self._host_health(xs_h, bs_h)
+            xs_h, bs_h = (self._squeeze(t.astype(np.float64))
+                          for t in (xs_h, bs_h))
             self._check_finite(xs_h, 0, "warmup state")
             self._check_finite(bs_h, 0, "warmup b coefficients")
             if health is not None:
-                self._observe_health(
-                    {k: v.cpu().numpy() for k, v in health.items()}, W)
+                self._observe_health(health, W)
             first = wr = self._rows_of(W)
             chain[:wr] = xs_h
             bchain[:wr] = bs_h
@@ -1253,8 +1357,8 @@ class TorchGibbsDriver:
             # no warmup: the start state is row 0 and, when a steady
             # sweep follows, row 1 too (the JAX layout)
             W = wr = 0 if niter <= 1 else 1
-        x_h = self._squeeze(x.cpu().numpy()[None])
-        b_h = self._squeeze(self._b_flat(b.cpu().numpy())[None])
+        x_h = self._squeeze(self._host_x(x)[None])
+        b_h = self._squeeze(self._b_flat(self._host_b(b).numpy())[None])
         self._check_finite(x_h, wr, "post-warmup state")
         self._check_finite(b_h, wr, "post-warmup b coefficients")
         chain[first:wr + 1] = x_h[0]
@@ -1272,10 +1376,28 @@ class TorchGibbsDriver:
                                       np.diff([0] + kept).tolist()))
         return x, b, W + 1, wr + 1
 
+    def _host_x(self, x):
+        """The logical (C, nx) float64 host copy of the carry ``x``."""
+        return self._assemble(x.cpu().numpy().astype(np.float64), 0)
+
+    def _host_b(self, b):
+        """The logical (C, P, Bmax) host tensor of the carry ``b``."""
+        if self.shard is None:
+            return b.cpu()
+        return torch.as_tensor(self._assemble(b.cpu().numpy(), 0, 1))
+
     def _writeback(self, rec, chain, bchain):
         row, m, it_end, bmh_end, mark = rec.meta
         with otrace.span("chunk.d2h", row=row, rows=m):
             xs, bs, x_end, b_end, acc, health, extra = rec.read()
+        if self.shard is not None:
+            with otrace.span("chunk.assemble", row=row, rows=m):
+                xs = self._assemble(xs, 1)
+                bs = self._assemble(bs, 1, 2)
+                x_end = self._assemble(x_end, 0)
+                b_end = self._assemble(b_end, 0, 1)
+                acc = self._assemble(acc, 0, 1)
+                health = self._host_health(xs, bs)
         with otrace.span("chunk.writeback", row=row, rows=m):
             xs, bs = self._squeeze(xs), self._squeeze(bs)
             self._check_finite(xs, row, "chain state")
@@ -1326,15 +1448,16 @@ class TorchGibbsDriver:
             self.b_mh_sweeps = 0
             self.reset_stage()
             x, b, ii, rowc = self._start(x, chain, bchain, niter)
-            self.x_cur = x.cpu().numpy().astype(np.float64)
-            self.b = b.cpu()
+            self.x_cur = self._host_x(x)
+            self.b = self._host_b(b)
             self.it_cur = ii
-            self._acc_cur = self.b_mh_accepts.cpu().numpy()
+            self._acc_cur = self._assemble(self.b_mh_accepts.cpu().numpy(),
+                                           0, 1)
             self._b_mh_sweeps_cur = self.b_mh_sweeps
             yield rowc
         else:
             rowc, ii = start, self.it_cur
-            b = self.b.to(cm.device)
+            b = self._local(self.b).contiguous().to(cm.device)
         if ii >= niter:
             return
         if rowc != self._row_layout(ii):
@@ -1348,7 +1471,8 @@ class TorchGibbsDriver:
         if cm.device.type == "cuda" and self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(cm.device)
         recs = [_Records(self, cs // k), _Records(self, cs // k)]
-        health_args = self._health_args()
+        # a shard's health is taken from the assembled chunk (writeback)
+        health_args = self._health_args() if self.shard is None else None
         pending = None
         # the wall of landing a chunk (the host's wait for it), smoothed:
         # the drain's estimate of what writing back the chunk in flight
@@ -1601,9 +1725,9 @@ class TorchGibbsDriver:
         self.it_cur = int(state["it_cur"])
         self.x_cur = np.asarray(state["x_cur"], dtype=np.float64)
         if "b_mh_accepts" in state:
-            self.b_mh_accepts = torch.as_tensor(
-                np.asarray(state["b_mh_accepts"]), dtype=torch.float64,
-                device=cm.device)
+            self.b_mh_accepts = self._local(torch.as_tensor(
+                np.asarray(state["b_mh_accepts"]), dtype=torch.float64)
+            ).contiguous().to(cm.device)
             self.b_mh_sweeps = int(state.get("b_mh_sweeps", 0))
             self._acc_cur = np.asarray(state["b_mh_accepts"])
             self._b_mh_sweeps_cur = self.b_mh_sweeps

@@ -33,10 +33,21 @@ was torn) and raises :class:`..runtime.preemption.Preempted`, and
 ``hdf5=True`` writes ``chain.h5`` at the end.  A failure between
 checkpoints waits for the save in flight, then flushes every checked
 row.
+
+``mesh=`` (a :class:`..parallel.sharding.Mesh`, on every rank of its
+world) shards the driver: :func:`..parallel.sharding.validate_chains`
+and :func:`..parallel.sharding.shard_compiled` run here, and the
+manifest's ``shard_map`` records the mesh.  Every rank holds the whole
+logical chain; global rank 0 alone writes the chain files, the manifest
+and the ``.bak`` (:attr:`_GibbsBase.writer`), and every rank learns the
+outcome of each save (a broadcast) and raises the writer's exception at
+the same seam, so ``run_supervised`` retries all ranks in lock step.  A
+resume is read by the writer and broadcast.
 """
 
 from __future__ import annotations
 
+import pickle
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -45,6 +56,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..parallel.sharding import mesh_layout
 from ..runtime import faults, integrity, preemption, sentinels
 from .blocks import validate_sampling_flags
 from .chains import ChainStore
@@ -60,7 +72,7 @@ DEVICE_ONLY_OPTS = ("record_precision", "record_every", "chunk_size",
                     "graphs", "joint_mixed", "exact_every",
                     "white_steps_max", "warmup_white_steps",
                     "warmup_sweeps", "sentinels", "watchdog", "obs",
-                    "ensemble", "pt_ladder")
+                    "ensemble", "pt_ladder", "mesh")
 
 
 def prior_sample(cm, n, generator=None):
@@ -139,6 +151,10 @@ class _GibbsBase:
                 "compiled with kernel_ecorr=True (ECORR inside N): build it "
                 "without kernel_ecorr, or pass ecorrsample='kernel'")
         self.cm = cm
+        #: the mesh the driver is sharded over (None: one model), and
+        #: whether this rank writes the checkpoint (global rank 0)
+        self.mesh = None
+        self.writer = True
         #: print a progress line at each checkpoint (``\r``-rewritten on
         #: a terminal, one line per checkpoint otherwise)
         self.progress = progress
@@ -152,8 +168,18 @@ class _GibbsBase:
             self.driver = self._make_numpy(hypersample, ecorrsample,
                                            redsample, seed, driver_opts)
         else:
-            self.driver = TorchGibbsDriver(cm, nchains=nchains, seed=seed,
-                                           **driver_opts)
+            mesh = driver_opts.pop("mesh", None)
+            run_cm = cm
+            if mesh is not None:
+                from ..parallel.sharding import (shard_compiled,
+                                                 validate_chains)
+
+                validate_chains(mesh, nchains)
+                run_cm = shard_compiled(cm, mesh)
+                self.mesh, self.writer = mesh, mesh.rank == 0
+                self.progress = progress and self.writer
+            self.driver = TorchGibbsDriver(run_cm, nchains=nchains,
+                                           seed=seed, **driver_opts)
         self.chain = self.bchain = None
         #: host seconds the last sample()'s loop spent on checkpoints:
         #: taking the state, and waiting for a save still running on its
@@ -241,7 +267,31 @@ class _GibbsBase:
                            "pad_pulsars": int(self.cm.P),
                            "rng": RNG_RULE,
                            "rng_device": drv.gen.device.type},
-                "shard_map": None}
+                "shard_map": mesh_layout(self.mesh)}
+
+    def _agree(self, fn):
+        """``fn()`` on the writer, its outcome on every rank: the value,
+        or the writer's exception raised on every rank (``fn`` None:
+        nothing runs)."""
+        out = err = sent = err2 = None
+        if self.writer and fn is not None:
+            try:
+                out = fn()
+            except Exception as exc:
+                err = exc
+        if self.mesh is not None:
+            sent = err
+            try:
+                pickle.dumps(err)
+            except Exception:
+                # every rank must get the message, whatever the exception
+                sent = RuntimeError(f"{type(err).__name__}: {err}")
+            out, err2 = self.mesh.broadcast_object((out, sent))
+            if not self.writer:
+                err = err2
+        if err is None:
+            return out
+        raise err
 
     def sample(self, x0, outdir="./chains", niter=10000, resume=False,
                save_every=100, backup=True, hdf5=False):
@@ -265,7 +315,8 @@ class _GibbsBase:
                 f"x0 has shape {xs.shape}; this model has {npar} parameters "
                 f"(see .param_names)" + (f" and {C} chains" if C > 1 else ""))
         store = self.store = ChainStore(outdir, self.param_names,
-                                        self.b_param_names, backup=backup)
+                                        self.b_param_names, backup=backup,
+                                        writer=self.writer)
         cshape, bshape = drv.chain_shapes(niter)
         total_rows = cshape[0]
         rec_k = drv.record_every
@@ -274,7 +325,11 @@ class _GibbsBase:
         start = 0
         x = xs
         if resume:
-            got = store.load_resume()
+            # the writer reads (verifying, rolling back), every rank gets it
+            got, layout = self._agree(lambda: (
+                store.load_resume(),
+                (integrity.read_manifest(outdir) or {}).get("layout")
+                or {}))
             if got is not None:
                 prev_c, prev_b, upto, adapt = got
                 upto = min(upto, total_rows)
@@ -290,8 +345,6 @@ class _GibbsBase:
                 if upto > 0:
                     x = chain[upto - 1].copy()
                 if adapt is not None:
-                    layout = (integrity.read_manifest(outdir) or {}).get(
-                        "layout") or {}
                     if "rng_device" in layout:
                         adapt = {**adapt, "rng_device": layout["rng_device"]}
                     drv.load_adapt_state(adapt)
@@ -321,12 +374,13 @@ class _GibbsBase:
         no_flush = diverged = drained = False
 
         def settle():
-            """Wait for the save in flight; its error propagates."""
+            """Wait for the save in flight; its error propagates (under a
+            mesh the writer's, on every rank)."""
             nonlocal inflight, no_flush
             if inflight is not None:
                 ts = time.perf_counter()
                 fut, inflight = inflight, None
-                fut.result()
+                self._agree(None if fut is True else fut.result)
                 no_flush = False
                 self.save_seconds += time.perf_counter() - ts
 
@@ -335,9 +389,10 @@ class _GibbsBase:
             settle()
             ts = time.perf_counter()
             no_flush = True
-            inflight = saver.submit(store.save, chain, bchain, upto,
-                                    adapt_state=drv.adapt_state(),
-                                    extra=ck_extra)
+            inflight = (saver.submit(store.save, chain, bchain, upto,
+                                     adapt_state=drv.adapt_state(),
+                                     extra=ck_extra)
+                        if self.writer else True)
             self.save_seconds += time.perf_counter() - ts
 
         try:
@@ -372,6 +427,7 @@ class _GibbsBase:
                             else float("nan"))
                     store.log_metrics({
                         "iter": int(drv.it_cur), "niter": int(niter),
+                        "graphs_off": getattr(drv, "graphs_off", None),
                         "rows": int(upto) if rec_k > 1 else None,
                         "elapsed_s": round(el, 3),
                         "sweeps_per_s": round(rate, 3),
@@ -419,11 +475,15 @@ class _GibbsBase:
         if drained:
             # the flush is best effort: hand the supervisor a verified
             # checkpoint or say so, rolling back to .bak if it was torn
-            rep = integrity.verify(outdir)
-            rolled = False
-            if not rep["ok"]:
-                rolled = integrity.rollback(outdir)
+            def check():
                 rep = integrity.verify(outdir)
+                rolled = False
+                if not rep["ok"]:
+                    rolled = integrity.rollback(outdir)
+                    rep = integrity.verify(outdir)
+                return rep, rolled
+
+            rep, rolled = self._agree(check)
             lat = preemption.mark_drained()
             store.log_metrics({"event": "preempted_drain",
                                "rows": int(rep["rows"]),
@@ -439,7 +499,7 @@ class _GibbsBase:
                 rows=rep["rows"], verified=rep["ok"], rolled_back=rolled)
         if self.progress and is_tty:
             print()
-        if hdf5:
+        if hdf5 and self.writer:
             store.export_hdf5(chain, bchain, total_rows,
                               extra_attrs={"backend": self.backend_name})
         return chain

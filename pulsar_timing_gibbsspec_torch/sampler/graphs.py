@@ -37,11 +37,16 @@ thousands of kernel launches from the host.
   (:meth:`SteadyGraphs.replayed_launches`, :attr:`SteadyGraphs.
   device_at_capture`).
 - A capture failure raises: there is no quiet return to the eager sweep.
+  The cyclic garbage collector is run before the captures and held off
+  during them: a driver and its carry refer to each other, so only the
+  collector frees an unreachable sampler's graphs, and graphs destroyed
+  inside a capture would invalidate it.
 """
 
 from __future__ import annotations
 
 import collections
+import gc
 import time
 
 import torch
@@ -102,23 +107,33 @@ class SteadyGraphs:
         self.graphs, self.launches = {}, {}
         #: host seconds and pool bytes each capture took, by block
         self.capture_by, self.pool_by = {}, {}
-        for name in names:
-            tc = time.perf_counter()
-            mc = torch.cuda.memory_reserved(cm.device)
-            g = torch.cuda.CUDAGraph()
-            g.register_generator_state(drv.gen)
-            before = kernels.launch_counts()
-            with torch.cuda.graph(g, pool=pool, stream=stream):
-                x, b, u = drv.block(name, self.x, self.b, self.u)
-                for dst, src in ((self.x, x), (self.b, b), (self.u, u)):
-                    if src is not dst:
-                        dst.copy_(src)
-            after = kernels.launch_counts()
-            self.graphs[name] = g
-            self.launches[name] = {k: after[k] - before[k] for k in after
-                                   if after[k] != before[k]}
-            self.capture_by[name] = time.perf_counter() - tc
-            self.pool_by[name] = torch.cuda.memory_reserved(cm.device) - mc
+        # an unreachable sampler's graphs must not be destroyed by the
+        # cyclic collector while a capture is open (that invalidates it)
+        gc.collect()
+        gc.disable()
+        try:
+            for name in names:
+                tc = time.perf_counter()
+                mc = torch.cuda.memory_reserved(cm.device)
+                g = torch.cuda.CUDAGraph()
+                g.register_generator_state(drv.gen)
+                before = kernels.launch_counts()
+                with torch.cuda.graph(g, pool=pool, stream=stream):
+                    x, b, u = drv.block(name, self.x, self.b, self.u)
+                    for dst, src in ((self.x, x), (self.b, b),
+                                     (self.u, u)):
+                        if src is not dst:
+                            dst.copy_(src)
+                after = kernels.launch_counts()
+                self.graphs[name] = g
+                self.launches[name] = {k: after[k] - before[k]
+                                       for k in after
+                                       if after[k] != before[k]}
+                self.capture_by[name] = time.perf_counter() - tc
+                self.pool_by[name] = (torch.cuda.memory_reserved(cm.device)
+                                      - mc)
+        finally:
+            gc.enable()
         torch.cuda.synchronize(cm.device)
         #: host seconds of the warm-up pass and the captures
         self.capture_seconds = time.perf_counter() - t0

@@ -8,6 +8,7 @@ those of the single-pulsar path with basis ECORR), and a run
 split at a chunk boundary and resumed through the graph path equals the
 uninterrupted graphed run bitwise in ``chain.npy`` and ``bchain.npy``.
 The kernels' own device counters see every launch the graphs replay.
+The captures run with the cyclic garbage collector off.
 
 Bitwise, because every random draw comes from the generator re-seeded
 per sweep (the graphs replay the eager draws) and no atomic add of the
@@ -152,3 +153,30 @@ def test_the_card_counts_every_replayed_launch(tmp_path):
         assert replayed.get(key, 0) > 0, key
     for key, n in replayed.items():
         assert dev[key] - graphs.device_at_capture[key] == n, key
+
+
+@pytest.mark.cuda
+def test_the_captures_hold_the_collector_off(tmp_path, monkeypatch):
+    """A graphed driver and its carry refer to each other, so an
+    unreachable sampler's graphs are destroyed by the cyclic collector,
+    whenever it runs; one destroyed while another graph is being
+    captured invalidates that capture.  The collector runs before the
+    captures and is off during each of them."""
+    import gc
+
+    from pulsar_timing_gibbsspec_torch.sampler import graphs
+
+    seen = []
+    real = torch.cuda.graph
+
+    def graph(*args, **kwargs):
+        seen.append(gc.isenabled())
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(graphs.torch.cuda, "graph", graph)
+    cm = _card()
+    g = _gibbs(cm)
+    g.sample(_x0(g), outdir=tmp_path, niter=WARM + 2)
+    assert g.driver.carry.graphed
+    assert seen and not any(seen)
+    assert gc.isenabled()
